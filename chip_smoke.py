@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive heat_tpu_torch's main path once on one CUDA card and check it.
+
+Run from the root of the repository, on a machine with a card:
+
+    python3 chip_smoke.py
+
+Phases, each printing JSON lines:
+  1. the card's name and power limit, and the build of every kernel from
+     heat_tpu_torch/csrc (one nvcc per source, all at once);
+  2. every kernel against its plain PyTorch version on the card, at the
+     main path's shape and at ragged shapes, with the stated tolerances,
+     the kernel's, the plain version's and (where one PyTorch call computes
+     the same function) the library call's times, and the bound;
+  3. the main path at bench.py's sizes through the user entry points:
+     array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
+     (bench.py's fit: randn data, init='random', random_state=1, 50
+     iterations, tol=0), with the kernels' launch counts read around it;
+     each stage is checked against a float64 reference, the fit both step
+     by step along its own trajectory and end to end;
+  4. the main path again under the profiler, for the device's busy share
+     (device time over wall time of that one run) and the check that its
+     fit gives bit-identical centers and labels to the first.
+The line before the last lists the kernels; the last line is
+{"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
+a card, or without the package beside this script, it exits non-zero and
+prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM data-sheet peaks: HBM bandwidth and the f32 rate outside the
+# tensor cores (both at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+FAILURES = []
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(name, ok, **fields):
+    emit({"check": name, "ok": bool(ok), **fields})
+    if not ok:
+        FAILURES.append(name)
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import _build
+    from heat_tpu_torch.cluster.cuda_lloyd import lloyd_fit, lloyd_update, lloyd_update_plain
+    from heat_tpu_torch.core.cuda_moments import column_moments, column_moments_plain
+    from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for name, path in paths.items():
+        log = path.with_suffix(".so.log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        ptxas[name] = [ln.split("ptxas info    : ")[-1].strip() for ln in lines
+                       if "Used" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+
+    def time_ms(fn, reps, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    report = {}
+
+    # ---------------------------------------------------------------- K2
+    def moments_case(label, m, d, lim, timed):
+        x = torch.randn((m, d), generator=gen, device=dev) * 3.0 + 1.5
+        mu_k, m2_k = column_moments(x, lim)
+        mu_p, m2_p = column_moments_plain(x, lim)
+        torch.cuda.synchronize()
+        # tolerance: mean within 1e-5 of the column's spread (the mean is near
+        # 0 against a spread of 3), M2 within 1e-4 relative (the kernel sums in
+        # another order than torch)
+        spread = mu_p.abs() + torch.sqrt(m2_p / max(lim, 1))
+        err_mu = ((mu_k - mu_p).abs() / spread).max().item()
+        err_m2 = ((m2_k - m2_p).abs() / m2_p.abs()).max().item()
+        max_abs = max((mu_k - mu_p).abs().max().item(), (m2_k - m2_p).abs().max().item())
+        fields = {"shape": [m, d], "lim": lim, "mean_err_over_spread": err_mu,
+                  "m2_rel_err": err_m2, "max_abs_err": max_abs,
+                  "tolerance": {"mean_over_spread": 1e-5, "m2_rel": 1e-4}}
+        xl = x[:lim]
+        reps = 20 if timed else 5
+        fields["kernel_ms"] = time_ms(lambda: column_moments(x, lim), reps)
+        fields["plain_ms"] = time_ms(lambda: column_moments_plain(x, lim), reps)
+        fields["library_ms"] = time_ms(lambda: torch.var_mean(xl, 0, correction=0), reps)
+        fields["bound_ms"], fields["bound_by"] = bound(lim * d * 4 + 2 * d * 4, 3 * lim * d)
+        if timed:
+            report["moments"] = fields
+        check(f"moments {label}", err_mu <= 1e-5 and err_m2 <= 1e-4, **fields)
+        del x
+
+    moments_case("main", 8_000_000, 64, 8_000_000, True)
+    moments_case("ragged", 1_000_003, 100, 1_000_003, False)
+    moments_case("ragged lim", 1_000_003, 100, 999_990, False)
+
+    # ---------------------------------------------------------------- K3
+    def cdist_case(label, m, n, k, epilogue, timed, same=False):
+        x = torch.rand((m, k), generator=gen, device=dev)
+        y = x if same else torch.rand((n, k), generator=gen, device=dev)
+        gamma = 0.5 / k if epilogue == "rbf" else 0.0
+        out_k = euclid(x, y, gamma, epilogue)
+        out_p = euclid_plain(x, y, gamma, epilogue)
+        torch.cuda.synchronize()
+        # tolerance on the squared distance: 2e-5 of |x|^2 + |y|^2, the error
+        # scale of an f32 GEMM-form expansion over k <= 512 terms; for rbf the
+        # same, times gamma (|d exp(-g d2)| <= g |d d2|)
+        scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+        if epilogue == "rbf":
+            worst = ((out_k - out_p).abs() / (gamma * (2e-5 * scale + 1e-6))).max().item()
+        else:
+            worst = ((out_k * out_k - out_p * out_p).abs() / (2e-5 * scale + 1e-6)).max().item()
+        max_abs = (out_k - out_p).abs().max().item()
+        fields = {"shape": [m, n, k], "epilogue": epilogue, "max_abs_err": max_abs,
+                  "worst_err_over_tol": worst,
+                  "tolerance": "|d2_k - d2_p| <= 2e-5 (|x|^2 + |y|^2) + 1e-6"}
+        del scale, out_p
+        reps = 10 if timed else 5
+        fields["kernel_ms"] = time_ms(lambda: euclid(x, y, gamma, epilogue), reps)
+        fields["plain_ms"] = time_ms(lambda: euclid_plain(x, y, gamma, epilogue), 5)
+        fields["library_ms"] = time_ms(lambda: torch.cdist(x, y), 5) if epilogue == "dist" else None
+        fields["bound_ms"], fields["bound_by"] = bound((m * k + n * k + m * n) * 4, 2 * m * n * k)
+        if timed:
+            report["cdist"] = fields
+        check(f"cdist {label}", worst <= 1.0, **fields)
+
+    cdist_case("main", 16384, 16384, 128, "dist", True, same=True)
+    cdist_case("ragged", 16000, 15999, 127, "dist", False)
+    cdist_case("ragged rbf", 16000, 15999, 127, "rbf", False)
+
+    # ---------------------------------------------------------------- K4
+    def blobs(n, d, k, spread=8.0):
+        protos = torch.randn((k, d), generator=gen, device=dev) * spread
+        lab = torch.randint(0, k, (n,), generator=gen, device=dev)
+        x = protos[lab] + torch.randn((n, d), generator=gen, device=dev)
+        return x, protos
+
+    def lloyd_case(label, n, d, k, timed):
+        x, protos = blobs(n, d, k)
+        c = protos + 0.1 * torch.randn((k, d), generator=gen, device=dev)
+        s_k, n_k = lloyd_update(x, c)
+        s_p, n_p = lloyd_update_plain(x, c)
+        s_k2, n_k2 = lloyd_update(x, c)
+        torch.cuda.synchronize()
+        abs_sums = torch.zeros_like(c).index_add_(
+            0, torch.argmin(torch.cdist(x, c), 1), x.abs())
+        # tolerance: counts exact (well separated blobs have no near-ties),
+        # sums within 1e-4 of the sum of |x| (another summation order)
+        worst = ((s_k - s_p).abs() / (1e-4 * abs_sums + 1e-5)).max().item()
+        counts_equal = bool(torch.equal(n_k, n_p))
+        repeat_equal = bool(torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2))
+        fields = {"shape": [n, d, k], "counts_equal": counts_equal, "repeat_bitwise": repeat_equal,
+                  "max_abs_err": (s_k - s_p).abs().max().item(), "worst_err_over_tol": worst,
+                  "tolerance": "counts exact; |sums_k - sums_p| <= 1e-4 sum|x| + 1e-5"}
+        reps = 10 if timed else 5
+        fields["kernel_ms"] = time_ms(lambda: lloyd_update(x, c), reps)
+        fields["plain_ms"] = time_ms(lambda: lloyd_update_plain(x, c), reps)
+        fields["library_ms"] = None
+        # operations: the scores' product (2nkd), one argmin compare per
+        # score (nk) and one add per row and feature into its center (nd)
+        fields["bound_ms"], fields["bound_by"] = bound(n * d * 4 + 2 * k * d * 4 + k * 4,
+                                                       2 * n * k * d + n * k + n * d)
+        if timed:
+            report["lloyd"] = fields
+        check(f"lloyd {label}", worst <= 1.0 and counts_equal and repeat_equal, **fields)
+
+    lloyd_case("main", 2_000_000, 64, 64, True)
+    lloyd_case("ragged", 100_003, 33, 1000, False)
+    lloyd_case("gate corner", 20_011, 512, 1024, False)
+
+    # ---------------------------------------------------------- main path
+    xm_t = torch.randn((8_000_000, 64), generator=gen, device=dev)
+    xc_t = torch.rand((16384, 128), generator=gen, device=dev)
+    xk_t = torch.randn((2_000_000, 64), generator=gen, device=dev)
+    torch.cuda.synchronize()
+
+    def run_main_path():
+        stages = {}
+        t = time.perf_counter()
+        x = ht.array(xm_t, split=0)
+        y = x * 2 + 1
+        moments = ht.mean(y, axis=0), ht.var(y, axis=0), ht.std(y, axis=0)
+        torch.cuda.synchronize()
+        stages["moments_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        xc = ht.array(xc_t, split=0)
+        dist = ht.spatial.cdist(xc, xc, quadratic_expansion=True)
+        torch.cuda.synchronize()
+        stages["cdist_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        xk = ht.array(xk_t, split=0)
+        km = ht.cluster.KMeans(n_clusters=64, init="random", max_iter=50, tol=0.0,
+                               random_state=1).fit(xk)
+        torch.cuda.synchronize()
+        stages["kmeans_s"] = time.perf_counter() - t
+        return stages, moments, dist, km
+
+    ht.reset_launch_counts()
+    stages, (mu, va, sd), dist, km = run_main_path()
+    launches = ht.launch_counts()
+    emit({"phase": "main path", "stages": stages, "launches": launches,
+          "kmeans_n_iter": km.n_iter_})
+    check("main path launched every kernel", all(v > 0 for v in launches.values()),
+          launches=launches)
+
+    # references in float64
+    y64 = xm_t.double() * 2 + 1
+    mu64 = y64.mean(0)
+    va64 = y64.var(0, correction=0)
+    del y64
+    spread = mu64.abs() + va64.sqrt()
+    err_mu = ((mu.larray.double() - mu64).abs() / spread).max().item()
+    err_va = ((va.larray.double() - va64).abs() / va64).max().item()
+    err_sd = ((sd.larray.double() - va64.sqrt()).abs() / va64.sqrt()).max().item()
+    shapes_ok = mu.shape == (64,) and va.shape == (64,) and sd.shape == (64,)
+    finite = bool(torch.isfinite(mu.larray).all() and torch.isfinite(va.larray).all())
+    check("main path moments vs float64", shapes_ok and finite and err_mu <= 1e-5
+          and err_va <= 1e-4 and err_sd <= 1e-4, mean_err_over_spread=err_mu,
+          var_rel_err=err_va, std_rel_err=err_sd,
+          tolerance={"mean_over_spread": 1e-5, "var_rel": 1e-4, "std_rel": 1e-4})
+
+    rows = torch.randint(0, 16384, (512,), generator=gen, device=dev)
+    xc64 = xc_t.double()
+    ref = torch.cdist(xc64[rows], xc64, compute_mode="donot_use_mm_for_euclid_dist")
+    got = dist.larray[rows].double()
+    scale = (xc64[rows] ** 2).sum(1)[:, None] + (xc64 ** 2).sum(1)[None, :]
+    err_d2 = ((got ** 2 - ref ** 2).abs() - (2e-5 * scale + 1e-6)).max().item()
+    check("main path cdist vs float64 (512 sampled rows)",
+          dist.shape == (16384, 16384) and bool(torch.isfinite(dist.larray).all()) and err_d2 <= 0,
+          max_abs_err=(got - ref).abs().max().item(),
+          tolerance="|d2 - d2_ref| <= 2e-5 (|x|^2 + |y|^2) + 1e-6")
+    del ref, got, scale, dist
+
+    # KMeans, step by step: the fit's own trajectory replayed through
+    # lloyd_fit with every pass held against a float64 pass from the same
+    # centers. A row whose two best float64 scores lie within the f32 error
+    # bound of a score, 2 d u (2 |x| max|c| + max|c|^2), may take either
+    # label, so its |x| and its count are allowed to either center; the rest
+    # of the sums within 1e-4 of the sum of |x| (another summation order).
+    n_rows, d_k, k_k = xk_t.shape[0], xk_t.shape[1], 64
+    pick = torch.Generator()
+    pick.manual_seed(1)  # init='random', random_state=1: k distinct rows
+    c0 = xk_t[torch.randperm(n_rows, generator=pick)[:k_k].to(dev)].clone()
+    xk64 = xk_t.double()
+    xnorm = xk64.norm(dim=1)
+    steps = {"worst_sum_err_over_tol": 0.0, "worst_count_err_over_tol": 0.0,
+             "most_ambiguous_rows": 0, "every_row_counted_once": True}
+
+    def checked_update(x, c):
+        s_k, n_k = lloyd_update(x, c)
+        c64 = c.double()
+        scores = (c64 * c64).sum(1)[None, :] - 2.0 * (xk64 @ c64.T)
+        top = torch.topk(scores, 2, dim=1, largest=False)
+        del scores
+        lab, lab2 = top.indices[:, 0], top.indices[:, 1]
+        cmax = c64.norm(dim=1).max()
+        eps = 2 * d_k * 2.0 ** -24 * (2 * xnorm * cmax + cmax * cmax)
+        amb = (top.values[:, 1] - top.values[:, 0]) <= eps
+        zeros = torch.zeros((k_k, d_k), dtype=torch.float64, device=dev)
+        sums = zeros.clone().index_add_(0, lab, xk64)
+        cnt = torch.bincount(lab, minlength=k_k).double()
+        abs_sums = zeros.clone().index_add_(0, lab, xk64.abs())
+        xa = xk64[amb].abs()
+        amb_abs = zeros.clone().index_add_(0, lab[amb], xa).index_add_(0, lab2[amb], xa)
+        amb_cnt = (torch.bincount(lab[amb], minlength=k_k)
+                   + torch.bincount(lab2[amb], minlength=k_k)).double()
+        sum_err = ((s_k.double() - sums).abs() / (1e-4 * abs_sums + amb_abs + 1e-5)).max().item()
+        cnt_err = ((n_k.double() - cnt).abs() / (amb_cnt + 0.5)).max().item()
+        steps["worst_sum_err_over_tol"] = max(steps["worst_sum_err_over_tol"], sum_err)
+        steps["worst_count_err_over_tol"] = max(steps["worst_count_err_over_tol"], cnt_err)
+        steps["most_ambiguous_rows"] = max(steps["most_ambiguous_rows"], int(amb.sum()))
+        steps["every_row_counted_once"] &= int(n_k.sum().item()) == n_rows
+        return s_k, n_k
+
+    c_replay, it_replay = lloyd_fit(xk_t, c0, 50, 0.0, None, update=checked_update)
+    same_path = bool(torch.equal(c_replay, km.cluster_centers_.larray)) and it_replay == km.n_iter_
+    check("main path kmeans, each pass vs float64 along the fit's trajectory",
+          same_path and km.n_iter_ == 50 and steps["worst_sum_err_over_tol"] <= 1.0
+          and steps["worst_count_err_over_tol"] < 1.0 and steps["every_row_counted_once"],
+          replay_bit_identical_to_fit=same_path, n_iter=km.n_iter_, **steps,
+          tolerance="counts add up to the rows, each within its ambiguous rows; "
+                    "|sums - sums64| <= 1e-4 sum|x| + |x| of the ambiguous rows + 1e-5")
+
+    # KMeans, end to end: a float64 fit from the same initial centers. On
+    # randn data, with no cluster structure, two fits whose passes differ in
+    # near-tie labels drift apart over 50 passes, so labels and centers are
+    # reported beside the same drift of the plain f32 fit (lloyd_fit with
+    # the plain pass); the gate is n_iter and the inertia, within 1e-4
+    # relative (each pass moves it only by the near-tie rows' score gaps)
+    c = c0.double()
+    for _ in range(50):
+        lab = torch.argmin((c * c).sum(1)[None, :] - 2.0 * (xk64 @ c.T), 1)
+        sums = torch.zeros_like(c).index_add_(0, lab, xk64)
+        cnt = torch.bincount(lab, minlength=k_k).double()[:, None]
+        c = torch.where(cnt > 0, sums / cnt.clamp(min=1), c)
+    d2 = ((xk64 * xk64).sum(1)[:, None] + (c * c).sum(1)[None, :] - 2.0 * (xk64 @ c.T)).clamp(min=0)
+    lab = torch.argmin(d2, 1)
+    inertia64 = float(d2.min(1).values.sum())
+    del d2
+    c_plain, _ = lloyd_fit(xk_t, c0, 50, 0.0, None, update=lloyd_update_plain)
+    lab_plain = torch.argmin(torch.cdist(xk_t, c_plain), 1)
+    drift = {
+        "label_agreement": (km.labels_.larray == lab).double().mean().item(),
+        "center_max_abs_err": (km.cluster_centers_.larray.double() - c).abs().max().item(),
+        "plain_f32_label_agreement": (lab_plain == lab).double().mean().item(),
+        "plain_f32_center_max_abs_err": (c_plain.double() - c).abs().max().item(),
+    }
+    err_i = abs(km.inertia_ - inertia64) / inertia64
+    check("main path kmeans end to end vs a float64 fit", km.n_iter_ == 50 and err_i <= 1e-4,
+          n_iter=km.n_iter_, inertia_rel_err=err_i, **drift,
+          tolerance={"n_iter": 50, "inertia_rel": 1e-4})
+    del xk64, xnorm, mu, va, sd, c_plain, lab_plain
+
+    # the KMeans stage's host time: the 'random' draw (a randperm of the
+    # rows on the host), the wrapper's host time per pass (no sync), and a
+    # warm Lloyd iteration with its shift read, against the pass alone
+    xk = ht.array(xk_t, split=0)
+    est = ht.cluster.KMeans(n_clusters=64, init="random", random_state=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    c_init = est._initialize_cluster_centers(xk)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for _ in range(20):
+        lloyd_update(xk_t, c_init)
+    wrapper_host_ms = (time.perf_counter() - t) * 1e3 / 20
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lloyd_fit(xk_t, c_init, 20, 0.0)
+    iteration_ms = (time.perf_counter() - t) * 1e3 / 20
+    emit({"phase": "kmeans host breakdown", "init_draw_ms": init_ms,
+          "wrapper_host_ms_per_pass": wrapper_host_ms, "iteration_wall_ms": iteration_ms,
+          "pass_device_ms": time_ms(lambda: lloyd_update(xk_t, c_init), 10)})
+    del xk, est, c_init
+
+    # the main path again under the profiler (device activity only, to keep
+    # its host overhead small): device time by kernel and wall time of the
+    # same run give the device's busy share; its fit must repeat the first
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        warm_stages, _, _, km2 = run_main_path()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    on_device = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            on_device[ev.key[:90]] = ev.self_device_time_total / 1e3
+    device_ms = sum(on_device.values())
+    top = dict(sorted(on_device.items(), key=lambda kv: -kv[1])[:12])
+    emit({"phase": "main path profile", "warm_stages": warm_stages, "wall_ms": wall_ms,
+          "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+          "top_device_ms": top})
+    check("main path profile saw device time", device_ms > 0, device_ms=device_ms)
+    same = bool(torch.equal(km.cluster_centers_.larray, km2.cluster_centers_.larray)
+                and torch.equal(km.labels_.larray, km2.labels_.larray))
+    check("kmeans fit twice: bit-identical centers and labels", same, n_iter=km2.n_iter_)
+    del km, km2
+
+    sources = {
+        "moments": ("heat_tpu_torch/csrc/moments.cu", "heat_tpu/core/pallas_moments.py:64"),
+        "cdist": ("heat_tpu_torch/csrc/cdist.cu", "heat_tpu/spatial/pallas_cdist.py:80"),
+        "lloyd": ("heat_tpu_torch/csrc/lloyd.cu", "heat_tpu/cluster/pallas_lloyd.py:55"),
+    }
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        r = report[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    if FAILURES:
+        print(f"chip_smoke: failed checks: {FAILURES}", file=sys.stderr)
+        return 1
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

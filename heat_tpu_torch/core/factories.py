@@ -1,0 +1,220 @@
+"""Array construction routines.
+
+Counterpart of ``heat_tpu/core/factories.py``. ``array(obj, split=s)``
+takes the *global* data on every rank and keeps this rank's ceil-rule
+chunk; ``is_split=s`` declares ``obj`` to be this rank's own chunk and
+infers the global shape from every rank's length (reference
+factories.py:386-429). Chunks that do not follow the ceil rule are
+redistributed to it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Type, Union
+
+import numpy as np
+import torch
+
+from . import types
+from .communication import TorchCommunication, sanitize_comm
+from .devices import Device, sanitize_device
+from .dndarray import DNDarray
+from .stride_tricks import sanitize_axis, sanitize_shape
+
+__all__ = [
+    "arange",
+    "array",
+    "asarray",
+    "empty",
+    "empty_like",
+    "full",
+    "full_like",
+    "ones",
+    "ones_like",
+    "zeros",
+    "zeros_like",
+]
+
+
+def _from_global(data: torch.Tensor, split, device: Device, comm: TorchCommunication,
+                 dtype=None) -> DNDarray:
+    """Wrap a global tensor already on this rank's device: keep this rank's
+    chunk of the split dimension."""
+    gshape = tuple(data.shape)
+    split = sanitize_axis(gshape, split)
+    if split is not None:
+        _, _, slices = comm.chunk(gshape, split)
+        data = data[slices].contiguous()
+    ht_dtype = dtype if dtype is not None else types.canonical_heat_type(data.dtype)
+    return DNDarray(data, gshape, ht_dtype, split, device, comm, True)
+
+
+def _to_tensor(obj: Any, dtype, tdev: torch.device) -> torch.Tensor:
+    """Host or device data as a tensor on ``tdev``, with the JAX package's
+    type defaults: python floats → float32, python ints → int64, numpy
+    arrays keep their dtype."""
+    if isinstance(obj, torch.Tensor):
+        data = obj.to(tdev)
+        if dtype is not None:
+            data = data.to(dtype.torch_type())
+        return data
+    arr = np.asarray(obj)
+    if dtype is None and arr.dtype == np.float64 and not isinstance(obj, np.ndarray):
+        arr = arr.astype(np.float32)
+    data = torch.tensor(arr).to(tdev)  # a copy: never aliases the caller's buffer
+    if dtype is not None:
+        data = data.to(dtype.torch_type())
+    return data
+
+
+def array(
+    obj: Any,
+    dtype: Optional[Type[types.datatype]] = None,
+    copy: Optional[bool] = True,
+    ndmin: int = 0,
+    split: Optional[int] = None,
+    is_split: Optional[int] = None,
+    device: Optional[Union[str, Device]] = None,
+    comm: Optional[TorchCommunication] = None,
+) -> DNDarray:
+    """The main constructor (reference factories.py:150)."""
+    if split is not None and is_split is not None:
+        raise ValueError("split and is_split are mutually exclusive parameters")
+    device = sanitize_device(device)
+    tdev = device.torch_device
+    comm = sanitize_comm(comm)
+    if dtype is not None:
+        dtype = types.canonical_heat_type(dtype)
+
+    if isinstance(obj, DNDarray):
+        if dtype is None and split is None and is_split is None:
+            if not copy:
+                return obj
+            return DNDarray(obj.larray.clone(), obj.shape, obj.dtype, obj.split,
+                            obj.device, obj.comm, True)
+        data = obj._global()
+        if dtype is not None:
+            data = data.to(dtype.torch_type())
+        tgt = split if split is not None else (obj.split if is_split is None else is_split)
+        return _from_global(data.to(tdev), tgt, device, comm, dtype)
+
+    data = _to_tensor(obj, dtype, tdev)
+    if copy and isinstance(obj, torch.Tensor) and data.data_ptr() == obj.data_ptr():
+        data = data.clone()
+    while data.ndim < ndmin:
+        data = data[None]
+
+    if is_split is not None:
+        is_split = sanitize_axis(tuple(data.shape), is_split)
+        lens = comm.allgather_object(int(data.shape[is_split]))
+        n = int(sum(lens))
+        gshape = tuple(data.shape[:is_split]) + (n,) + tuple(data.shape[is_split + 1:])
+        if list(lens) != list(comm.counts_displs(n)[0]):
+            # not the ceil-rule layout: gather, then keep the ceil chunk
+            whole = torch.cat(_gather_ragged(data, is_split, lens, comm), dim=is_split)
+            return _from_global(whole, is_split, device, comm, dtype)
+        ht_dtype = dtype if dtype is not None else types.canonical_heat_type(data.dtype)
+        return DNDarray(data.contiguous(), gshape, ht_dtype, is_split, device, comm, True)
+
+    return _from_global(data, split, device, comm, dtype)
+
+
+def _gather_ragged(local: torch.Tensor, dim: int, lens, comm: TorchCommunication):
+    """Every rank's block of arbitrary length along ``dim``, in rank order."""
+    import torch.distributed as dist
+
+    c = max(lens)
+    shape = list(local.shape)
+    shape[dim] = c
+    buf = local.new_zeros(shape)
+    buf.narrow(dim, 0, local.shape[dim]).copy_(local)
+    parts = [torch.empty_like(buf) for _ in range(comm.size)]
+    dist.all_gather(parts, buf, group=comm.group)
+    return [p.narrow(dim, 0, ln) for p, ln in zip(parts, lens)]
+
+
+def asarray(obj, dtype=None, copy=None, is_split=None, split=None, device=None, comm=None) -> DNDarray:
+    """Convert to a DNDarray without copying where possible."""
+    return array(obj, dtype=dtype, copy=bool(copy), split=split, is_split=is_split,
+                 device=device, comm=comm)
+
+
+def _local_factory(fill, shape, dtype, split, device, comm) -> DNDarray:
+    gshape = sanitize_shape(shape)
+    dtype = types.canonical_heat_type(dtype)
+    device = sanitize_device(device)
+    comm = sanitize_comm(comm)
+    split = sanitize_axis(gshape, split)
+    _, lshape, _ = comm.chunk(gshape, split)
+    data = fill(lshape, dtype.torch_type(), device.torch_device)
+    return DNDarray(data, gshape, dtype, split, device, comm, True)
+
+
+def zeros(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    return _local_factory(lambda s, t, d: torch.zeros(s, dtype=t, device=d),
+                          shape, dtype, split, device, comm)
+
+
+def ones(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    return _local_factory(lambda s, t, d: torch.ones(s, dtype=t, device=d),
+                          shape, dtype, split, device, comm)
+
+
+def empty(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    return _local_factory(lambda s, t, d: torch.empty(s, dtype=t, device=d),
+                          shape, dtype, split, device, comm)
+
+
+def full(shape, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    return _local_factory(lambda s, t, d: torch.full(s, fill_value, dtype=t, device=d),
+                          shape, dtype, split, device, comm)
+
+
+def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Evenly spaced values in [start, stop) with step (reference
+    factories.py:40)."""
+    if len(args) == 1:
+        start, stop, step = 0, args[0], 1
+    elif len(args) == 2:
+        start, stop, step = args[0], args[1], 1
+    elif len(args) == 3:
+        start, stop, step = args
+    else:
+        raise TypeError(
+            f"function takes minimum one and at most 3 positional arguments ({len(args)} given)"
+        )
+    if dtype is None:
+        all_int = all(isinstance(a, int) for a in (start, stop, step))
+        dtype = types.int64 if all_int else types.float32
+    dtype = types.canonical_heat_type(dtype)
+    device = sanitize_device(device)
+    comm = sanitize_comm(comm)
+    data = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=device.torch_device)
+    return _from_global(data, split, device, comm, dtype)
+
+
+def _like(a: DNDarray, dtype, split, device, comm):
+    return (
+        a.shape,
+        a.dtype if dtype is None else dtype,
+        a.split if split is None else split,
+        a.device if device is None else device,
+        a.comm if comm is None else comm,
+    )
+
+
+def zeros_like(a: DNDarray, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    return zeros(*_like(a, dtype, split, device, comm))
+
+
+def ones_like(a: DNDarray, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    return ones(*_like(a, dtype, split, device, comm))
+
+
+def empty_like(a: DNDarray, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    return empty(*_like(a, dtype, split, device, comm))
+
+
+def full_like(a: DNDarray, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    shape, dt, sp, dev, cm = _like(a, dtype, split, device, comm)
+    return full(shape, fill_value, dt, sp, dev, cm)

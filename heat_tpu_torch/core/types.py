@@ -1,0 +1,216 @@
+"""The heat type hierarchy over torch dtypes.
+
+Counterpart of ``heat_tpu/core/types.py``: the same class hierarchy
+``datatype → bool / number → integer / floating / complexfloating``, each
+backed here by a torch dtype (``torch_type()``). The JAX package runs with
+64-bit types on, so a float64 numpy input stays float64 and promotion
+follows the numpy-style lattice; ``torch.promote_types`` gives the same
+answers as the JAX package for every type kept here. ``uint16``/``uint32``/``uint64`` are left out:
+torch has no arithmetic for them.
+"""
+
+from __future__ import annotations
+
+import builtins
+from typing import Any, Type
+
+import numpy as np
+import torch
+
+__all__ = [
+    "datatype",
+    "number",
+    "integer",
+    "signedinteger",
+    "unsignedinteger",
+    "bool",
+    "bool_",
+    "floating",
+    "complexfloating",
+    "int8",
+    "int16",
+    "int32",
+    "int64",
+    "uint8",
+    "float16",
+    "bfloat16",
+    "float32",
+    "float64",
+    "complex64",
+    "complex128",
+    "byte",
+    "short",
+    "int",
+    "long",
+    "ubyte",
+    "half",
+    "float",
+    "float_",
+    "double",
+    "cfloat",
+    "cdouble",
+    "canonical_heat_type",
+    "promote_types",
+    "iinfo",
+]
+
+
+class datatype:
+    """Generic data type; the root of the hierarchy (reference types.py:64)."""
+
+    _torch: Any = None
+
+    @classmethod
+    def torch_type(cls) -> torch.dtype:
+        if cls._torch is None:
+            raise TypeError(f"abstract type {cls.__name__} has no torch equivalent")
+        return cls._torch
+
+
+class bool(datatype):
+    _torch = torch.bool
+
+
+bool_ = bool
+
+
+class number(datatype):
+    pass
+
+
+class integer(number):
+    pass
+
+
+class signedinteger(integer):
+    pass
+
+
+class unsignedinteger(integer):
+    pass
+
+
+class floating(number):
+    pass
+
+
+class complexfloating(number):
+    pass
+
+
+class int8(signedinteger):
+    _torch = torch.int8
+
+
+class int16(signedinteger):
+    _torch = torch.int16
+
+
+class int32(signedinteger):
+    _torch = torch.int32
+
+
+class int64(signedinteger):
+    _torch = torch.int64
+
+
+class uint8(unsignedinteger):
+    _torch = torch.uint8
+
+
+class float16(floating):
+    _torch = torch.float16
+
+
+class bfloat16(floating):
+    _torch = torch.bfloat16
+
+
+class float32(floating):
+    _torch = torch.float32
+
+
+class float64(floating):
+    _torch = torch.float64
+
+
+class complex64(complexfloating):
+    _torch = torch.complex64
+
+
+class complex128(complexfloating):
+    _torch = torch.complex128
+
+
+byte = int8
+short = int16
+int = int32
+long = int64
+ubyte = uint8
+half = float16
+float = float32
+float_ = float32
+double = float64
+cfloat = complex64
+cdouble = complex128
+
+_COMPLETE_TYPES = [
+    bool, int8, int16, int32, int64, uint8,
+    float16, bfloat16, float32, float64, complex64, complex128,
+]
+_TORCH_MAP = {t._torch: t for t in _COMPLETE_TYPES}
+_NAME_MAP = {str(t._torch).replace("torch.", ""): t for t in _COMPLETE_TYPES}
+# python builtins map as in the JAX package: int → int64, float → float32
+_ALIAS_MAP = {
+    builtins.bool: bool,
+    builtins.int: int64,
+    builtins.float: float32,
+    builtins.complex: complex64,
+}
+
+
+def canonical_heat_type(a_type: Any) -> Type[datatype]:
+    """Canonicalize a heat type / torch dtype / numpy dtype / python type /
+    string into the heat type class (reference types.py:495)."""
+    if isinstance(a_type, type) and issubclass(a_type, datatype):
+        return a_type
+    if isinstance(a_type, torch.dtype):
+        if a_type in _TORCH_MAP:
+            return _TORCH_MAP[a_type]
+        raise TypeError(f"data type {a_type!r} not understood")
+    try:
+        if a_type in _ALIAS_MAP:
+            return _ALIAS_MAP[a_type]
+    except TypeError:
+        pass
+    if isinstance(a_type, str) and a_type in _NAME_MAP:
+        return _NAME_MAP[a_type]
+    try:
+        name = np.dtype(a_type).name
+    except TypeError:
+        raise TypeError(f"data type {a_type!r} not understood") from None
+    if name in _NAME_MAP:
+        return _NAME_MAP[name]
+    raise TypeError(f"data type {a_type!r} not understood")
+
+
+def promote_types(type1: Any, type2: Any) -> Type[datatype]:
+    """Smallest type to which both may be safely cast (reference
+    types.py:836)."""
+    t1 = canonical_heat_type(type1).torch_type()
+    t2 = canonical_heat_type(type2).torch_type()
+    return canonical_heat_type(torch.promote_types(t1, t2))
+
+
+class iinfo:
+    """Machine limits for integer types (reference types.py:1007)."""
+
+    def __new__(cls, dtype):
+        t = canonical_heat_type(dtype)
+        if not issubclass(t, integer):
+            raise TypeError(f"data type {t!r} not an integer")
+        info = torch.iinfo(t.torch_type())
+        self = object.__new__(cls)
+        self.bits, self.max, self.min = info.bits, builtins.int(info.max), builtins.int(info.min)
+        return self
+

@@ -1,0 +1,98 @@
+"""Pairwise distance computations (counterpart of
+``heat_tpu/spatial/distance.py``: ``cdist`` and ``rbf``).
+
+The result is (n_x, n_y), distributed along the rows of x; y is replicated
+on every rank first (``resplit(None)``, the JAX package's
+``distance.py:315``). With ``quadratic_expansion=True`` and inside the
+kernel's gate (f32, k <= 512, one rank or x split along its rows) every
+rank computes its row slab with the cdist kernel, whose epilogue gives
+distances or, for ``rbf``, the Gaussian kernel directly (``:317-344``
+there). Otherwise the GEMM form or the broadcast form runs in plain torch.
+A kernel failure raises; nothing falls back. The ring schedule
+(``_ring_dist`` :101) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import types
+from ..core.dndarray import DNDarray
+
+__all__ = ["cdist", "rbf"]
+
+_BLOCK_BUDGET = 1 << 28  # bytes of the broadcast form's (rows, n, k) temporary
+
+
+def _blocked_euclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The broadcast form over row blocks of x, so that the (rows, n, k)
+    temporary stays under 256 MiB (the JAX package's ``_blocked_rows`` :56)."""
+    m, k = x.shape
+    n = y.shape[0]
+    per_row = max(1, n * k * x.element_size())
+    bs = max(1, min(m, _BLOCK_BUDGET // per_row))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    for s in range(0, m, bs):
+        diff = x[s:s + bs, None, :] - y[None, :, :]
+        out[s:s + bs] = torch.sqrt((diff * diff).sum(dim=-1))
+    return out
+
+
+def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
+          rbf_gamma: Optional[float] = None) -> DNDarray:
+    from .cuda_cdist import euclid, euclid_plain, pallas_cdist_applicable
+
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"x must be a DNDarray, but was {type(x)}")
+    if x.ndim != 2:
+        raise NotImplementedError(f"x has {x.ndim} dimensions, expecting 2")
+    if y is None:
+        y = x
+    if not isinstance(y, DNDarray):
+        raise TypeError(f"y must be a DNDarray, but was {type(y)}")
+    if y.ndim != 2:
+        raise NotImplementedError(f"y has {y.ndim} dimensions, expecting 2")
+    if x.shape[1] != y.shape[1]:
+        raise ValueError(
+            f"inputs must have the same number of features, got {x.shape[1]} and {y.shape[1]}"
+        )
+    if x.split is not None and x.split != 0:
+        raise NotImplementedError("cdist requires x.split in (None, 0)")
+
+    promoted = types.promote_types(types.promote_types(x.dtype, y.dtype), types.float32)
+    tdt = promoted.torch_type()
+    out_split = 0 if x.split == 0 else None
+    m, n = x.shape[0], y.shape[0]
+    yb = (y.resplit(None).larray if y.split is not None else y.larray).to(tdt)
+    xb = x.larray.to(tdt)
+
+    if quadratic:
+        # the kernel where the JAX package takes its Pallas kernel (one rank
+        # or x split along its rows, inside the gate), else its plain version
+        layout_ok = x.comm.size == 1 or x.split == 0
+        fn = euclid if layout_ok and pallas_cdist_applicable(x.shape[1], tdt) else euclid_plain
+        epi = "rbf" if rbf_gamma is not None else "dist"
+        out = fn(xb, yb, 0.0 if rbf_gamma is None else float(rbf_gamma), epilogue=epi)
+    else:
+        out = _blocked_euclidean(xb, yb)
+        if rbf_gamma is not None:
+            out = torch.exp(-rbf_gamma * out * out)
+    return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
+
+
+def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
+    """Euclidean distance matrix (reference distance.py:136).
+    ``quadratic_expansion`` selects the GEMM form, which the cdist kernel
+    computes on the card."""
+    return _dist(X, Y, quadratic_expansion)
+
+
+def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
+        quadratic_expansion: bool = False) -> DNDarray:
+    """Gaussian kernel matrix exp(-|x-y|^2 / 2 sigma^2) (reference
+    distance.py:159). With the GEMM form on the card the exp is the
+    kernel's epilogue."""
+    gamma = 1.0 / (2.0 * sigma * sigma)
+    return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma)
