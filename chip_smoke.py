@@ -9,18 +9,28 @@ Phases, each printing JSON lines:
   1. the card's name and power limit, and the build of every kernel from
      heat_tpu_torch/csrc (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shape and at ragged shapes, with the stated tolerances,
-     the kernel's, the plain version's and (where one PyTorch call computes
-     the same function) the library call's times, and the bound;
-  3. the main path at bench.py's sizes through the user entry points:
+     paths' shapes and at ragged shapes, with the stated tolerances, the
+     kernel's, the plain version's and (where one PyTorch call computes the
+     same function) the library call's times, and the bound;
+  3. the array path at bench.py's sizes through the user entry points:
      array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
      (bench.py's fit: randn data, init='random', random_state=1, 50
      iterations, tol=0), with the kernels' launch counts read around it;
      each stage is checked against a float64 reference, the fit both step
      by step along its own trajectory and end to end;
-  4. the main path again under the profiler, for the device's busy share
+  4. the array path again under the profiler, for the device's busy share
      (device time over wall time of that one run) and the check that its
-     fit gives bit-identical centers and labels to the first.
+     fit gives bit-identical centers and labels to the first;
+  5. the W8A8 path at bench.py's matmul_int8 width: 30 chained int8_matmul
+     launches at 8192^3 that re-quantise the running product, checked bit
+     for bit against the same chain through the plain GEMM, and one
+     QuantDense(4096) call on 8192 tokens x 1024 against an f32 product;
+  6. the serving path: bench.py's lm_step TransformerLM at full width
+     (vocab 32768, d_model 1024, 16 heads, 12 layers, bf16, flash
+     attention) answers three requests of 8 x 1024 tokens, checked against
+     the same weights with the local core and in float32, and for
+     causality; then one request under the profiler.
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
 a card, or without the package beside this script, it exits non-zero and
@@ -33,10 +43,14 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data-sheet peaks: HBM bandwidth and the f32 rate outside the
-# tensor cores (both at the full 700 W power limit)
+# H100 SXM data-sheet peaks (dense, at the full 700 W power limit): HBM
+# bandwidth, the f32 rate outside the tensor cores, and the tensor cores'
+# bf16 and int8 rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+ARRAY_PATH = ("moments", "cdist", "lloyd")
 
 FAILURES = []
 
@@ -51,9 +65,11 @@ def check(name, ok, **fields):
         FAILURES.append(name)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, ops, rate=F32_FLOPS_PER_S):
+    """The least time in ms: bytes over the memory rate or operations over
+    the rate of their type, whichever is larger, and which one it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -68,6 +84,9 @@ def main():
     from heat_tpu_torch import _build
     from heat_tpu_torch.cluster.cuda_lloyd import lloyd_fit, lloyd_update, lloyd_update_plain
     from heat_tpu_torch.core.cuda_moments import column_moments, column_moments_plain
+    from heat_tpu_torch.core.linalg import int8_matmul, quantize_int8
+    from heat_tpu_torch.core.linalg.cuda_quant import int8_gemm, int8_gemm_plain
+    from heat_tpu_torch.parallel.cuda_attention import _flash_forward, flash_attention_plain
     from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,6 +235,106 @@ def main():
     lloyd_case("ragged", 100_003, 33, 1000, False)
     lloyd_case("gate corner", 20_011, 512, 1024, False)
 
+    # ---------------------------------------------------------------- K6
+    # Tolerances: in f32, O within 2e-5 max|v| (exact f32 products summed in
+    # other orders); in bf16, O within 2^-7 max|v| (each side rounds O to
+    # bf16, one ulp of |O| <= max|v| being 2^-8 max|v|, and a probability
+    # near a bf16 rounding boundary may round the other way); the LSE within
+    # 1e-5 (1 + |lse|) in both (its products are exact in f32). The output
+    # without the LSE must equal the output with it, bit for bit.
+    import torch.nn.functional as F
+
+    def flash_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps):
+        q = torch.randn((b, t_q, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, t_k, h, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, t_k, h, d), generator=gen, device=dev).to(dtype)
+        scale = 1.0 / d ** 0.5
+        o_k, lse_k = _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
+        o_k2 = _flash_forward(q, k, v, scale, causal, kv_valid)
+        o_p, lse_p = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                           kv_valid=kv_valid, return_lse=True)
+        torch.cuda.synchronize()
+        vmax = v.float().abs().max().item()
+        tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * vmax
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        lse_err = ((lse_k - lse_p).abs() / (1e-5 * (1 + lse_p.abs()))).max().item()
+        same = bool(torch.equal(o_k, o_k2))
+        del o_p, lse_p, o_k2
+        # the (row, key) pairs this run's masks leave live
+        kv_end = min(kv_valid, t_k)
+        rows = torch.arange(t_q, dtype=torch.float64)
+        live = (torch.clamp(rows + 1, max=kv_end) if causal
+                else torch.full_like(rows, kv_end)).sum().item()
+        pairs = b * h * live
+        kv_rows = min(kv_end, t_q) if causal else kv_end
+        esize = q.element_size()
+        nbytes = (2 * b * t_q * h * d + 2 * b * kv_rows * h * d) * esize
+        fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
+                  "causal": causal, "kv_valid": kv_valid, "max_abs_err": err,
+                  "err_over_tol": err / tol, "lse_err_over_tol": lse_err,
+                  "no_lse_output_bitwise": same,
+                  "tolerance": {"o_abs": tol, "lse": "1e-5 (1 + |lse|)"}}
+        fields["kernel_ms"] = time_ms(lambda: _flash_forward(q, k, v, scale, causal, kv_valid),
+                                      reps)
+        fields["kernel_lse_ms"] = time_ms(
+            lambda: _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True), reps)
+        fields["plain_ms"] = time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, kv_valid=kv_valid), 2, warmup=1)
+        fields["library_ms"] = None
+        if kv_valid >= t_k:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            fields["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale), reps)
+        ops = 4 * pairs * d
+        fields["bound_ms"], fields["bound_by"] = bound(
+            nbytes, ops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+        fields["operations"], fields["exponentials"], fields["bytes"] = ops, pairs, nbytes
+        check(f"flash_fwd {label}", err <= tol and lse_err <= 1.0 and same, **fields)
+        return fields
+
+    report["flash_fwd"] = flash_case("LM shape", 8, 1024, 1024, 16, 64, torch.bfloat16, True,
+                                     1024, 20)
+    flash_case("bench shape", 4, 4096, 4096, 8, 128, torch.bfloat16, False, 4096, 10)
+    for d in (24, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                flash_case("ragged", 2, 1000, 1337, 3, d, dtype, causal, 900, 3)
+
+    # ---------------------------------------------------------------- K5
+    # bit-identical: the int32 accumulation is exact and the epilogue
+    # rounds in the plain version's order
+    def int8_case(label, m, n, k, out_dtype, reps):
+        qa, sa = quantize_int8(torch.randn((m, k), generator=gen, device=dev), axis=1)
+        qb, sb = quantize_int8(torch.randn((k, n), generator=gen, device=dev), axis=0)
+        got = int8_gemm(qa, sa, qb, sb, out_dtype)
+        want = int8_gemm_plain(qa, sa, qb, sb, out_dtype)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        fields = {"shape": [m, n, k], "out_dtype": str(out_dtype).split(".")[-1],
+                  "bit_identical": equal,
+                  "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                  "tolerance": "bit-identical"}
+        del got, want
+        fields["kernel_ms"] = time_ms(lambda: int8_gemm(qa, sa, qb, sb, out_dtype), reps)
+        fields["plain_ms"] = time_ms(lambda: int8_gemm_plain(qa, sa, qb, sb, out_dtype), 2,
+                                     warmup=1)
+        fields["library_ms"] = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            scale = sa * sb
+            fields["library_ms"] = time_ms(
+                lambda: (torch._int_mm(qa, qb).float() * scale).to(out_dtype), reps)
+        out_bytes = m * n * (4 if out_dtype == torch.float32 else 2)
+        fields["bound_ms"], fields["bound_by"] = bound(m * k + k * n + 4 * (m + n) + out_bytes,
+                                                       2 * m * n * k, INT8_OPS_PER_S)
+        check(f"int8_gemm {label}", equal, **fields)
+        return fields
+
+    report["int8_gemm"] = int8_case("8192^3", 8192, 8192, 8192, torch.float32, 20)
+    int8_case("8192^3", 8192, 8192, 8192, torch.bfloat16, 10)
+    int8_case("QuantDense shape", 8192, 4096, 1024, torch.float32, 10)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        int8_case("ragged", 1000, 1000, 999, out_dtype, 5)
+
     # ---------------------------------------------------------- main path
     xm_t = torch.randn((8_000_000, 64), generator=gen, device=dev)
     xc_t = torch.rand((16384, 128), generator=gen, device=dev)
@@ -245,7 +364,7 @@ def main():
 
     ht.reset_launch_counts()
     stages, (mu, va, sd), dist, km = run_main_path()
-    launches = ht.launch_counts()
+    launches = {name: ht.launch_counts()[name] for name in ARRAY_PATH}
     emit({"phase": "main path", "stages": stages, "launches": launches,
           "kmeans_n_iter": km.n_iter_})
     check("main path launched every kernel", all(v > 0 for v in launches.values()),
@@ -407,11 +526,156 @@ def main():
     check("kmeans fit twice: bit-identical centers and labels", same, n_iter=km2.n_iter_)
     del km, km2
 
+
+    # ----------------------------------------------------------- W8A8 path
+    # bench.py's matmul_int8 chain through the port's functions: a's scale
+    # normalised by sqrt(n), 30 launches that re-quantise the running
+    # product; then one QuantDense(4096) call on the LM's activations
+    n_q, reps_q = 8192, 30
+    qa, sa = quantize_int8(torch.randn((n_q, n_q), generator=gen, device=dev), axis=1)
+    sa = sa / torch.sqrt(torch.tensor(float(n_q), device=dev))
+    qb, sb = quantize_int8(torch.randn((n_q, n_q), generator=gen, device=dev), axis=0)
+    xd = torch.randn((8, 1024, 1024), generator=gen, device=dev)
+    qdense = ht.nn.QuantDense(4096, in_features=1024, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(2))
+
+    def chain(mm):
+        qc, sc, scales = qb, sb, []
+        for _ in range(reps_q):
+            qc, sc = quantize_int8(mm(qa, sa, qc, sc), axis=0)
+            scales.append(sc)
+        return qc, sc, torch.stack(scales)
+
+    torch.cuda.synchronize()
+    ht.reset_launch_counts()
+    t = time.perf_counter()
+    q_end, s_end, chain_scales = chain(lambda a, s_a, b, s_b: int8_matmul(
+        a, s_a, b, s_b, out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    yd = qdense(xd)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t) * 1e3
+    w8a8_launches = {"int8_gemm": ht.launch_counts()["int8_gemm"]}
+    emit({"phase": "W8A8 path", "chain_wall_ms": chain_ms, "chain_launches": reps_q,
+          "chain_top_s": 2.0 * n_q ** 3 * reps_q / (chain_ms * 1e-3) / 1e12,
+          "quant_dense_wall_ms": dense_ms, "launches": w8a8_launches})
+    check("W8A8 path launched the int8 kernel 31 times", w8a8_launches["int8_gemm"] == reps_q + 1,
+          launches=w8a8_launches)
+    q_plain, s_plain, _ = chain(int8_gemm_plain)
+    finite = bool(torch.isfinite(chain_scales).all() and (chain_scales > 0).all())
+    check("W8A8 chain: scales finite and bit-identical to the plain chain",
+          finite and bool(torch.equal(q_end, q_plain) and torch.equal(s_end, s_plain)),
+          scale_min=chain_scales.min().item(), scale_max=chain_scales.max().item())
+    # QuantDense against the f32 product of the same weights: each operand
+    # rounds to 1/127 of its row's (column's) absmax, a uniform error of
+    # ~0.9% of a Gaussian value's spread each, so ~1.3% relative RMS; gate 3%
+    ref = (xd.reshape(-1, 1024) @ qdense.weight.T).reshape(8, 1024, 4096)
+    rel = ((yd - ref).norm() / ref.norm()).item()
+    check("QuantDense vs f32 dense", yd.shape == (8, 1024, 4096) and rel <= 3e-2,
+          rel_rms_err=rel, max_abs_err=(yd - ref).abs().max().item(),
+          tolerance={"rel_rms": 3e-2})
+    del qa, sa, qb, sb, q_end, s_end, q_plain, s_plain, chain_scales, xd, yd, ref, qdense
+
+    # ------------------------------------------------------------ LM path
+    # bench.py's lm_step model at full width, served: three requests of
+    # 8 x 1024 tokens drawn from a numpy seed, random weights from a seeded
+    # generator; bf16 compute, f32 parameters, flash attention
+    import numpy as np
+
+    cfg = dict(vocab_size=32768, d_model=1024, num_heads=16, num_layers=12, max_len=1024,
+               mlp_ratio=4.0, device=dev)
+    lm = ht.nn.TransformerLM(**cfg, attn_impl="flash", dtype=torch.bfloat16,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    matmul_params = sum(p.numel() for name, p in lm.named_parameters()
+                        if p.ndim == 2 and name not in ("embed", "pos"))
+    rng = np.random.default_rng(0)
+    requests = [torch.from_numpy(rng.integers(0, 32768, (8, 1024))).to(dev) for _ in range(3)]
+    tokens_per_request = requests[0].numel()
+
+    def serve(tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            logits = lm(tokens)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t) * 1e3
+
+    warm_ms = serve(requests[0])[1]  # the first call sets up cuBLAS and the allocator
+    ht.reset_launch_counts()
+    answers, walls = [], []
+    for tokens in requests:
+        logits, ms = serve(tokens)
+        walls.append(ms)
+        answers.append(logits)
+    lm_launches = {"flash_fwd": ht.launch_counts()["flash_fwd"]}
+    for i, logits in enumerate(answers):
+        check(f"LM answer {i} finite, (8, 1024, 32768) bf16",
+              logits.shape == (8, 1024, 32768) and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()))
+    del answers[1:], logits
+    emit({"phase": "LM path", "requests": len(requests), "first_call_ms": warm_ms,
+          "request_wall_ms": walls, "tokens_per_s": [tokens_per_request / (w * 1e-3) for w in walls],
+          "matmul_params": matmul_params,
+          "matmul_tflop_s": [2.0 * matmul_params * tokens_per_request / (w * 1e-3) / 1e12
+                             for w in walls],
+          "launches": lm_launches})
+    check("LM path launched flash_fwd 12 times a request", lm_launches["flash_fwd"] == 36,
+          launches=lm_launches)
+
+    # the same weights with the local core in bf16, and in float32 with the
+    # local core (TF32 off): relative RMS error of the logits within 2e-2
+    # (bf16 vs bf16: the same roundings but another attention summation
+    # order, amplified over 12 layers) and 5e-2 (bf16 vs f32: every
+    # activation rounded to bf16, ~2^-9 each, over 12 layers)
+    flash_logits = answers[0].float()
+    state = lm.state_dict()
+    for name, dtype, tol in (("local bf16", torch.bfloat16, 2e-2),
+                             ("local f32", torch.float32, 5e-2)):
+        other = ht.nn.TransformerLM(**cfg, attn_impl="local", dtype=dtype)
+        other.load_state_dict(state)
+        with torch.inference_mode():
+            ref = other(requests[0]).float()
+        rel = ((flash_logits - ref).norm() / ref.norm()).item()
+        top1 = (flash_logits.argmax(-1) == ref.argmax(-1)).double().mean().item()
+        check(f"LM flash bf16 vs {name}", rel <= tol, rel_rms_err=rel,
+              max_abs_err=(flash_logits - ref).abs().max().item(),
+              ref_max_abs=ref.abs().max().item(), top1_agreement=top1,
+              tolerance={"rel_rms": tol})
+        del other, ref
+    # causality: a new last token leaves every earlier position bit-identical
+    changed = requests[0].clone()
+    changed[:, -1] = (changed[:, -1] + 1) % 32768
+    with torch.inference_mode():
+        logits2 = lm(changed)
+    check("LM causal: earlier positions bit-identical after the last token changes",
+          bool(torch.equal(answers[0][:, :-1], logits2[:, :-1])),
+          max_abs_diff=(answers[0][:, :-1].float() - logits2[:, :-1].float()).abs().max().item())
+    del answers, flash_logits, logits2, state
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, prof_wall = serve(requests[1])
+    on_device = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            on_device[ev.key[:90]] = ev.self_device_time_total / 1e3
+    device_ms = sum(on_device.values())
+    emit({"phase": "LM request profile", "wall_ms": prof_wall, "device_ms": device_ms,
+          "device_busy_share": device_ms / prof_wall,
+          "top_device_ms": dict(sorted(on_device.items(), key=lambda kv: -kv[1])[:12])})
+    check("LM profile saw device time", device_ms > 0, device_ms=device_ms)
+    del logits, lm
+
     sources = {
         "moments": ("heat_tpu_torch/csrc/moments.cu", "heat_tpu/core/pallas_moments.py:64"),
         "cdist": ("heat_tpu_torch/csrc/cdist.cu", "heat_tpu/spatial/pallas_cdist.py:80"),
         "lloyd": ("heat_tpu_torch/csrc/lloyd.cu", "heat_tpu/cluster/pallas_lloyd.py:55"),
+        "flash_fwd": ("heat_tpu_torch/csrc/flash_fwd.cu",
+                      "heat_tpu/parallel/pallas_attention.py:46"),
+        "int8_gemm": ("heat_tpu_torch/csrc/int8_gemm.cu", "heat_tpu/core/linalg/quant.py:49"),
     }
+    launches = {**launches, **w8a8_launches, **lm_launches}
     kernels = []
     for name, (src, tpu) in sources.items():
         r = report[name]

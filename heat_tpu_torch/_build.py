@@ -39,7 +39,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "heat_tpu_torch"
-SOURCES = ("moments", "cdist", "lloyd")
+SOURCES = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

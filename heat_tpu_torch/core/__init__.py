@@ -1,6 +1,7 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
-factories and the operations of this slice."""
+factories, the operations of the array path and ``linalg``'s int8 GEMM."""
 
+from . import linalg
 from .arithmetics import *
 from .communication import TorchCommunication, get_comm, use_comm
 from .devices import Device, cpu, get_device, gpu, use_device

@@ -1,20 +1,36 @@
 """Carry state from the JAX package into this one, as numpy arrays.
 
 Nothing here imports the JAX package: its state reaches this module as
-numpy arrays (``DNDarray.numpy()`` there, a fitted estimator's attributes).
+numpy arrays (``DNDarray.numpy()`` there, a fitted estimator's attributes,
+a flax variable tree passed through ``jax.tree.map(np.asarray, variables)``).
+
+Flax layouts and their torch counterparts: a ``Dense`` kernel is
+``(in, out)``, torch's weight its transpose; a ``DenseGeneral`` query, key
+or value kernel is ``(D, H, D_head)`` and the out kernel ``(H, D_head, D)``,
+flattened to ``(D, H * D_head)`` and ``(H * D_head, D)`` and transposed;
+LayerNorm ``scale``/``bias`` and the ``embed``/``pos`` ``embedding`` tables
+carry as they are.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from .cluster.kmeans import KMeans
 from .core import factories
 from .core.dndarray import DNDarray
+from .nn import LayerNorm, MultiHeadAttention, QuantDense, TransformerBlock, TransformerLM
 
-__all__ = ["KMeans", "array_from_numpy"]
+__all__ = [
+    "KMeans",
+    "array_from_numpy",
+    "load_flax_params",
+    "quant_dense_from_flax",
+    "transformer_lm_from_flax",
+]
 
 
 def array_from_numpy(global_np: np.ndarray, split: Optional[int] = None, dtype=None,
@@ -24,3 +40,70 @@ def array_from_numpy(global_np: np.ndarray, split: Optional[int] = None, dtype=N
     ``dtype`` is given."""
     return factories.array(np.asarray(global_np), dtype=dtype, split=split, device=device,
                            comm=comm)
+
+
+def _set(param: torch.nn.Parameter, value) -> None:
+    value = torch.from_numpy(np.array(value, dtype=np.float32))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"flax value of shape {tuple(value.shape)} does not fit "
+                         f"{tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def _dense(param, kernel) -> None:
+    """A flax kernel with input axes first and output axes last, flattened
+    to (in, out) by the parameter's shape, into torch's (out, in)."""
+    kernel = np.asarray(kernel)
+    _set(param, kernel.reshape(param.shape[1], param.shape[0]).T)
+
+
+def _load(module: torch.nn.Module, p: Mapping) -> None:
+    if isinstance(module, LayerNorm):
+        _set(module.scale, p["scale"])
+        _set(module.bias, p["bias"])
+    elif isinstance(module, MultiHeadAttention):
+        for name in ("query", "key", "value", "out"):
+            _dense(getattr(module, name), p[name]["kernel"])
+    elif isinstance(module, TransformerBlock):
+        for name in ("ln1", "attn", "ln2"):
+            _load(getattr(module, name), p[name])
+        for name in ("gate", "up", "down"):
+            _dense(getattr(module, name), p[name]["kernel"])
+    elif isinstance(module, TransformerLM):
+        _set(module.embed, p["embed"]["embedding"])
+        _set(module.pos, p["pos"]["embedding"])
+        for i, block in enumerate(module.blocks):
+            _load(block, p[f"block{i}"])
+        _load(module.ln_f, p["ln_f"])
+        _dense(module.lm_head, p["lm_head"]["kernel"])
+    elif isinstance(module, QuantDense):
+        _dense(module.weight, p["kernel"])
+        if module.bias is not None:
+            _set(module.bias, p["bias"])
+    else:
+        raise TypeError(f"no flax layout known for {type(module).__name__}")
+
+
+def load_flax_params(module: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Copy a flax variable tree (nested dicts of numpy arrays, with or
+    without the top-level ``"params"``) into ``module`` (a
+    :class:`TransformerLM`, :class:`TransformerBlock`,
+    :class:`MultiHeadAttention`, :class:`LayerNorm` or
+    :class:`QuantDense`); returns the module."""
+    _load(module, variables.get("params", variables))
+    return module
+
+
+def transformer_lm_from_flax(variables: Mapping, **config) -> TransformerLM:
+    """A :class:`TransformerLM` built from ``config`` (the flax module's
+    arguments, plus ``device``) holding the flax model's weights."""
+    return load_flax_params(TransformerLM(**config), variables)
+
+
+def quant_dense_from_flax(variables: Mapping, features: int, **config) -> QuantDense:
+    """A :class:`QuantDense` holding the flax module's kernel (and bias);
+    ``in_features`` is read from the kernel."""
+    p = variables.get("params", variables)
+    in_features = np.asarray(p["kernel"]).shape[0]
+    return load_flax_params(QuantDense(features, in_features=in_features, **config), variables)

@@ -10,7 +10,12 @@ Tolerances, as in chip_smoke.py: moments mean within 1e-5 of the column's
 spread, M2 1e-4 relative; cdist squared distances within 2e-5 of
 |x|^2 + |y|^2 (the error scale of an f32 GEMM-form expansion), rbf the
 same times gamma; Lloyd counts exact on separated blobs, sums within 1e-4
-of the sum of |x|, and two runs bit-identical.
+of the sum of |x|, and two runs bit-identical. Flash attention: in f32, O
+within 2e-5 max|v| (both sum exact-f32 products in other orders); in bf16,
+O within 2^-7 max|v| (each output is rounded to bf16, one ulp of
+|O| <= max|v| is 2^-8 max|v|, and a probability near a bf16 rounding
+boundary may round the other way); the LSE within 1e-5 (1 + |lse|) in both
+(its products are exact in f32). The int8 GEMM is bit-identical.
 """
 
 import os
@@ -26,7 +31,11 @@ import torch
 import heat_tpu_torch as htt
 from heat_tpu_torch.cluster import cuda_lloyd
 from heat_tpu_torch.core import communication, cuda_moments
+from heat_tpu_torch.core.linalg import cuda_quant, quantize_int8
+from heat_tpu_torch.parallel import cuda_attention
 from heat_tpu_torch.spatial import cuda_cdist
+
+ARRAY_PATH_KERNELS = ("moments", "cdist", "lloyd")
 
 pytestmark = pytest.mark.cuda
 
@@ -123,7 +132,92 @@ def test_main_path_on_card_launches_every_kernel(dev):
     km = htt.cluster.KMeans(n_clusters=4, init="random", random_state=0, max_iter=10).fit(x)
     assert km.labels_.larray.is_cuda
     counts = htt.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[name] > 0 for name in ARRAY_PATH_KERNELS), counts
+
+
+def _flash_close(dev, b, t_q, t_k, h, d, dtype, causal, kv_valid):
+    g = torch.Generator(device=dev).manual_seed(t_q + d)
+    q = torch.randn((b, t_q, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, t_k, h, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, t_k, h, d), generator=g, device=dev).to(dtype)
+    scale = 1.0 / d ** 0.5
+    o_k, lse_k = cuda_attention._flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
+    o_k2 = cuda_attention._flash_forward(q, k, v, scale, causal, kv_valid)
+    o_p, lse_p = cuda_attention.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                                      kv_valid=kv_valid, return_lse=True)
+    assert o_k.shape == o_p.shape and o_k.dtype == dtype and lse_k.shape == (b, h, t_q)
+    tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * v.float().abs().max()
+    assert bool(((o_k.float() - o_p.float()).abs() <= tol).all())
+    assert bool(((lse_k - lse_p).abs() <= 1e-5 * (1 + lse_p.abs())).all())
+    assert torch.equal(o_k, o_k2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [24, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_matches_plain_ragged(dev, dtype, d, causal):
+    _flash_close(dev, 2, 1000, 1337, 3, d, dtype, causal, 900)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 256, 4, 64), (1, 1, 1, 8), (1, 65, 2, 100)])
+def test_flash_kernel_matches_plain_causal_bf16(dev, b, t, h, d):
+    _flash_close(dev, b, t, t, h, d, torch.bfloat16, True, t)
+
+
+def test_flash_kernel_fully_masked_rows(dev):
+    q = torch.randn((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    o, lse = cuda_attention._flash_forward(q, q, q, 0.125, False, 0, return_lse=True)
+    assert bool((o == 0).all()) and bool((lse == 1e30).all())
+
+
+def test_flash_kernel_rejects_wide_heads(dev):
+    q = torch.randn((1, 8, 1, 129), device=dev)
+    with pytest.raises(ValueError, match="128"):
+        cuda_attention.flash_attention(q, q, q)
+
+
+def test_flash_backward_raises(dev):
+    q = torch.randn((1, 64, 2, 32), device=dev, requires_grad=True)
+    out = cuda_attention.flash_attention(q, q.detach(), q.detach(), causal=True)
+    with pytest.raises(NotImplementedError, match="K7a"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("m,n,k", [(1000, 1000, 999), (1, 1, 1), (129, 4097, 512), (300, 77, 33)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_bit_identical_to_plain(dev, m, n, k, out_dtype):
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    qa, sa = quantize_int8(torch.randn((m, k), generator=g, device=dev), axis=1)
+    qb, sb = quantize_int8(torch.randn((k, n), generator=g, device=dev), axis=0)
+    got = cuda_quant.int8_gemm(qa, sa, qb, sb, out_dtype)
+    want = cuda_quant.int8_gemm_plain(qa, sa, qb, sb, out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_int8_kernel_extreme_values_bit_identical(dev):
+    """All operands at +-127 and -127: the largest sums the accumulator holds."""
+    qa = torch.full((256, 4096), -127, dtype=torch.int8, device=dev)
+    qb = torch.full((4096, 128), 127, dtype=torch.int8, device=dev)
+    qb[:, ::2] = -127
+    sa = torch.rand((256, 1), device=dev)
+    sb = torch.rand((1, 128), device=dev)
+    assert torch.equal(cuda_quant.int8_gemm(qa, sa, qb, sb), cuda_quant.int8_gemm_plain(qa, sa, qb, sb))
+
+
+def test_lm_forward_launches_flash_once_per_layer(dev):
+    kw = dict(vocab_size=100, d_model=64, num_heads=4, num_layers=3, max_len=128,
+              dtype=torch.bfloat16, device=dev)
+    flash = htt.nn.TransformerLM(**kw, attn_impl="flash", generator=torch.Generator(dev).manual_seed(0))
+    local = htt.nn.TransformerLM(**kw, attn_impl="local", generator=torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, 100, (2, 128), device=dev)
+    htt.reset_launch_counts()
+    with torch.inference_mode():
+        got = flash(tokens)
+        assert htt.launch_counts()["flash_fwd"] == 3
+        want = local(tokens)
+    assert got.shape == (2, 128, 100) and got.dtype == torch.bfloat16
+    err = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert err <= 2e-2, err
 
 
 _DATA = """
@@ -156,7 +250,7 @@ def run(ht, device):
         res[name + "_centers"] = km.cluster_centers_.numpy()
         res[name + "_labels"] = km.labels_.numpy()
         res[name + "_n_iter"] = np.array(km.n_iter_)
-    res["launches"] = np.array(list(ht.launch_counts().values()))
+    res["launches"] = np.array([ht.launch_counts()[n] for n in ("moments", "cdist", "lloyd")])
     return res
 """
 

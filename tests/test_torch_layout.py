@@ -3,7 +3,11 @@
 For every mesh size the JAX package can build on the 8-device CPU mesh,
 ``chunk``, ``lshape_map`` and ``counts_displs`` of heat_tpu_torch (as
 functions of an explicit world size) must equal heat_tpu's
-``MeshCommunication`` answers."""
+``MeshCommunication`` answers. The import rule of the port is checked
+here too."""
+
+import ast
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -36,6 +40,43 @@ def test_chunk_lshape_map_counts_displs_match(p, n):
         for r in range(p):
             assert tcomm.chunk(gshape, split, r, p) == ref.chunk(gshape, split, r)
     assert tcomm.counts_displs(n, p) == ref.counts_displs(n)
+
+
+_REPO = Path(__file__).resolve().parent.parent
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "heat_tpu")
+
+
+def _port_sources():
+    return sorted((_REPO / "heat_tpu_torch").rglob("*.py")) + [_REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """The top-level package of every import in ``path``, with its line."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_imports_no_jax_flax_or_heat_tpu():
+    """The port and chip_smoke.py run where there is no jax: no module of
+    heat_tpu_torch and no line of chip_smoke.py imports jax, flax or the JAX
+    package (heat_tpu_torch itself is fine)."""
+    sources = _port_sources()
+    assert len(sources) > 30
+    found = [f"{p.relative_to(_REPO)}:{line} imports {root}"
+             for p in sources for root, line in _imported_roots(p) if root in _FORBIDDEN]
+    assert not found, found
+
+
+def test_import_rule_catches_a_forbidden_import(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import os\nfrom heat_tpu.core import linalg\nimport heat_tpu_torch\n"
+                   "def f():\n    import jax.numpy as jnp\n")
+    roots = {root for root, _ in _imported_roots(bad)}
+    assert roots & set(_FORBIDDEN) == {"heat_tpu", "jax"}
 
 
 @pytest.fixture
