@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
   2. every kernel against its plain PyTorch version on the card, at the
      paths' shapes and at ragged shapes, with the stated tolerances, the
      kernel's, the plain version's and (where one PyTorch call computes the
-     same function) the library call's times, and the bound;
+     same function) the library call's times, and the bound; the flash
+     backward (K7a, K7b and K8) also through autograd, and two-pass against
+     fused over sequence lengths;
   3. the array path at bench.py's sizes through the user entry points:
      array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
      (bench.py's fit: randn data, init='random', random_state=1, 50
@@ -29,7 +31,13 @@ Phases, each printing JSON lines:
      (vocab 32768, d_model 1024, 16 heads, 12 layers, bf16, flash
      attention) answers three requests of 8 x 1024 tokens, checked against
      the same weights with the local core and in float32, and for
-     causality; then one request under the profiler.
+     causality; then one request under the profiler;
+  7. the training path: the same model trains as bench.py's lm_step does
+     (remat, bf16, the flash core with its two-pass backward, AdamW), one
+     warm-up step and 8 steps on one batch, the loss falling and the
+     kernels' launches counted per step; one step's gradients against the
+     local core in bf16 and f32, the fused backward and remat off; peak
+     memory with and without remat; one step under the profiler.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -244,6 +252,15 @@ def main():
     # without the LSE must equal the output with it, bit for bit.
     import torch.nn.functional as F
 
+    def live_pairs(b, t_q, t_k, h, causal, kv_valid):
+        """The (row, key) pairs this run's masks leave live, and the key rows
+        that any row sees."""
+        kv_end = min(kv_valid, t_k)
+        rows = torch.arange(t_q, dtype=torch.float64)
+        live = (torch.clamp(rows + 1, max=kv_end) if causal
+                else torch.full_like(rows, kv_end)).sum().item()
+        return b * h * live, (min(kv_end, t_q) if causal else kv_end)
+
     def flash_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps):
         q = torch.randn((b, t_q, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, t_k, h, d), generator=gen, device=dev).to(dtype)
@@ -260,13 +277,7 @@ def main():
         lse_err = ((lse_k - lse_p).abs() / (1e-5 * (1 + lse_p.abs()))).max().item()
         same = bool(torch.equal(o_k, o_k2))
         del o_p, lse_p, o_k2
-        # the (row, key) pairs this run's masks leave live
-        kv_end = min(kv_valid, t_k)
-        rows = torch.arange(t_q, dtype=torch.float64)
-        live = (torch.clamp(rows + 1, max=kv_end) if causal
-                else torch.full_like(rows, kv_end)).sum().item()
-        pairs = b * h * live
-        kv_rows = min(kv_end, t_q) if causal else kv_end
+        pairs, kv_rows = live_pairs(b, t_q, t_k, h, causal, kv_valid)
         esize = q.element_size()
         nbytes = (2 * b * t_q * h * d + 2 * b * kv_rows * h * d) * esize
         fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
@@ -299,6 +310,164 @@ def main():
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 flash_case("ragged", 2, 1000, 1337, 3, d, dtype, causal, 900, 3)
+
+    # --------------------------------------------------------- K7a, K7b, K8
+    # The backward kernels against the plain backward on the same inputs
+    # (O and LSE from K6). Tolerances, against each gradient's largest
+    # magnitude in the plain version: in f32 within 2e-5 (exact f32 products
+    # summed in other orders; K8 adds dQ by f32 atomics). In bf16 both round
+    # the same p and dS to bf16 before their products, but p comes from
+    # ex2.approx against exp and the scores sum in other orders, so a value
+    # near a bf16 rounding boundary may round the other way (one bf16 ulp is
+    # 2^-8 relative) and each output rounds to bf16 (2^-9): relative RMS
+    # within 2e-3 and the largest error within 2^-6. A fully masked input
+    # (kv_valid = 0) gives gradients of exactly 0. Two runs of K7a and K7b,
+    # and K8's dK and dV, agree bit for bit; K8's dQ is a sum of f32 atomics
+    # whose order changes from run to run, so it is held to the tolerance.
+    # The library time is SDPA's backward: its forward and backward less its
+    # forward (no kv_valid mask there, so only where kv_valid >= T_k).
+    from heat_tpu_torch.parallel.cuda_attention import (
+        _bwd_operands, _flash_bwd, _flash_bwd_fused, _launch_bwd, flash_attention,
+        flash_attention_bwd_plain)
+
+    def grad_errors(got, want, dtype):
+        """Per gradient: the largest error, over the peak, relative RMS, and
+        whether it is within the tolerance."""
+        out = {}
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            x, w = x.float(), w.float()
+            peak = w.abs().max().item()
+            err = (x - w).abs().max().item()
+            if peak == 0.0:
+                out[name] = {"max_abs_err": err, "ok": err == 0.0}
+                continue
+            rel = ((x - w).norm() / w.norm()).item()
+            ok = (err <= 2e-5 * peak if dtype == torch.float32
+                  else rel <= 2e-3 and err <= 2.0 ** -6 * peak)
+            out[name] = {"max_abs_err": err, "max_over_peak": err / peak, "rel_rms": rel, "ok": ok}
+        return out
+
+    def sdpa_bwd_ms(q, k, v, do, causal, scale, reps):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale).backward(dot)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
+
+        return time_ms(fwd_bwd, reps) - time_ms(fwd, reps)
+
+    def flash_bwd_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps, timed=False):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, t_q, h, d), (b, t_k, h, d), (b, t_k, h, d),
+                                     (b, t_q, h, d)))
+        scale = 1.0 / d ** 0.5
+        o, lse = _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
+        args = (q, k, v, o, lse, do, scale, causal, kv_valid)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                         kv_valid=kv_valid)
+        two, two2 = _flash_bwd(*args), _flash_bwd(*args)
+        fused, fused2 = _flash_bwd_fused(*args), _flash_bwd_fused(*args)
+        torch.cuda.synchronize()
+        err_two, err_fused = grad_errors(two, want, dtype), grad_errors(fused, want, dtype)
+        repeat_two = all(torch.equal(x, y) for x, y in zip(two, two2))
+        repeat_fused_kv = all(torch.equal(x, y) for x, y in zip(fused[1:], fused2[1:]))
+        fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
+                  "causal": causal, "kv_valid": kv_valid, "two_pass": err_two, "fused": err_fused,
+                  "two_pass_repeat_bitwise": repeat_two,
+                  "fused_dk_dv_repeat_bitwise": repeat_fused_kv,
+                  "fused_dq_repeat_bitwise": torch.equal(fused[0], fused2[0]),
+                  "tolerance": {"f32": "max err <= 2e-5 peak",
+                                "bf16": "rel RMS <= 2e-3 and max err <= 2^-6 peak",
+                                "fully masked": "exactly 0"}}
+        del want, two2, fused2
+        ok = (all(e["ok"] for e in (*err_two.values(), *err_fused.values()))
+              and repeat_two and repeat_fused_kv)
+        kernels = None
+        if timed:
+            qq, kk, vv, dd_o, lse_c, dd = _bwd_operands(q, k, v, o, lse, do)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            dq32 = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+
+            def launch(name, outs):
+                return lambda: _launch_bwd(name, qq, kk, vv, dd_o, lse_c, dd, *outs, scale,
+                                           causal, kv_valid)
+
+            plain_ms = time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, scale=scale, kv_valid=kv_valid), 2, warmup=1)
+            library_ms = sdpa_bwd_ms(q, k, v, do, causal, scale, reps) if kv_valid >= t_k else None
+            fields["two_pass_ms"] = time_ms(lambda: _flash_bwd(*args), reps)
+            fields["fused_ms"] = time_ms(lambda: _flash_bwd_fused(*args), reps)
+            fields["plain_ms"], fields["library_ms"] = plain_ms, library_ms
+            pairs, kv_rows = live_pairs(b, t_q, t_k, h, causal, kv_valid)
+            es = q.element_size()
+            reads = (2 * b * t_q * h * d + 2 * b * kv_rows * h * d) * es + 2 * b * h * t_q * 4
+            kv_out = 2 * b * t_k * h * d * es
+            rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+            kernels = {}
+            for name, outs, per_pair, nbytes, err in (
+                    ("flash_bwd_dq", (dq, None, None), 6, reads + b * t_q * h * d * es,
+                     err_two["dq"]["max_abs_err"]),
+                    ("flash_bwd_dkv", (None, dk, dv), 8, reads + kv_out,
+                     max(err_two["dk"]["max_abs_err"], err_two["dv"]["max_abs_err"])),
+                    ("flash_bwd_fused", (dq32, dk, dv), 10, reads + kv_out + 4 * b * t_q * h * d,
+                     max(e["max_abs_err"] for e in err_fused.values()))):
+                ops = per_pair * d * pairs
+                bound_ms, bound_by = bound(nbytes, ops, rate)
+                kernels[name] = {"kernel_ms": time_ms(launch(name, outs), reps),
+                                 "plain_ms": plain_ms, "library_ms": library_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "operations": ops,
+                                 "exponentials": pairs, "bytes": nbytes, "max_abs_err": err}
+            fields["kernels"] = kernels
+        check(f"flash_bwd {label}", ok, **fields)
+        return kernels
+
+    report.update(flash_bwd_case("LM shape", 8, 1024, 1024, 16, 64, torch.bfloat16, True, 1024,
+                                 20, timed=True))
+    attention_bwd = flash_bwd_case("attention_bwd shape", 4, 4096, 4096, 8, 128, torch.bfloat16,
+                                   True, 4096, 10, timed=True)
+    emit({"phase": "flash_bwd attention_bwd shape", "kernels": attention_bwd})
+    for d in (24, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                flash_bwd_case("ragged", 2, 1000, 1337, 3, d, dtype, causal, 900, 3)
+    flash_bwd_case("fully masked", 2, 100, 100, 2, 64, torch.bfloat16, False, 0, 3)
+
+    # the composed autograd path, flash_attention(...).backward(g): two-pass
+    # bit-identical to the direct call (the same K6 forward feeds the same
+    # kernels), fused within the tolerance, both against the plain backward
+    q, k, v, g = (torch.randn((8, 1024, 16, 64), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    o, lse = _flash_forward(q, k, v, 0.125, True, 1024, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, g, causal=True, scale=0.125)
+    direct = _flash_bwd(q, k, v, o, lse, g, 0.125, True, 1024)
+    for impl in ("two_pass", "fused"):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        flash_attention(*leaves, causal=True, bwd_impl=impl).backward(g)
+        got = [x.grad for x in leaves]
+        errs = grad_errors(got, want, torch.bfloat16)
+        same = all(torch.equal(x, y) for x, y in zip(got, direct))
+        check(f"flash_attention autograd {impl} (LM shape) vs plain backward",
+              all(e["ok"] for e in errs.values()) and (same or impl == "fused"),
+              errors=errs, bitwise_equal_to_direct_two_pass=same)
+    del q, k, v, g, o, lse, want, direct, leaves, got
+
+    # "auto": two-pass against fused over T at the LM's widths, for the
+    # port's shape rule (no timing at run time)
+    auto_ms = {}
+    for b, t, h, d in ((8, 256, 16, 64), (8, 512, 16, 64), (8, 1024, 16, 64), (8, 2048, 16, 64),
+                       (2, 4096, 16, 64), (4, 4096, 8, 128)):
+        q, k, v, g = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        o, lse = _flash_forward(q, k, v, d ** -0.5, True, t, return_lse=True)
+        args = (q, k, v, o, lse, g, d ** -0.5, True, t)
+        auto_ms[f"{b}x{t}x{h}x{d}"] = {"two_pass_ms": time_ms(lambda: _flash_bwd(*args), 10),
+                                       "fused_ms": time_ms(lambda: _flash_bwd_fused(*args), 10)}
+    emit({"phase": "flash_bwd two-pass vs fused, bf16 causal", "ms": auto_ms})
+    del q, k, v, g, o, lse, args
 
     # ---------------------------------------------------------------- K5
     # bit-identical: the int32 accumulation is exact and the epilogue
@@ -524,7 +693,7 @@ def main():
     same = bool(torch.equal(km.cluster_centers_.larray, km2.cluster_centers_.larray)
                 and torch.equal(km.labels_.larray, km2.labels_.larray))
     check("kmeans fit twice: bit-identical centers and labels", same, n_iter=km2.n_iter_)
-    del km, km2
+    del km, km2, xm_t, xc_t, xk_t
 
 
     # ----------------------------------------------------------- W8A8 path
@@ -667,6 +836,162 @@ def main():
     check("LM profile saw device time", device_ms > 0, device_ms=device_ms)
     del logits, lm
 
+    # ------------------------------------------------------- training path
+    # bench.py's lm_step (bench.py:533-593) at full width, as user code:
+    # TransformerLM forward, the mean cross-entropy of the next token,
+    # backward, and AdamW with optax.adamw's defaults (lr 1e-3, betas 0.9 and
+    # 0.999, eps 1e-8, weight decay 1e-4 on every parameter); remat=True,
+    # bf16 compute, f32 parameters, flash attention with the two-pass
+    # backward. One warm-up step, then 8 steps on one batch of 8 x 1024
+    # tokens from a numpy seed, each step ending in a synchronize.
+    vocab = cfg["vocab_size"]
+    train_cfg = dict(cfg, attn_impl="flash", dtype=torch.bfloat16, remat=True,
+                     flash_bwd_impl="two_pass")
+    per_step = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "flash_bwd_fused": 0}
+    backward_kernels = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+
+    def lm_loss(model, tokens):
+        logits = model(tokens)
+        return F.cross_entropy(logits[:, :-1].float().reshape(-1, vocab),
+                               tokens[:, 1:].reshape(-1))
+
+    allocated_before = torch.cuda.memory_allocated()
+    lm = ht.nn.TransformerLM(**train_cfg, generator=torch.Generator(device=dev).manual_seed(0))
+    init_state = {name: t.detach().clone() for name, t in lm.state_dict().items()}
+    batch = torch.from_numpy(np.random.default_rng(1).integers(0, vocab, (8, 1024))).to(dev)
+    tokens_per_step = batch.numel()
+    opt = torch.optim.AdamW(lm.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+
+    def train_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(lm, batch)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item(), (time.perf_counter() - t) * 1e3
+
+    warm_loss, warm_ms = train_step()  # cuBLAS, the allocator and AdamW's state
+    losses, step_ms, step_launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    train_launches = dict.fromkeys(per_step, 0)
+    for _ in range(8):
+        ht.reset_launch_counts()
+        loss, ms = train_step()
+        counts = {name: ht.launch_counts()[name] for name in per_step}
+        losses.append(loss)
+        step_ms.append(ms)
+        step_launches.append(counts)
+        for name in per_step:
+            train_launches[name] += counts[name]
+    peak_remat = torch.cuda.max_memory_allocated()
+    lm.remat = False
+    torch.cuda.reset_peak_memory_stats()
+    no_remat_loss, no_remat_ms = train_step()
+    peak_no_remat = torch.cuda.max_memory_allocated()
+    lm.remat = True
+    emit({"phase": "training path", "steps": len(losses), "warm_up": {"loss": warm_loss,
+          "wall_ms": warm_ms}, "losses": losses, "step_wall_ms": step_ms,
+          "tokens_per_s": [tokens_per_step / (ms * 1e-3) for ms in step_ms],
+          "model_tflop_s": [6.0 * matmul_params * tokens_per_step / (ms * 1e-3) / 1e12
+                            for ms in step_ms],
+          "launches_per_step": step_launches[0], "launches": train_launches,
+          "max_memory_allocated_gib": {"remat": peak_remat / 2 ** 30,
+                                       "no_remat": peak_no_remat / 2 ** 30,
+                                       "allocated_before_the_model": allocated_before / 2 ** 30,
+                                       "initial_weights_kept_for_the_checks":
+                                           sum(t.numel() * t.element_size()
+                                               for t in init_state.values()) / 2 ** 30},
+          "no_remat_step": {"loss": no_remat_loss, "wall_ms": no_remat_ms}})
+    check("training: every loss finite, the 8th below the first",
+          all(np.isfinite(losses)) and losses[-1] < losses[0], losses=losses)
+    check("training: launches per step flash_fwd 24, dq 12, dkv 12, fused 0",
+          all(c == per_step for c in step_launches), launches_per_step=step_launches)
+
+    # one step's gradients from the same weights and tokens, held against
+    # the local core (bf16 and f32), fused against two-pass, and remat off
+    # against on. Relative RMS per tensor and over all of them, and the
+    # cosine similarity over all of them. Gates: flash against local in
+    # bf16, 5e-2 global and 1e-1 per tensor (both round every activation to
+    # bf16 at the same points, but the attention cores sum and round p and
+    # dS their own ways, and the error compounds over 12 layers forward and
+    # back: the logits alone differ by ~1.5%); against f32, the same gates
+    # (every activation of the bf16 run is rounded, ~2^-9 each); fused
+    # against two-pass, 3e-2 and 5e-2: only dQ's summation order differs,
+    # which flips a bf16 rounding of dQ here and there, but each layer
+    # below re-rounds every activation gradient to bf16, so the difference
+    # compounds over 12 layers as the cores' does (~1% seen); two fused runs
+    # differ the same way (K8's atomics), and are held to the same gates;
+    # remat off against on, 1e-3 for both (the recompute repeats the
+    # forward's arithmetic; it is reported whether bit-identical).
+    def grads_of(**over):
+        model = ht.nn.TransformerLM(**dict(train_cfg, **over))
+        model.load_state_dict(init_state)
+        loss = lm_loss(model, batch)
+        loss.backward()
+        grads = {name: p.grad for name, p in model.named_parameters()}
+        return loss.item(), grads
+
+    def compare(label, got, ref, gate_global, gate_tensor):
+        num = den = dot = norm_got = 0.0
+        worst, worst_name = 0.0, None
+        for name, r in ref.items():
+            a, r = got[name].double(), r.double()
+            d2, r2 = (a - r).pow(2).sum().item(), r.pow(2).sum().item()
+            rel = (d2 / r2) ** 0.5 if r2 else d2 ** 0.5
+            if rel > worst:
+                worst, worst_name = rel, name
+            num, den = num + d2, den + r2
+            dot, norm_got = dot + (a * r).sum().item(), norm_got + a.pow(2).sum().item()
+        rel_global = (num / den) ** 0.5
+        bitwise = all(torch.equal(got[name], ref[name]) for name in ref)
+        check(f"training gradients: {label}", rel_global <= gate_global and worst <= gate_tensor,
+              rel_rms_global=rel_global, worst_tensor=worst_name, worst_tensor_rel_rms=worst,
+              cosine=dot / (norm_got * den) ** 0.5, bit_identical=bitwise,
+              tolerance={"global": gate_global, "per_tensor": gate_tensor})
+
+    ht.reset_launch_counts()
+    ref_loss, ref_grads = grads_of()
+    check("training gradients: the reference step launched the two-pass kernels",
+          {name: ht.launch_counts()[name] for name in per_step} == per_step,
+          launches={name: ht.launch_counts()[name] for name in per_step})
+    for label, over, gates in (("flash bf16 vs local bf16", {"attn_impl": "local"}, (5e-2, 1e-1)),
+                               ("flash bf16 vs local f32",
+                                {"attn_impl": "local", "dtype": torch.float32}, (5e-2, 1e-1)),
+                               ("remat off vs on", {"remat": False}, (1e-3, 1e-3))):
+        other_loss, other = grads_of(**over)
+        emit({"phase": f"training gradients {label}", "loss": ref_loss, "other_loss": other_loss})
+        compare(label, ref_grads, other, *gates)
+        del other
+    ht.reset_launch_counts()
+    _, fused_grads = grads_of(flash_bwd_impl="fused")
+    fused_launches = {name: ht.launch_counts()[name] for name in per_step}
+    check("training: fused step launched flash_bwd_fused 12 times, dq and dkv 0",
+          fused_launches == {"flash_fwd": 24, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                             "flash_bwd_fused": 12}, launches=fused_launches)
+    compare("fused vs two-pass", fused_grads, ref_grads, 3e-2, 5e-2)
+    train_launches["flash_bwd_fused"] = fused_launches["flash_bwd_fused"]
+    del ref_grads
+    compare("fused vs a second fused run", grads_of(flash_bwd_impl="fused")[1], fused_grads,
+            3e-2, 5e-2)
+    del fused_grads
+
+    # one training step under the profiler (device activity only)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = train_step()
+    on_device = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            on_device[ev.key[:90]] = ev.self_device_time_total / 1e3
+    device_ms = sum(on_device.values())
+    emit({"phase": "training step profile", "wall_ms": prof_wall, "device_ms": device_ms,
+          "device_busy_share": device_ms / prof_wall,
+          "top_device_ms": dict(sorted(on_device.items(), key=lambda kv: -kv[1])[:16])})
+    check("training profile saw device time", device_ms > 0, device_ms=device_ms)
+    del lm, opt, init_state
+
     sources = {
         "moments": ("heat_tpu_torch/csrc/moments.cu", "heat_tpu/core/pallas_moments.py:64"),
         "cdist": ("heat_tpu_torch/csrc/cdist.cu", "heat_tpu/spatial/pallas_cdist.py:80"),
@@ -674,8 +999,17 @@ def main():
         "flash_fwd": ("heat_tpu_torch/csrc/flash_fwd.cu",
                       "heat_tpu/parallel/pallas_attention.py:46"),
         "int8_gemm": ("heat_tpu_torch/csrc/int8_gemm.cu", "heat_tpu/core/linalg/quant.py:49"),
+        "flash_bwd_dq": ("heat_tpu_torch/csrc/flash_bwd.cu",
+                         "heat_tpu/parallel/pallas_attention.py:323"),
+        "flash_bwd_dkv": ("heat_tpu_torch/csrc/flash_bwd.cu",
+                          "heat_tpu/parallel/pallas_attention.py:364"),
+        "flash_bwd_fused": ("heat_tpu_torch/csrc/flash_bwd.cu",
+                            "heat_tpu/parallel/pallas_attention.py:436"),
     }
-    launches = {**launches, **w8a8_launches, **lm_launches}
+    launches = {**launches, **w8a8_launches, **lm_launches,
+                **{name: train_launches[name] for name in backward_kernels}}
+    check("training path launched every backward kernel",
+          all(launches[name] > 0 for name in backward_kernels), launches=launches)
     kernels = []
     for name, (src, tpu) in sources.items():
         r = report[name]

@@ -2,17 +2,18 @@
 
 Each source ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc``
 into ``build/heat_tpu_torch/lib<name>-<digest>.so`` beside the package
-(the digest covers the source, ``common.cuh`` and the flags, so an edited
-source builds anew), and loaded with ``ctypes``. :func:`build` starts one
-``nvcc`` per missing library, all at once. A build that fails raises
-:class:`KernelBuildError`; nothing falls back.
+(the digest covers the source, every ``csrc/*.cuh`` header and the flags,
+so an edited source or header builds anew), and loaded with ``ctypes``.
+:func:`build` starts one ``nvcc`` per missing library, all at once. A
+build that fails raises :class:`KernelBuildError`; nothing falls back.
 
 Every C entry takes its pointers and the stream as ``c_void_p`` and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
 
-The launch counts are plain integers per kernel, incremented by each
-wrapper where it launches its kernel and nowhere else, so that a run can
-show that its main path went through the kernels.
+The launch counts are plain integers per kernel (``KERNELS``; a source
+may hold several, as ``flash_bwd`` holds the three backward kernels),
+incremented by each wrapper where it launches its kernel and nowhere else,
+so that a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 __all__ = [
+    "KERNELS",
     "KernelBuildError",
     "SOURCES",
     "build",
@@ -39,7 +41,10 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "heat_tpu_torch"
-SOURCES = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm")
+SOURCES = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm", "flash_bwd")
+# the launch counters: one per kernel, named by source where it holds one
+KERNELS = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm",
+           "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +52,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 class KernelBuildError(RuntimeError):
@@ -66,7 +71,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -134,6 +139,8 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def count_launch(name: str) -> None:
+    if name not in _LAUNCHES:
+        raise KeyError(f"no launch counter for {name!r}; the kernels are {KERNELS}")
     _LAUNCHES[name] += 1
 
 
@@ -143,5 +150,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts(names: Optional[Iterable[str]] = None) -> None:
-    for name in (SOURCES if names is None else names):
+    for name in (KERNELS if names is None else names):
         _LAUNCHES[name] = 0

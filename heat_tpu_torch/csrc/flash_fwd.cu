@@ -43,12 +43,11 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float HALF_NEG = -5e29f;  // NEG_INF / 2: "still fully masked"
-constexpr float BIG = 1e30f;        // lse of a fully masked row
+using namespace heat;
 
 struct Params {
   const void* q;
@@ -89,85 +88,6 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ----------------------------------------------------------------- bf16
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copies rows [0, rows) x cols [0, d) of a (time, dim) slice with row
-// stride st into a 64 x DP shared tile of row stride DP + 8, zero-filling
-// the rest. VEC (d % 8 == 0, every row start 16-byte aligned): one 16-byte
-// cp.async per 8 values, zero-filled by the copy itself where out of range,
-// so the tile lands while the block computes. Otherwise plain loads and
-// stores, value by value.
-template <int DP, bool VEC>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                          long long st, int rows, int d, int tid) {
-  constexpr int ROWS = 64, NT = 128, CH = DP / 8, RS = DP + 8;
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / NT; ++i) {
-    const int idx = tid + i * NT;
-    const int r = idx / CH, c = (idx % CH) * 8;
-    if (VEC) {
-      const bool in = r < rows && c < d;
-      cp_async16(tile + r * RS + c, in ? src + r * st + c : src, in);
-    } else {
-      __align__(16) __nv_bfloat16 val[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        val[e] = (r < rows && c + e < d) ? src[r * st + c + e] : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(tile + r * RS + c) = *reinterpret_cast<uint4*>(val);
-    }
-  }
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x in one MUFU instruction (ex2.approx, ~2 ulp)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One 16-row x 64-key tile of a warp: scale and mask the scores s (the
 // accumulator fragments of Q K^T; this thread holds rows row[0], row[1] and
@@ -249,10 +169,10 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
   // the first K/V tile and the Q tile (in the second K slot) in flight at once
   if (n_tiles > 0) {
     const int rows = min(BK, p.t_k);
-    load_tile<DP, VEC>(kbuf, kp, p.k_st, rows, p.d, tid);
-    load_tile<DP, VEC>(vbuf, vp, p.v_st, rows, p.d, tid);
+    load_tile<64, DP, VEC>(kbuf, kp, p.k_st, rows, p.d, tid);
+    load_tile<64, DP, VEC>(vbuf, vp, p.v_st, rows, p.d, tid);
   }
-  load_tile<DP, VEC>(kbuf + TILE, qp, p.q_st, min(BQ, p.t_q - q0), p.d, tid);
+  load_tile<64, DP, VEC>(kbuf + TILE, qp, p.q_st, min(BQ, p.t_q - q0), p.d, tid);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -283,10 +203,10 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
     const __nv_bfloat16* vs = vbuf + (kt & 1) * TILE;
     if (kt + 1 < n_tiles) {  // the next tile lands in the other slot meanwhile
       const int rows = min(BK, p.t_k - k0 - BK);
-      load_tile<DP, VEC>(kbuf + ((kt + 1) & 1) * TILE, kp + (k0 + BK) * p.k_st, p.k_st, rows,
-                         p.d, tid);
-      load_tile<DP, VEC>(vbuf + ((kt + 1) & 1) * TILE, vp + (k0 + BK) * p.v_st, p.v_st, rows,
-                         p.d, tid);
+      load_tile<64, DP, VEC>(kbuf + ((kt + 1) & 1) * TILE, kp + (k0 + BK) * p.k_st, p.k_st,
+                             rows, p.d, tid);
+      load_tile<64, DP, VEC>(vbuf + ((kt + 1) & 1) * TILE, vp + (k0 + BK) * p.v_st, p.v_st,
+                             rows, p.d, tid);
     }
     cp_async_commit();
 
@@ -325,10 +245,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
     // bf16; V's B fragments come from its row-major tile by ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < DP / 8; j += 2) {
         uint32_t b[4];

@@ -25,16 +25,28 @@ truncated at two standard deviations; embeddings normal with std
 ``1/sqrt(d_model)``) from an explicit ``torch.Generator`` on the module's
 device (seeded 0 when none is given). ``interop.transformer_lm_from_flax``
 loads a flax model's weights instead.
+
+``TransformerLM(remat=True)`` is flax's ``nn.remat(TransformerBlock)``: each
+block runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
+so only its input is kept and the block is recomputed in the backward.
+``remat_policy="dots"`` is ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable``: the outputs of the non-batched
+products (``aten.mm``/``aten.addmm``, the ``F.linear`` calls) are saved and
+the rest is recomputed, through
+``torch.utils.checkpoint.create_selective_checkpoint_contexts``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.devices import sanitize_device
 from ..parallel import flash_attention, local_attention, ring_attention, ulysses_attention
@@ -159,12 +171,23 @@ class TransformerBlock(nn.Module):
         return x + F.linear(F.silu(gate) * up, self.down.to(self.dtype))
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the non-batched products'
+    outputs, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class TransformerLM(nn.Module):
     """Causal LM: token embedding → blocks → final LN → logits.
 
-    ``remat``/``remat_policy`` are accepted for the flax signature; they
-    trade backward FLOPs for activation memory and take effect with the
-    training slice (an inference forward keeps no activations)."""
+    ``remat`` checkpoints each block (only its input is kept; it is
+    recomputed in the backward), trading backward FLOPs for activation
+    memory; ``remat_policy="dots"`` keeps the blocks' projection outputs
+    too. Any other policy is full recompute, as in flax. Both act only when
+    the forward records a graph."""
 
     def __init__(self, vocab_size: int, d_model: int, num_heads: int, num_layers: int,
                  max_len: int = 2048, mlp_ratio: float = 4.0, attn_impl: str = "local",
@@ -193,6 +216,11 @@ class TransformerLM(nn.Module):
             raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
         x = F.embedding(tokens, self.embed).to(self.dtype)
         x = x + self.pos[:t].to(self.dtype)[None]
+        remat = self.remat and torch.is_grad_enabled()
+        kwargs = {}
+        if remat and self.remat_policy == "dots":
+            kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                     _save_dots)
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False, **kwargs) if remat else block(x)
         return F.linear(self.ln_f(x), self.lm_head.to(self.dtype))

@@ -1,23 +1,33 @@
-"""Flash attention: the forward kernel, its plain version and the public call.
+"""Flash attention: the forward and backward kernels, their plain versions
+and the public call.
 
-Counterpart of ``heat_tpu/parallel/pallas_attention.py`` (``_flash_forward``
-and ``flash_attention``). The kernel (``csrc/flash_fwd.cu``) replaces
-``_flash_kernel`` there: the f32 online softmax over K tiles, the causal
-and ``kv_valid`` masks, the causal tile skip and, on request, the
-log-sum-exp of each row. It reads the public ``(B, T, H, D)`` layout
-through strides, so nothing is transposed around it. Its tiles are its own
-compile-time choice (64 query rows by 64 keys in bf16, 16 by 32 in f32);
-``block_k`` keeps its meaning in the plain version, the K chunk of the
-online softmax, and is not read by the kernel. The JAX kernel's
-lane-broadcast ``(B, H, T_q_pad, 128)`` LSE layout and its padding of the
-head dim to 128 lanes are TPU artefacts: the LSE here is ``(B, H, T_q)``
-f32 and nothing is padded.
+Counterpart of ``heat_tpu/parallel/pallas_attention.py``. The kernels:
 
-On a CPU tensor the forward computes :func:`flash_attention_plain`, the
-same function in plain torch, which is also the kernel's oracle. On a CUDA
-tensor it launches the kernel or raises. The backward kernels (K7a, K7b,
-K8 in ROADMAP §2) come with the training slice; until then the backward
-raises.
+- ``csrc/flash_fwd.cu`` replaces ``_flash_kernel``: the f32 online softmax
+  over K tiles, the causal and ``kv_valid`` masks, the causal tile skip
+  and, on request, the log-sum-exp of each row;
+- ``csrc/flash_bwd.cu`` replaces the backward's three: ``_bwd_dq_kernel``
+  (``flash_bwd_dq``) and ``_bwd_dkv_kernel`` (``flash_bwd_dkv``), the
+  two-pass backward, and ``_bwd_fused_kernel`` (``flash_bwd_fused``), the
+  single pass. Each rebuilds the probabilities from the saved LSE as
+  ``_rebuild_probs`` and ``_bwd_block_terms`` do there.
+
+They read the public ``(B, T, H, D)`` layout through strides, so nothing is
+transposed or padded around them. Their tiles are their own compile-time
+choice; ``block_q`` and ``block_k`` keep their meaning only in the plain
+versions, as the K chunk of the online softmax and of the backward's sum.
+The JAX kernels' lane-broadcast ``(B, H, T_q_pad, 128)`` LSE layout and
+their padding of the head dim to 128 lanes are TPU artefacts: the LSE and
+``D`` here are ``(B, H, T_q)`` f32 and nothing is padded.
+
+``D = rowsum(f32(dO) * f32(O))``, the backward's prologue, is plain torch
+on both devices, as the JAX package computes it in XLA outside Pallas
+(``_bwd_prologue``).
+
+On a CPU tensor the forward and backward compute :func:`flash_attention_plain`
+and :func:`flash_attention_bwd_plain`, the same functions in plain torch,
+which are also the kernels' oracles. On a CUDA tensor they launch the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -31,59 +41,88 @@ import torch
 from .. import _build
 from .attention import NEG_INF
 
-__all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 _BIG = 1e30
 _LANES = 128
 _I32_MAX = 2 ** 31 - 1
+_BWD_IMPLS = ("two_pass", "fused", "auto")
+# "auto" takes the fused backward while T_q is at most this. On the H100, at
+# the LM's widths, fused was the faster at T = 256 in both runs measured,
+# tied or lost at T = 512, and two-pass wins from T = 1024 on (16-22%): the
+# fused kernel's dQ is a sum of f32 atomics over key tiles, whose traffic
+# grows with T (PERF.md §6)
+_FUSED_MAX_T_Q = 256
 
+_BWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
 _SIGNATURES = {
-    "heat_flash_fwd": [
+    "flash_fwd": {"heat_flash_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
-    ],
+    ]},
+    "flash_bwd": {f"heat_{name}": _BWD_ARGS
+                  for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")},
 }
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _kv_end(kv_valid: Optional[int], t_k: int) -> int:
+    return max(0, min(t_k if kv_valid is None else int(kv_valid), t_k))
+
+
+def _mask(q_pos, k_pos, kv_end, causal):
+    mask = (k_pos < kv_end)[None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    return mask
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = False, scale: Optional[float] = None,
                           kv_valid: Optional[int] = None, block_k: int = 1024,
                           return_lse: bool = False) -> Out:
-    """The kernel's function in plain torch: O ``(B, T_q, H, D)`` in q's
-    dtype and, with ``return_lse``, the log-sum-exp ``(B, H, T_q)`` f32
+    """The forward kernel's function in plain torch: O ``(B, T_q, H, D)`` in
+    q's dtype and, with ``return_lse``, the log-sum-exp ``(B, H, T_q)`` f32
     (``+1e30`` on fully masked rows). The products take the inputs widened
-    to f32 (exact for bf16), so on the card they need TF32 off."""
+    to f32 (exact for bf16), so on the card they need TF32 off. Float64
+    inputs are computed in float64 throughout (an oracle that autograd can
+    differentiate)."""
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kv_end = max(0, min(t_k if kv_valid is None else int(kv_valid), t_k))
+    kv_end = _kv_end(kv_valid, t_k)
     block_k = max(1, min(block_k, -(-t_k // _LANES) * _LANES))  # the JAX clamp
     dev = q.device
-    m = torch.full((b, h, t_q), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, t_q), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, t_q, h, d), dtype=torch.float32, device=dev)
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    m = torch.full((b, h, t_q), NEG_INF, dtype=wide, device=dev)
+    l = torch.zeros((b, h, t_q), dtype=wide, device=dev)
+    acc = torch.zeros((b, t_q, h, d), dtype=wide, device=dev)
     q_pos = torch.arange(t_q, device=dev)
-    qf = q.float()
+    qf = q.to(wide)
     for k0 in range(0, t_k, block_k):
         kb, vb = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.float()) * scale
-        k_pos = k0 + torch.arange(kb.shape[1], device=dev)
-        mask = (k_pos < kv_end)[None, :]
-        if causal:
-            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(wide)) * scale
+        mask = _mask(q_pos, k0 + torch.arange(kb.shape[1], device=dev), kv_end, causal)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
         p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
         alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
         l = alpha * l + p.sum(dim=-1)
-        p_mx = p if v.dtype == torch.float32 else p.to(v.dtype)
-        pv = torch.einsum("bhqk,bkhd->bqhd", p_mx.float(), vb.float())
+        p_mx = p if v.dtype == wide else p.to(v.dtype)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p_mx.to(wide), vb.to(wide))
         acc = acc * alpha.transpose(1, 2)[..., None] + pv
         m = m_new
     out = (acc / torch.where(l == 0.0, 1.0, l).transpose(1, 2)[..., None]).to(q.dtype)
@@ -92,6 +131,89 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
     lse = torch.where(l == 0.0, _BIG, m_safe + torch.log(torch.clamp(l, min=1e-38)))
     return out, lse
+
+
+def _row_terms(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(f32(dO) * f32(O))``, ``(B, H, T_q)`` f32 contiguous."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool, scale: float, kv_valid: Optional[int] = None,
+                              block_q: int = 512, block_k: int = 1024,
+                              fused: bool = False) -> Grads:
+    """The backward kernels' function in plain torch: ``(dQ, dK, dV)`` in the
+    dtypes of q, k and v, from the forward's O and ``(B, H, T_q)`` LSE and
+    the cotangent dO, blockwise over K chunks of ``block_k`` (clamped as the
+    JAX package clamps it). Per chunk, as ``_bwd_block_terms``:
+    ``p = where(mask, exp(s - lse), 0)`` with ``s = (q k^T) scale`` in f32,
+    ``dP = dO V^T``, ``dS = p (dP - D) scale``; for bf16 inputs p rounds to
+    dO's dtype before ``P^T dO`` and dS to q's before ``dS K`` and
+    ``dS^T Q``. Every sum is f32 and each output is cast once. The products
+    take the inputs widened to f32 (exact for bf16), so on the card they
+    need TF32 off.
+
+    ``fused`` selects the single-pass schedule and ``block_q`` the query
+    blocks of the JAX kernels; both change only the order in which the same
+    f32 terms are summed there, so here they change nothing."""
+    del block_q, fused
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    kv_end = _kv_end(kv_valid, t_k)
+    block_k = max(1, min(block_k, -(-t_k // _LANES) * _LANES))
+    dev = q.device
+    dd = _row_terms(o, do)[..., None]
+    lse = lse[..., None]
+    qf, dof = q.float(), do.float()
+    q_pos = torch.arange(t_q, device=dev)
+    dq = torch.zeros((b, t_q, h, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, t_k, h, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, t_k, h, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, t_k, block_k):
+        kb, vb = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
+        mask = _mask(q_pos, k0 + torch.arange(kb.shape[1], device=dev), kv_end, causal)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        p_mx = p if do.dtype == torch.float32 else p.to(do.dtype).float()
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vb)
+        ds = p * (dp - dd) * scale
+        ds_mx = ds if q.dtype == torch.float32 else ds.to(q.dtype).float()
+        dv[:, k0:k0 + block_k] = torch.einsum("bhqk,bqhd->bkhd", p_mx, dof)
+        dk[:, k0:k0 + block_k] = torch.einsum("bhqk,bqhd->bkhd", ds_mx, qf)
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds_mx, kb)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *more: torch.Tensor) -> None:
+    """Raise unless the kernels take these tensors: one CUDA device, all
+    float32 or all bfloat16, (B, T, H, D) shapes that agree, D <= 128 and
+    sizes inside 32-bit indices and grid dimensions."""
+    tensors = (q, k, v, *more)
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError(f"{what}: inputs lie on different devices: "
+                         f"{[str(x.device) for x in tensors]}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(x.dtype != q.dtype for x in tensors):
+        raise ValueError(f"{what} needs its inputs all float32 or all bfloat16, got "
+                         f"{[x.dtype for x in tensors]}")
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    if k.shape != (b, t_k, h, d) or v.shape != k.shape or any(x.shape != q.shape for x in more):
+        raise ValueError(f"{what}: shapes disagree: {[tuple(x.shape) for x in tensors]}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    if max(t_q, t_k) > _I32_MAX or b > 65535 or h > 65535:
+        raise ValueError(f"{what}: shape {tuple(q.shape)} x T_k={t_k} is past its limits")
+
+
+def _unit_stride(*tensors: torch.Tensor):
+    return [x if x.stride(-1) == 1 else x.contiguous() for x in tensors]
+
+
+def _strides(*tensors: torch.Tensor):
+    return [s for x in tensors for s in (x.stride(0), x.stride(1), x.stride(2))]
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -104,57 +226,140 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale, kv_valid=kv_valid,
                                      block_k=block_k, return_lse=return_lse)
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash kernel needs q, k, v all float32 or all bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    _check_inputs("flash kernel", q, k, v)
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
-    if k.shape != (b, t_k, h, d) or v.shape != k.shape:
-        raise ValueError(f"q, k, v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
-    if max(t_q, t_k) > _I32_MAX or b > 65535 or h > 65535:
-        raise ValueError(f"flash kernel: shape {tuple(q.shape)} x T_k={t_k} is past its limits")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = _unit_stride(q, k, v)
     out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
         if lse is not None:
             lse.fill_(_BIG)
         return (out, lse) if return_lse else out
-    strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1), x.stride(2))]
+    strides = _strides(q, k, v, out)
     bf16 = q.dtype == torch.bfloat16
     vec = bf16 and d % 8 == 0 and all(s % 8 == 0 for s in strides) and all(
         x.data_ptr() % 16 == 0 for x in (q, k, v))
-    lib = _build.library("flash_fwd", _SIGNATURES)
+    lib = _build.library("flash_fwd", _SIGNATURES["flash_fwd"])
     with torch.cuda.device(q.device):
         rc = lib.heat_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             (ctypes.c_longlong * 12)(*strides), b, h, t_q, t_k, d,
-            max(0, min(int(kv_valid), t_k)), int(bool(causal)), float(scale), int(bf16),
+            _kv_end(kv_valid, t_k), int(bool(causal)), float(scale), int(bf16),
             int(vec), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_fwd kernel")
     _build.count_launch("flash_fwd")
     return (out, lse) if return_lse else out
 
 
+def _launch_bwd(name: str, q, k, v, do, lse, dd, dq, dk, dv, scale, causal, kv_valid) -> None:
+    """One backward kernel (``name`` is its launch counter and C entry); the
+    outputs it does not write may be None."""
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    outs = [x if x is not None else q for x in (dq, dk, dv)]  # strides only
+    strides = _strides(q, k, v, do, *outs)
+    bf16 = q.dtype == torch.bfloat16
+    vec = bf16 and d % 8 == 0 and all(s % 8 == 0 for s in strides[:12]) and all(
+        x.data_ptr() % 16 == 0 for x in (q, k, v, do))
+    lib = _build.library("flash_bwd", _SIGNATURES["flash_bwd"])
+    ptr = (lambda x: x.data_ptr() if x is not None else None)
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"heat_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), ptr(dq), ptr(dk), ptr(dv), (ctypes.c_longlong * 21)(*strides),
+            b, h, t_q, t_k, d, _kv_end(kv_valid, t_k), int(bool(causal)), float(scale),
+            int(bf16), int(vec), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, f"{name} kernel")
+    _build.count_launch(name)
+
+
+def _bwd_operands(q, k, v, o, lse, do):
+    """Checks the backward's operands for the kernels and returns them with
+    unit stride over D, and D (``(B, H, T_q)`` f32)."""
+    _check_inputs("flash backward kernel", q, k, v, o, do)
+    b, t_q, h, _ = q.shape
+    if lse.shape != (b, h, t_q) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash backward kernel: lse must be ({b}, {h}, {t_q}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    q, k, v, do = _unit_stride(q, k, v, do)
+    return q, k, v, do, lse.contiguous(), _row_terms(o, do)
+
+
+def _flash_bwd(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
+               block_k=1024) -> Grads:
+    """The two-pass backward: dQ by K7a (``flash_bwd_dq``), then dK and dV
+    by K7b (``flash_bwd_dkv``) on the card; the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                         kv_valid=kv_valid, block_q=block_q, block_k=block_k)
+    q, k, v, do, lse, dd = _bwd_operands(q, k, v, o, lse, do)
+    if q.shape[-1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, dd, dq, None, None, scale, causal, kv_valid)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, None, dk, dv, scale, causal, kv_valid)
+    return dq, dk, dv
+
+
+def _flash_bwd_fused(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
+                     block_k=1024) -> Grads:
+    """The single-pass backward, K8 (``flash_bwd_fused``), on the card: its
+    key-tile blocks add f32 dQ partials into a zeroed workspace, cast once
+    to q's dtype. The plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                         kv_valid=kv_valid, block_q=block_q, block_k=block_k,
+                                         fused=True)
+    q, k, v, do, lse, dd = _bwd_operands(q, k, v, o, lse, do)
+    if q.shape[-1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_fused", q, k, v, do, lse, dd, dq32, dk, dv, scale, causal, kv_valid)
+    return dq32.to(q.dtype), dk, dv
+
+
+def _resolve_bwd_impl(bwd_impl: str, t_q: int) -> str:
+    """``"auto"`` by the port's shape rule: fused while ``T_q`` is at most
+    ``_FUSED_MAX_T_Q``, else two-pass. The TPU's rule (the resident f32 dQ
+    block fits VMEM) does not carry over: here dQ lives in device memory."""
+    if bwd_impl == "auto":
+        return "fused" if t_q <= _FUSED_MAX_T_Q else "two_pass"
+    return bwd_impl
+
+
+def _flash_bwd_dispatch(bwd_impl, q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
+                        block_k=1024) -> Grads:
+    """``"two_pass"``, ``"fused"`` or ``"auto"``, as ``_flash_bwd_dispatch``
+    of the JAX package."""
+    impl = _resolve_bwd_impl(bwd_impl, q.shape[1])
+    if impl not in ("two_pass", "fused"):
+        raise ValueError(f"bwd_impl must be 'two_pass', 'fused' or 'auto', got {bwd_impl!r}")
+    run = _flash_bwd_fused if impl == "fused" else _flash_bwd
+    return run(q, k, v, o, lse, do, scale, causal, kv_valid, block_q, block_k)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel under autograd. Its backward is the training
-    slice's (kernels K7a, K7b, K8): it raises rather than differentiate the
-    plain version."""
+    """The flash kernels under autograd, the counterpart of the JAX
+    package's ``jax.custom_vjp`` ``_flash``: the forward keeps the LSE and
+    O, the backward rebuilds the probabilities from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, kv_valid, block_k):
-        return _flash_forward(q, k, v, scale, causal, kv_valid, block_k)
+    def forward(ctx, q, k, v, scale, causal, kv_valid, block_q, block_k, bwd_impl):
+        out, lse = _flash_forward(q, k, v, scale, causal, kv_valid, block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, kv_valid, block_q, block_k, bwd_impl)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: its kernels (K7a/K7b two-pass, K8 fused, "
-            "ROADMAP §2) come with the training slice"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, kv_valid, block_q, block_k, bwd_impl = ctx.args
+        dq, dk, dv = _flash_bwd_dispatch(bwd_impl, q, k, v, out, lse, grad, scale, causal,
+                                         kv_valid, block_q, block_k)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -175,14 +380,24 @@ def flash_attention(
     ``>= kv_valid`` masked as padding (``kv_valid`` is clamped to
     ``[0, T_k]``), causal rows see keys at positions ``<=`` their own.
     ``block_q`` is accepted for that signature; the causal skip it sets
-    there is exact, so it changes no result. ``bwd_impl`` is validated as
-    there; no backward runs yet."""
+    there is exact, so it changes no result.
+
+    Differentiable in q, k and v. ``bwd_impl`` picks the backward:
+    ``"two_pass"`` (the default, kernels K7a then K7b), ``"fused"`` (K8) or
+    ``"auto"`` (fused while ``T_q <= 256``). A call that needs no gradient
+    (grad mode off, or no input that requires one) runs the forward alone,
+    without the LSE, as the JAX package's primal ``_flash`` does;
+    ``needs_input_grad`` cannot tell, since it stays True under
+    ``torch.no_grad()``."""
     if q.ndim != 4:
         raise ValueError(f"expected (B, T, H, D) inputs, got {tuple(q.shape)}")
-    if bwd_impl not in ("two_pass", "fused", "auto"):
+    if bwd_impl not in _BWD_IMPLS:
         raise ValueError(f"bwd_impl must be 'two_pass', 'fused' or 'auto', got {bwd_impl!r}")
     d = q.shape[-1]
     t_k = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kv_valid = t_k if kv_valid is None else int(kv_valid)
-    return _FlashAttention.apply(q, k, v, scale, causal, kv_valid, block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, causal, kv_valid, block_q, block_k,
+                                     bwd_impl)
+    return _flash_forward(q, k, v, scale, causal, kv_valid, block_k)

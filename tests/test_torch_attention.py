@@ -139,13 +139,6 @@ def test_bwd_impl_is_validated_as_in_jax():
         cuda_attention.flash_attention(q[0], k[0], v[0])
 
 
-def test_backward_raises_instead_of_differentiating_the_plain_version():
-    q = torch.from_numpy(_inputs(1, 8, 8, 1, 4, 2)[0]).requires_grad_()
-    out = cuda_attention.flash_attention(q, q.detach(), q.detach(), causal=True)
-    with pytest.raises(NotImplementedError, match="K7a"):
-        out.sum().backward()
-
-
 def test_sequence_parallel_variants_name_the_missing_collectives():
     with pytest.raises(NotImplementedError, match="ppermute"):
         htt.parallel.ring_attention(None, None, None)

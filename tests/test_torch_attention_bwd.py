@@ -1,0 +1,221 @@
+"""The flash-attention backward against heat_tpu's, on the CPU.
+
+The same numpy inputs and cotangent go through ``jax.grad`` of heat_tpu's
+``flash_attention`` (the Pallas kernels run by the interpreter,
+``interpret=True``) and through the port's ``flash_attention`` under
+autograd, whose backward on a CPU tensor is ``flash_attention_bwd_plain``.
+Both backward schedules are held: ``"two_pass"`` (kernels K7a and K7b on
+the card) and ``"fused"`` (K8).
+
+Tolerances, each against the largest magnitude of the reference gradient:
+
+- f32: within 1e-5 (both sides sum exact f32 products over a few hundred
+  keys in other orders, and exponentiate with their own ``exp``; the error
+  seen is ~7e-7);
+- bf16: the inputs are the same bf16 values and every product is exact in
+  f32, but each side rounds O (hence D), p and dS to bf16 at its own
+  points, and a value near a rounding boundary goes the other way. The
+  relative RMS error is held within 2e-3 (seen: up to 3.6e-4) and the
+  largest within 2^-6 (seen: up to 4e-3; one bf16 ulp is 2^-8 relative).
+
+The oracle independent of both is autograd through the plain forward in
+float64, against which the plain backward in f32 is held within 1e-5 of
+each gradient's largest magnitude.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from heat_tpu.parallel import pallas_attention as jpal
+
+from heat_tpu_torch import _build
+from heat_tpu_torch.parallel import cuda_attention
+
+F32_TOL = 1e-5
+BF16_RMS = 2e-3
+BF16_MAX = 2.0 ** -6
+
+# b, t_q, t_k, h, d, causal, kv_valid: tests/test_pallas_attention.py's
+# backward shapes (:156-159, :225-227) and two ragged T_q != T_k cases
+SHAPES = [
+    (1, 256, 256, 2, 64, False, None),
+    (2, 384, 384, 2, 32, True, None),
+    (1, 300, 300, 1, 64, False, 260),
+    (1, 128, 128, 2, 128, True, 100),
+    (1, 256, 256, 2, 64, True, 200),
+    (1, 50, 77, 2, 24, False, 60),
+    (1, 70, 45, 2, 16, True, 30),
+]
+FUSED_SHAPES = [SHAPES[i] for i in (0, 1, 4, 5, 6)]
+
+
+def _inputs(b, t_q, t_k, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, t_q, h, d), (b, t_k, h, d), (b, t_k, h, d), (b, t_q, h, d))]
+
+
+def _jax_grads(arrays, dtype, causal, kv_valid, bwd_impl):
+    jq, jk, jv, jg = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays)
+
+    def loss(q, k, v):
+        out = jpal.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid, interpret=True,
+                                   bwd_impl=bwd_impl)
+        return (out.astype(jnp.float32) * jg.astype(jnp.float32)).sum()
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _torch_grads(arrays, dtype, causal, kv_valid, bwd_impl):
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_() for a in arrays[:3])
+    g = torch.from_numpy(arrays[3]).to(getattr(torch, dtype))
+    out = cuda_attention.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid,
+                                         bwd_impl=bwd_impl)
+    out.backward(g)
+    for x in (q, k, v):
+        assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
+    return [x.grad.float().numpy() for x in (q, k, v)]
+
+
+def _assert_close(got, want, dtype):
+    for name, a, w in zip("qkv", got, want):
+        peak = max(np.abs(w).max(), 1e-30)
+        err = np.abs(a - w).max() / peak
+        if dtype == "float32":
+            assert err <= F32_TOL, (name, err)
+            continue
+        rms = np.sqrt(((a - w) ** 2).sum() / max((w ** 2).sum(), 1e-30))
+        assert rms <= BF16_RMS, (name, rms)
+        assert err <= BF16_MAX, (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal,kv_valid", SHAPES)
+def test_two_pass_grads_match_jax_kernels(dtype, b, t_q, t_k, h, d, causal, kv_valid):
+    arrays = _inputs(b, t_q, t_k, h, d, t_q + d)
+    want = _jax_grads(arrays, dtype, causal, kv_valid, "two_pass")
+    _assert_close(_torch_grads(arrays, dtype, causal, kv_valid, "two_pass"), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal,kv_valid", FUSED_SHAPES)
+def test_fused_grads_match_jax_fused_kernel(dtype, b, t_q, t_k, h, d, causal, kv_valid):
+    arrays = _inputs(b, t_q, t_k, h, d, 17 + t_k)
+    want = _jax_grads(arrays, dtype, causal, kv_valid, "fused")
+    _assert_close(_torch_grads(arrays, dtype, causal, kv_valid, "fused"), want, dtype)
+
+
+@pytest.mark.parametrize("bwd_impl", ["two_pass", "fused"])
+def test_kv_valid_zero_gives_zero_grads(bwd_impl):
+    """Every key masked: O is 0, the LSE +1e30, so p and every gradient are
+    exactly 0, as in the JAX kernels."""
+    arrays = _inputs(1, 40, 40, 2, 16, 3)
+    want = _jax_grads(arrays, "float32", False, 0, bwd_impl)
+    got = _torch_grads(arrays, "float32", False, 0, bwd_impl)
+    for a, w in zip(got, want):
+        assert (a == 0).all() and (w == 0).all()
+
+
+@pytest.mark.parametrize("causal,kv_valid", [(True, None), (False, 50), (True, 20)])
+def test_plain_backward_matches_float64_autograd(causal, kv_valid):
+    """An oracle independent of both packages: autograd through the plain
+    forward in float64."""
+    arrays = _inputs(2, 64, 80, 2, 16, 11)
+    q, k, v = (torch.from_numpy(a) for a in arrays[:3])
+    g = torch.from_numpy(arrays[3])
+    scale = 0.3
+    out, lse = cuda_attention.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                                    kv_valid=kv_valid, return_lse=True)
+    got = cuda_attention.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                                   scale=scale, kv_valid=kv_valid, block_k=32)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (q, k, v))
+    cuda_attention.flash_attention_plain(q64, k64, v64, causal=causal, scale=scale,
+                                         kv_valid=kv_valid, block_k=32).backward(g.double())
+    for x, want in zip(got, (q64.grad, k64.grad, v64.grad)):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x.double(), want, rtol=0,
+                                   atol=F32_TOL * want.abs().max().item())
+
+
+def test_plain_backward_block_k_changes_only_summation_order():
+    arrays = _inputs(1, 48, 300, 2, 8, 5)
+    q, k, v, g = (torch.from_numpy(a) for a in arrays)
+    out, lse = cuda_attention.flash_attention_plain(q, k, v, causal=True, scale=0.5,
+                                                    return_lse=True)
+    a = cuda_attention.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True, scale=0.5,
+                                                 block_k=128)
+    b = cuda_attention.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True, scale=0.5,
+                                                 block_k=1024)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=F32_TOL * y.abs().max().item())
+
+
+def test_auto_resolves_by_the_ports_rule(monkeypatch):
+    """``"auto"`` takes the fused backward up to ``_FUSED_MAX_T_Q`` query
+    rows and the two-pass one past it; the choice depends on shapes only."""
+    limit = cuda_attention._FUSED_MAX_T_Q
+    assert cuda_attention._resolve_bwd_impl("auto", limit) == "fused"
+    assert cuda_attention._resolve_bwd_impl("auto", limit + 1) == "two_pass"
+    for impl in ("two_pass", "fused"):
+        assert cuda_attention._resolve_bwd_impl(impl, 1) == impl
+    taken = []
+    real = {name: getattr(cuda_attention, name) for name in ("_flash_bwd", "_flash_bwd_fused")}
+    for name, fn in real.items():
+        monkeypatch.setattr(cuda_attention, name,
+                            lambda *a, _n=name, _f=fn: taken.append(_n) or _f(*a))
+    arrays = _inputs(1, 32, 32, 1, 8, 2)
+    _torch_grads(arrays, "float32", True, None, "auto")
+    assert taken == ["_flash_bwd_fused"]
+
+
+def test_dispatch_rejects_unknown_bwd_impl():
+    q = torch.zeros((1, 4, 1, 8))
+    lse = torch.zeros((1, 1, 4))
+    with pytest.raises(ValueError, match="bwd_impl"):
+        cuda_attention._flash_bwd_dispatch("three_pass", q, q, q, q, lse, q, 1.0, False, 4)
+
+
+def test_forward_without_grad_computes_no_lse(monkeypatch):
+    """As the JAX package's primal ``_flash``: a call that records no graph
+    runs the forward alone, without the LSE; one that does keeps it."""
+    calls = []
+    real = cuda_attention._flash_forward
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("return_lse", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_attention, "_flash_forward", spy)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(1, 16, 16, 1, 8, 4)[:3])
+    with torch.no_grad():
+        out = cuda_attention.flash_attention(q, k, v, causal=True)
+    assert calls == [False] and out.grad_fn is None
+    cuda_attention.flash_attention(q.detach(), k.detach(), v.detach(), causal=True)
+    assert calls == [False, False]
+    out = cuda_attention.flash_attention(q, k, v, causal=True)
+    assert calls == [False, False, True] and out.grad_fn is not None
+
+
+def test_grads_flow_to_only_the_inputs_that_need_them():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 24, 24, 2, 8, 6)[:3])
+    k.requires_grad_()
+    cuda_attention.flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is None and v.grad is None and k.grad is not None
+    assert bool(torch.isfinite(k.grad).all())
+
+
+def test_one_launch_counter_per_backward_kernel():
+    """flash_bwd holds three kernels, each with its own counter; a name that
+    is no kernel's raises."""
+    assert "flash_bwd" in _build.SOURCES
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"):
+        assert name in _build.KERNELS
+    before = _build.launch_counts()
+    with pytest.raises(KeyError, match="flash_bwd"):
+        _build.count_launch("flash_bwd")
+    assert _build.launch_counts() == before

@@ -15,7 +15,11 @@ within 2e-5 max|v| (both sum exact-f32 products in other orders); in bf16,
 O within 2^-7 max|v| (each output is rounded to bf16, one ulp of
 |O| <= max|v| is 2^-8 max|v|, and a probability near a bf16 rounding
 boundary may round the other way); the LSE within 1e-5 (1 + |lse|) in both
-(its products are exact in f32). The int8 GEMM is bit-identical.
+(its products are exact in f32). The flash backward, against each
+gradient's largest magnitude: in f32 within 2e-5; in bf16 relative RMS
+within 2e-3 and the largest error within 2^-6 (p and dS round to bf16 on
+both sides, a value near a rounding boundary may go the other way);
+fully masked rows give exactly 0. The int8 GEMM is bit-identical.
 """
 
 import os
@@ -176,11 +180,102 @@ def test_flash_kernel_rejects_wide_heads(dev):
         cuda_attention.flash_attention(q, q, q)
 
 
-def test_flash_backward_raises(dev):
-    q = torch.randn((1, 64, 2, 32), device=dev, requires_grad=True)
-    out = cuda_attention.flash_attention(q, q.detach(), q.detach(), causal=True)
-    with pytest.raises(NotImplementedError, match="K7a"):
-        out.sum().backward()
+def _bwd_inputs(dev, b, t_q, t_k, h, d, dtype, causal, kv_valid):
+    g = torch.Generator(device=dev).manual_seed(t_q + t_k + d)
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   for s in ((b, t_q, h, d), (b, t_k, h, d), (b, t_k, h, d), (b, t_q, h, d)))
+    scale = 1.0 / d ** 0.5
+    o, lse = cuda_attention._flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
+    return q, k, v, o, lse, do, scale, causal, kv_valid
+
+
+def _grads_close(got, want, dtype):
+    for x, w in zip(got, want):
+        assert x.shape == w.shape and x.dtype == w.dtype
+        x, w = x.float(), w.float()
+        peak = w.abs().max().item()
+        if peak == 0.0:
+            assert bool((x == 0).all())
+        elif dtype == torch.float32:
+            assert (x - w).abs().max().item() <= 2e-5 * peak
+        else:
+            assert ((x - w).norm() / w.norm()).item() <= 2e-3
+            assert (x - w).abs().max().item() <= 2.0 ** -6 * peak
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [24, 64, 128])
+@pytest.mark.parametrize("causal,kv_valid", [(False, 250), (True, 250), (True, 437), (False, 0)])
+def test_flash_backward_kernels_match_plain(dev, dtype, d, causal, kv_valid):
+    """K7a + K7b (two-pass) and K8 (fused) against the plain backward, on
+    ragged T_q != T_k, ragged D and fully masked rows (kv_valid = 0)."""
+    args = _bwd_inputs(dev, 2, 300, 437, 3, d, dtype, causal, kv_valid)
+    q, k, v, o, lse, do, scale, causal, kv_valid = args
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=scale, kv_valid=kv_valid)
+    _grads_close(cuda_attention._flash_bwd(*args), want, dtype)
+    _grads_close(cuda_attention._flash_bwd_fused(*args), want, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_repeats_bitwise(dev, d):
+    """K7a and K7b sum in a fixed order: two runs agree bit for bit. K8's dK
+    and dV do too; its dQ is a sum of f32 atomics and is not compared so."""
+    args = _bwd_inputs(dev, 2, 512, 512, 4, d, torch.bfloat16, True, 512)
+    for x, y in zip(cuda_attention._flash_bwd(*args), cuda_attention._flash_bwd(*args)):
+        assert torch.equal(x, y)
+    a, b = cuda_attention._flash_bwd_fused(*args), cuda_attention._flash_bwd_fused(*args)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+@pytest.mark.parametrize("impl", ["two_pass", "fused"])
+def test_flash_backward_through_strided_views(dev, impl):
+    """q, k and v as views of one (B, T, 3, H, D) tensor and a cotangent
+    that is a transposed view: autograd hands the kernels strided tensors."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((2, 200, 3, 4, 64), generator=g, device=dev).to(torch.bfloat16)
+    cot = torch.randn((2, 4, 200, 64), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    leaf = qkv.detach().requires_grad_()
+    q, k, v = leaf.unbind(2)
+    cuda_attention.flash_attention(q, k, v, causal=True, bwd_impl=impl).backward(cot)
+    q, k, v = qkv.unbind(2)
+    o, lse = cuda_attention._flash_forward(q, k, v, 0.125, True, 200, return_lse=True)
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, cot, causal=True,
+                                                    scale=0.125)
+    _grads_close(leaf.grad.unbind(2), want, torch.bfloat16)
+
+
+def test_flash_backward_rejects_mixed_dtypes(dev):
+    args = list(_bwd_inputs(dev, 1, 64, 64, 1, 32, torch.bfloat16, True, 64))
+    args[5] = args[5].float()
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        cuda_attention._flash_bwd(*args)
+
+
+@pytest.mark.parametrize("impl", ["two_pass", "fused"])
+def test_lm_training_step_launch_counts(dev, impl):
+    """One remat training step of a small LM: K6 runs twice a layer (forward
+    and recompute), and each layer's backward runs K7a and K7b, or K8."""
+    layers = 3
+    lm = htt.nn.TransformerLM(100, 64, 4, layers, max_len=128, attn_impl="flash", remat=True,
+                              dtype=torch.bfloat16, flash_bwd_impl=impl, device=dev,
+                              generator=torch.Generator(dev).manual_seed(0))
+    opt = torch.optim.AdamW(lm.parameters(), lr=1e-3, weight_decay=1e-4)
+    tokens = torch.randint(0, 100, (2, 128), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    htt.reset_launch_counts()
+    logits = lm(tokens)
+    loss = torch.nn.functional.cross_entropy(logits[:, :-1].float().reshape(-1, 100),
+                                             tokens[:, 1:].reshape(-1))
+    loss.backward()
+    opt.step()
+    counts = htt.launch_counts()
+    two_pass = impl == "two_pass"
+    assert counts["flash_fwd"] == 2 * layers
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == (layers if two_pass else 0)
+    assert counts["flash_bwd_fused"] == (0 if two_pass else layers)
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p.grad).all())
+                                              for p in lm.parameters())
 
 
 @pytest.mark.parametrize("m,n,k", [(1000, 1000, 999), (1, 1, 1), (129, 4097, 512), (300, 77, 33)])

@@ -84,11 +84,12 @@ def test_cpu_main_path_launches_no_kernel(on_cpu):
     x = htt.array(np.ones((10, 4), np.float32), split=0)
     htt.mean(x, axis=0), htt.spatial.cdist(x, quadratic_expansion=True)
     htt.cluster.KMeans(n_clusters=2, init=htt.array(np.eye(2, 4, dtype=np.float32))).fit(x)
-    lm = htt.nn.TransformerLM(16, 8, 2, 1, max_len=8, attn_impl="flash")
-    lm(torch.zeros((1, 8), dtype=torch.long))
+    lm = htt.nn.TransformerLM(16, 8, 2, 1, max_len=8, attn_impl="flash", remat=True)
+    lm(torch.zeros((1, 8), dtype=torch.long)).float().sum().backward()
     htt.linalg.matmul_int8(torch.ones((3, 4)), torch.ones((4, 2)))
     assert htt.launch_counts() == {"moments": 0, "cdist": 0, "lloyd": 0, "flash_fwd": 0,
-                                   "int8_gemm": 0}
+                                   "int8_gemm": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                   "flash_bwd_fused": 0}
 
 
 def test_import_loads_neither_jax_nor_heat_tpu():
