@@ -12,8 +12,12 @@ Phases, each printing JSON lines:
      paths' shapes and at ragged shapes, with the stated tolerances, the
      kernel's, the plain version's and (where one PyTorch call computes the
      same function) the library call's times, and the bound; the flash
-     backward (K7a, K7b and K8) also through autograd, and two-pass against
-     fused over sequence lengths;
+     kernels' times are device times (the calls replayed from a CUDA graph);
+     the Hopper (wgmma) variants of K6 and K8 are also held against the
+     mma.sync kernels they replace and timed in turns with them (old, new,
+     new, old), with their registers, spills and shared memory from the
+     build; the flash backward (K7a, K7b and K8) also through autograd, and
+     two-pass against fused over sequence lengths;
   3. the array path at bench.py's sizes through the user entry points:
      array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
      (bench.py's fit: randn data, init='random', random_state=1, 50
@@ -94,7 +98,8 @@ def main():
     from heat_tpu_torch.core.cuda_moments import column_moments, column_moments_plain
     from heat_tpu_torch.core.linalg import int8_matmul, quantize_int8
     from heat_tpu_torch.core.linalg.cuda_quant import int8_gemm, int8_gemm_plain
-    from heat_tpu_torch.parallel.cuda_attention import _flash_forward, flash_attention_plain
+    from heat_tpu_torch.parallel.cuda_attention import (
+        _attention_variant, _flash_forward, _fwd_tiles, _strides, flash_attention_plain)
     from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,7 +124,31 @@ def main():
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.split("ptxas info    : ")[-1].strip() for ln in lines
                        if "Used" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    # the Hopper variants by name: registers and spills from the nvcc log, the
+    # dynamic shared memory a block asks for from the library itself
+    import ctypes
+    hopper = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        log = paths[name].with_suffix(".so.log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and "wgmma" in ln:
+                entry = ln.split("'")[1]
+                entry = entry[entry.index("flash_"):].split("EEEv")[0]
+                hopper[entry] = " ".join(x.split("ptxas info    : ")[-1].strip()
+                                         for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x)
+            if "Potential Performance Loss" in ln:
+                hopper.setdefault("ptxas_performance_notes", []).append(ln[:200])
+    fwd_lib, bwd_lib = ctypes.CDLL(str(paths["flash_fwd"])), ctypes.CDLL(str(paths["flash_bwd"]))
+    smem = {f"flash_fwd_wgmma d={d} bm={bm} bn={bn}": fwd_lib.heat_flash_fwd_wgmma_smem(d, bm, bn)
+            for d in (64, 128) for bm in (64, 128) for bn in (64, 128)}
+    smem.update({f"flash_bwd_fused_wgmma d={d}": bwd_lib.heat_flash_bwd_fused_wgmma_smem(d)
+                 for d in (64, 128)})
+    spilled = [k for k, v in hopper.items() if k != "ptxas_performance_notes"
+               and "0 bytes spill stores, 0 bytes spill loads" not in v]
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas, "hopper_variants": hopper,
+          "hopper_dynamic_smem_bytes": smem})
+    check("no Hopper variant spills", len(hopper) > 0 and not spilled, spilled=spilled)
 
     def time_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -133,6 +162,35 @@ def main():
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def device_ms(fn, reps, warmup=2):
+        """Device time of one call: `reps` calls captured into a CUDA graph
+        and replayed three times between two events. The flash wrappers take
+        60-90 microseconds of host time a call, more than some of their
+        kernels run, so back-to-back calls from Python would time the host."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / (3 * reps)
+
+    def time_turns(old, new, reps):
+        """old, new, new, old in turns on this card: the mean device time of each."""
+        t = [device_ms(fn, reps) for fn in (old, new, new, old)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -261,11 +319,14 @@ def main():
                 else torch.full_like(rows, kv_end)).sum().item()
         return b * h * live, (min(kv_end, t_q) if causal else kv_end)
 
-    def flash_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps):
+    def flash_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps, transposed=False):
         q = torch.randn((b, t_q, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, t_k, h, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, t_k, h, d), generator=gen, device=dev).to(dtype)
+        if transposed:  # (B, H, T, D) memory behind the (B, T, H, D) view
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
         scale = 1.0 / d ** 0.5
+        variant = _attention_variant(dtype, d, _strides(q, k, v), True)
         o_k, lse_k = _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
         o_k2 = _flash_forward(q, k, v, scale, causal, kv_valid)
         o_p, lse_p = flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -276,40 +337,104 @@ def main():
         err = (o_k.float() - o_p.float()).abs().max().item()
         lse_err = ((lse_k - lse_p).abs() / (1e-5 * (1 + lse_p.abs()))).max().item()
         same = bool(torch.equal(o_k, o_k2))
-        del o_p, lse_p, o_k2
         pairs, kv_rows = live_pairs(b, t_q, t_k, h, causal, kv_valid)
         esize = q.element_size()
         nbytes = (2 * b * t_q * h * d + 2 * b * kv_rows * h * d) * esize
         fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
-                  "causal": causal, "kv_valid": kv_valid, "max_abs_err": err,
+                  "causal": causal, "kv_valid": kv_valid, "transposed": transposed,
+                  "variant": variant, "max_abs_err": err,
                   "err_over_tol": err / tol, "lse_err_over_tol": lse_err,
                   "no_lse_output_bitwise": same,
                   "tolerance": {"o_abs": tol, "lse": "1e-5 (1 + |lse|)"}}
-        fields["kernel_ms"] = time_ms(lambda: _flash_forward(q, k, v, scale, causal, kv_valid),
-                                      reps)
-        fields["kernel_lse_ms"] = time_ms(
-            lambda: _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True), reps)
+        ok = err <= tol and lse_err <= 1.0 and same
+
+        def run(**kw):
+            return lambda: _flash_forward(q, k, v, scale, causal, kv_valid, **kw)
+
+        if variant == "bf16_wgmma":
+            # the mma.sync kernel at the same shape: held to the same tolerance,
+            # and timed in turns with the new one
+            fields["tiles"] = list(_fwd_tiles(t_q, d))
+            o_old, lse_old = _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True,
+                                            _old_kernel=True)
+            fields["old_max_abs_err"] = (o_old.float() - o_p.float()).abs().max().item()
+            fields["new_vs_old_max_abs"] = (o_k.float() - o_old.float()).abs().max().item()
+            ok = ok and fields["old_max_abs_err"] <= tol
+            del o_old, lse_old
+            fields["old_ms"], fields["kernel_ms"] = time_turns(run(_old_kernel=True), run(), reps)
+        else:
+            fields["old_ms"], fields["kernel_ms"] = None, device_ms(run(), reps)
+        del o_p, lse_p, o_k2
+        fields["kernel_lse_ms"] = device_ms(run(return_lse=True), reps)
         fields["plain_ms"] = time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_valid=kv_valid), 2, warmup=1)
         fields["library_ms"] = None
         if kv_valid >= t_k:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            fields["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            fields["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale), reps)
         ops = 4 * pairs * d
         fields["bound_ms"], fields["bound_by"] = bound(
             nbytes, ops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
         fields["operations"], fields["exponentials"], fields["bytes"] = ops, pairs, nbytes
-        check(f"flash_fwd {label}", err <= tol and lse_err <= 1.0 and same, **fields)
+        check(f"flash_fwd {label}", ok, **fields)
         return fields
 
     report["flash_fwd"] = flash_case("LM shape", 8, 1024, 1024, 16, 64, torch.bfloat16, True,
                                      1024, 20)
-    flash_case("bench shape", 4, 4096, 4096, 8, 128, torch.bfloat16, False, 4096, 10)
-    for d in (24, 128):
+    flash_bench = flash_case("bench shape", 4, 4096, 4096, 8, 128, torch.bfloat16, False, 4096, 10)
+    flash_case("bench shape, causal", 4, 4096, 4096, 8, 128, torch.bfloat16, True, 4096, 10)
+    for d in (24, 64, 128):  # 24: off the Hopper gate, the mma.sync and f32 kernels
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 flash_case("ragged", 2, 1000, 1337, 3, d, dtype, causal, 900, 3)
+    flash_case("ragged, transposed, kv_valid = T_k", 2, 1000, 1337, 3, 64, torch.bfloat16, False,
+               1337, 3, transposed=True)
+    flash_case("one short tile", 3, 40, 70, 2, 128, torch.bfloat16, True, 70, 3)
+    # the Hopper forward's tile choices (query rows a block x keys a tile) at
+    # the two path shapes: what _fwd_tiles' rule rests on
+    tile_ms = {}
+    for label, (b, t, h, d), causal in (("LM shape", (8, 1024, 16, 64), True),
+                                        ("bench shape", (4, 4096, 8, 128), False)):
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        tile_ms[label] = {
+            f"{bm}x{bn}": device_ms(lambda: _flash_forward(q, k, v, d ** -0.5, causal, t,
+                                                           _tiles=(bm, bn)), 10)
+            for bm in (64, 128) for bn in (64, 128)}
+        tile_ms[label]["rule"] = "x".join(map(str, _fwd_tiles(t, d)))
+    emit({"phase": "flash_fwd tile choices, device ms", **tile_ms})
+    check("flash_fwd: the tile rule picks the fastest or within 10% of it",
+          all(ms[ms["rule"]] <= 1.10 * min(x for x in ms.values() if isinstance(x, float))
+              for ms in tile_ms.values()), tile_ms=tile_ms)
+    del q, k, v
+    # the wrapper's host time per call (enqueue only, no synchronize inside the
+    # loop) at a shape whose kernel is shorter than its launch: the Hopper
+    # variant encodes three tensor maps a call
+    q, k, v = (torch.randn((1, 64, 1, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    host_us = {}
+    for label, kw in (("old", {"_old_kernel": True}), ("new", {}), ("new again", {}),
+                      ("old again", {"_old_kernel": True})):
+        for _ in range(20):
+            _flash_forward(q, k, v, 0.125, True, 64, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(500):
+            _flash_forward(q, k, v, 0.125, True, 64, **kw)
+        host_us[label] = (time.perf_counter() - t) / 500 * 1e6
+        torch.cuda.synchronize()
+    emit({"phase": "flash_fwd wrapper host time per call, microseconds", **host_us})
+    del q, k, v
+    # a non-positive scale is outside the Hopper forward: it takes the mma.sync kernel
+    q, k, v = (torch.randn((2, 200, 2, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    o_neg = _flash_forward(q, k, v, -0.125, True, 200)
+    o_neg_p = flash_attention_plain(q, k, v, causal=True, scale=-0.125, kv_valid=200)
+    err = (o_neg.float() - o_neg_p.float()).abs().max().item()
+    check("flash_fwd negative scale (mma.sync kernel)",
+          err <= 2.0 ** -7 * v.float().abs().max().item(), max_abs_err=err)
+    del q, k, v, o_neg, o_neg_p
 
     # --------------------------------------------------------- K7a, K7b, K8
     # The backward kernels against the plain backward on the same inputs
@@ -327,8 +452,8 @@ def main():
     # The library time is SDPA's backward: its forward and backward less its
     # forward (no kv_valid mask there, so only where kv_valid >= T_k).
     from heat_tpu_torch.parallel.cuda_attention import (
-        _bwd_operands, _flash_bwd, _flash_bwd_fused, _launch_bwd, flash_attention,
-        flash_attention_bwd_plain)
+        _bwd_operands, _dq_workspace, _flash_bwd, _flash_bwd_fused, _launch_bwd,
+        _launch_fused_wgmma, flash_attention, flash_attention_bwd_plain)
 
     def grad_errors(got, want, dtype):
         """Per gradient: the largest error, over the peak, relative RMS, and
@@ -358,13 +483,17 @@ def main():
             with torch.no_grad():
                 F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
 
-        return time_ms(fwd_bwd, reps) - time_ms(fwd, reps)
+        return device_ms(fwd_bwd, reps) - device_ms(fwd, reps)
 
-    def flash_bwd_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps, timed=False):
+    def flash_bwd_case(label, b, t_q, t_k, h, d, dtype, causal, kv_valid, reps, timed=False,
+                       transposed=False):
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for shape in ((b, t_q, h, d), (b, t_k, h, d), (b, t_k, h, d),
                                      (b, t_q, h, d)))
+        if transposed:  # (B, H, T, D) memory behind the (B, T, H, D) view
+            q, k, v, do = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do))
         scale = 1.0 / d ** 0.5
+        variant = _attention_variant(dtype, d, _strides(q, k, v, do), True)
         o, lse = _flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True)
         args = (q, k, v, o, lse, do, scale, causal, kv_valid)
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
@@ -376,16 +505,22 @@ def main():
         repeat_two = all(torch.equal(x, y) for x, y in zip(two, two2))
         repeat_fused_kv = all(torch.equal(x, y) for x, y in zip(fused[1:], fused2[1:]))
         fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
-                  "causal": causal, "kv_valid": kv_valid, "two_pass": err_two, "fused": err_fused,
+                  "causal": causal, "kv_valid": kv_valid, "transposed": transposed,
+                  "fused_variant": variant, "two_pass": err_two, "fused": err_fused,
                   "two_pass_repeat_bitwise": repeat_two,
                   "fused_dk_dv_repeat_bitwise": repeat_fused_kv,
                   "fused_dq_repeat_bitwise": torch.equal(fused[0], fused2[0]),
                   "tolerance": {"f32": "max err <= 2e-5 peak",
                                 "bf16": "rel RMS <= 2e-3 and max err <= 2^-6 peak",
                                 "fully masked": "exactly 0"}}
-        del want, two2, fused2
         ok = (all(e["ok"] for e in (*err_two.values(), *err_fused.values()))
               and repeat_two and repeat_fused_kv)
+        if variant == "bf16_wgmma":  # the mma.sync K8 at the same shape, same tolerance
+            old = _flash_bwd_fused(*args, _old_kernel=True)
+            fields["fused_old_kernel"] = grad_errors(old, want, dtype)
+            ok = ok and all(e["ok"] for e in fields["fused_old_kernel"].values())
+            del old
+        del want, two2, fused2
         kernels = None
         if timed:
             qq, kk, vv, dd_o, lse_c, dd = _bwd_operands(q, k, v, o, lse, do)
@@ -399,8 +534,10 @@ def main():
             plain_ms = time_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=causal, scale=scale, kv_valid=kv_valid), 2, warmup=1)
             library_ms = sdpa_bwd_ms(q, k, v, do, causal, scale, reps) if kv_valid >= t_k else None
-            fields["two_pass_ms"] = time_ms(lambda: _flash_bwd(*args), reps)
-            fields["fused_ms"] = time_ms(lambda: _flash_bwd_fused(*args), reps)
+            fields["two_pass_ms"] = device_ms(lambda: _flash_bwd(*args), reps)
+            fields["fused_old_ms"], fields["fused_ms"] = time_turns(
+                lambda: _flash_bwd_fused(*args, _old_kernel=True),
+                lambda: _flash_bwd_fused(*args), reps)
             fields["plain_ms"], fields["library_ms"] = plain_ms, library_ms
             pairs, kv_rows = live_pairs(b, t_q, t_k, h, causal, kv_valid)
             es = q.element_size()
@@ -417,7 +554,21 @@ def main():
                      max(e["max_abs_err"] for e in err_fused.values()))):
                 ops = per_pair * d * pairs
                 bound_ms, bound_by = bound(nbytes, ops, rate)
-                kernels[name] = {"kernel_ms": time_ms(launch(name, outs), reps),
+                old_ms, which = None, None
+                if name == "flash_bwd_fused":
+                    which = variant
+                if which == "bf16_wgmma":
+                    # kernel alone, on a workspace that is not re-zeroed: the
+                    # sums it holds change no time
+                    ws = _dq_workspace(b, h, t_q, d, dev)
+                    old_ms, kernel_ms = time_turns(
+                        launch(name, outs),
+                        lambda: _launch_fused_wgmma(qq, kk, vv, dd_o, lse_c, dd, ws, dk, dv,
+                                                    scale, causal, kv_valid), reps)
+                    del ws
+                else:
+                    kernel_ms = device_ms(launch(name, outs), reps)
+                kernels[name] = {"kernel_ms": kernel_ms, "old_ms": old_ms, "variant": which,
                                  "plain_ms": plain_ms, "library_ms": library_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by, "operations": ops,
                                  "exponentials": pairs, "bytes": nbytes, "max_abs_err": err}
@@ -430,10 +581,15 @@ def main():
     attention_bwd = flash_bwd_case("attention_bwd shape", 4, 4096, 4096, 8, 128, torch.bfloat16,
                                    True, 4096, 10, timed=True)
     emit({"phase": "flash_bwd attention_bwd shape", "kernels": attention_bwd})
-    for d in (24, 128):
+    emit({"phase": "flash_bwd attention_bwd shape, non-causal", "kernels": flash_bwd_case(
+        "attention_bwd shape, non-causal", 4, 4096, 4096, 8, 128, torch.bfloat16, False, 4096, 5,
+        timed=True)})
+    for d in (24, 64, 128):  # 24: off the Hopper gate, the mma.sync and f32 kernels
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 flash_bwd_case("ragged", 2, 1000, 1337, 3, d, dtype, causal, 900, 3)
+    flash_bwd_case("ragged, transposed, kv_valid = T_k", 2, 1000, 1337, 3, 64, torch.bfloat16,
+                   False, 1337, 3, transposed=True)
     flash_bwd_case("fully masked", 2, 100, 100, 2, 64, torch.bfloat16, False, 0, 3)
 
     # the composed autograd path, flash_attention(...).backward(g): two-pass
@@ -464,8 +620,14 @@ def main():
                       for _ in range(4))
         o, lse = _flash_forward(q, k, v, d ** -0.5, True, t, return_lse=True)
         args = (q, k, v, o, lse, g, d ** -0.5, True, t)
-        auto_ms[f"{b}x{t}x{h}x{d}"] = {"two_pass_ms": time_ms(lambda: _flash_bwd(*args), 10),
-                                       "fused_ms": time_ms(lambda: _flash_bwd_fused(*args), 10)}
+        fused_old_ms, fused_ms = time_turns(lambda: _flash_bwd_fused(*args, _old_kernel=True),
+                                            lambda: _flash_bwd_fused(*args), 10)
+        auto_ms[f"{b}x{t}x{h}x{d}"] = {"two_pass_ms": device_ms(lambda: _flash_bwd(*args), 10),
+                                       "two_pass_host_bound_ms": time_ms(
+                                           lambda: _flash_bwd(*args), 10),
+                                       "fused_host_bound_ms": time_ms(
+                                           lambda: _flash_bwd_fused(*args), 10),
+                                       "fused_ms": fused_ms, "fused_old_kernel_ms": fused_old_ms}
     emit({"phase": "flash_bwd two-pass vs fused, bf16 causal", "ms": auto_ms})
     del q, k, v, g, o, lse, args
 
@@ -1010,15 +1172,27 @@ def main():
                 **{name: train_launches[name] for name in backward_kernels}}
     check("training path launched every backward kernel",
           all(launches[name] > 0 for name in backward_kernels), launches=launches)
+    # the redesigned kernels also at bench.py's attention shapes
+    also = {"flash_fwd": ("bench shape (4, 4096, 8, 128) bf16 non-causal", flash_bench),
+            "flash_bwd_fused": ("attention_bwd shape (4, 4096, 8, 128) bf16 causal",
+                                attention_bwd["flash_bwd_fused"])}
+    timing_keys = ("variant", "kernel_ms", "old_ms", "plain_ms", "library_ms", "bound_ms",
+                   "bound_by", "max_abs_err")
     kernels = []
     for name, (src, tpu) in sources.items():
         r = report[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-        })
+        }
+        if name in also:
+            label, other = also[name]
+            row.update({"variant": r["variant"], "old_ms": r["old_ms"],
+                        "shape": "LM shape (8, 1024, 16, 64) bf16 causal",
+                        "also": {"shape": label, **{key: other[key] for key in timing_keys}}})
+        kernels.append(row)
     if FAILURES:
         print(f"chip_smoke: failed checks: {FAILURES}", file=sys.stderr)
         return 1

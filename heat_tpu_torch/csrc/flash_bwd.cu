@@ -5,8 +5,8 @@
 // Replaces three kernels of heat_tpu/parallel/pallas_attention.py:
 //   - _bwd_dq_kernel (K7a): flash_bwd_dq_*, one block per query tile;
 //   - _bwd_dkv_kernel (K7b): flash_bwd_dkv_*, one block per key tile;
-//   - _bwd_fused_kernel (K8): flash_bwd_fused_*, one block per key tile
-//     that also adds its dS K product into dQ.
+//   - _bwd_fused_kernel (K8): flash_bwd_fused_wgmma and flash_bwd_fused_*,
+//     one block per key tile that also adds its dS K product into dQ.
 // Each keeps the TPU kernels' block math (_rebuild_probs, _bwd_block_terms):
 //   s  = (q k^T) scale in f32; live = k_pos < kv_valid (and k_pos <= q_pos
 //        when causal, no offset for T_q != T_k);
@@ -34,11 +34,38 @@
 // sequential grid axis whose accumulator lives in VMEM scratch; here each
 // block loops over that axis itself with its accumulators in registers.
 // K8's dQ is the exception: its key-tile blocks run in parallel, so they
-// add their f32 dQ partials into a zeroed (B, T_q, H, D) f32 workspace with
-// atomicAdd (FlashAttention-2's way), which the caller casts to q's dtype.
-// The order of those adds changes from run to run, so K8's dQ is not
-// bit-reproducible; its dK and dV, and all of K7a's and K7b's outputs, are
-// (each is summed by one block in a fixed order).
+// add their f32 dQ partials into a zeroed f32 workspace (FlashAttention-2's
+// way), which the caller casts to q's dtype. The order of those adds changes
+// from run to run, so K8's dQ is not bit-reproducible; its dK and dV, and
+// all of K7a's and K7b's outputs, are (each is summed by one block in a
+// fixed order).
+//
+// K8 for bf16 with D = 64 or 128 and 16-byte-aligned rows
+// (flash_bwd_fused_wgmma). What bound the mma.sync K8 on the H100 was not
+// its products but its dQ: every (query tile, key tile) pair added 64 x D
+// floats one atomicAdd at a time (71 M scalar atomics at the LM's shape,
+// 285 MB of 4-byte read-modify-writes at L2 against the 136 MB the whole
+// kernel has to move), twice the two-pass kernels' time from T = 1024 on.
+// The design:
+//   - the workspace is private to the wrapper and laid out (B, H, T_q rounded
+//     up to 64, D), so a 64-row tile of a head is contiguous; the tile's
+//     partial goes to shared memory as f32 and one thread adds all of it with
+//     one cp.reduce.async.bulk (a bulk group, waited on only before that
+//     shared tile is written again, two query tiles later);
+//   - the five products are wgmma: S^T = K Q^T and dP^T = V dO^T from shared
+//     memory, every operand K-major as it lies; dV += P^T dO and dK += dS^T Q
+//     with P^T and dS^T as bf16 A fragments in registers and dO, Q read
+//     MN-major; dQ = dS K with dS^T from its swizzled shared tile as an
+//     MN-major A and K as an MN-major B;
+//   - Q and dO tiles come by bulk tensor copies into a ring on mbarriers,
+//     started by a producer that also stages the tiles' lse and D values;
+//   - at D = 128 two warpgroups of 64 keys each share the Q and dO tiles and
+//     one dQ partial (each computes half its columns over all 128 keys, which
+//     halves the reduce-add traffic), on 232 registers each that the producer
+//     warpgroup hands over: dK and dV alone are 128 floats a thread.
+// It is bound by operations (43 us at the LM's shape, 10 D a live pair); its
+// times are in PERF.md section 6. Every other input (f32, other D,
+// unaligned rows) keeps the kernels below, atomicAdd included.
 //
 // bf16 (tensor cores, mma.sync m16n8k16, bf16 in, f32 accumulate): 4 warps,
 // each owning 16 rows of the block's 64 (query rows in K7a, keys in K7b and
@@ -71,6 +98,7 @@
 
 #include "common.cuh"
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -442,6 +470,259 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const Params p) {
                           k0 * p.dv_st, p.dv_st, dv, kr, k_rows, p.d, tg);
 }
 
+// ------------------------------------------------------- bf16 K8, wgmma
+
+// Shared memory of flash_bwd_fused_wgmma: K and V tiles (64 NWG x D), a ring
+// of STAGES Q and dO tiles (64 x D) with their 64 lse log2 e and D values,
+// dS^T (64 NWG keys x 64 queries bf16, swizzled), two f32 dQ tiles of 64 x D,
+// the barriers, and 1024 bytes to align the tiles to the swizzle.
+constexpr int fused_wgmma_smem_bytes(int d, int nwg, int stages) {
+  return 1024 + (2 * nwg + 2 * stages) * 64 * d * 2 + nwg * 64 * 64 * 2 + 2 * 64 * d * 4 +
+         stages * 2 * 64 * 4 + (1 + 2 * stages) * 8;
+}
+
+// the producer: a warp beside one consumer warpgroup; a whole warpgroup
+// beside two, so that it can hand its registers over (setmaxnreg)
+constexpr int fused_producer_threads(int nwg) { return nwg == 2 ? 128 : 32; }
+
+// NWG consumer warpgroups that own 64 keys each, and a producer. The
+// producer's first lane starts the bulk tensor copies (K and V once, then the
+// Q and dO tiles of every query tile that sees these keys, into a ring of
+// STAGES slots on mbarriers) while its first warp stages the tiles' lse log2 e
+// and D values. Per query tile a warpgroup starts S^T = K Q^T and
+// dP^T = V dO^T (wgmma, every operand K-major as it lies), rebuilds P^T and
+// dS^T on the accumulator fragments, packs them to bf16 A fragments in
+// registers for dV += P^T dO and dK += dS^T Q (dO and Q read MN-major), and
+// stores dS^T swizzled in shared memory. dQ = dS K then reads dS^T as an
+// MN-major A operand against K as an MN-major B, over all the block's keys;
+// with two warpgroups each computes one half of dQ's columns, so the two
+// share one partial. The 64 x D f32 partial goes to shared memory, and one
+// thread adds the whole tile to the tile-contiguous (B, H, T_q rounded up to
+// 64, D) workspace with one bulk reduce-add; the two dQ tiles alternate, so a
+// reduce-add is only waited on two tiles later. The order in which key
+// tiles add into a dQ tile changes from run to run, so dQ is not
+// bit-reproducible; dK and dV are.
+// D = 64: one warpgroup, two blocks an SM. D = 128: two warpgroups of 232
+// registers (dK and dV alone are 128 a thread), one block an SM.
+template <int D, int NWG, int STAGES, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
+    flash_bwd_fused_wgmma(const Params p, const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do) {
+  constexpr int BQ = 64, BK = 64 * NWG, PANELS = D / 64;
+  constexpr int DN = D / NWG;  // the dQ columns of one warpgroup
+  static_assert(DN == 64 || DN == 128, "a warpgroup's share of dQ is 64 or 128 columns");
+  constexpr uint32_t PANEL = 64 * PANEL_ROW_BYTES, TILE = PANELS * PANEL;  // Q, dO
+  constexpr uint32_t KV_PANEL = BK * PANEL_ROW_BYTES, KV_TILE = PANELS * KV_PANEL;
+  constexpr int CONSUMERS = 128 * NWG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* const ks = base;
+  uint8_t* const vs = ks + KV_TILE;
+  uint8_t* const qs = vs + KV_TILE;            // STAGES Q tiles
+  uint8_t* const dos = qs + STAGES * TILE;     // STAGES dO tiles
+  uint8_t* const ds_s = dos + STAGES * TILE;   // dS^T, BK keys x 64 queries
+  float* const dq_s = reinterpret_cast<float*>(ds_s + KV_PANEL);  // two 64 x D tiles
+  float* const lse_s = dq_s + 2 * BQ * D;      // STAGES x 64
+  float* const dd_s = lse_s + STAGES * BQ;     // STAGES x 64
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dd_s + STAGES * BQ);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * BK;  // the first key tiles see the most causal rows
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const long long bh = static_cast<long long>(bb) * p.h + hh;
+  int first, end;
+  live_q_tiles(p, k0, BQ, first, end);
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 33);       // the copies' announcement and the producer warp's 32 lanes
+      mbar_init(empty + i, 4 * NWG);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // ------------------------------------------------------- producer
+    if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * NWG && first < end) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * KV_TILE);
+#pragma unroll
+        for (int pn = 0; pn < PANELS; ++pn) {
+          tma_load_4d(ks + pn * KV_PANEL, &map_k, kv_full, pn * PANEL_COLS, k0, hh, bb);
+          tma_load_4d(vs + pn * KV_PANEL, &map_v, kv_full, pn * PANEL_COLS, k0, hh, bb);
+        }
+      }
+      for (int it = first; it < end; ++it) {
+        const int n = it - first, slot = n % STAGES, q0 = it * BQ;
+        if (n >= STAGES) mbar_wait(empty + slot, ((n / STAGES) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + slot, 2 * TILE);
+#pragma unroll
+          for (int pn = 0; pn < PANELS; ++pn) {
+            tma_load_4d(qs + slot * TILE + pn * PANEL, &map_q, full + slot, pn * PANEL_COLS, q0,
+                        hh, bb);
+            tma_load_4d(dos + slot * TILE + pn * PANEL, &map_do, full + slot, pn * PANEL_COLS, q0,
+                        hh, bb);
+          }
+        }
+#pragma unroll
+        for (int i = lane; i < BQ; i += 32) {
+          lse_s[slot * BQ + i] = row_lse(p, bh, q0 + i) * LOG2E;
+          dd_s[slot * BQ + i] = row_dd(p, bh, q0 + i);
+        }
+        mbar_arrive(full + slot);
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers
+    if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, g = lane >> 2, tg = lane & 3;
+    const int kr = wg * 64 + (warp & 3) * 16 + g;  // this thread's first key row of the block
+    const int kw = k0 + wg * 64 + (warp & 3) * 16;  // this warp's first key
+    const int key[2] = {kw + g, kw + g + 8};
+    const float sl2 = p.scale * LOG2E;
+    const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs), ds_addr = smem_u32(ds_s);
+    const uint32_t own = wg * 64 * PANEL_ROW_BYTES;  // this warpgroup's keys inside a K or V panel
+    float dk[D / 8][4], dv[D / 8][4];
+    zero(dk);
+    zero(dv);
+    float* const ws = static_cast<float*>(p.dq) + (bh * p.dq_st) * D;  // dq_st: padded T_q
+
+    if (first < end) mbar_wait(kv_full, 0);
+    for (int it = first; it < end; ++it) {
+      const int n = it - first, slot = n % STAGES, q0 = it * BQ;
+      const uint32_t q_addr = smem_u32(qs + slot * TILE), do_addr = smem_u32(dos + slot * TILE);
+      const float* lse2 = lse_s + slot * BQ;
+      const float* dd = dd_s + slot * BQ;
+      mbar_wait(full + slot, (n / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 keys x 64 queries
+      float st[8][4], dpt[8][4];
+      wgmma_fence();
+      wgmma_abt<D>(st, k_addr + own, KV_PANEL, q_addr, PANEL);
+      wgmma_abt<D>(dpt, v_addr + own, KV_PANEL, do_addr, PANEL);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T in place of S^T, dS^T in place of dP^T; no mask work where every
+      // pair of the warp's keys is live
+      const bool full_tile = kw + 15 < p.kv_end && (!p.causal || kw + 15 <= q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + j * 8 + tg * 2);
+        const float2 d2 = *reinterpret_cast<const float2*>(dd + j * 8 + tg * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + tg * 2 + (e & 1);
+          float pe = exp2_approx(fmaf(st[j][e], sl2, -((e & 1) ? l2.y : l2.x)));
+          if (!full_tile && !live(p, q0 + c, key[e >> 1])) pe = 0.f;
+          st[j][e] = pe;
+          dpt[j][e] = pe * (dpt[j][e] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+        }
+      }
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pack_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
+        pack_a(dsa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+      }
+      // dV += P^T dO and dK += dS^T Q: p and dS in bf16, dO and Q MN-major
+      wgmma_fence();
+      wgmma_pb<4>(dv, pa, do_addr, PANEL);
+      wgmma_pb<4>(dk, dsa, q_addr, PANEL);
+      wgmma_commit();
+
+      // dS^T into its swizzled tile: key row r, queries 16 kk + 2 tg + {0, 1}
+      // (+ 8) of the A fragment's four words; 16-byte chunk c of row r lies
+      // at chunk c ^ (r & 7)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int r = kr + 8 * (w & 1), chunk = 2 * kk + (w >> 1);
+          *reinterpret_cast<uint32_t*>(ds_s + r * PANEL_ROW_BYTES + ((chunk ^ (r & 7)) << 4) +
+                                       tg * 4) = dsa[kk][w];
+        }
+      }
+      // the dQ tile written two query tiles ago has been read by its reduce-add
+      if (tid == 0) bulk_wait_read<1>();
+      fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // dS^T is whole
+
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      if (lane == 0) mbar_arrive(empty + slot);  // Q and dO of this slot are consumed
+
+      // dQ = dS K over the block's keys, this warpgroup's DN columns: dS
+      // from dS^T (MN-major A), K MN-major B
+      float dq[DN / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<1, 1>(
+            dq, wgmma_desc(ds_addr + kk * 16 * PANEL_ROW_BYTES, PANEL, SWIZZLE_ATOM_BYTES),
+            wgmma_desc(k_addr + (wg * DN / 64) * KV_PANEL + kk * 16 * PANEL_ROW_BYTES, KV_PANEL,
+                       SWIZZLE_ATOM_BYTES),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+
+      float* const tile = dq_s + (n & 1) * BQ * D;
+#pragma unroll
+      for (int j = 0; j < DN / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(tile + ((warp & 3) * 16 + g + 8 * r) * D + wg * DN + j * 8 +
+                                     tg * 2) = make_float2(dq[j][2 * r], dq[j][2 * r + 1]);
+      }
+      fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // the dQ tile is whole
+      if (tid == 0) {
+        bulk_reduce_add_f32(ws + static_cast<long long>(q0) * D, tile, BQ * D * 4);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();
+
+    const int k_rows = min(BK, p.t_k - k0);
+    store_rows_bf16<D>(static_cast<__nv_bfloat16*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh +
+                           k0 * p.dk_st, p.dk_st, dk, kr, k_rows, p.d, tg);
+    store_rows_bf16<D>(static_cast<__nv_bfloat16*>(p.dv) + bb * p.dv_sb + hh * p.dv_sh +
+                           k0 * p.dv_st, p.dv_st, dv, kr, k_rows, p.d, tg);
+  }
+}
+
+template <int D, int NWG, int STAGES, int MINB>
+cudaError_t launch_fused_wgmma(const Params& p, int b, const TensorView* views,
+                               cudaStream_t stream) {
+  constexpr int smem = fused_wgmma_smem_bytes(D, NWG, STAGES);
+  CUtensorMap maps[4];  // q, k, v, dout: K and V in boxes of the block's keys
+  const int box_rows[4] = {64, 64 * NWG, 64 * NWG, 64};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = make_tensor_map(&maps[i], views[i], box_rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = flash_bwd_fused_wgmma<D, NWG, STAGES, MINB>;
+  static bool ready[64] = {};  // of this instantiation, so of this kernel
+  const cudaError_t err = allow_dynamic_smem(kernel, smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(p.t_k, 64 * NWG), p.h, b);
+  kernel<<<grid, NWG * 128 + fused_producer_threads(NWG), smem, stream>>>(p, maps[0], maps[1],
+                                                                         maps[2], maps[3]);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ f32
 
 // K7a in f32: 16 query rows a block, 8 threads a row, 32-key tiles (16 at
@@ -742,4 +1023,50 @@ extern "C" int heat_flash_bwd_fused(const void* q, const void* k, const void* v,
                                     float scale, int bf16, int vec, void* stream) {
   return run(FUSED_KV, q, k, v, dout, lse, dd, dq, dk, dv, strides, b, h, t_q, t_k, d, kv_valid,
              causal, scale, bf16, vec, stream);
+}
+
+// K8 for bf16 with d = 64 or 128 and 16-byte-aligned rows, through wgmma and
+// bulk copies. layouts holds, for q, k, v and dout in turn, seven values: the
+// view's D, T, H, B and the byte strides of T, H and B (each a multiple of
+// 16). dq is the zeroed f32 workspace (B, H, t_q_pad, D), contiguous, with
+// t_q_pad = t_q rounded up to 64: every 64-row tile of a head is contiguous
+// there, and one bulk reduce-add adds a key tile's partial into it.
+// kv_strides holds the element strides (batch, time, head) of dk, then dv.
+extern "C" int heat_flash_bwd_fused_wgmma(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* dd,
+                                          void* dq, void* dk, void* dv, const long long* layouts,
+                                          const long long* kv_strides, int b, int h, int t_q,
+                                          int t_k, int d, int kv_valid, int causal, float scale,
+                                          void* stream) {
+  if ((d != 64 && d != 128) || b > 65535 || h > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0 || t_k == 0) return static_cast<int>(cudaGetLastError());
+  Params p = {};
+  p.lse = static_cast<const float*>(lse);
+  p.dd = static_cast<const float*>(dd);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.dq_st = static_cast<long long>(ceil_div(t_q, 64)) * 64;  // the workspace's padded T_q
+  p.dk_sb = kv_strides[0], p.dk_st = kv_strides[1], p.dk_sh = kv_strides[2];
+  p.dv_sb = kv_strides[3], p.dv_st = kv_strides[4], p.dv_sh = kv_strides[5];
+  p.h = h;
+  p.t_q = t_q;
+  p.t_k = t_k;
+  p.kv_end = max(0, min(kv_valid, t_k));
+  p.d = d;
+  p.causal = causal;
+  p.scale = scale;
+  const TensorView views[4] = {tensor_view(q, layouts), tensor_view(k, layouts + 7),
+                               tensor_view(v, layouts + 14), tensor_view(dout, layouts + 21)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 64 ? launch_fused_wgmma<64, 1, 3, 2>(p, b, views, st)
+                                  : launch_fused_wgmma<128, 2, 2, 1>(p, b, views, st));
+}
+
+// the dynamic shared memory of one block of the wgmma K8, or -1
+extern "C" int heat_flash_bwd_fused_wgmma_smem(int d) {
+  if (d == 64) return fused_wgmma_smem_bytes(64, 1, 3);
+  if (d == 128) return fused_wgmma_smem_bytes(128, 2, 2);
+  return -1;
 }

@@ -13,7 +13,12 @@ Counterpart of ``heat_tpu/parallel/pallas_attention.py``. The kernels:
   ``_rebuild_probs`` and ``_bwd_block_terms`` do there.
 
 They read the public ``(B, T, H, D)`` layout through strides, so nothing is
-transposed or padded around them. Their tiles are their own compile-time
+transposed or padded around them. Which kernel takes an input is a shape
+rule (:func:`_attention_variant`): bf16 inputs with ``D`` 64 or 128 and
+16-byte-aligned rows go to the Hopper kernels of K6 and K8 (``wgmma``, bulk
+tensor copies on mbarriers, and for K8 a bulk reduce-add of dQ into a
+tile-contiguous workspace), every other input to the ``mma.sync`` and f32
+kernels. Their tiles are their own compile-time
 choice; ``block_q`` and ``block_k`` keep their meaning only in the plain
 versions, as the K chunk of the online softmax and of the backward's sum.
 The JAX kernels' lane-broadcast ``(B, H, T_q_pad, 128)`` LSE layout and
@@ -49,11 +54,13 @@ _BIG = 1e30
 _LANES = 128
 _I32_MAX = 2 ** 31 - 1
 _BWD_IMPLS = ("two_pass", "fused", "auto")
-# "auto" takes the fused backward while T_q is at most this. On the H100, at
-# the LM's widths, fused was the faster at T = 256 in both runs measured,
-# tied or lost at T = 512, and two-pass wins from T = 1024 on (16-22%): the
-# fused kernel's dQ is a sum of f32 atomics over key tiles, whose traffic
-# grows with T (PERF.md §6)
+_WGMMA_HEAD_DIMS = (64, 128)
+_TMA_MAX_STRIDE = 2 ** 40  # a tensor map's byte strides stay below this
+# For inputs off the Hopper gate, "auto" takes the fused backward while T_q is
+# at most this. On the H100 the mma.sync K8 was the faster at T = 256, tied or
+# lost at T = 512, and two-pass wins from T = 1024 on: that kernel's dQ is a
+# sum of scalar f32 atomics over key tiles, whose traffic grows with T
+# (PERF.md §6)
 _FUSED_MAX_T_Q = 256
 
 _BWD_ARGS = [
@@ -64,14 +71,31 @@ _BWD_ARGS = [
     ctypes.c_void_p,
 ]
 _SIGNATURES = {
-    "flash_fwd": {"heat_flash_fwd": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]},
-    "flash_bwd": {f"heat_{name}": _BWD_ARGS
-                  for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")},
+    "flash_fwd": {
+        "heat_flash_fwd": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ],
+        "heat_flash_fwd_wgmma": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ],
+    },
+    "flash_bwd": {
+        **{f"heat_{name}": _BWD_ARGS
+           for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")},
+        "heat_flash_bwd_fused_wgmma": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p,
+        ],
+    },
 }
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -213,14 +237,74 @@ def _unit_stride(*tensors: torch.Tensor):
 
 
 def _strides(*tensors: torch.Tensor):
-    return [s for x in tensors for s in (x.stride(0), x.stride(1), x.stride(2))]
+    """The element strides (batch, time, head) of each (B, T, H, D) tensor.
+    A dimension of size 1 is never stepped over, and torch may give it any
+    stride, so it gets the stride a contiguous tensor would have there."""
+    out = []
+    for x in tensors:
+        s_b, s_t, s_h, _ = x.stride()
+        b, t, h, d = x.shape
+        if b == 1 or t == 1 or h == 1:
+            s_b, s_t, s_h = (s_b if b != 1 else t * h * d, s_t if t != 1 else h * d,
+                             s_h if h != 1 else d)
+        out += (s_b, s_t, s_h)
+    return out
+
+
+def _attention_variant(dtype: torch.dtype, d: int, strides, aligned: bool) -> str:
+    """Which kernel family takes these operands, by a shape rule alone:
+
+    - ``"f32"``: float32 inputs, exact f32 FMAs;
+    - ``"bf16_wgmma"``: bfloat16 with ``D`` 64 or 128, every stride (in
+      elements, over batch, time and head) a positive multiple of 8 and
+      every base pointer 16-byte aligned (``aligned``), so that each row is
+      a legal bulk-tensor-copy source: the Hopper kernels (``wgmma``, tensor
+      maps, mbarriers);
+    - ``"bf16_mma"``: bfloat16 with ``D % 8 == 0`` and aligned rows
+      otherwise (``D <= 32``, or 64 < ``D`` < 128, ...): ``mma.sync`` with
+      16-byte ``cp.async``;
+    - ``"bf16_scalar"``: any other bfloat16 input: ``mma.sync`` with
+      value-by-value loads.
+    """
+    if dtype != torch.bfloat16:
+        return "f32"
+    if not (aligned and d % 8 == 0 and all(s % 8 == 0 for s in strides)):
+        return "bf16_scalar"
+    if d in _WGMMA_HEAD_DIMS and all(0 < s * 2 < _TMA_MAX_STRIDE for s in strides):
+        return "bf16_wgmma"
+    return "bf16_mma"
+
+
+def _tensor_map_layout(x: torch.Tensor, strides=None):
+    """What the tensor map over a (B, T, H, D) view is encoded from, innermost
+    dimension first: D, T, H, B, then the byte strides of T, H and B.
+    ``strides`` are x's :func:`_strides` where the caller has them already."""
+    b, t, h, d = x.shape
+    s_b, s_t, s_h = _strides(x) if strides is None else strides
+    es = x.element_size()
+    return (d, t, h, b, s_t * es, s_h * es, s_b * es)
+
+
+def _fwd_tiles(t_q: int, d: int) -> Tuple[int, int]:
+    """The wgmma forward's (query rows a block, keys a tile), from the times
+    on the H100 (PERF.md §6). ``D = 64``: 64 rows (one consumer
+    warpgroup, three blocks an SM) by 64 keys. ``D = 128``: 128-key tiles,
+    and 128 rows (two consumer warpgroups) where ``T_q`` has more than 64."""
+    if d == 64:
+        return 64, 64
+    return (128 if t_q > 64 else 64), 128
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                    causal: bool, kv_valid: int, block_k: int = 1024,
-                   return_lse: bool = False) -> Out:
+                   return_lse: bool = False, _old_kernel: bool = False,
+                   _tiles: Optional[Tuple[int, int]] = None) -> Out:
     """O and, with ``return_lse``, the ``(B, H, T_q)`` f32 log-sum-exp: the
-    kernel on the card, the plain version on the CPU."""
+    kernel on the card, the plain version on the CPU. The kernel is picked by
+    :func:`_attention_variant`. ``_old_kernel`` sends operands that the
+    wgmma kernel takes to the ``mma.sync`` one instead, and ``_tiles`` sets
+    the wgmma kernel's (rows a block, keys a tile): both are for timing one
+    kernel against the other on the card, not options."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k and v lie on different devices: {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
@@ -237,18 +321,28 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
             lse.fill_(_BIG)
         return (out, lse) if return_lse else out
     strides = _strides(q, k, v, out)
-    bf16 = q.dtype == torch.bfloat16
-    vec = bf16 and d % 8 == 0 and all(s % 8 == 0 for s in strides) and all(
-        x.data_ptr() % 16 == 0 for x in (q, k, v))
+    variant = _attention_variant(q.dtype, d, strides,
+                                 all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    if variant == "bf16_wgmma" and (_old_kernel or not scale > 0):
+        variant = "bf16_mma"  # the wgmma forward folds a positive scale into its exponent
     lib = _build.library("flash_fwd", _SIGNATURES["flash_fwd"])
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if lse is not None else None)
+    sizes = (b, h, t_q, t_k, d, _kv_end(kv_valid, t_k), int(bool(causal)), float(scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.heat_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            (ctypes.c_longlong * 12)(*strides), b, h, t_q, t_k, d,
-            _kv_end(kv_valid, t_k), int(bool(causal)), float(scale), int(bf16),
-            int(vec), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "flash_fwd kernel")
+        if variant == "bf16_wgmma":
+            layouts = (*_tensor_map_layout(q, strides[0:3]), *_tensor_map_layout(k, strides[3:6]),
+                       *_tensor_map_layout(v, strides[6:9]))
+            bm, bn = _tiles if _tiles is not None else _fwd_tiles(t_q, d)
+            rc = lib.heat_flash_fwd_wgmma(
+                *pointers, (ctypes.c_longlong * 21)(*layouts),
+                (ctypes.c_longlong * 3)(*strides[9:]), *sizes, bm, bn, stream)
+        else:
+            rc = lib.heat_flash_fwd(
+                *pointers, (ctypes.c_longlong * 12)(*strides), *sizes,
+                int(variant != "f32"), int(variant == "bf16_mma"), stream)
+    _build.check(lib, rc, f"flash_fwd kernel ({variant})")
     _build.count_launch("flash_fwd")
     return (out, lse) if return_lse else out
 
@@ -303,38 +397,101 @@ def _flash_bwd(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
     return dq, dk, dv
 
 
+_DQ_TILE = 64  # query rows of one dQ partial of the wgmma K8
+
+
+def _dq_workspace(b: int, h: int, t_q: int, d: int, device) -> torch.Tensor:
+    """The zeroed f32 dQ workspace of the wgmma K8, ``(B, H, T_q rounded up
+    to 64, D)``: private to the wrapper, laid out so that every 64-row tile
+    of a head is contiguous and one bulk reduce-add can add a whole partial.
+    The rows past ``T_q`` only ever receive zeros."""
+    t_pad = -(-t_q // _DQ_TILE) * _DQ_TILE
+    return torch.zeros((b, h, t_pad, d), dtype=torch.float32, device=device)
+
+
+def _dq_from_workspace(ws: torch.Tensor, t_q: int, dtype: torch.dtype) -> torch.Tensor:
+    """dQ as contiguous ``(B, T_q, H, D)`` in ``dtype`` from the workspace:
+    one pass that drops the padding, transposes and casts."""
+    b, h, _, d = ws.shape
+    dq = torch.empty((b, t_q, h, d), dtype=dtype, device=ws.device)
+    dq.copy_(ws[:, :, :t_q].transpose(1, 2))
+    return dq
+
+
+def _launch_fused_wgmma(q, k, v, do, lse, dd, ws, dk, dv, scale, causal, kv_valid) -> None:
+    """The wgmma K8 on checked operands: adds dQ into the workspace ``ws`` of
+    :func:`_dq_workspace` and writes dK and dV."""
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    layouts = [n for x in (q, k, v, do) for n in _tensor_map_layout(x)]
+    lib = _build.library("flash_bwd", _SIGNATURES["flash_bwd"])
+    with torch.cuda.device(q.device):
+        rc = lib.heat_flash_bwd_fused_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), ws.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            (ctypes.c_longlong * 28)(*layouts), (ctypes.c_longlong * 6)(*_strides(dk, dv)),
+            b, h, t_q, t_k, d, _kv_end(kv_valid, t_k), int(bool(causal)), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_bwd_fused kernel (bf16_wgmma)")
+    _build.count_launch("flash_bwd_fused")
+
+
 def _flash_bwd_fused(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
-                     block_k=1024) -> Grads:
-    """The single-pass backward, K8 (``flash_bwd_fused``), on the card: its
-    key-tile blocks add f32 dQ partials into a zeroed workspace, cast once
-    to q's dtype. The plain version on the CPU."""
+                     block_k=1024, _old_kernel: bool = False) -> Grads:
+    """The single-pass backward, K8 (``flash_bwd_fused``), on the card; the
+    plain version on the CPU. Its key-tile blocks add f32 dQ partials into a
+    zeroed workspace that is cast once to q's dtype. For operands that
+    :func:`_attention_variant` calls ``"bf16_wgmma"`` the Hopper kernel adds
+    each 64-row partial by one bulk reduce-add into the tile-contiguous
+    workspace of :func:`_dq_workspace`; any other input, or ``_old_kernel``
+    (for timing one against the other on the card), takes the ``mma.sync``
+    kernel, which adds into a ``(B, T_q, H, D)`` workspace value by value."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
                                          kv_valid=kv_valid, block_q=block_q, block_k=block_k,
                                          fused=True)
     q, k, v, do, lse, dd = _bwd_operands(q, k, v, o, lse, do)
-    if q.shape[-1] == 0:
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    if d == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_fused", q, k, v, do, lse, dd, dq32, dk, dv, scale, causal, kv_valid)
-    return dq32.to(q.dtype), dk, dv
+    if _bwd_variant(q, k, v, do) != "bf16_wgmma" or _old_kernel:
+        dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        _launch_bwd("flash_bwd_fused", q, k, v, do, lse, dd, dq32, dk, dv, scale, causal,
+                    kv_valid)
+        return dq32.to(q.dtype), dk, dv
+    ws = _dq_workspace(b, h, t_q, d, q.device)
+    _launch_fused_wgmma(q, k, v, do, lse, dd, ws, dk, dv, scale, causal, kv_valid)
+    return _dq_from_workspace(ws, t_q, q.dtype), dk, dv
 
 
-def _resolve_bwd_impl(bwd_impl: str, t_q: int) -> str:
-    """``"auto"`` by the port's shape rule: fused while ``T_q`` is at most
+def _resolve_bwd_impl(bwd_impl: str, t_q: int, variant: str = "f32") -> str:
+    """``"auto"`` by the port's shape rule, from the times on the H100
+    (PERF.md §6): fused for the operands that the Hopper K8 takes
+    (``variant`` ``"bf16_wgmma"`` of :func:`_attention_variant`), whatever
+    ``T_q``; for any other input fused while ``T_q`` is at most
     ``_FUSED_MAX_T_Q``, else two-pass. The TPU's rule (the resident f32 dQ
     block fits VMEM) does not carry over: here dQ lives in device memory."""
     if bwd_impl == "auto":
-        return "fused" if t_q <= _FUSED_MAX_T_Q else "two_pass"
+        return "fused" if variant == "bf16_wgmma" or t_q <= _FUSED_MAX_T_Q else "two_pass"
     return bwd_impl
+
+
+def _bwd_variant(q, k, v, do) -> str:
+    """:func:`_attention_variant` of the backward's operands as the kernels
+    will get them (unit stride over D)."""
+    q, k, v, do = _unit_stride(q, k, v, do)
+    return _attention_variant(q.dtype, q.shape[-1], _strides(q, k, v, do),
+                              all(x.data_ptr() % 16 == 0 for x in (q, k, v, do)))
 
 
 def _flash_bwd_dispatch(bwd_impl, q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
                         block_k=1024) -> Grads:
     """``"two_pass"``, ``"fused"`` or ``"auto"``, as ``_flash_bwd_dispatch``
     of the JAX package."""
-    impl = _resolve_bwd_impl(bwd_impl, q.shape[1])
+    variant = _bwd_variant(q, k, v, do) if bwd_impl == "auto" else "f32"
+    impl = _resolve_bwd_impl(bwd_impl, q.shape[1], variant)
     if impl not in ("two_pass", "fused"):
         raise ValueError(f"bwd_impl must be 'two_pass', 'fused' or 'auto', got {bwd_impl!r}")
     run = _flash_bwd_fused if impl == "fused" else _flash_bwd
@@ -384,8 +541,10 @@ def flash_attention(
 
     Differentiable in q, k and v. ``bwd_impl`` picks the backward:
     ``"two_pass"`` (the default, kernels K7a then K7b), ``"fused"`` (K8) or
-    ``"auto"`` (fused while ``T_q <= 256``). A call that needs no gradient
-    (grad mode off, or no input that requires one) runs the forward alone,
+    ``"auto"`` (fused for bf16 inputs with ``D`` 64 or 128 and 16-byte-aligned
+    rows, which the Hopper K8 takes; else fused while ``T_q <= 256``). A call
+    that needs no gradient (grad mode off, or no input that requires one) runs
+    the forward alone,
     without the LSE, as the JAX package's primal ``_flash`` does;
     ``needs_input_grad`` cannot tell, since it stays True under
     ``torch.no_grad()``."""

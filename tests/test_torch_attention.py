@@ -144,3 +144,75 @@ def test_sequence_parallel_variants_name_the_missing_collectives():
         htt.parallel.ring_attention(None, None, None)
     with pytest.raises(NotImplementedError, match="all_to_all"):
         htt.parallel.ulysses_attention(None, None, None)
+
+
+# ------------------------------------------------- the kernels' shape rules
+
+def _bthd(b=2, t=32, h=4, d=64, dtype=torch.bfloat16):
+    return torch.zeros((b, t, h, d), dtype=dtype)
+
+
+VARIANT_CASES = [
+    # dtype, d, element strides (batch, time, head), base 16-byte aligned, want
+    (torch.float32, 64, (8192, 256, 64), True, "f32"),
+    (torch.bfloat16, 64, (8192, 256, 64), True, "bf16_wgmma"),
+    (torch.bfloat16, 128, (16384, 128, 2048), True, "bf16_wgmma"),  # (B, H, T, D) memory
+    (torch.bfloat16, 64, (8192, 256, 64), False, "bf16_scalar"),    # base not aligned
+    (torch.bfloat16, 64, (8200, 260, 64), True, "bf16_scalar"),     # rows not aligned
+    (torch.bfloat16, 32, (4096, 128, 32), True, "bf16_mma"),
+    (torch.bfloat16, 96, (12288, 384, 96), True, "bf16_mma"),
+    (torch.bfloat16, 24, (3072, 96, 24), True, "bf16_mma"),
+    (torch.bfloat16, 100, (12800, 400, 100), True, "bf16_scalar"),
+    (torch.bfloat16, 64, (0, 256, 64), True, "bf16_mma"),           # a broadcast batch
+    (torch.bfloat16, 64, (2 ** 40, 256, 64), True, "bf16_mma"),     # past a tensor map's stride
+]
+
+
+@pytest.mark.parametrize("dtype,d,strides,aligned,want", VARIANT_CASES)
+def test_attention_variant_is_a_shape_rule(dtype, d, strides, aligned, want):
+    assert cuda_attention._attention_variant(dtype, d, strides, aligned) == want
+
+
+def test_attention_variant_of_real_tensors():
+    """The rule on the strides the wrappers compute: contiguous, transposed
+    and sliced views of bf16 tensors take the Hopper kernels when their rows
+    stay 16-byte aligned."""
+    x = _bthd()
+    variant = lambda t: cuda_attention._attention_variant(
+        t.dtype, t.shape[-1], cuda_attention._strides(t), t.data_ptr() % 16 == 0)
+    assert variant(x) == "bf16_wgmma"
+    bf16 = torch.bfloat16
+    assert variant(torch.zeros((2, 4, 32, 64), dtype=bf16).transpose(1, 2)) == "bf16_wgmma"
+    assert variant(torch.zeros((2, 32, 3, 4, 64), dtype=bf16).unbind(2)[1]) == "bf16_wgmma"
+    assert variant(x[:, 3:19]) == "bf16_wgmma"              # a slice of whole rows
+    assert variant(torch.zeros((2, 32, 4, 72), dtype=torch.bfloat16)[..., 4:68]) == "bf16_scalar"
+    assert variant(x.float()) == "f32"
+    assert variant(_bthd(d=16)) == "bf16_mma"
+    # a dimension of size 1 is never stepped over: whatever stride torch gives it is ignored
+    one = torch.zeros((1, 32, 4, 64), dtype=bf16).as_strided((1, 32, 4, 64), (3, 256, 64, 1))
+    assert cuda_attention._strides(one) == [32 * 4 * 64, 256, 64]
+    assert variant(one) == "bf16_wgmma"
+
+
+def test_tensor_map_layout_of_contiguous_transposed_and_sliced_inputs():
+    """D, T, H, B and the byte strides of T, H, B that the tensor maps are
+    encoded from."""
+    layout = lambda x: list(cuda_attention._tensor_map_layout(x))
+    assert layout(_bthd(2, 32, 4, 64)) == [64, 32, 4, 2, 4 * 64 * 2, 64 * 2, 32 * 4 * 64 * 2]
+    bhtd = torch.zeros((2, 4, 32, 128), dtype=torch.bfloat16).transpose(1, 2)
+    assert layout(bhtd) == [128, 32, 4, 2, 128 * 2, 32 * 128 * 2, 4 * 32 * 128 * 2]
+    sliced = _bthd(2, 32, 4, 64)[:, 8:24, 1:3]
+    assert layout(sliced) == [64, 16, 2, 2, 4 * 64 * 2, 64 * 2, 32 * 4 * 64 * 2]
+    assert sliced.data_ptr() % 16 == 0
+    qkv = torch.zeros((2, 32, 3, 4, 64), dtype=torch.bfloat16)
+    assert layout(qkv.unbind(2)[2]) == [64, 32, 4, 2, 3 * 4 * 64 * 2, 64 * 2, 32 * 3 * 4 * 64 * 2]
+    # every byte stride a tensor map takes is a multiple of 16
+    for x in (bhtd, sliced, qkv.unbind(2)[2]):
+        assert all(s % 16 == 0 for s in layout(x)[4:])
+
+
+@pytest.mark.parametrize("t_q,d,want", [(1, 64, (64, 64)), (64, 128, (64, 128)),
+                                        (65, 128, (128, 128)), (1024, 64, (64, 64)),
+                                        (4096, 128, (128, 128))])
+def test_forward_tiles_rule(t_q, d, want):
+    assert cuda_attention._fwd_tiles(t_q, d) == want

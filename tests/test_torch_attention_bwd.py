@@ -163,6 +163,18 @@ def test_auto_resolves_by_the_ports_rule(monkeypatch):
     assert cuda_attention._resolve_bwd_impl("auto", limit + 1) == "two_pass"
     for impl in ("two_pass", "fused"):
         assert cuda_attention._resolve_bwd_impl(impl, 1) == impl
+        assert cuda_attention._resolve_bwd_impl(impl, 1, "bf16_wgmma") == impl
+    # the operands that the Hopper K8 takes go to it at any length
+    assert cuda_attention._resolve_bwd_impl("auto", 100 * limit, "bf16_wgmma") == "fused"
+    for variant in ("f32", "bf16_mma", "bf16_scalar"):
+        assert cuda_attention._resolve_bwd_impl("auto", limit + 1, variant) == "two_pass"
+    x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    assert cuda_attention._bwd_variant(x, x, x, x) == "bf16_wgmma"
+    assert cuda_attention._bwd_variant(*[x[..., :32].contiguous()] * 4) == "bf16_mma"
+    off = torch.zeros(8 * 2 * 64 + 8, dtype=torch.bfloat16)[1:-7].view(1, 8, 2, 64)
+    assert off.data_ptr() % 16 == 2  # a cotangent whose base is not 16-byte aligned
+    assert cuda_attention._bwd_variant(x, x, x, off) == "bf16_scalar"
+    assert cuda_attention._bwd_variant(*[x.float()] * 4) == "f32"
     taken = []
     real = {name: getattr(cuda_attention, name) for name in ("_flash_bwd", "_flash_bwd_fused")}
     for name, fn in real.items():
@@ -219,3 +231,70 @@ def test_one_launch_counter_per_backward_kernel():
     with pytest.raises(KeyError, match="flash_bwd"):
         _build.count_launch("flash_bwd")
     assert _build.launch_counts() == before
+
+
+# ------------------------------------- K8's workspace and the "auto" rule
+
+@pytest.mark.parametrize("b,h,t_q,d", [(2, 3, 64, 64), (1, 2, 65, 128), (2, 1, 1, 64),
+                                       (1, 4, 300, 64)])
+def test_dq_workspace_shape_padding_and_read_back(b, h, t_q, d):
+    """The wgmma K8's workspace is (B, H, T_q rounded up to 64, D) f32 and
+    zeroed; the read-back drops the padding, transposes to (B, T_q, H, D),
+    casts and is contiguous."""
+    ws = cuda_attention._dq_workspace(b, h, t_q, d, torch.device("cpu"))
+    t_pad = -(-t_q // 64) * 64
+    assert ws.shape == (b, h, t_pad, d) and ws.dtype == torch.float32
+    assert ws.is_contiguous() and bool((ws == 0).all())
+    # a 64-row tile of one head is one contiguous run of 64 * d floats
+    assert ws.stride() == (h * t_pad * d, t_pad * d, d, 1)
+    rng = np.random.default_rng(t_q)
+    dq = torch.from_numpy(rng.standard_normal((b, t_q, h, d)).astype(np.float32))
+    ws[:, :, :t_q] = dq.transpose(1, 2)
+    ws[:, :, t_q:] = 7.0  # whatever lies in the padding is dropped
+    for dtype in (torch.bfloat16, torch.float32):
+        back = cuda_attention._dq_from_workspace(ws, t_q, dtype)
+        assert back.shape == (b, t_q, h, d) and back.dtype == dtype and back.is_contiguous()
+        assert torch.equal(back, dq.to(dtype))
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal,kv_valid", [SHAPES[0], SHAPES[4], SHAPES[3]])
+def test_fused_wrapper_around_the_plain_backward(b, t_q, t_k, h, d, causal, kv_valid):
+    """The wrapper's Python around K8, with the plain backward in the
+    kernel's place: 64-row f32 dQ partials of each 64-key tile are added
+    into the workspace tile by tile, as the bulk reduce-add does, and the
+    read-back equals the plain dQ up to the order of the f32 sums."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(b, t_q, t_k, h, d, 11 * t_q + d))
+    scale = d ** -0.5
+    kv = t_k if kv_valid is None else kv_valid
+    o, lse = cuda_attention._flash_forward(q, k, v, scale, causal, kv, return_lse=True)
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=scale, kv_valid=kv)
+    ws = cuda_attention._dq_workspace(b, h, t_q, d, q.device)
+    flat = ws.view(b * h, -1)  # a head's padded rows, contiguous
+    for k0 in range(0, t_k, 64):  # one key tile's partial, kept in f32
+        part = _dq_partial(q, k, v, o, lse, do, scale, causal, kv, k0)
+        for q0 in range(0, t_q, 64):
+            rows = part[:, :, q0:q0 + 64]
+            tile = torch.zeros((b * h, 64 * d))
+            tile[:, :rows.shape[2] * d] = rows.reshape(b * h, -1)
+            flat[:, q0 * d:(q0 + 64) * d] += tile  # one contiguous 64 x d add
+    got = cuda_attention._dq_from_workspace(ws, t_q, q.dtype)
+    peak = want[0].float().abs().max().item()
+    assert (got.float() - want[0].float()).abs().max().item() <= BF16_MAX * peak
+
+
+def _dq_partial(q, k, v, o, lse, do, scale, causal, kv_end, k0):
+    """dS K of the keys [k0, k0 + 64) in f32, (B, H, T_q, D), with p and dS
+    rounded to bf16 before their products as the kernels round them."""
+    kb, vb = k[:, k0:k0 + 64].float(), v[:, k0:k0 + 64].float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb) * scale
+    k_pos = k0 + torch.arange(kb.shape[1])
+    mask = (k_pos < kv_end)[None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <= torch.arange(q.shape[1])[:, None])
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros(()))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vb)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - dd) * scale).to(q.dtype).float()
+    return torch.einsum("bhqk,bkhd->bhqd", ds, kb)

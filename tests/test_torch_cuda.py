@@ -278,6 +278,116 @@ def test_lm_training_step_launch_counts(dev, impl):
                                               for p in lm.parameters())
 
 
+
+# ------------------------------------------ the Hopper (wgmma) flash kernels
+
+def _views(transposed, *tensors):
+    """The same values behind (B, H, T, D) memory when ``transposed``."""
+    if not transposed:
+        return tensors
+    return tuple(x.transpose(1, 2).contiguous().transpose(1, 2) for x in tensors)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_valid", [0, 250, 437])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_hopper_flash_forward_matches_plain_and_old_kernel(dev, d, causal, kv_valid, transposed):
+    """The wgmma forward on ragged T_q != T_k against the plain version (O
+    within 2^-7 max|v|, the LSE within 1e-5 (1 + |lse|)) and against the
+    mma.sync kernel it replaces (both round p to bf16, so they differ by a
+    rounding of O, within the same tolerance), with every tile choice."""
+    g = torch.Generator(device=dev).manual_seed(d + kv_valid)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((2, 300, 3, d), (2, 437, 3, d), (2, 437, 3, d)))
+    q, k, v = _views(transposed, q, k, v)
+    assert cuda_attention._attention_variant(q.dtype, d, cuda_attention._strides(q, k, v),
+                                             True) == "bf16_wgmma"
+    scale = d ** -0.5
+    o_p, lse_p = cuda_attention.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                                      kv_valid=kv_valid, return_lse=True)
+    o_old = cuda_attention._flash_forward(q, k, v, scale, causal, kv_valid, _old_kernel=True)
+    tol = 2.0 ** -7 * v.float().abs().max()
+    for tiles in (None, (64, 64), (64, 128), (128, 64), (128, 128)):
+        o, lse = cuda_attention._flash_forward(q, k, v, scale, causal, kv_valid, return_lse=True,
+                                               _tiles=tiles)
+        assert o.shape == q.shape and o.is_contiguous()
+        assert bool(((o.float() - o_p.float()).abs() <= tol).all()), tiles
+        assert bool(((lse - lse_p).abs() <= 1e-5 * (1 + lse_p.abs())).all()), tiles
+        assert bool(((o.float() - o_old.float()).abs() <= tol).all()), tiles
+        if kv_valid == 0:
+            assert bool((o == 0).all()) and bool((lse == 1e30).all())
+
+
+@pytest.mark.parametrize("b,t,h,d", [(8, 1024, 16, 64), (1, 4096, 2, 128), (3, 40, 2, 128),
+                                     (1, 1, 1, 64)])
+def test_hopper_flash_forward_at_the_paths_shapes(dev, b, t, h, d):
+    _flash_close(dev, b, t, t, h, d, torch.bfloat16, True, t)
+    _flash_close(dev, b, t, t, h, d, torch.bfloat16, False, t)
+
+
+def test_flash_forward_nonpositive_scale_takes_the_old_kernel(dev):
+    """The wgmma forward folds a positive scale into its exponent; scale <= 0
+    goes to the mma.sync kernel and still matches the plain version."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 200, 2, 64), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    for scale in (-0.125, 0.0):
+        o = cuda_attention._flash_forward(q, k, v, scale, True, 200)
+        o_p = cuda_attention.flash_attention_plain(q, k, v, causal=True, scale=scale, kv_valid=200)
+        assert bool(((o.float() - o_p.float()).abs() <= 2.0 ** -7 * v.float().abs().max()).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_valid", [0, 250, 437])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_hopper_fused_backward_matches_plain_and_old_kernel(dev, d, causal, kv_valid, transposed):
+    """The wgmma K8 (bulk reduce-add of dQ) on ragged T_q != T_k against the
+    plain backward and against the mma.sync K8, each within the bf16
+    tolerance; dK and dV bit-equal across two runs."""
+    args = _bwd_inputs(dev, 2, 300, 437, 3, d, torch.bfloat16, causal, kv_valid)
+    q, k, v, o, lse, do = _views(transposed, *args[:4]) + (args[4],) + _views(transposed, args[5])
+    args = (q, k, v, o, lse, do) + args[6:]
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=args[6], kv_valid=kv_valid)
+    htt.reset_launch_counts()
+    new = cuda_attention._flash_bwd_fused(*args)
+    again = cuda_attention._flash_bwd_fused(*args)
+    old = cuda_attention._flash_bwd_fused(*args, _old_kernel=True)
+    assert htt.launch_counts()["flash_bwd_fused"] == 3
+    assert new[0].is_contiguous()  # dQ is read back from the workspace in one pass
+    _grads_close(new, want, torch.bfloat16)
+    _grads_close(old, want, torch.bfloat16)
+    assert torch.equal(new[1], again[1]) and torch.equal(new[2], again[2])
+    _grads_close(again[:1], want[:1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(8, 1024, 16, 64), (1, 4096, 2, 128)])
+def test_hopper_fused_backward_at_the_paths_shapes(dev, b, t, h, d):
+    args = _bwd_inputs(dev, b, t, t, h, d, torch.bfloat16, True, t)
+    q, k, v, o, lse, do, scale, causal, kv_valid = args
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=scale, kv_valid=kv_valid)
+    _grads_close(cuda_attention._flash_bwd_fused(*args), want, torch.bfloat16)
+
+
+def test_auto_backward_takes_the_fused_kernel_where_the_rule_says(dev):
+    """bwd_impl="auto" resolves by the port's rule and launches that kernel."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for t, d in ((512, 64), (512, 32)):
+        leaves = [torch.randn((1, t, 2, d), generator=g, device=dev).to(torch.bfloat16)
+                  .requires_grad_() for _ in range(3)]
+        want = cuda_attention._resolve_bwd_impl("auto", t, cuda_attention._bwd_variant(
+            *leaves, leaves[0]))
+        assert want == ("fused" if d == 64 else "two_pass")
+        htt.reset_launch_counts()
+        cuda_attention.flash_attention(*leaves, causal=True, bwd_impl="auto").sum().backward()
+        counts = htt.launch_counts()
+        assert (counts["flash_bwd_fused"] == 1) == (want == "fused"), (t, d, counts)
+        assert (counts["flash_bwd_dq"] == 1) == (want == "two_pass"), (t, d, counts)
+
+
 @pytest.mark.parametrize("m,n,k", [(1000, 1000, 999), (1, 1, 1), (129, 4097, 512), (300, 77, 33)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_kernel_bit_identical_to_plain(dev, m, n, k, out_dtype):
