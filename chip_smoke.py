@@ -13,10 +13,11 @@ Phases, each printing JSON lines:
      kernel's, the plain version's and (where one PyTorch call computes the
      same function) the library call's times, and the bound; the flash
      kernels' times are device times (the calls replayed from a CUDA graph);
-     the Hopper (wgmma) variants of K6 and K8 are also held against the
-     mma.sync kernels they replace and timed in turns with them (old, new,
-     new, old), with their registers, spills and shared memory from the
-     build; the flash backward (K7a, K7b and K8) also through autograd, and
+     the Hopper (wgmma) variants of K6, K7a, K7b and K8 are also held
+     against the mma.sync kernels they replace and timed in turns with them
+     (old, new, new, old), with their registers, spills and shared memory
+     from the build, and their tile choices timed against the shape rules;
+     the flash backward (K7a, K7b and K8) also through autograd, and
      two-pass against fused over sequence lengths;
   3. the array path at bench.py's sizes through the user entry points:
      array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
@@ -63,6 +64,9 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 ARRAY_PATH = ("moments", "cdist", "lloyd")
+# the wgmma K7a's (query rows a block, keys a tile) instantiations, by head dim
+DQ_TILES = [(64, (64, 64)), (64, (64, 128)), (64, (128, 64)), (64, (128, 128)),
+            (128, (128, 64))]
 
 FAILURES = []
 
@@ -144,6 +148,10 @@ def main():
             for d in (64, 128) for bm in (64, 128) for bn in (64, 128)}
     smem.update({f"flash_bwd_fused_wgmma d={d}": bwd_lib.heat_flash_bwd_fused_wgmma_smem(d)
                  for d in (64, 128)})
+    smem.update({f"flash_bwd_dkv_wgmma d={d} stages={st}":
+                 bwd_lib.heat_flash_bwd_dkv_wgmma_smem(d, st) for d in (64, 128) for st in (2, 4)})
+    smem.update({f"flash_bwd_dq_wgmma d={d} bm={bm} bn={bn}":
+                 bwd_lib.heat_flash_bwd_dq_wgmma_smem(d, bm, bn) for d, (bm, bn) in DQ_TILES})
     spilled = [k for k, v in hopper.items() if k != "ptxas_performance_notes"
                and "0 bytes spill stores, 0 bytes spill loads" not in v]
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas, "hopper_variants": hopper,
@@ -449,11 +457,15 @@ def main():
     # (kv_valid = 0) gives gradients of exactly 0. Two runs of K7a and K7b,
     # and K8's dK and dV, agree bit for bit; K8's dQ is a sum of f32 atomics
     # whose order changes from run to run, so it is held to the tolerance.
+    # The D that the Hopper K7a writes for K7b is held against the plain
+    # prologue's within 1e-6 of sum |dO O| over the row (f32 sums of the
+    # same exact products in another order).
     # The library time is SDPA's backward: its forward and backward less its
     # forward (no kv_valid mask there, so only where kv_valid >= T_k).
     from heat_tpu_torch.parallel.cuda_attention import (
-        _bwd_operands, _dq_workspace, _flash_bwd, _flash_bwd_fused, _launch_bwd,
-        _launch_fused_wgmma, flash_attention, flash_attention_bwd_plain)
+        _bwd_dkv_stages, _bwd_dq_tiles, _bwd_operands, _dq_workspace, _flash_bwd,
+        _flash_bwd_fused, _launch_bwd, _launch_dkv_wgmma, _launch_dq_wgmma, _launch_fused_wgmma,
+        _row_terms, flash_attention, flash_attention_bwd_plain)
 
     def grad_errors(got, want, dtype):
         """Per gradient: the largest error, over the peak, relative RMS, and
@@ -506,26 +518,42 @@ def main():
         repeat_fused_kv = all(torch.equal(x, y) for x, y in zip(fused[1:], fused2[1:]))
         fields = {"shape": [b, t_q, t_k, h, d], "dtype": str(dtype).split(".")[-1],
                   "causal": causal, "kv_valid": kv_valid, "transposed": transposed,
-                  "fused_variant": variant, "two_pass": err_two, "fused": err_fused,
+                  "variant": variant, "two_pass": err_two, "fused": err_fused,
                   "two_pass_repeat_bitwise": repeat_two,
                   "fused_dk_dv_repeat_bitwise": repeat_fused_kv,
                   "fused_dq_repeat_bitwise": torch.equal(fused[0], fused2[0]),
                   "tolerance": {"f32": "max err <= 2e-5 peak",
                                 "bf16": "rel RMS <= 2e-3 and max err <= 2^-6 peak",
-                                "fully masked": "exactly 0"}}
+                                "fully masked": "exactly 0",
+                                "D": "|D_k - D_p| <= 1e-6 sum|dO O|"}}
         ok = (all(e["ok"] for e in (*err_two.values(), *err_fused.values()))
               and repeat_two and repeat_fused_kv)
-        if variant == "bf16_wgmma":  # the mma.sync K8 at the same shape, same tolerance
+        if variant == "bf16_wgmma":
+            # the mma.sync kernels at the same shape: against the plain
+            # backward and against the new ones, the same tolerance
+            old_two = _flash_bwd(*args, _old_kernel=True)
             old = _flash_bwd_fused(*args, _old_kernel=True)
+            fields["two_pass_old_kernel"] = grad_errors(old_two, want, dtype)
+            fields["two_pass_new_vs_old"] = grad_errors(two, old_two, dtype)
             fields["fused_old_kernel"] = grad_errors(old, want, dtype)
-            ok = ok and all(e["ok"] for e in fields["fused_old_kernel"].values())
-            del old
+            # the D that K7a writes for K7b, against the plain prologue
+            qq, kk, vv, dd_o, lse_c, dd_p = _bwd_operands(q, k, v, o, lse, do)
+            dd_k = torch.full_like(dd_p, float("nan"))
+            _launch_dq_wgmma(qq, kk, vv, dd_o, o, lse_c, dd_k, torch.empty_like(qq), scale, causal,
+                             kv_valid, _bwd_dq_tiles(t_q, d))
+            size = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+            fields["k7a_d_err_over_tol"] = ((dd_k - dd_p).abs() / (1e-6 * size + 1e-30)).max().item()
+            ok = ok and fields["k7a_d_err_over_tol"] <= 1.0 and all(
+                e["ok"] for name in ("two_pass_old_kernel", "two_pass_new_vs_old",
+                                     "fused_old_kernel") for e in fields[name].values())
+            del old, old_two, dd_k, size
         del want, two2, fused2
         kernels = None
         if timed:
             qq, kk, vv, dd_o, lse_c, dd = _bwd_operands(q, k, v, o, lse, do)
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             dq32 = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+            dd_buf = torch.empty_like(dd)
 
             def launch(name, outs):
                 return lambda: _launch_bwd(name, qq, kk, vv, dd_o, lse_c, dd, *outs, scale,
@@ -534,7 +562,12 @@ def main():
             plain_ms = time_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=causal, scale=scale, kv_valid=kv_valid), 2, warmup=1)
             library_ms = sdpa_bwd_ms(q, k, v, do, causal, scale, reps) if kv_valid >= t_k else None
-            fields["two_pass_ms"] = device_ms(lambda: _flash_bwd(*args), reps)
+            # the whole two-pass wrapper, old (plain D prologue, mma.sync
+            # kernels) against new (D inside the wgmma K7a), and the prologue
+            # alone
+            fields["two_pass_old_ms"], fields["two_pass_ms"] = time_turns(
+                lambda: _flash_bwd(*args, _old_kernel=True), lambda: _flash_bwd(*args), reps)
+            fields["plain_prologue_ms"] = device_ms(lambda: _row_terms(o, do), reps)
             fields["fused_old_ms"], fields["fused_ms"] = time_turns(
                 lambda: _flash_bwd_fused(*args, _old_kernel=True),
                 lambda: _flash_bwd_fused(*args), reps)
@@ -544,20 +577,31 @@ def main():
             reads = (2 * b * t_q * h * d + 2 * b * kv_rows * h * d) * es + 2 * b * h * t_q * 4
             kv_out = 2 * b * t_k * h * d * es
             rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+            wgmma = variant == "bf16_wgmma"
+            # the wgmma K7a also reads O and computes D (2 D operations a row)
+            # in place of reading it
+            dq_bytes = reads + b * t_q * h * d * es * (2 if wgmma else 1)
+            dq_ops_extra = 2 * b * t_q * h * d if wgmma else 0
+            new = {
+                "flash_bwd_dq": lambda: _launch_dq_wgmma(
+                    qq, kk, vv, dd_o, o, lse_c, dd_buf, dq, scale, causal, kv_valid,
+                    _bwd_dq_tiles(t_q, d)),
+                "flash_bwd_dkv": lambda: _launch_dkv_wgmma(
+                    qq, kk, vv, dd_o, lse_c, dd, dk, dv, scale, causal, kv_valid,
+                    _bwd_dkv_stages(d)),
+            }
             kernels = {}
-            for name, outs, per_pair, nbytes, err in (
-                    ("flash_bwd_dq", (dq, None, None), 6, reads + b * t_q * h * d * es,
+            for name, outs, per_pair, nbytes, extra, err in (
+                    ("flash_bwd_dq", (dq, None, None), 6, dq_bytes, dq_ops_extra,
                      err_two["dq"]["max_abs_err"]),
-                    ("flash_bwd_dkv", (None, dk, dv), 8, reads + kv_out,
+                    ("flash_bwd_dkv", (None, dk, dv), 8, reads + kv_out, 0,
                      max(err_two["dk"]["max_abs_err"], err_two["dv"]["max_abs_err"])),
                     ("flash_bwd_fused", (dq32, dk, dv), 10, reads + kv_out + 4 * b * t_q * h * d,
-                     max(e["max_abs_err"] for e in err_fused.values()))):
-                ops = per_pair * d * pairs
+                     0, max(e["max_abs_err"] for e in err_fused.values()))):
+                ops = per_pair * d * pairs + extra
                 bound_ms, bound_by = bound(nbytes, ops, rate)
-                old_ms, which = None, None
-                if name == "flash_bwd_fused":
-                    which = variant
-                if which == "bf16_wgmma":
+                old_ms, which = None, variant if wgmma else None
+                if wgmma and name == "flash_bwd_fused":
                     # kernel alone, on a workspace that is not re-zeroed: the
                     # sums it holds change no time
                     ws = _dq_workspace(b, h, t_q, d, dev)
@@ -566,6 +610,8 @@ def main():
                         lambda: _launch_fused_wgmma(qq, kk, vv, dd_o, lse_c, dd, ws, dk, dv,
                                                     scale, causal, kv_valid), reps)
                     del ws
+                elif wgmma:
+                    old_ms, kernel_ms = time_turns(launch(name, outs), new[name], reps)
                 else:
                     kernel_ms = device_ms(launch(name, outs), reps)
                 kernels[name] = {"kernel_ms": kernel_ms, "old_ms": old_ms, "variant": which,
@@ -573,6 +619,8 @@ def main():
                                  "bound_ms": bound_ms, "bound_by": bound_by, "operations": ops,
                                  "exponentials": pairs, "bytes": nbytes, "max_abs_err": err}
             fields["kernels"] = kernels
+            fields["two_pass_kernels_ms"] = (kernels["flash_bwd_dq"]["kernel_ms"]
+                                             + kernels["flash_bwd_dkv"]["kernel_ms"])
         check(f"flash_bwd {label}", ok, **fields)
         return kernels
 
@@ -591,6 +639,35 @@ def main():
     flash_bwd_case("ragged, transposed, kv_valid = T_k", 2, 1000, 1337, 3, 64, torch.bfloat16,
                    False, 1337, 3, transposed=True)
     flash_bwd_case("fully masked", 2, 100, 100, 2, 64, torch.bfloat16, False, 0, 3)
+    flash_bwd_case("fully masked, D = 128, causal", 2, 100, 100, 2, 128, torch.bfloat16, True, 0,
+                   3)
+    flash_bwd_case("ragged, transposed, D = 128, causal", 2, 1000, 1337, 3, 128, torch.bfloat16,
+                   True, 1337, 3, transposed=True)
+    # the Hopper two-pass's choices at the two timed shapes, each kernel
+    # alone: K7a's (query rows a block, keys a tile) and K7b's ring slots,
+    # what _bwd_dq_tiles and _bwd_dkv_stages rest on
+    choice_ms = {}
+    for label, (b, t, h, d) in (("LM shape", (8, 1024, 16, 64)),
+                                ("attention_bwd shape", (4, 4096, 8, 128))):
+        q, k, v, g = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        o, lse = _flash_forward(q, k, v, d ** -0.5, True, t, return_lse=True)
+        qq, kk, vv, dd_o, lse_c, dd = _bwd_operands(q, k, v, o, lse, g)
+        dq, dk, dv, dd_buf = (torch.empty_like(x) for x in (q, k, v, dd))
+        reps = 20 if t == 1024 else 10
+        dq_ms = {f"{bm}x{bn}": device_ms(lambda: _launch_dq_wgmma(
+            qq, kk, vv, dd_o, o, lse_c, dd_buf, dq, d ** -0.5, True, t, (bm, bn)), reps)
+            for dd_, (bm, bn) in DQ_TILES if dd_ == d}
+        dq_ms["rule"] = "x".join(map(str, _bwd_dq_tiles(t, d)))
+        dkv_ms = {str(st): device_ms(lambda: _launch_dkv_wgmma(
+            qq, kk, vv, dd_o, lse_c, dd, dk, dv, d ** -0.5, True, t, st), reps) for st in (2, 4)}
+        dkv_ms["rule"] = str(_bwd_dkv_stages(d))
+        choice_ms[label] = {"flash_bwd_dq tiles": dq_ms, "flash_bwd_dkv stages": dkv_ms}
+    emit({"phase": "flash_bwd two-pass choices, device ms, bf16 causal", **choice_ms})
+    check("flash_bwd two-pass: the rules pick the fastest choice or within 10% of it",
+          all(ms[ms["rule"]] <= 1.10 * min(x for x in ms.values() if isinstance(x, float))
+              for by in choice_ms.values() for ms in by.values()), choice_ms=choice_ms)
+    del q, k, v, g, o, lse, qq, kk, vv, dd_o, lse_c, dd, dq, dk, dv, dd_buf
 
     # the composed autograd path, flash_attention(...).backward(g): two-pass
     # bit-identical to the direct call (the same K6 forward feeds the same
@@ -622,7 +699,9 @@ def main():
         args = (q, k, v, o, lse, g, d ** -0.5, True, t)
         fused_old_ms, fused_ms = time_turns(lambda: _flash_bwd_fused(*args, _old_kernel=True),
                                             lambda: _flash_bwd_fused(*args), 10)
-        auto_ms[f"{b}x{t}x{h}x{d}"] = {"two_pass_ms": device_ms(lambda: _flash_bwd(*args), 10),
+        two_old_ms, two_ms = time_turns(lambda: _flash_bwd(*args, _old_kernel=True),
+                                        lambda: _flash_bwd(*args), 10)
+        auto_ms[f"{b}x{t}x{h}x{d}"] = {"two_pass_ms": two_ms, "two_pass_old_kernel_ms": two_old_ms,
                                        "two_pass_host_bound_ms": time_ms(
                                            lambda: _flash_bwd(*args), 10),
                                        "fused_host_bound_ms": time_ms(
@@ -1174,8 +1253,8 @@ def main():
           all(launches[name] > 0 for name in backward_kernels), launches=launches)
     # the redesigned kernels also at bench.py's attention shapes
     also = {"flash_fwd": ("bench shape (4, 4096, 8, 128) bf16 non-causal", flash_bench),
-            "flash_bwd_fused": ("attention_bwd shape (4, 4096, 8, 128) bf16 causal",
-                                attention_bwd["flash_bwd_fused"])}
+            **{name: ("attention_bwd shape (4, 4096, 8, 128) bf16 causal", attention_bwd[name])
+               for name in backward_kernels}}
     timing_keys = ("variant", "kernel_ms", "old_ms", "plain_ms", "library_ms", "bound_ms",
                    "bound_by", "max_abs_err")
     kernels = []

@@ -64,8 +64,31 @@
 //     halves the reduce-add traffic), on 232 registers each that the producer
 //     warpgroup hands over: dK and dV alone are 128 floats a thread.
 // It is bound by operations (43 us at the LM's shape, 10 D a live pair); its
-// times are in PERF.md section 6. Every other input (f32, other D,
-// unaligned rows) keeps the kernels below, atomicAdd included.
+// times are in PERF.md section 6.
+//
+// K7a and K7b for the same inputs (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma).
+// What held their mma.sync forms back was what held K8's: four warps each
+// re-read every streamed tile from shared memory through ldmatrix, a
+// __syncthreads() per tile behind a two-slot cp.async ring, 32-key (K7a) and
+// 16-query (K7b) tiles at D = 128, and the exponentials never overlapped a
+// product. The designs:
+//   - K7b is K8's body with its dQ compiled out (no dS^T tile, no dQ
+//     product, tiles or reduce-add): one body, two kernels;
+//   - K7a mirrors the forward: consumer warpgroups of 64 query rows hold Q
+//     and dO (one bulk tensor copy each) and dQ as an f32 accumulator; a
+//     producer streams K and V tiles into a ring on mbarriers; per tile
+//     S = Q K^T and dP = dO V^T come from shared memory (K-major), dS is
+//     rebuilt on the accumulator fragments and packed to bf16 A fragments
+//     for dQ += dS K (K read MN-major). The next tile's S and dP are queued
+//     before this tile's dQ product, so the tensor cores work while the
+//     warpgroup does the exponentials;
+//   - K7a also computes D = rowsum(dO O) for its own rows (O by 16-byte
+//     loads into registers, dO from its shared tile) and writes it to a
+//     (B, H, T_q) f32 buffer that K7b, launched after it on the same stream,
+//     reads: the wrapper's plain-torch prologue is gone on this path.
+// Each output is summed by one block in a fixed order, so both stay
+// bit-reproducible. Every other input (f32, other D, unaligned rows) keeps
+// the kernels below, atomicAdd included.
 //
 // bf16 (tensor cores, mma.sync m16n8k16, bf16 in, f32 accumulate): 4 warps,
 // each owning 16 rows of the block's 64 (query rows in K7a, keys in K7b and
@@ -111,12 +134,14 @@ struct Params {
   const void* dout;
   const float* lse;  // (B, H, T_q)
   const float* dd;   // (B, H, T_q): D = rowsum(dO * O)
+  const void* o;     // wgmma K7a: O, from which it computes D into dd_out
+  float* dd_out;
   void* dq;          // K8: the f32 workspace
   void* dk;
   void* dv;
   // element strides over (batch, time, head); the head dim is contiguous
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh;
-  long long dq_sb, dq_st, dq_sh, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh;
+  long long dq_sb, dq_st, dq_sh, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh, o_sb, o_st, o_sh;
   int h, t_q, t_k, kv_end, d, causal;
   float scale;
 };
@@ -470,48 +495,49 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const Params p) {
                           k0 * p.dv_st, p.dv_st, dv, kr, k_rows, p.d, tg);
 }
 
-// ------------------------------------------------------- bf16 K8, wgmma
+// ------------------------------------------- bf16 K7b and K8, wgmma
 
-// Shared memory of flash_bwd_fused_wgmma: K and V tiles (64 NWG x D), a ring
-// of STAGES Q and dO tiles (64 x D) with their 64 lse log2 e and D values,
-// dS^T (64 NWG keys x 64 queries bf16, swizzled), two f32 dQ tiles of 64 x D,
-// the barriers, and 1024 bytes to align the tiles to the swizzle.
-constexpr int fused_wgmma_smem_bytes(int d, int nwg, int stages) {
-  return 1024 + (2 * nwg + 2 * stages) * 64 * d * 2 + nwg * 64 * 64 * 2 + 2 * 64 * d * 4 +
-         stages * 2 * 64 * 4 + (1 + 2 * stages) * 8;
+// Shared memory of flash_bwd_dkv_wgmma (K7b) and flash_bwd_fused_wgmma (K8):
+// K and V tiles (64 NWG x D), a ring of STAGES Q and dO tiles (64 x D) with
+// their 64 lse log2 e and D values, the barriers, and 1024 bytes to align the
+// tiles to the swizzle; K8 adds dS^T (64 NWG keys x 64 queries bf16,
+// swizzled) and two f32 dQ tiles of 64 x D.
+constexpr int kv_wgmma_smem_bytes(int d, int nwg, int stages, bool fused) {
+  return 1024 + (2 * nwg + 2 * stages) * 64 * d * 2 +
+         (fused ? nwg * 64 * 64 * 2 + 2 * 64 * d * 4 : 0) + stages * 2 * 64 * 4 +
+         (1 + 2 * stages) * 8;
 }
 
 // the producer: a warp beside one consumer warpgroup; a whole warpgroup
 // beside two, so that it can hand its registers over (setmaxnreg)
-constexpr int fused_producer_threads(int nwg) { return nwg == 2 ? 128 : 32; }
+constexpr int producer_threads(int nwg) { return nwg == 2 ? 128 : 32; }
 
-// NWG consumer warpgroups that own 64 keys each, and a producer. The
-// producer's first lane starts the bulk tensor copies (K and V once, then the
-// Q and dO tiles of every query tile that sees these keys, into a ring of
-// STAGES slots on mbarriers) while its first warp stages the tiles' lse log2 e
-// and D values. Per query tile a warpgroup starts S^T = K Q^T and
-// dP^T = V dO^T (wgmma, every operand K-major as it lies), rebuilds P^T and
-// dS^T on the accumulator fragments, packs them to bf16 A fragments in
-// registers for dV += P^T dO and dK += dS^T Q (dO and Q read MN-major), and
-// stores dS^T swizzled in shared memory. dQ = dS K then reads dS^T as an
-// MN-major A operand against K as an MN-major B, over all the block's keys;
-// with two warpgroups each computes one half of dQ's columns, so the two
-// share one partial. The 64 x D f32 partial goes to shared memory, and one
-// thread adds the whole tile to the tile-contiguous (B, H, T_q rounded up to
-// 64, D) workspace with one bulk reduce-add; the two dQ tiles alternate, so a
-// reduce-add is only waited on two tiles later. The order in which key
-// tiles add into a dQ tile changes from run to run, so dQ is not
-// bit-reproducible; dK and dV are.
-// D = 64: one warpgroup, two blocks an SM. D = 128: two warpgroups of 232
-// registers (dK and dV alone are 128 a thread), one block an SM.
-template <int D, int NWG, int STAGES, int MINB>
-__global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
-    flash_bwd_fused_wgmma(const Params p, const __grid_constant__ CUtensorMap map_q,
-                          const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v,
-                          const __grid_constant__ CUtensorMap map_do) {
+// The body of K7b (FUSED = false) and K8 (FUSED = true): NWG consumer
+// warpgroups that own 64 keys each, and a producer. The producer's first
+// lane starts the bulk tensor copies (K and V once, then the Q and dO tiles
+// of every query tile that sees these keys, into a ring of STAGES slots on
+// mbarriers) while its first warp stages the tiles' lse log2 e and D values.
+// Per query tile a warpgroup starts S^T = K Q^T and dP^T = V dO^T (wgmma,
+// every operand K-major as it lies), rebuilds P^T and dS^T on the
+// accumulator fragments, and packs them to bf16 A fragments in registers for
+// dV += P^T dO and dK += dS^T Q (dO and Q read MN-major). dK and dV are
+// summed by this block alone, in a fixed order: bit-reproducible.
+// K8 also stores dS^T swizzled in shared memory. dQ = dS K then reads dS^T
+// as an MN-major A operand against K as an MN-major B, over all the block's
+// keys; with two warpgroups each computes one half of dQ's columns, so the
+// two share one partial. The 64 x D f32 partial goes to shared memory, and
+// one thread adds the whole tile to the tile-contiguous (B, H, T_q rounded
+// up to 64, D) workspace with one bulk reduce-add; the two dQ tiles
+// alternate, so a reduce-add is only waited on two tiles later. The order in
+// which key tiles add into a dQ tile changes from run to run, so K8's dQ is
+// not bit-reproducible.
+template <int D, int NWG, int STAGES, bool FUSED>
+__device__ __forceinline__ void kv_wgmma_body(const Params& p, const CUtensorMap* map_q,
+                                              const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v,
+                                              const CUtensorMap* map_do) {
   constexpr int BQ = 64, BK = 64 * NWG, PANELS = D / 64;
-  constexpr int DN = D / NWG;  // the dQ columns of one warpgroup
+  constexpr int DN = D / NWG;  // K8: the dQ columns of one warpgroup
   static_assert(DN == 64 || DN == 128, "a warpgroup's share of dQ is 64 or 128 columns");
   constexpr uint32_t PANEL = 64 * PANEL_ROW_BYTES, TILE = PANELS * PANEL;  // Q, dO
   constexpr uint32_t KV_PANEL = BK * PANEL_ROW_BYTES, KV_TILE = PANELS * KV_PANEL;
@@ -522,9 +548,9 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
   uint8_t* const vs = ks + KV_TILE;
   uint8_t* const qs = vs + KV_TILE;            // STAGES Q tiles
   uint8_t* const dos = qs + STAGES * TILE;     // STAGES dO tiles
-  uint8_t* const ds_s = dos + STAGES * TILE;   // dS^T, BK keys x 64 queries
-  float* const dq_s = reinterpret_cast<float*>(ds_s + KV_PANEL);  // two 64 x D tiles
-  float* const lse_s = dq_s + 2 * BQ * D;      // STAGES x 64
+  uint8_t* const ds_s = dos + STAGES * TILE;   // K8: dS^T, BK keys x 64 queries
+  float* const dq_s = reinterpret_cast<float*>(ds_s + (FUSED ? KV_PANEL : 0));  // K8: 2 x (64 x D)
+  float* const lse_s = dq_s + (FUSED ? 2 * BQ * D : 0);  // STAGES x 64
   float* const dd_s = lse_s + STAGES * BQ;     // STAGES x 64
   uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dd_s + STAGES * BQ);
   uint64_t* const full = kv_full + 1;
@@ -555,8 +581,8 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
         mbar_expect_tx(kv_full, 2 * KV_TILE);
 #pragma unroll
         for (int pn = 0; pn < PANELS; ++pn) {
-          tma_load_4d(ks + pn * KV_PANEL, &map_k, kv_full, pn * PANEL_COLS, k0, hh, bb);
-          tma_load_4d(vs + pn * KV_PANEL, &map_v, kv_full, pn * PANEL_COLS, k0, hh, bb);
+          tma_load_4d(ks + pn * KV_PANEL, map_k, kv_full, pn * PANEL_COLS, k0, hh, bb);
+          tma_load_4d(vs + pn * KV_PANEL, map_v, kv_full, pn * PANEL_COLS, k0, hh, bb);
         }
       }
       for (int it = first; it < end; ++it) {
@@ -566,9 +592,9 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
           mbar_expect_tx(full + slot, 2 * TILE);
 #pragma unroll
           for (int pn = 0; pn < PANELS; ++pn) {
-            tma_load_4d(qs + slot * TILE + pn * PANEL, &map_q, full + slot, pn * PANEL_COLS, q0,
+            tma_load_4d(qs + slot * TILE + pn * PANEL, map_q, full + slot, pn * PANEL_COLS, q0,
                         hh, bb);
-            tma_load_4d(dos + slot * TILE + pn * PANEL, &map_do, full + slot, pn * PANEL_COLS, q0,
+            tma_load_4d(dos + slot * TILE + pn * PANEL, map_do, full + slot, pn * PANEL_COLS, q0,
                         hh, bb);
           }
         }
@@ -593,7 +619,6 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
     float dk[D / 8][4], dv[D / 8][4];
     zero(dk);
     zero(dv);
-    float* const ws = static_cast<float*>(p.dq) + (bh * p.dq_st) * D;  // dq_st: padded T_q
 
     if (first < end) mbar_wait(kv_full, 0);
     for (int it = first; it < end; ++it) {
@@ -641,59 +666,64 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
       wgmma_pb<4>(dk, dsa, q_addr, PANEL);
       wgmma_commit();
 
-      // dS^T into its swizzled tile: key row r, queries 16 kk + 2 tg + {0, 1}
-      // (+ 8) of the A fragment's four words; 16-byte chunk c of row r lies
-      // at chunk c ^ (r & 7)
+      if constexpr (FUSED) {
+        // dS^T into its swizzled tile: key row r, queries 16 kk + 2 tg + {0, 1}
+        // (+ 8) of the A fragment's four words; 16-byte chunk c of row r lies
+        // at chunk c ^ (r & 7)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const int r = kr + 8 * (w & 1), chunk = 2 * kk + (w >> 1);
-          *reinterpret_cast<uint32_t*>(ds_s + r * PANEL_ROW_BYTES + ((chunk ^ (r & 7)) << 4) +
-                                       tg * 4) = dsa[kk][w];
+          for (int w = 0; w < 4; ++w) {
+            const int r = kr + 8 * (w & 1), chunk = 2 * kk + (w >> 1);
+            *reinterpret_cast<uint32_t*>(ds_s + r * PANEL_ROW_BYTES + ((chunk ^ (r & 7)) << 4) +
+                                         tg * 4) = dsa[kk][w];
+          }
         }
+        // the dQ tile written two query tiles ago has been read by its reduce-add
+        if (tid == 0) bulk_wait_read<1>();
+        fence_proxy_async();
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // dS^T is whole
       }
-      // the dQ tile written two query tiles ago has been read by its reduce-add
-      if (tid == 0) bulk_wait_read<1>();
-      fence_proxy_async();
-      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // dS^T is whole
 
       wgmma_wait<0>();
       fence_regs(dk);
       fence_regs(dv);
       if (lane == 0) mbar_arrive(empty + slot);  // Q and dO of this slot are consumed
 
-      // dQ = dS K over the block's keys, this warpgroup's DN columns: dS
-      // from dS^T (MN-major A), K MN-major B
-      float dq[DN / 8][4];
-      wgmma_fence();
+      if constexpr (FUSED) {
+        // dQ = dS K over the block's keys, this warpgroup's DN columns: dS
+        // from dS^T (MN-major A), K MN-major B
+        float dq[DN / 8][4];
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_ss<1, 1>(
-            dq, wgmma_desc(ds_addr + kk * 16 * PANEL_ROW_BYTES, PANEL, SWIZZLE_ATOM_BYTES),
-            wgmma_desc(k_addr + (wg * DN / 64) * KV_PANEL + kk * 16 * PANEL_ROW_BYTES, KV_PANEL,
-                       SWIZZLE_ATOM_BYTES),
-            kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<1, 1>(
+              dq, wgmma_desc(ds_addr + kk * 16 * PANEL_ROW_BYTES, PANEL, SWIZZLE_ATOM_BYTES),
+              wgmma_desc(k_addr + (wg * DN / 64) * KV_PANEL + kk * 16 * PANEL_ROW_BYTES, KV_PANEL,
+                         SWIZZLE_ATOM_BYTES),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
 
-      float* const tile = dq_s + (n & 1) * BQ * D;
+        float* const tile = dq_s + (n & 1) * BQ * D;
 #pragma unroll
-      for (int j = 0; j < DN / 8; ++j) {
+        for (int j = 0; j < DN / 8; ++j) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<float2*>(tile + ((warp & 3) * 16 + g + 8 * r) * D + wg * DN + j * 8 +
-                                     tg * 2) = make_float2(dq[j][2 * r], dq[j][2 * r + 1]);
-      }
-      fence_proxy_async();
-      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // the dQ tile is whole
-      if (tid == 0) {
-        bulk_reduce_add_f32(ws + static_cast<long long>(q0) * D, tile, BQ * D * 4);
-        bulk_commit();
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(tile + ((warp & 3) * 16 + g + 8 * r) * D + wg * DN +
+                                       j * 8 + tg * 2) = make_float2(dq[j][2 * r], dq[j][2 * r + 1]);
+        }
+        fence_proxy_async();
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");  // the dQ tile is whole
+        if (tid == 0) {
+          float* const ws = static_cast<float*>(p.dq) + (bh * p.dq_st) * D;  // dq_st: padded T_q
+          bulk_reduce_add_f32(ws + static_cast<long long>(q0) * D, tile, BQ * D * 4);
+          bulk_commit();
+        }
       }
     }
-    if (tid == 0) bulk_wait_read<0>();
+    if (FUSED && tid == 0) bulk_wait_read<0>();
 
     const int k_rows = min(BK, p.t_k - k0);
     store_rows_bf16<D>(static_cast<__nv_bfloat16*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh +
@@ -703,23 +733,293 @@ __global__ void __launch_bounds__(NWG * 128 + fused_producer_threads(NWG), MINB)
   }
 }
 
+// K8. D = 64: one warpgroup, two blocks an SM. D = 128: two warpgroups of 232
+// registers (dK and dV alone are 128 a thread), one block an SM.
 template <int D, int NWG, int STAGES, int MINB>
-cudaError_t launch_fused_wgmma(const Params& p, int b, const TensorView* views,
-                               cudaStream_t stream) {
-  constexpr int smem = fused_wgmma_smem_bytes(D, NWG, STAGES);
+__global__ void __launch_bounds__(NWG * 128 + producer_threads(NWG), MINB)
+    flash_bwd_fused_wgmma(const Params p, const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do) {
+  kv_wgmma_body<D, NWG, STAGES, true>(p, &map_q, &map_k, &map_v, &map_do);
+}
+
+// K7b: K8 without dQ, so without its dS^T tile, dQ tiles and dQ product;
+// the shared memory freed goes to the ring (STAGES).
+template <int D, int NWG, int STAGES, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + producer_threads(NWG), MINB)
+    flash_bwd_dkv_wgmma(const Params p, const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do) {
+  kv_wgmma_body<D, NWG, STAGES, false>(p, &map_q, &map_k, &map_v, &map_do);
+}
+
+template <int D, int NWG, int STAGES, int MINB, bool FUSED>
+auto kv_wgmma_kernel() {
+  if constexpr (FUSED)
+    return flash_bwd_fused_wgmma<D, NWG, STAGES, MINB>;
+  else
+    return flash_bwd_dkv_wgmma<D, NWG, STAGES, MINB>;
+}
+
+template <int D, int NWG, int STAGES, int MINB, bool FUSED>
+cudaError_t launch_kv_wgmma(const Params& p, int b, const TensorView* views,
+                            cudaStream_t stream) {
+  constexpr int smem = kv_wgmma_smem_bytes(D, NWG, STAGES, FUSED);
   CUtensorMap maps[4];  // q, k, v, dout: K and V in boxes of the block's keys
   const int box_rows[4] = {64, 64 * NWG, 64 * NWG, 64};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err = make_tensor_map(&maps[i], views[i], box_rows[i]);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = flash_bwd_fused_wgmma<D, NWG, STAGES, MINB>;
+  auto kernel = kv_wgmma_kernel<D, NWG, STAGES, MINB, FUSED>();
   static bool ready[64] = {};  // of this instantiation, so of this kernel
   const cudaError_t err = allow_dynamic_smem(kernel, smem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(p.t_k, 64 * NWG), p.h, b);
-  kernel<<<grid, NWG * 128 + fused_producer_threads(NWG), smem, stream>>>(p, maps[0], maps[1],
-                                                                         maps[2], maps[3]);
+  kernel<<<grid, NWG * 128 + producer_threads(NWG), smem, stream>>>(p, maps[0], maps[1], maps[2],
+                                                                    maps[3]);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ bf16 K7a, wgmma
+
+// Shared memory of flash_bwd_dq_wgmma: the Q and dO tiles (64 NWG x D), a
+// ring of STAGES K and V tiles (BN x D), the barriers, and 1024 bytes to
+// align the tiles to the swizzle.
+constexpr int dq_wgmma_smem_bytes(int d, int nwg, int bn, int stages) {
+  return 1024 + (2 * 64 * nwg + 2 * stages * bn) * d * 2 + (1 + 2 * stages) * 8;
+}
+
+// The ring's slots: three of 64-key tiles, two of 128-key tiles (so that a
+// one-warpgroup block of those leaves room for a second block on its SM)
+constexpr int dq_wgmma_stages(int bn) { return bn == 128 ? 2 : 3; }
+
+// acc + the f32 products of two runs of eight bf16 values, in order (each
+// product of two bf16 values is exact in f32)
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b, float acc) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(wa[i] << 16), __uint_as_float(wb[i] << 16), acc);
+    acc = fmaf(__uint_as_float(wa[i] & 0xffff0000u), __uint_as_float(wb[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// NWG consumer warpgroups of 64 query rows each and a producer. The
+// producer's first thread starts the bulk tensor copies: Q and dO once, then
+// the K and V tiles of every key tile these rows see into a ring of STAGES
+// slots, each completing on its `full` mbarrier; it waits on a slot's `empty`
+// barrier (one arrival a consumer warp) before it refills it.
+// A consumer warp first computes D = rowsum(dO O) of its 16 rows: two lanes a
+// row, each over half the columns, O by 16-byte loads started before the
+// block waits for its tiles, dO from its swizzled shared tile; it writes D to
+// dd_out and keeps its rows' D and lse log2 e in registers. Then, per key
+// tile, S = Q K^T and dP = dO V^T (wgmma from shared memory, K-major as the
+// tiles lie), dS = p (dP - D) scale on the accumulator fragments with
+// p = 2^(s scale log2 e - lse log2 e), masks only on tiles that cross the
+// causal diagonal or kv_valid, dS rounded to bf16 A fragments, and
+// dQ += dS K (K read MN-major). The next tile's S and dP are started before
+// this tile's dQ product, and the warpgroup rebuilds their dS while that
+// product runs. dQ is written once from registers in q's dtype. Rows past
+// T_q or keys past T_k arrive as zeros from the copies themselves.
+template <int D, int NWG, int BN, int STAGES, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + producer_threads(NWG), MINB)
+    flash_bwd_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do) {
+  constexpr int BM = 64 * NWG, PANELS = D / 64;
+  constexpr uint32_t Q_PANEL = BM * PANEL_ROW_BYTES, Q_BYTES = PANELS * Q_PANEL;
+  constexpr uint32_t KV_PANEL = BN * PANEL_ROW_BYTES, TILE = PANELS * KV_PANEL;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* const qs = base;
+  uint8_t* const dos = qs + Q_BYTES;
+  uint8_t* const ks = dos + Q_BYTES;       // STAGES K tiles
+  uint8_t* const vs = ks + STAGES * TILE;  // STAGES V tiles
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE);
+  uint64_t* const full = q_full + 1;       // K and V of a slot
+  uint64_t* const empty = full + STAGES;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest causal rows first
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const long long bh = static_cast<long long>(bb) * p.h + hh;
+  const int n_tiles = live_k_tiles(p, q0, BM, BN);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4 * NWG);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // ------------------------------------------------------- producer
+    if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(q_full, 2 * Q_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < PANELS; ++pn) {
+        tma_load_4d(qs + pn * Q_PANEL, &map_q, q_full, pn * PANEL_COLS, q0, hh, bb);
+        tma_load_4d(dos + pn * Q_PANEL, &map_do, q_full, pn * PANEL_COLS, q0, hh, bb);
+      }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int slot = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + slot, ((kt / STAGES) - 1) & 1);
+        mbar_expect_tx(full + slot, 2 * TILE);
+#pragma unroll
+        for (int pn = 0; pn < PANELS; ++pn) {
+          tma_load_4d(ks + slot * TILE + pn * KV_PANEL, &map_k, full + slot, pn * PANEL_COLS,
+                      kt * BN, hh, bb);
+          tma_load_4d(vs + slot * TILE + pn * KV_PANEL, &map_v, full + slot, pn * PANEL_COLS,
+                      kt * BN, hh, bb);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, g = lane >> 2, tg = lane & 3;
+    const int r0 = q0 + wg * 64 + (warp & 3) * 16;  // this warp's first row
+    const int row[2] = {r0 + g, r0 + g + 8};
+    // this warpgroup's rows may see fewer tiles than the block's
+    const int my_tiles = live_k_tiles(p, q0 + wg * 64, 64, BN);
+    const uint32_t own = wg * 64 * PANEL_ROW_BYTES;  // this warpgroup's rows inside a panel
+    const uint32_t q_addr = smem_u32(qs) + own, do_addr = smem_u32(dos) + own;
+
+    float dd[2], lse2[2];  // this thread's rows' D and lse log2 e
+    const float sl2 = p.scale * LOG2E;
+    float dq[D / 8][4], s[BN / 8][4], dp[BN / 8][4];
+    uint32_t dsa[BN / 16][4];  // dS in bf16 A fragments, never in shared memory
+    zero(dq);
+
+    auto start_sdp = [&](int kt) {
+      const int slot = kt % STAGES;
+      mbar_wait(full + slot, (kt / STAGES) & 1);
+      wgmma_fence();
+      wgmma_abt<D>(s, q_addr, Q_PANEL, smem_u32(ks + slot * TILE), KV_PANEL);
+      wgmma_abt<D>(dp, do_addr, Q_PANEL, smem_u32(vs + slot * TILE), KV_PANEL);
+      wgmma_commit();
+    };
+    auto start_dq = [&](int kt) {
+      wgmma_fence();
+      wgmma_pb<BN / 16>(dq, dsa, smem_u32(ks + (kt % STAGES) * TILE), KV_PANEL);
+      wgmma_commit();
+    };
+    // S and dP of tile kt are complete: dS in place of dP, no mask work
+    // where every pair of the warp's rows is live
+    auto tile_ds = [&](int kt) {
+      fence_regs(s);
+      fence_regs(dp);
+      const int k0 = kt * BN;
+      const bool full_tile = k0 + BN <= p.kv_end && (!p.causal || k0 + BN - 1 <= r0);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pe = exp2_approx(fmaf(s[j][e], sl2, -lse2[r]));
+          if (!full_tile && !live(p, row[r], k0 + j * 8 + tg * 2 + (e & 1))) pe = 0.f;
+          dp[j][e] = pe * (dp[j][e] - dd[r]) * p.scale;
+        }
+      }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pack_a(dsa[kk], dp[2 * kk], dp[2 * kk + 1]);
+    };
+    // the dQ product of tile kt is complete: its K and V slot is free
+    auto release = [&](int kt) {
+      if (lane == 0) mbar_arrive(empty + kt % STAGES);
+    };
+
+    // D of this warp's 16 rows: lanes 2 r and 2 r + 1 take row r's two
+    // halves. (Starting the first tile's products before this loop made
+    // ptxas serialize every wgmma of the kernel: its divergent stores would
+    // run while a product is in flight.)
+    {
+      constexpr int CH = D / 16;  // 16-byte chunks of half a row
+      const int rr = lane >> 1, half = lane & 1, r_blk = r0 - q0 + rr, row_d = r0 + rr;
+      const __nv_bfloat16* orow = static_cast<const __nv_bfloat16*>(p.o) + bb * p.o_sb +
+                                  hh * p.o_sh + static_cast<long long>(row_d) * p.o_st +
+                                  half * (D / 2);
+      uint4 ov[CH];
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        ov[i] = row_d < p.t_q ? *reinterpret_cast<const uint4*>(orow + 8 * i)
+                              : make_uint4(0u, 0u, 0u, 0u);
+      mbar_wait(q_full, 0);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int c = half * (D / 2) + 8 * i, chunk = (c % 64) / 8;
+        const uint4 dov = *reinterpret_cast<const uint4*>(
+            dos + (c / 64) * Q_PANEL + r_blk * PANEL_ROW_BYTES + ((chunk ^ (r_blk & 7)) << 4));
+        sum = dot8_bf16(dov, ov[i], sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (half == 0 && row_d < p.t_q) p.dd_out[bh * p.t_q + row_d] = sum;
+      dd[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+      dd[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lse2[r] = row_lse(p, bh, row[r]) * LOG2E;
+
+    if (my_tiles > 0) {
+      start_sdp(0);
+      wgmma_wait<0>();
+      tile_ds(0);
+      pack();
+      for (int kt = 0; kt + 1 < my_tiles; ++kt) {
+        start_sdp(kt + 1);
+        start_dq(kt);
+        wgmma_wait<1>();  // S and dP of the next tile; dS K of this one may still run
+        tile_ds(kt + 1);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        release(kt);
+        pack();
+      }
+      start_dq(my_tiles - 1);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      release(my_tiles - 1);
+    }
+    // tiles that only the block's other warpgroup sees: stay in step with
+    // the ring, so that a release never runs a whole round ahead
+    for (int kt = my_tiles; kt < n_tiles; ++kt) {
+      mbar_wait(full + kt % STAGES, (kt / STAGES) & 1);
+      release(kt);
+    }
+    store_rows_bf16<D>(static_cast<__nv_bfloat16*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh,
+                       p.dq_st, dq, r0 + g, p.t_q, p.d, tg);
+  }
+}
+
+template <int D, int NWG, int BN, int STAGES, int MINB>
+cudaError_t launch_dq_wgmma(const Params& p, int b, const TensorView* views,
+                            cudaStream_t stream) {
+  constexpr int smem = dq_wgmma_smem_bytes(D, NWG, BN, STAGES);
+  CUtensorMap maps[4];  // q, k, v, dout
+  const int box_rows[4] = {64 * NWG, BN, BN, 64 * NWG};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = make_tensor_map(&maps[i], views[i], box_rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = flash_bwd_dq_wgmma<D, NWG, BN, STAGES, MINB>;
+  static bool ready[64] = {};  // of this instantiation, so of this kernel
+  const cudaError_t err = allow_dynamic_smem(kernel, smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(p.t_q, 64 * NWG), p.h, b);
+  kernel<<<grid, NWG * 128 + producer_threads(NWG), smem, stream>>>(p, maps[0], maps[1], maps[2],
+                                                                    maps[3]);
   return cudaGetLastError();
 }
 
@@ -1025,13 +1325,43 @@ extern "C" int heat_flash_bwd_fused(const void* q, const void* k, const void* v,
              causal, scale, bf16, vec, stream);
 }
 
-// K8 for bf16 with d = 64 or 128 and 16-byte-aligned rows, through wgmma and
-// bulk copies. layouts holds, for q, k, v and dout in turn, seven values: the
-// view's D, T, H, B and the byte strides of T, H and B (each a multiple of
-// 16). dq is the zeroed f32 workspace (B, H, t_q_pad, D), contiguous, with
-// t_q_pad = t_q rounded up to 64: every 64-row tile of a head is contiguous
-// there, and one bulk reduce-add adds a key tile's partial into it.
-// kv_strides holds the element strides (batch, time, head) of dk, then dv.
+namespace {
+
+// Params of the wgmma kernels: lse and dd as above, the scalars, and the
+// element strides (batch, time, head) of dk and dv (or of o and dq)
+Params wgmma_params(const void* lse, const void* dd, int h, int t_q, int t_k, int d,
+                    int kv_valid, int causal, float scale) {
+  Params p = {};
+  p.lse = static_cast<const float*>(lse);
+  p.dd = static_cast<const float*>(dd);
+  p.h = h;
+  p.t_q = t_q;
+  p.t_k = t_k;
+  p.kv_end = max(0, min(kv_valid, t_k));
+  p.d = d;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+// the tensor-map views of q, k, v and dout from their 28 layout values
+void wgmma_views(TensorView (&views)[4], const void* q, const void* k, const void* v,
+                 const void* dout, const long long* layouts) {
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) views[i] = tensor_view(ptrs[i], layouts + 7 * i);
+}
+
+}  // namespace
+
+// The wgmma kernels, for bf16 with d = 64 or 128 and 16-byte-aligned rows.
+// layouts holds, for q, k, v and dout in turn, seven values: the view's D,
+// T, H, B and the byte strides of T, H and B (each a multiple of 16).
+//
+// K8 through bulk copies. dq is the zeroed f32 workspace (B, H, t_q_pad, D),
+// contiguous, with t_q_pad = t_q rounded up to 64: every 64-row tile of a
+// head is contiguous there, and one bulk reduce-add adds a key tile's
+// partial into it. kv_strides holds the element strides (batch, time, head)
+// of dk, then dv.
 extern "C" int heat_flash_bwd_fused_wgmma(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* dd,
                                           void* dq, void* dk, void* dv, const long long* layouts,
@@ -1041,32 +1371,107 @@ extern "C" int heat_flash_bwd_fused_wgmma(const void* q, const void* k, const vo
   if ((d != 64 && d != 128) || b > 65535 || h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0 || t_k == 0) return static_cast<int>(cudaGetLastError());
-  Params p = {};
-  p.lse = static_cast<const float*>(lse);
-  p.dd = static_cast<const float*>(dd);
+  Params p = wgmma_params(lse, dd, h, t_q, t_k, d, kv_valid, causal, scale);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
   p.dq_st = static_cast<long long>(ceil_div(t_q, 64)) * 64;  // the workspace's padded T_q
   p.dk_sb = kv_strides[0], p.dk_st = kv_strides[1], p.dk_sh = kv_strides[2];
   p.dv_sb = kv_strides[3], p.dv_st = kv_strides[4], p.dv_sh = kv_strides[5];
-  p.h = h;
-  p.t_q = t_q;
-  p.t_k = t_k;
-  p.kv_end = max(0, min(kv_valid, t_k));
-  p.d = d;
-  p.causal = causal;
-  p.scale = scale;
-  const TensorView views[4] = {tensor_view(q, layouts), tensor_view(k, layouts + 7),
-                               tensor_view(v, layouts + 14), tensor_view(dout, layouts + 21)};
+  TensorView views[4];
+  wgmma_views(views, q, k, v, dout, layouts);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 64 ? launch_fused_wgmma<64, 1, 3, 2>(p, b, views, st)
-                                  : launch_fused_wgmma<128, 2, 2, 1>(p, b, views, st));
+  return static_cast<int>(d == 64 ? launch_kv_wgmma<64, 1, 3, 2, true>(p, b, views, st)
+                                  : launch_kv_wgmma<128, 2, 2, 1, true>(p, b, views, st));
 }
 
-// the dynamic shared memory of one block of the wgmma K8, or -1
+// K7b through bulk copies: dk and dv in k's dtype, from dd = D (B, H, T_q)
+// f32 as K7a wrote it; kv_strides as for K8. stages: the slots of the Q and
+// dO ring, 2 or 4 (the caller's rule picks it; nothing is chosen here).
+extern "C" int heat_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* dd,
+                                        void* dk, void* dv, const long long* layouts,
+                                        const long long* kv_strides, int b, int h, int t_q,
+                                        int t_k, int d, int kv_valid, int causal, float scale,
+                                        int stages, void* stream) {
+  if ((d != 64 && d != 128) || (stages != 2 && stages != 4) || b > 65535 || h > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0 || t_k == 0) return static_cast<int>(cudaGetLastError());
+  Params p = wgmma_params(lse, dd, h, t_q, t_k, d, kv_valid, causal, scale);
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_sb = kv_strides[0], p.dk_st = kv_strides[1], p.dk_sh = kv_strides[2];
+  p.dv_sb = kv_strides[3], p.dv_st = kv_strides[4], p.dv_sh = kv_strides[5];
+  TensorView views[4];
+  wgmma_views(views, q, k, v, dout, layouts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d == 64)
+    err = stages == 2 ? launch_kv_wgmma<64, 1, 2, 2, false>(p, b, views, st)
+                      : launch_kv_wgmma<64, 1, 4, 2, false>(p, b, views, st);
+  else
+    err = stages == 2 ? launch_kv_wgmma<128, 2, 2, 1, false>(p, b, views, st)
+                      : launch_kv_wgmma<128, 2, 4, 1, false>(p, b, views, st);
+  return static_cast<int>(err);
+}
+
+// K7a through bulk copies: dq (B, T_q, H, D) in q's dtype, and D =
+// rowsum(dO O) of every row into dd (B, H, T_q) f32, contiguous. o has the
+// same shape as q, unit stride over D and 16-byte-aligned rows; strides
+// holds the element strides (batch, time, head) of o, then dq. bm = 64 or
+// 128 query rows a block (one or two consumer warpgroups), bn = 64 or 128
+// keys a tile; d = 128 takes 128 x 64 only (a one-warpgroup block there
+// spills at two blocks an SM, and 128-key tiles spill beside its 64 dQ
+// floats a thread). The caller's rule picks them.
+extern "C" int heat_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* o, const void* lse, void* dd,
+                                       void* dq, const long long* layouts,
+                                       const long long* strides, int b, int h, int t_q, int t_k,
+                                       int d, int kv_valid, int causal, float scale, int bm,
+                                       int bn, void* stream) {
+  if ((d != 64 && d != 128) || (bm != 64 && bm != 128) || (bn != 64 && bn != 128) ||
+      (d == 128 && (bm != 128 || bn != 64)) || b > 65535 || h > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0 || t_q == 0) return static_cast<int>(cudaGetLastError());
+  Params p = wgmma_params(lse, nullptr, h, t_q, t_k, d, kv_valid, causal, scale);
+  p.o = o;
+  p.dd_out = static_cast<float*>(dd);
+  p.dq = dq;
+  p.o_sb = strides[0], p.o_st = strides[1], p.o_sh = strides[2];
+  p.dq_sb = strides[3], p.dq_st = strides[4], p.dq_sh = strides[5];
+  TensorView views[4];
+  wgmma_views(views, q, k, v, dout, layouts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define HEAT_DQ_CASE(D_, NWG_, BN_, MINB_)       \
+  if (d == D_ && bm == 64 * NWG_ && bn == BN_) \
+  err = launch_dq_wgmma<D_, NWG_, BN_, dq_wgmma_stages(BN_), MINB_>(p, b, views, st)
+  HEAT_DQ_CASE(64, 1, 64, 2);
+  else HEAT_DQ_CASE(64, 1, 128, 1);
+  else HEAT_DQ_CASE(64, 2, 64, 1);
+  else HEAT_DQ_CASE(64, 2, 128, 1);
+  else HEAT_DQ_CASE(128, 2, 64, 1);
+  else err = cudaErrorInvalidValue;
+#undef HEAT_DQ_CASE
+  return static_cast<int>(err);
+}
+
+// the dynamic shared memory of one block of a wgmma kernel, or -1: K8 by d;
+// K7b by d and stages; K7a by d, bm and bn
 extern "C" int heat_flash_bwd_fused_wgmma_smem(int d) {
-  if (d == 64) return fused_wgmma_smem_bytes(64, 1, 3);
-  if (d == 128) return fused_wgmma_smem_bytes(128, 2, 2);
+  if (d == 64) return kv_wgmma_smem_bytes(64, 1, 3, true);
+  if (d == 128) return kv_wgmma_smem_bytes(128, 2, 2, true);
   return -1;
+}
+
+extern "C" int heat_flash_bwd_dkv_wgmma_smem(int d, int stages) {
+  if ((d != 64 && d != 128) || (stages != 2 && stages != 4)) return -1;
+  return kv_wgmma_smem_bytes(d, d / 64, stages, false);
+}
+
+extern "C" int heat_flash_bwd_dq_wgmma_smem(int d, int bm, int bn) {
+  if ((d != 64 && d != 128) || (bm != 64 && bm != 128) || (bn != 64 && bn != 128) ||
+      (d == 128 && (bm != 128 || bn != 64)))
+    return -1;
+  return dq_wgmma_smem_bytes(d, bm / 64, bn, dq_wgmma_stages(bn));
 }

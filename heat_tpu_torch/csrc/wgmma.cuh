@@ -304,6 +304,14 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int
     *map = entry.map;
     return cudaSuccess;
   }
+  // The encoder needs a current CUDA context, which a thread that has not
+  // launched anything yet may lack (autograd's device threads run the
+  // backward so): cudaSetDevice makes the device's primary context current
+  // on this thread.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(view.dims[0]), static_cast<cuuint64_t>(view.dims[1]),
       static_cast<cuuint64_t>(view.dims[2]), static_cast<cuuint64_t>(view.dims[3])};

@@ -15,19 +15,21 @@ Counterpart of ``heat_tpu/parallel/pallas_attention.py``. The kernels:
 They read the public ``(B, T, H, D)`` layout through strides, so nothing is
 transposed or padded around them. Which kernel takes an input is a shape
 rule (:func:`_attention_variant`): bf16 inputs with ``D`` 64 or 128 and
-16-byte-aligned rows go to the Hopper kernels of K6 and K8 (``wgmma``, bulk
-tensor copies on mbarriers, and for K8 a bulk reduce-add of dQ into a
-tile-contiguous workspace), every other input to the ``mma.sync`` and f32
-kernels. Their tiles are their own compile-time
-choice; ``block_q`` and ``block_k`` keep their meaning only in the plain
+16-byte-aligned rows go to the Hopper kernels of K6, K7a, K7b and K8
+(``wgmma``, bulk tensor copies on mbarriers, and for K8 a bulk reduce-add of
+dQ into a tile-contiguous workspace), every other input to the ``mma.sync``
+and f32 kernels. Their tiles follow shape rules (:func:`_fwd_tiles`,
+:func:`_bwd_dq_tiles`, :func:`_bwd_dkv_stages`) or are compile-time
+choices; ``block_q`` and ``block_k`` keep their meaning only in the plain
 versions, as the K chunk of the online softmax and of the backward's sum.
 The JAX kernels' lane-broadcast ``(B, H, T_q_pad, 128)`` LSE layout and
 their padding of the head dim to 128 lanes are TPU artefacts: the LSE and
 ``D`` here are ``(B, H, T_q)`` f32 and nothing is padded.
 
-``D = rowsum(f32(dO) * f32(O))``, the backward's prologue, is plain torch
-on both devices, as the JAX package computes it in XLA outside Pallas
-(``_bwd_prologue``).
+``D = rowsum(f32(dO) * f32(O))``, the backward's prologue, is computed by
+the Hopper K7a for its own rows, which writes it for K7b; everywhere else
+(the fused backward, the other kernels, the CPU) it is plain torch, as the
+JAX package computes it in XLA outside Pallas (``_bwd_prologue``).
 
 On a CPU tensor the forward and backward compute :func:`flash_attention_plain`
 and :func:`flash_attention_bwd_plain`, the same functions in plain torch,
@@ -94,6 +96,20 @@ _SIGNATURES = {
             ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
+        ],
+        "heat_flash_bwd_dkv_wgmma": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ],
+        "heat_flash_bwd_dq_wgmma": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ],
     },
 }
@@ -285,6 +301,24 @@ def _tensor_map_layout(x: torch.Tensor, strides=None):
     return (d, t, h, b, s_t * es, s_h * es, s_b * es)
 
 
+def _bwd_dq_tiles(t_q: int, d: int) -> Tuple[int, int]:
+    """The wgmma K7a's (query rows a block, keys a tile), from the times on
+    the H100 (PERF.md §6, ``chip_smoke.py``'s "flash_bwd two-pass choices"
+    line). ``D = 64``: 64 rows (one consumer warpgroup, two blocks an SM) by
+    64 keys. ``D = 128``: 128 rows (two consumer warpgroups) by 64 keys, the
+    one variant there that does not spill."""
+    return (64, 64) if d == 64 else (128, 64)
+
+
+def _bwd_dkv_stages(d: int) -> int:
+    """The slots of the wgmma K7b's Q and dO ring, from the same times: two
+    at either ``D``. K7b keeps K8's blocks (one consumer warpgroup and two
+    blocks an SM at ``D = 64``, set by its registers; two warpgroups and one
+    block at ``D = 128``), and more slots bought no time there."""
+    del d
+    return 2
+
+
 def _fwd_tiles(t_q: int, d: int) -> Tuple[int, int]:
     """The wgmma forward's (query rows a block, keys a tile), from the times
     on the H100 (PERF.md §6). ``D = 64``: 64 rows (one consumer
@@ -369,31 +403,109 @@ def _launch_bwd(name: str, q, k, v, do, lse, dd, dq, dk, dv, scale, causal, kv_v
     _build.count_launch(name)
 
 
-def _bwd_operands(q, k, v, o, lse, do):
-    """Checks the backward's operands for the kernels and returns them with
-    unit stride over D, and D (``(B, H, T_q)`` f32)."""
+def _bwd_checked(q, k, v, o, lse, do):
+    """Checks the backward's operands for the kernels and returns q, k, v, do
+    with unit stride over D and lse contiguous."""
     _check_inputs("flash backward kernel", q, k, v, o, do)
     b, t_q, h, _ = q.shape
     if lse.shape != (b, h, t_q) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"flash backward kernel: lse must be ({b}, {h}, {t_q}) float32 on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     q, k, v, do = _unit_stride(q, k, v, do)
-    return q, k, v, do, lse.contiguous(), _row_terms(o, do)
+    return q, k, v, do, lse.contiguous()
+
+
+def _bwd_operands(q, k, v, o, lse, do):
+    """:func:`_bwd_checked`'s operands and D (``(B, H, T_q)`` f32)."""
+    q, k, v, do, lse = _bwd_checked(q, k, v, o, lse, do)
+    return q, k, v, do, lse, _row_terms(o, do)
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of a (B, T, H, D) bf16 tensor starts on 16 bytes
+    and its D values are contiguous: what 16-byte loads of a row need."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in _strides(x)))
+
+
+def _launch_dq_wgmma(q, k, v, do, o, lse, dd, dq, scale, causal, kv_valid, tiles) -> None:
+    """The wgmma K7a on checked operands: writes dQ into ``dq`` and D of
+    every row into ``dd`` (``(B, H, T_q)`` f32, contiguous), with ``tiles``
+    (query rows a block, keys a tile). ``o`` must have aligned rows
+    (:func:`_rows_aligned`)."""
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    layouts = [n for x in (q, k, v, do) for n in _tensor_map_layout(x)]
+    lib = _build.library("flash_bwd", _SIGNATURES["flash_bwd"])
+    with torch.cuda.device(q.device):
+        rc = lib.heat_flash_bwd_dq_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), (ctypes.c_longlong * 28)(*layouts),
+            (ctypes.c_longlong * 6)(*_strides(o, dq)), b, h, t_q, t_k, d,
+            _kv_end(kv_valid, t_k), int(bool(causal)), float(scale), *tiles,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_bwd_dq kernel (bf16_wgmma)")
+    _build.count_launch("flash_bwd_dq")
+
+
+def _launch_dkv_wgmma(q, k, v, do, lse, dd, dk, dv, scale, causal, kv_valid, stages) -> None:
+    """The wgmma K7b on checked operands: writes dK and dV from D in ``dd``
+    (as K7a wrote it), with a ring of ``stages`` Q and dO slots."""
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    layouts = [n for x in (q, k, v, do) for n in _tensor_map_layout(x)]
+    lib = _build.library("flash_bwd", _SIGNATURES["flash_bwd"])
+    with torch.cuda.device(q.device):
+        rc = lib.heat_flash_bwd_dkv_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), (ctypes.c_longlong * 28)(*layouts),
+            (ctypes.c_longlong * 6)(*_strides(dk, dv)), b, h, t_q, t_k, d,
+            _kv_end(kv_valid, t_k), int(bool(causal)), float(scale), int(stages),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_bwd_dkv kernel (bf16_wgmma)")
+    _build.count_launch("flash_bwd_dkv")
 
 
 def _flash_bwd(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
-               block_k=1024) -> Grads:
+               block_k=1024, _old_kernel: bool = False) -> Grads:
     """The two-pass backward: dQ by K7a (``flash_bwd_dq``), then dK and dV
-    by K7b (``flash_bwd_dkv``) on the card; the plain version on the CPU."""
+    by K7b (``flash_bwd_dkv``) on the card; the plain version on the CPU.
+    ``_old_kernel`` is for timing the Hopper kernels against the ``mma.sync``
+    ones on the card, not an option (:func:`_two_pass_kernels`)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
                                          kv_valid=kv_valid, block_q=block_q, block_k=block_k)
-    q, k, v, do, lse, dd = _bwd_operands(q, k, v, o, lse, do)
-    if q.shape[-1] == 0:
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    return _two_pass_kernels(q, k, v, o, lse, do, scale, causal, kv_valid, _old_kernel)
+
+
+def _two_pass_kernels(q, k, v, o, lse, do, scale, causal, kv_valid, old_kernel=False) -> Grads:
+    """K7a then K7b on the operands as :func:`_flash_bwd` gets them. For
+    operands that :func:`_attention_variant` calls ``"bf16_wgmma"`` the
+    Hopper kernels run, with :func:`_bwd_dq_tiles` and
+    :func:`_bwd_dkv_stages`: K7a computes D itself and writes it to a
+    ``(B, H, T_q)`` f32 buffer that K7b reads, so no plain-torch prologue
+    runs. Any other input, or ``old_kernel``, takes the ``mma.sync`` or f32
+    kernels after the plain prologue, and so do empty ones (a tensor map
+    cannot span a dimension of size 0)."""
+    b, t_q, h, d = q.shape
+    if _bwd_variant(q, k, v, do) != "bf16_wgmma" or old_kernel or q.numel() * k.numel() == 0:
+        q, k, v, do, lse, dd = _bwd_operands(q, k, v, o, lse, do)
+        if d == 0:
+            return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _launch_bwd("flash_bwd_dq", q, k, v, do, lse, dd, dq, None, None, scale, causal,
+                    kv_valid)
+        _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, None, dk, dv, scale, causal,
+                    kv_valid)
+        return dq, dk, dv
+    q, k, v, do, lse = _bwd_checked(q, k, v, o, lse, do)
+    o = o if _rows_aligned(o) else o.clone(memory_format=torch.contiguous_format)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, dd, dq, None, None, scale, causal, kv_valid)
-    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, None, dk, dv, scale, causal, kv_valid)
+    dd = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    _launch_dq_wgmma(q, k, v, do, o, lse, dd, dq, scale, causal, kv_valid,
+                     _bwd_dq_tiles(t_q, d))
+    _launch_dkv_wgmma(q, k, v, do, lse, dd, dk, dv, scale, causal, kv_valid,
+                      _bwd_dkv_stages(d))
     return dq, dk, dv
 
 
@@ -468,13 +580,17 @@ def _flash_bwd_fused(q, k, v, o, lse, do, scale, causal, kv_valid, block_q=512,
 
 def _resolve_bwd_impl(bwd_impl: str, t_q: int, variant: str = "f32") -> str:
     """``"auto"`` by the port's shape rule, from the times on the H100
-    (PERF.md §6): fused for the operands that the Hopper K8 takes
+    (PERF.md §6): two-pass for the operands that the Hopper K7a and K7b take
     (``variant`` ``"bf16_wgmma"`` of :func:`_attention_variant`), whatever
-    ``T_q``; for any other input fused while ``T_q`` is at most
-    ``_FUSED_MAX_T_Q``, else two-pass. The TPU's rule (the resident f32 dQ
-    block fits VMEM) does not carry over: here dQ lives in device memory."""
+    ``T_q``: their wrapper was as fast as the fused one or faster at every
+    length measured, and it is bit-reproducible; for any other input fused
+    while ``T_q`` is at most ``_FUSED_MAX_T_Q``, else two-pass. The TPU's
+    rule (the resident f32 dQ block fits VMEM) does not carry over: here dQ
+    lives in device memory."""
     if bwd_impl == "auto":
-        return "fused" if variant == "bf16_wgmma" or t_q <= _FUSED_MAX_T_Q else "two_pass"
+        if variant == "bf16_wgmma":
+            return "two_pass"
+        return "fused" if t_q <= _FUSED_MAX_T_Q else "two_pass"
     return bwd_impl
 
 
@@ -541,8 +657,9 @@ def flash_attention(
 
     Differentiable in q, k and v. ``bwd_impl`` picks the backward:
     ``"two_pass"`` (the default, kernels K7a then K7b), ``"fused"`` (K8) or
-    ``"auto"`` (fused for bf16 inputs with ``D`` 64 or 128 and 16-byte-aligned
-    rows, which the Hopper K8 takes; else fused while ``T_q <= 256``). A call
+    ``"auto"`` (two-pass for bf16 inputs with ``D`` 64 or 128 and
+    16-byte-aligned rows, which the Hopper kernels take; else fused while
+    ``T_q <= 256``). A call
     that needs no gradient (grad mode off, or no input that requires one) runs
     the forward alone,
     without the LSE, as the JAX package's primal ``_flash`` does;

@@ -156,16 +156,19 @@ def test_plain_backward_block_k_changes_only_summation_order():
 
 
 def test_auto_resolves_by_the_ports_rule(monkeypatch):
-    """``"auto"`` takes the fused backward up to ``_FUSED_MAX_T_Q`` query
-    rows and the two-pass one past it; the choice depends on shapes only."""
+    """``"auto"`` takes the two-pass backward for the operands the Hopper
+    kernels take, at any length; for the others the fused backward up to
+    ``_FUSED_MAX_T_Q`` query rows and the two-pass one past it; the choice
+    depends on shapes only."""
     limit = cuda_attention._FUSED_MAX_T_Q
     assert cuda_attention._resolve_bwd_impl("auto", limit) == "fused"
     assert cuda_attention._resolve_bwd_impl("auto", limit + 1) == "two_pass"
     for impl in ("two_pass", "fused"):
         assert cuda_attention._resolve_bwd_impl(impl, 1) == impl
         assert cuda_attention._resolve_bwd_impl(impl, 1, "bf16_wgmma") == impl
-    # the operands that the Hopper K8 takes go to it at any length
-    assert cuda_attention._resolve_bwd_impl("auto", 100 * limit, "bf16_wgmma") == "fused"
+    # the operands that the Hopper K7a and K7b take go to them at any length
+    for t_q in (1, limit, 100 * limit):
+        assert cuda_attention._resolve_bwd_impl("auto", t_q, "bf16_wgmma") == "two_pass"
     for variant in ("f32", "bf16_mma", "bf16_scalar"):
         assert cuda_attention._resolve_bwd_impl("auto", limit + 1, variant) == "two_pass"
     x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
@@ -298,3 +301,181 @@ def _dq_partial(q, k, v, o, lse, do, scale, causal, kv_end, k0):
     dd = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
     ds = (p * (dp - dd) * scale).to(q.dtype).float()
     return torch.einsum("bhqk,bkhd->bhqd", ds, kb)
+
+
+# ------------------------- the Hopper two-pass backward's routing and wrapper
+
+def _two_pass_operands(b, t_q, t_k, h, d, dtype, causal, kv_valid, transposed=False):
+    """q, k, v, O, LSE and dO on the CPU as the wrapper gets them, O and the
+    LSE from the plain forward."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(b, t_q, t_k, h, d, 7 * t_q + d))
+    if transposed:  # (B, H, T, D) memory behind the (B, T, H, D) view
+        q, k, v, do = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do))
+    scale = d ** -0.5
+    o, lse = cuda_attention.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                                  kv_valid=kv_valid, return_lse=True)
+    return q, k, v, o, lse, do, scale, causal, kv_valid
+
+
+def _spy_launchers(monkeypatch):
+    """Records each backward launcher the two-pass wrapper calls, with its
+    arguments, and whether the plain D prologue ran; launches nothing."""
+    calls = []
+    monkeypatch.setattr(cuda_attention, "_launch_bwd",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(cuda_attention, "_launch_dq_wgmma",
+                        lambda *a: calls.append(("dq_wgmma", a)))
+    monkeypatch.setattr(cuda_attention, "_launch_dkv_wgmma",
+                        lambda *a: calls.append(("dkv_wgmma", a)))
+    real = cuda_attention._row_terms
+    monkeypatch.setattr(cuda_attention, "_row_terms",
+                        lambda o, do: calls.append(("row_terms", ())) or real(o, do))
+    return calls
+
+
+@pytest.mark.parametrize("d,dtype,transposed,misaligned_do,old_kernel,hopper", [
+    (64, torch.bfloat16, False, False, False, True),
+    (128, torch.bfloat16, True, False, False, True),
+    (64, torch.bfloat16, False, False, True, False),    # _old_kernel
+    (32, torch.bfloat16, False, False, False, False),   # D off the Hopper gate
+    (64, torch.float32, False, False, False, False),    # f32
+    (64, torch.bfloat16, False, True, False, False),    # dO's base not on 16 bytes
+])
+def test_two_pass_routes_by_the_variant_rule(monkeypatch, d, dtype, transposed, misaligned_do,
+                                             old_kernel, hopper):
+    """The inputs that _attention_variant calls "bf16_wgmma" reach the
+    wgmma K7a and K7b, which share one D buffer that K7a fills, with no
+    plain prologue; every other input, or _old_kernel, reaches the
+    mma.sync or f32 kernels after the plain prologue."""
+    b, t_q, t_k, h = 1, 40, 56, 2
+    q, k, v, o, lse, do, scale, causal, kv = _two_pass_operands(b, t_q, t_k, h, d, dtype, True,
+                                                                50, transposed)
+    if misaligned_do:
+        flat = torch.zeros(do.numel() + 8, dtype=dtype)[1:-7]
+        do = flat.view(do.shape).copy_(do)
+        assert do.data_ptr() % 16 != 0
+    calls = _spy_launchers(monkeypatch)
+    dq, dk, dv = cuda_attention._two_pass_kernels(q, k, v, o, lse, do, scale, causal, kv,
+                                                  old_kernel)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    names = [name for name, _ in calls]
+    if not hopper:
+        assert names == ["row_terms", "flash_bwd_dq", "flash_bwd_dkv"]
+        return
+    assert names == ["dq_wgmma", "dkv_wgmma"]
+    dq_args, dkv_args = calls[0][1], calls[1][1]
+    dd = dq_args[6]
+    assert dd is dkv_args[5]  # K7b reads the buffer that K7a writes
+    assert dd.shape == (b, h, t_q) and dd.dtype == torch.float32 and dd.is_contiguous()
+    assert dq_args[7] is dq and dkv_args[6] is dk and dkv_args[7] is dv
+    assert dq_args[-1] == cuda_attention._bwd_dq_tiles(t_q, d)
+    assert dkv_args[-1] == cuda_attention._bwd_dkv_stages(d)
+    assert dq_args[8:11] == (scale, causal, kv) and dkv_args[8:11] == (scale, causal, kv)
+
+
+@pytest.mark.parametrize("t_q,t_k", [(0, 24), (24, 0)])
+def test_two_pass_sends_empty_inputs_to_the_old_kernels(monkeypatch, t_q, t_k):
+    """No tensor map spans a dimension of size 0: an empty T_q or T_k goes
+    to the mma.sync kernels, which return zeros of the right shapes."""
+    q, k, v, do = (torch.zeros((1, t, 2, 64), dtype=torch.bfloat16) for t in (t_q, t_k, t_k, t_q))
+    lse = torch.full((1, 2, t_q), 1e30)
+    calls = _spy_launchers(monkeypatch)
+    dq, dk, dv = cuda_attention._two_pass_kernels(q, k, v, do, lse, do, 0.125, True, t_k)
+    assert [name for name, _ in calls] == ["row_terms", "flash_bwd_dq", "flash_bwd_dkv"]
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+def test_two_pass_hands_k7a_an_aligned_o(monkeypatch):
+    """K7a reads O by 16-byte loads: an O whose rows do not start on 16
+    bytes reaches it as a contiguous copy, an aligned one as it is."""
+    q, k, v, o, lse, do, scale, causal, kv = _two_pass_operands(1, 24, 24, 2, 64,
+                                                                torch.bfloat16, True, 24)
+    flat = torch.zeros(o.numel() + 8, dtype=o.dtype)[1:-7]
+    o_off = flat.view(o.shape).copy_(o)
+    assert not cuda_attention._rows_aligned(o_off) and cuda_attention._rows_aligned(o)
+    for given, copied in ((o, False), (o_off, True)):
+        calls = _spy_launchers(monkeypatch)
+        cuda_attention._two_pass_kernels(q, k, v, given, lse, do, scale, causal, kv)
+        passed = calls[0][1][4]
+        assert cuda_attention._rows_aligned(passed) and torch.equal(passed, o)
+        assert (passed is not given) == copied
+
+
+@pytest.mark.parametrize("t_q", [1, 64, 65, 1024, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_tile_rules_pick_what_the_kernels_take(t_q, d):
+    """The wgmma K7a's (rows a block, keys a tile) and K7b's ring slots are
+    among the instantiations the C entries take (128 x 64 only at D = 128),
+    and depend on shapes only."""
+    bm, bn = cuda_attention._bwd_dq_tiles(t_q, d)
+    assert bm in (64, 128) and bn in (64, 128) and not (d == 128 and (bm, bn) != (128, 64))
+    assert cuda_attention._bwd_dkv_stages(d) in (2, 4)
+    assert cuda_attention._bwd_dq_tiles(t_q, d) == (bm, bn)
+
+
+def _plain_k7a(q, k, v, do, o, lse, dd, dq, scale, causal, kv_valid, tiles):
+    """K7a's function in plain torch, in the wgmma launcher's place: D of
+    every row into ``dd`` and dQ into ``dq``."""
+    dd.copy_(cuda_attention._row_terms(o, do))
+    dq.copy_(_blockwise_two_pass(q, k, v, do, lse, dd, scale, causal, kv_valid)[0])
+
+
+def _plain_k7b(q, k, v, do, lse, dd, dk, dv, scale, causal, kv_valid, stages):
+    """K7b's function in plain torch, reading D from the buffer it is
+    handed, as the kernel does."""
+    _, dk_, dv_ = _blockwise_two_pass(q, k, v, do, lse, dd, scale, causal, kv_valid)
+    dk.copy_(dk_)
+    dv.copy_(dv_)
+
+
+def _blockwise_two_pass(q, k, v, do, lse, dd, scale, causal, kv_end):
+    """dQ, dK, dV in f32 from a given D, 64-key tile by tile, with p and dS
+    rounded to the input dtype before their products, as the kernels do."""
+    t_q, t_k = q.shape[1], k.shape[1]
+    qf, dof = q.float(), do.float()
+    q_pos = torch.arange(t_q)
+    outs = [torch.zeros(x.shape) for x in (q, k, v)]
+    for k0 in range(0, t_k, 64):
+        kb, vb = k[:, k0:k0 + 64].float(), v[:, k0:k0 + 64].float()
+        k_pos = k0 + torch.arange(kb.shape[1])
+        mask = (k_pos < kv_end)[None, :]
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
+        p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros(()))
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vb)
+        ds = (p * (dp - dd[..., None]) * scale).to(q.dtype).float()
+        outs[0] += torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+        outs[1][:, k0:k0 + 64] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        outs[2][:, k0:k0 + 64] = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    return outs
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal,kv_valid,transposed", [
+    (1, 100, 137, 2, 64, True, 137, False),
+    (2, 70, 45, 1, 128, False, 30, True),
+    (1, 64, 64, 2, 64, True, 0, False),
+])
+def test_two_pass_wrapper_around_the_plain_kernels(monkeypatch, b, t_q, t_k, h, d, causal,
+                                                   kv_valid, transposed):
+    """The wrapper's Python around the wgmma K7a and K7b, with plain
+    functions in the kernels' place: K7a fills the D buffer, K7b reads it,
+    and the gradients equal the plain backward's within the bf16
+    tolerance (only the order of the f32 sums differs)."""
+    args = _two_pass_operands(b, t_q, t_k, h, d, torch.bfloat16, causal, kv_valid, transposed)
+    q, k, v, o, lse, do, scale, causal, kv = args
+    monkeypatch.setattr(cuda_attention, "_launch_dq_wgmma", _plain_k7a)
+    monkeypatch.setattr(cuda_attention, "_launch_dkv_wgmma", _plain_k7b)
+    got = cuda_attention._two_pass_kernels(*args)
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=scale, kv_valid=kv)
+    for x, w in zip(got, want):
+        assert x.shape == w.shape and x.dtype == w.dtype
+        x, w = x.float(), w.float()
+        peak = w.abs().max().item()
+        if peak == 0.0:
+            assert bool((x == 0).all())
+            continue
+        assert ((x - w).norm() / w.norm()).item() <= BF16_RMS
+        assert (x - w).abs().max().item() <= BF16_MAX * peak

@@ -372,15 +372,110 @@ def test_hopper_fused_backward_at_the_paths_shapes(dev, b, t, h, d):
     _grads_close(cuda_attention._flash_bwd_fused(*args), want, torch.bfloat16)
 
 
+_DQ_TILES = {64: [(64, 64), (64, 128), (128, 64), (128, 128)], 128: [(128, 64)]}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_valid", [1337, 900, 0])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_hopper_two_pass_backward_matches_plain_and_old_kernel(dev, monkeypatch, d, causal,
+                                                               kv_valid, transposed):
+    """The wgmma K7a and K7b on ragged T_q != T_k (1000 x 1337) against the
+    plain backward and against the mma.sync K7a and K7b (each within the
+    bf16 tolerance), with every tile and ring choice the C entries take;
+    dQ, dK and dV bit-equal across two runs."""
+    args = _bwd_inputs(dev, 2, 1000, 1337, 3, d, torch.bfloat16, causal, kv_valid)
+    q, k, v, o, lse, do = _views(transposed, *args[:4]) + (args[4],) + _views(transposed, args[5])
+    args = (q, k, v, o, lse, do) + args[6:]
+    assert cuda_attention._bwd_variant(q, k, v, do) == "bf16_wgmma"
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=args[6], kv_valid=kv_valid)
+    old = cuda_attention._flash_bwd(*args, _old_kernel=True)
+    _grads_close(old, want, torch.bfloat16)
+    for tiles in _DQ_TILES[d]:
+        for stages in (2, 4):
+            monkeypatch.setattr(cuda_attention, "_bwd_dq_tiles", lambda t_q, d_, _t=tiles: _t)
+            monkeypatch.setattr(cuda_attention, "_bwd_dkv_stages", lambda d_, _s=stages: _s)
+            htt.reset_launch_counts()
+            new = cuda_attention._flash_bwd(*args)
+            again = cuda_attention._flash_bwd(*args)
+            counts = htt.launch_counts()
+            assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2
+            _grads_close(new, want, torch.bfloat16)
+            _grads_close(new, old, torch.bfloat16)
+            assert all(torch.equal(x, y) for x, y in zip(new, again)), (tiles, stages)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(8, 1024, 16, 64), (1, 4096, 2, 128), (3, 40, 2, 128),
+                                     (1, 1, 1, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_hopper_two_pass_backward_at_the_paths_shapes(dev, b, t, h, d, causal):
+    args = _bwd_inputs(dev, b, t, t, h, d, torch.bfloat16, causal, t)
+    q, k, v, o, lse, do, scale, causal, kv_valid = args
+    want = cuda_attention.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                    scale=scale, kv_valid=kv_valid)
+    got = cuda_attention._flash_bwd(*args)
+    assert [x.shape for x in got] == [q.shape, k.shape, v.shape]
+    _grads_close(got, want, torch.bfloat16)
+
+
+def test_hopper_k7a_writes_d_and_takes_an_unaligned_o(dev):
+    """The D that the wgmma K7a writes for K7b equals the plain prologue's
+    rowsum(dO O) up to the order of its f32 sum; an O whose rows do not
+    start on 16 bytes is copied first and gives the same gradients."""
+    args = _bwd_inputs(dev, 2, 300, 437, 3, 64, torch.bfloat16, True, 437)
+    q, k, v, o, lse, do, scale, causal, kv_valid = args
+    dd = torch.full((2, 3, 300), float("nan"), device=dev)
+    dq = torch.empty_like(q)
+    cuda_attention._launch_dq_wgmma(q, k, v, do, o, lse, dd, dq, scale, causal, kv_valid,
+                                    cuda_attention._bwd_dq_tiles(300, 64))
+    want = cuda_attention._row_terms(o, do)
+    size = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+    assert bool(((dd - want).abs() <= 1e-6 * size + 1e-30).all())
+    flat = torch.empty(o.numel() + 8, dtype=o.dtype, device=dev)[1:-7]
+    o_off = flat.view(o.shape).copy_(o)
+    assert o_off.data_ptr() % 16 != 0
+    got = cuda_attention._flash_bwd(q, k, v, o_off, lse, do, scale, causal, kv_valid)
+    for x, y in zip(got, cuda_attention._flash_bwd(*args)):
+        assert torch.equal(x, y)
+
+
+def test_hopper_kernels_encode_tensor_maps_on_a_fresh_thread(dev):
+    """A thread that has launched nothing has no current CUDA context,
+    which the tensor-map encoder needs (autograd's device threads run the
+    backward so): the Hopper forward and two-pass backward still run there,
+    on inputs whose maps were never encoded, and match the main thread's."""
+    import threading
+
+    args = _bwd_inputs(dev, 1, 192, 160, 2, 64, torch.bfloat16, True, 160)
+    out = {}
+
+    def work():
+        try:
+            out["grads"] = cuda_attention._flash_bwd(*args)
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread
+            out["error"] = e
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    if "error" in out:
+        raise out["error"]
+    for x, y in zip(out["grads"], cuda_attention._flash_bwd(*args)):
+        assert torch.equal(x, y)
+
+
 def test_auto_backward_takes_the_fused_kernel_where_the_rule_says(dev):
     """bwd_impl="auto" resolves by the port's rule and launches that kernel."""
     g = torch.Generator(device=dev).manual_seed(9)
-    for t, d in ((512, 64), (512, 32)):
+    for t, d in ((128, 64), (512, 64), (128, 32), (512, 32)):
         leaves = [torch.randn((1, t, 2, d), generator=g, device=dev).to(torch.bfloat16)
                   .requires_grad_() for _ in range(3)]
         want = cuda_attention._resolve_bwd_impl("auto", t, cuda_attention._bwd_variant(
             *leaves, leaves[0]))
-        assert want == ("fused" if d == 64 else "two_pass")
+        assert want == ("fused" if d == 32 and t <= 256 else "two_pass")
         htt.reset_launch_counts()
         cuda_attention.flash_attention(*leaves, causal=True, bwd_impl="auto").sum().backward()
         counts = htt.launch_counts()
