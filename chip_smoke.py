@@ -58,11 +58,12 @@ import time
 
 # H100 SXM data-sheet peaks (dense, at the full 700 W power limit): HBM
 # bandwidth, the f32 rate outside the tensor cores, and the tensor cores'
-# bf16 and int8 rates
+# bf16, int8 and TF32 rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+TF32_FLOPS_PER_S = 495e12
 ARRAY_PATH = ("moments", "cdist", "lloyd")
 # the wgmma K7a's (query rows a block, keys a tile) instantiations, by head dim
 DQ_TILES = [(64, (64, 64)), (64, (64, 128)), (64, (128, 64)), (64, (128, 128)),
@@ -101,7 +102,7 @@ def main():
     from heat_tpu_torch.cluster.cuda_lloyd import lloyd_fit, lloyd_update, lloyd_update_plain
     from heat_tpu_torch.core.cuda_moments import column_moments, column_moments_plain
     from heat_tpu_torch.core.linalg import int8_matmul, quantize_int8
-    from heat_tpu_torch.core.linalg.cuda_quant import int8_gemm, int8_gemm_plain
+    from heat_tpu_torch.core.linalg.cuda_quant import _wgmma_tile_width, int8_gemm, int8_gemm_plain
     from heat_tpu_torch.parallel.cuda_attention import (
         _attention_variant, _flash_forward, _fwd_tiles, _strides, flash_attention_plain)
     from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain
@@ -132,18 +133,24 @@ def main():
     # dynamic shared memory a block asks for from the library itself
     import ctypes
     hopper = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name, marks in (("flash_fwd", ("flash_",)), ("flash_bwd", ("flash_",)),
+                        ("int8_gemm", ("int8_gemm_wgmma", "transpose_s8")),
+                        ("lloyd", ("lloyd_tc",))):
         log = paths[name].with_suffix(".so.log")
         lines = log.read_text().splitlines() if log.exists() else []
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and "wgmma" in ln:
+            if "Compiling entry function" in ln and any(
+                    ("wgmma" in ln or mark != "flash_") and mark in ln for mark in marks):
                 entry = ln.split("'")[1]
-                entry = entry[entry.index("flash_"):].split("EEEv")[0]
+                mark = next(mark for mark in marks if mark in entry)
+                entry = entry[entry.index(mark):]
+                entry = entry.split("EEEv")[0] if "EEEv" in entry else mark
                 hopper[entry] = " ".join(x.split("ptxas info    : ")[-1].strip()
                                          for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x)
-            if "Potential Performance Loss" in ln:
-                hopper.setdefault("ptxas_performance_notes", []).append(ln[:200])
+            if "Potential Performance Loss" in ln or "setmaxnreg ignored" in ln:
+                hopper.setdefault("ptxas_performance_notes", []).append(ln[:320])
     fwd_lib, bwd_lib = ctypes.CDLL(str(paths["flash_fwd"])), ctypes.CDLL(str(paths["flash_bwd"]))
+    q_lib, lloyd_lib = ctypes.CDLL(str(paths["int8_gemm"])), ctypes.CDLL(str(paths["lloyd"]))
     smem = {f"flash_fwd_wgmma d={d} bm={bm} bn={bn}": fwd_lib.heat_flash_fwd_wgmma_smem(d, bm, bn)
             for d in (64, 128) for bm in (64, 128) for bn in (64, 128)}
     smem.update({f"flash_bwd_fused_wgmma d={d}": bwd_lib.heat_flash_bwd_fused_wgmma_smem(d)
@@ -152,6 +159,14 @@ def main():
                  bwd_lib.heat_flash_bwd_dkv_wgmma_smem(d, st) for d in (64, 128) for st in (2, 4)})
     smem.update({f"flash_bwd_dq_wgmma d={d} bm={bm} bn={bn}":
                  bwd_lib.heat_flash_bwd_dq_wgmma_smem(d, bm, bn) for d, (bm, bn) in DQ_TILES})
+    smem.update({f"int8_gemm_wgmma bn={bn}": q_lib.heat_int8_gemm_wgmma_smem(bn)
+                 for bn in (128, 256)})
+    for d, k in ((64, 64), (512, 1024), (64, 1), (36, 100)):
+        plan = [ctypes.c_int(0) for _ in range(3)]
+        smem[f"lloyd_tc d={d} k={k}"] = {
+            "bytes": lloyd_lib.heat_lloyd_tc_plan(d, k, *(ctypes.byref(v) for v in plan)),
+            **dict(zip(("blocks_per_sm", "x_slots", "accumulator_copies"),
+                       (v.value for v in plan)))}
     spilled = [k for k, v in hopper.items() if k != "ptxas_performance_notes"
                and "0 bytes spill stores, 0 bytes spill loads" not in v]
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas, "hopper_variants": hopper,
@@ -282,32 +297,51 @@ def main():
         s_k, n_k = lloyd_update(x, c)
         s_p, n_p = lloyd_update_plain(x, c)
         s_k2, n_k2 = lloyd_update(x, c)
+        s_o, n_o = lloyd_update(x, c, _old_kernel=True)
         torch.cuda.synchronize()
         abs_sums = torch.zeros_like(c).index_add_(
             0, torch.argmin(torch.cdist(x, c), 1), x.abs())
         # tolerance: counts exact (well separated blobs have no near-ties),
-        # sums within 1e-4 of the sum of |x| (another summation order)
+        # sums within 1e-4 of the sum of |x| (another summation order); the
+        # old (f32 FMA) kernel is held to the same
         worst = ((s_k - s_p).abs() / (1e-4 * abs_sums + 1e-5)).max().item()
-        counts_equal = bool(torch.equal(n_k, n_p))
+        worst_old = ((s_o - s_p).abs() / (1e-4 * abs_sums + 1e-5)).max().item()
+        counts_equal = bool(torch.equal(n_k, n_p) and torch.equal(n_o, n_p))
         repeat_equal = bool(torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2))
-        fields = {"shape": [n, d, k], "counts_equal": counts_equal, "repeat_bitwise": repeat_equal,
+        tc = d % 4 == 0  # the tensor-core kernel's gate at these shapes
+        fields = {"shape": [n, d, k], "variant": "lloyd_tc" if tc else "lloyd_partial",
+                  "counts_equal": counts_equal, "repeat_bitwise": repeat_equal,
                   "max_abs_err": (s_k - s_p).abs().max().item(), "worst_err_over_tol": worst,
+                  "old_worst_err_over_tol": worst_old,
                   "tolerance": "counts exact; |sums_k - sums_p| <= 1e-4 sum|x| + 1e-5"}
         reps = 10 if timed else 5
-        fields["kernel_ms"] = time_ms(lambda: lloyd_update(x, c), reps)
+        if tc:
+            fields["old_ms"], fields["kernel_ms"] = time_turns(
+                lambda: lloyd_update(x, c, _old_kernel=True), lambda: lloyd_update(x, c), reps)
+        else:
+            fields["old_ms"], fields["kernel_ms"] = None, device_ms(lambda: lloyd_update(x, c),
+                                                                     reps)
         fields["plain_ms"] = time_ms(lambda: lloyd_update_plain(x, c), reps)
         fields["library_ms"] = None
-        # operations: the scores' product (2nkd), one argmin compare per
-        # score (nk) and one add per row and feature into its center (nd)
-        fields["bound_ms"], fields["bound_by"] = bound(n * d * 4 + 2 * k * d * 4 + k * 4,
-                                                       2 * n * k * d + n * k + n * d)
+        # the f32 FMA kernel's operations: the scores' product (2nkd), one
+        # argmin compare per score (nk) and one add per row and feature into
+        # its center (nd); the tensor-core kernel does the product three
+        # times in TF32 (lo.hi, hi.lo, hi.hi)
+        nbytes = n * d * 4 + 2 * k * d * 4 + k * 4
+        fma_ms, fma_by = bound(nbytes, 2 * n * k * d + n * k + n * d)
+        fields["bound_ms_f32_fma"], fields["bound_by_f32_fma"] = fma_ms, fma_by
+        fields["bound_ms"], fields["bound_by"] = (
+            bound(nbytes, 3 * 2 * n * k * d, TF32_FLOPS_PER_S) if tc else (fma_ms, fma_by))
         if timed:
             report["lloyd"] = fields
-        check(f"lloyd {label}", worst <= 1.0 and counts_equal and repeat_equal, **fields)
+        check(f"lloyd {label}", worst <= 1.0 and worst_old <= 1.0 and counts_equal
+              and repeat_equal, **fields)
 
     lloyd_case("main", 2_000_000, 64, 64, True)
-    lloyd_case("ragged", 100_003, 33, 1000, False)
+    lloyd_case("ragged (d % 4 != 0: the f32 FMA kernel)", 100_003, 33, 1000, False)
     lloyd_case("gate corner", 20_011, 512, 1024, False)
+    lloyd_case("k = 1", 5_000, 64, 1, False)
+    lloyd_case("d no multiple of 32", 70_001, 36, 100, False)
 
     # ---------------------------------------------------------------- K6
     # Tolerances: in f32, O within 2e-5 max|v| (exact f32 products summed in
@@ -718,14 +752,35 @@ def main():
         qb, sb = quantize_int8(torch.randn((k, n), generator=gen, device=dev), axis=0)
         got = int8_gemm(qa, sa, qb, sb, out_dtype)
         want = int8_gemm_plain(qa, sa, qb, sb, out_dtype)
+        old = int8_gemm(qa, sa, qb, sb, out_dtype, _old_kernel=True)
         torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
+        equal = bool(torch.equal(got, want) and torch.equal(old, want))
+        wgmma = k % 16 == 0  # the wgmma kernel's gate at these shapes
         fields = {"shape": [m, n, k], "out_dtype": str(out_dtype).split(".")[-1],
+                  "variant": "int8_gemm_wgmma" if wgmma else "int8_gemm_kernel",
                   "bit_identical": equal,
                   "max_abs_err": (got.float() - want.float()).abs().max().item(),
-                  "tolerance": "bit-identical"}
-        del got, want
-        fields["kernel_ms"] = time_ms(lambda: int8_gemm(qa, sa, qb, sb, out_dtype), reps)
+                  "tolerance": "bit-identical, the mma.sync kernel too"}
+        del got, want, old
+        if wgmma:
+            fields["old_ms"], fields["kernel_ms"] = time_turns(
+                lambda: int8_gemm(qa, sa, qb, sb, out_dtype, _old_kernel=True),
+                lambda: int8_gemm(qa, sa, qb, sb, out_dtype), reps)
+            # both tile widths, bit-identical, timed for the width rule
+            other = 384 - _wgmma_tile_width(k)
+            fields["tile_width_rule"] = _wgmma_tile_width(k)
+            fields[f"bn={other}_bit_identical"] = bool(torch.equal(
+                int8_gemm(qa, sa, qb, sb, out_dtype, _bn=other),
+                int8_gemm_plain(qa, sa, qb, sb, out_dtype)))
+            fields[f"bn={other}_ms"] = device_ms(
+                lambda: int8_gemm(qa, sa, qb, sb, out_dtype, _bn=other), reps)
+            equal = equal and fields[f"bn={other}_bit_identical"]
+            qbt = torch.empty((n, k), dtype=torch.int8, device=dev)
+            fields["qb_transpose_copy_ms"] = device_ms(lambda: qbt.copy_(qb.t()), reps)
+            del qbt
+        else:
+            fields["old_ms"], fields["kernel_ms"] = None, device_ms(
+                lambda: int8_gemm(qa, sa, qb, sb, out_dtype), reps)
         fields["plain_ms"] = time_ms(lambda: int8_gemm_plain(qa, sa, qb, sb, out_dtype), 2,
                                      warmup=1)
         fields["library_ms"] = None
@@ -739,11 +794,12 @@ def main():
         check(f"int8_gemm {label}", equal, **fields)
         return fields
 
-    report["int8_gemm"] = int8_case("8192^3", 8192, 8192, 8192, torch.float32, 20)
-    int8_case("8192^3", 8192, 8192, 8192, torch.bfloat16, 10)
-    int8_case("QuantDense shape", 8192, 4096, 1024, torch.float32, 10)
+    report["int8_gemm"] = int8_case("8192^3", 8192, 8192, 8192, torch.float32, 10)
+    int8_case("8192^3", 8192, 8192, 8192, torch.bfloat16, 5)
+    int8_quant_dense = int8_case("QuantDense shape", 8192, 4096, 1024, torch.float32, 10)
     for out_dtype in (torch.float32, torch.bfloat16):
-        int8_case("ragged", 1000, 1000, 999, out_dtype, 5)
+        int8_case("ragged (K % 16 != 0: the mma.sync kernel)", 1000, 1000, 999, out_dtype, 5)
+        int8_case("ragged M, N; K % 128 != 0", 1000, 777, 1040, out_dtype, 5)
 
     # ---------------------------------------------------------- main path
     xm_t = torch.randn((8_000_000, 64), generator=gen, device=dev)
@@ -1251,10 +1307,14 @@ def main():
                 **{name: train_launches[name] for name in backward_kernels}}
     check("training path launched every backward kernel",
           all(launches[name] > 0 for name in backward_kernels), launches=launches)
-    # the redesigned kernels also at bench.py's attention shapes
+    # the redesigned kernels also at bench.py's attention shapes and at
+    # QuantDense's shape
     also = {"flash_fwd": ("bench shape (4, 4096, 8, 128) bf16 non-causal", flash_bench),
             **{name: ("attention_bwd shape (4, 4096, 8, 128) bf16 causal", attention_bwd[name])
-               for name in backward_kernels}}
+               for name in backward_kernels},
+            "int8_gemm": ("QuantDense (8192, 4096, 1024) f32 out", int8_quant_dense)}
+    shapes = {"int8_gemm": "W8A8 chain (8192, 8192, 8192) f32 out",
+              "lloyd": "KMeans pass (2,000,000, 64), k = 64"}
     timing_keys = ("variant", "kernel_ms", "old_ms", "plain_ms", "library_ms", "bound_ms",
                    "bound_by", "max_abs_err")
     kernels = []
@@ -1266,11 +1326,14 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
+        if name in also or name in shapes:
+            row.update({"variant": r["variant"], "old_ms": r["old_ms"],
+                        "shape": shapes.get(name, "LM shape (8, 1024, 16, 64) bf16 causal")})
+        if name == "lloyd":
+            row["bound_ms_f32_fma"] = r["bound_ms_f32_fma"]
         if name in also:
             label, other = also[name]
-            row.update({"variant": r["variant"], "old_ms": r["old_ms"],
-                        "shape": "LM shape (8, 1024, 16, 64) bf16 causal",
-                        "also": {"shape": label, **{key: other[key] for key in timing_keys}}})
+            row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}
         kernels.append(row)
     if FAILURES:
         print(f"chip_smoke: failed checks: {FAILURES}", file=sys.stderr)

@@ -16,12 +16,18 @@ __all__ = ["_KCluster", "_d2"]
 
 def _d2(xb: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """(m, k) squared euclidean distances in GEMM form, clamped at 0. The
-    product runs in full f32: TF32 is switched off explicitly, since its
-    ~3 decimal digits would flip assignments near cluster boundaries."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    product runs in full f32: TF32, whose ~3 decimal digits would flip
+    assignments near cluster boundaries, is off for the product alone, and
+    the caller's setting is restored after it, also when it raises."""
     x2 = (xb * xb).sum(dim=1, keepdim=True)
     c2 = (centers * centers).sum(dim=1)[None, :]
-    return torch.clamp(x2 + c2 - 2.0 * (xb @ centers.T), min=0.0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xc = xb @ centers.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return torch.clamp(x2 + c2 - 2.0 * xc, min=0.0)
 
 
 class _KCluster(BaseEstimator, ClusteringMixin):

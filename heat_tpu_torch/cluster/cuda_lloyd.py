@@ -7,8 +7,15 @@ the argmin and the valid-row mask, and the per-center sums (k, d) and
 counts (k,), in one pass over X that never writes the (n, k) scores. Blocks
 accumulate their own partials and a second pass adds them in a fixed order,
 with no float atomics, so two runs give bit-identical centers and labels.
-At d = k = 64 it is bound by its FMA operations over the card's f32 rate;
-the source says how its design meets that.
+
+Two kernels, chosen by shape. ``lloyd_tc`` (a persistent grid, X tiles by
+bulk tensor copies, the scores on the tensor cores in 3xTF32) takes
+d % 4 == 0 (16-byte rows for the copies), 16-byte aligned data and
+1 <= lim < 2^31 - 64 (a copy's row coordinate is an int); at the main
+path's 2,000,000 x 64, k = 64 it is bound by reading X. ``lloyd_partial``
+(f32 FMAs on the CUDA cores) takes every other shape, and any shape with
+``_old_kernel=True``, for comparisons. The source says how each design
+meets its bound.
 
 On a CPU tensor :func:`lloyd_update` computes :func:`lloyd_update_plain`,
 the same function in plain torch, which is also the kernel's oracle. On a
@@ -34,8 +41,10 @@ __all__ = ["lloyd_fit", "lloyd_update", "lloyd_update_plain", "pallas_lloyd_appl
 
 _MAX_D = 512
 _MAX_K = 1024
-_TILE_ROWS = 64  # csrc/lloyd.cu BM
+_TILE_ROWS = 64  # csrc/lloyd.cu BM and TC_BM
 _BLOCKS_PER_SM = 4  # csrc/lloyd.cu kBlocksPerSM: all resident at once
+_TC_BLOCKS_PER_SM = 2  # lloyd_tc: at most (csrc/lloyd.cu tc_plan)
+_TC_MAX_ROWS = 2 ** 31 - 64
 _SCRATCH_BYTES = 256 << 20  # bound on the blocks' (k, d) partial sums
 
 _SIGNATURES = {
@@ -45,6 +54,7 @@ _SIGNATURES = {
         ctypes.c_void_p,
     ],
 }
+_SIGNATURES["heat_lloyd_tc"] = _SIGNATURES["heat_lloyd_f32"]
 
 
 def lloyd_update_plain(x: torch.Tensor, centers: torch.Tensor,
@@ -61,10 +71,10 @@ def lloyd_update_plain(x: torch.Tensor, centers: torch.Tensor,
     return sums, counts
 
 
-def lloyd_update(x: torch.Tensor, centers: torch.Tensor,
-                 lim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def lloyd_update(x: torch.Tensor, centers: torch.Tensor, lim: Optional[int] = None,
+                 _old_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One accumulation pass over the first ``lim`` rows of (m, d) ``x``
-    against (k, d) ``centers``. The kernel on the card, the plain version
+    against (k, d) ``centers``. A kernel on the card, the plain version
     on the CPU."""
     if x.ndim != 2 or centers.ndim != 2 or x.shape[1] != centers.shape[1]:
         raise ValueError(
@@ -84,18 +94,22 @@ def lloyd_update(x: torch.Tensor, centers: torch.Tensor,
     if d > _MAX_D or k > _MAX_K:
         raise ValueError(f"lloyd kernel needs d <= {_MAX_D} and k <= {_MAX_K}, got d={d}, k={k}")
     x, centers = x.contiguous(), centers.contiguous()
+    tc = (not _old_kernel and d % 4 == 0 and 1 <= lim < _TC_MAX_ROWS
+          and x.data_ptr() % 16 == 0 and centers.data_ptr() % 16 == 0)
     tiles = max(1, -(-lim // _TILE_ROWS))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(tiles, _BLOCKS_PER_SM * sms, _SCRATCH_BYTES // max(1, k * d * 4)))
+    per_sm = _TC_BLOCKS_PER_SM if tc else _BLOCKS_PER_SM
+    blocks = max(1, min(tiles, per_sm * sms, _SCRATCH_BYTES // max(1, k * d * 4)))
     sums_part = torch.empty((blocks, k, d), dtype=torch.float32, device=x.device)
     cnt_part = torch.empty((blocks, k), dtype=torch.int32, device=x.device)
     sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty((k,), dtype=torch.float32, device=x.device)
     lib = _build.library("lloyd", _SIGNATURES)
+    entry = lib.heat_lloyd_tc if tc else lib.heat_lloyd_f32
     with torch.cuda.device(x.device):  # launch on the tensor's card
-        rc = lib.heat_lloyd_f32(x.data_ptr(), d, lim, centers.data_ptr(), k, blocks,
-                                sums_part.data_ptr(), cnt_part.data_ptr(), sums.data_ptr(),
-                                counts.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        rc = entry(x.data_ptr(), d, lim, centers.data_ptr(), k, blocks, sums_part.data_ptr(),
+                   cnt_part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "lloyd kernel")
     _build.count_launch("lloyd")
     return sums, counts

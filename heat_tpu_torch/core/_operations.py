@@ -6,10 +6,22 @@ engine. Each rank computes on its own chunk; a reduction across the split
 dimension ends in one ``allreduce``, with the neutral element standing in
 for an empty chunk (reference _operations.py:401-410).
 
-Types follow the JAX package, which runs with 64-bit types on: integer
-operands of a true division or of ``exp``/``sqrt``/``log`` give float64,
-and a python float combined with an integer array gives float64 (torch
-alone would give float32).
+Types follow the JAX package, which runs with 64-bit types on; the result
+type is computed first (:func:`result_type`) and every operand is cast to
+it, so torch's own promotion decides nothing:
+
+* arrays of any rank, 0-d ones included, and numpy scalars are typed
+  strongly and join on the lattice ``torch.promote_types`` implements (the
+  JAX lattice for every type the port has); a python ``bool`` is a strong
+  ``bool``;
+* a python ``int``, ``float`` or ``complex`` is weak: it keeps the array's
+  type unless its kind is higher, and then gives the 64-bit type of its
+  kind (``int8 + 2`` is int8, ``bool + 2`` int64, ``int32 + 2.5`` float64,
+  ``float16 + 2.5`` float16, ``float32 + 1j`` complex64);
+* true division and ``exp``/``sqrt``/``log`` make an exact result type
+  inexact: int64 gives float64, bool, uint8, int8, int16 and int32 give
+  float32. So ``int32 / 2`` and ``sqrt(bool)`` give float32, while
+  ``bool / 2`` gives float64 (``bool`` joined with a python int is int64).
 """
 
 from __future__ import annotations
@@ -24,13 +36,59 @@ from . import sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["binary_op", "local_op", "reduce_op"]
+__all__ = ["binary_op", "local_op", "reduce_op", "result_type"]
 
-_SCALARS = (builtins.int, builtins.float, builtins.bool, np.generic)
+_SCALARS = (builtins.int, builtins.float, builtins.bool, builtins.complex, np.generic)
+# the inexact type of each exact one, as jnp's true_divide and
+# transcendental functions choose it
+_INEXACT = {
+    torch.bool: torch.float32, torch.uint8: torch.float32, torch.int8: torch.float32,
+    torch.int16: torch.float32, torch.int32: torch.float32, torch.int64: torch.float64,
+}
 
 
 def _is_exact(t: torch.Tensor) -> bool:
     return not (t.is_floating_point() or t.is_complex())
+
+
+def _join_weak(dtype: torch.dtype, scalar) -> torch.dtype:
+    """``dtype`` joined with a weakly typed python number."""
+    exact = dtype in _INEXACT
+    if isinstance(scalar, builtins.int):  # bool was taken as a strong type
+        return torch.int64 if dtype == torch.bool else dtype
+    if isinstance(scalar, builtins.float):
+        return torch.float64 if exact else dtype
+    if dtype.is_complex:
+        return dtype
+    if exact or dtype == torch.float64:
+        return torch.complex128
+    return torch.complex64
+
+
+def result_type(*operands) -> torch.dtype:
+    """The JAX package's result type of an elementwise operation on
+    ``operands`` (tensors, numpy scalars and python numbers; at least one
+    tensor), as the module docstring states it."""
+    strong = [x.dtype for x in operands if isinstance(x, torch.Tensor)]
+    strong += [types.canonical_heat_type(x.dtype).torch_type() for x in operands
+               if isinstance(x, np.generic)]
+    strong += [torch.bool for x in operands if isinstance(x, builtins.bool)]
+    dtype = strong[0]
+    for other in strong[1:]:
+        dtype = torch.promote_types(dtype, other)
+    for x in operands:
+        if isinstance(x, (builtins.int, builtins.float, builtins.complex)) and not isinstance(
+                x, builtins.bool):
+            dtype = _join_weak(dtype, x)
+    return dtype
+
+
+def _cast(x, dtype: torch.dtype):
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    if isinstance(x, np.generic):
+        return x.item()  # its type has been joined: now a plain number of it
+    return x
 
 
 def _as_operand(x, like: DNDarray):
@@ -50,7 +108,10 @@ def binary_op(
 ) -> DNDarray:
     """Elementwise binary operation with broadcasting and split
     reconciliation (reference _operations.py:25-181). A replicated operand
-    that spans the output's split dimension is cut to this rank's chunk."""
+    that spans the output's split dimension is cut to this rank's chunk; a
+    split operand of size 1 along its split axis is gathered whole and
+    broadcasts. The result's split is an operand's split, as in the JAX
+    package."""
     arrays = [a for a in (t1, t2) if isinstance(a, DNDarray)]
     if not arrays:
         raise TypeError(f"expected at least one DNDarray operand, got {type(t1)}, {type(t2)}")
@@ -75,13 +136,14 @@ def binary_op(
             f"resplit one operand first"
         )
     out_split = s1 if s1 is not None else s2
-    for a, s in ((t1, s1), (t2, s2)):
-        if s is not None and a.shape[a.split] != out_shape[s]:
-            raise NotImplementedError("broadcasting along the split dimension is not supported")
 
-    def local(a):
+    def local(a, s):
         if not isinstance(a, DNDarray):
             return a
+        if s is not None and a.shape[a.split] != out_shape[s]:
+            # size 1 along its split axis: it broadcasts like a replicated
+            # operand, so every rank takes all of it (the one row or column)
+            return a._global()
         buf = a.larray
         if out_split is not None and a.split is None:
             own_dim = out_split - (ndim_out - a.ndim)
@@ -91,13 +153,11 @@ def binary_op(
                                  slices[out_split].stop - slices[out_split].start)
         return buf
 
-    a, b = local(t1), local(t2)
-    # the JAX package's 64-bit promotion where torch's default would differ
-    tensors = [x for x in (a, b) if isinstance(x, torch.Tensor)]
-    float_scalar = any(isinstance(x, (builtins.float, np.floating)) for x in (a, b))
-    if all(_is_exact(x) for x in tensors) and (true_divide or float_scalar):
-        a, b = (x.to(torch.float64) if isinstance(x, torch.Tensor) else x for x in (a, b))
-    result = operation(a, b)
+    a, b = local(t1, s1), local(t2, s2)
+    dtype = result_type(a, b)
+    if true_divide:
+        dtype = _INEXACT.get(dtype, dtype)
+    result = operation(_cast(a, dtype), _cast(b, dtype))
 
     res = DNDarray(result, out_shape, types.canonical_heat_type(result.dtype), out_split,
                    device, comm, True)
@@ -115,12 +175,13 @@ def local_op(
     promote_exact: bool = False,
 ) -> DNDarray:
     """Elementwise operation, independent on every rank (reference
-    _operations.py:281-352). ``promote_exact`` casts integer input to
-    float64 first, as the JAX package's transcendental functions do."""
+    _operations.py:281-352). ``promote_exact`` casts exact input to its
+    inexact type first (int64 to float64, the narrower ones and bool to
+    float32), as the JAX package's transcendental functions do."""
     sanitation.sanitize_in(x)
     buf = x.larray
-    if promote_exact and _is_exact(buf):
-        buf = buf.to(torch.float64)
+    if promote_exact:
+        buf = buf.to(_INEXACT.get(buf.dtype, buf.dtype))
     result = operation(buf)
     res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,
                    x.device, x.comm, True)

@@ -27,7 +27,8 @@ def mul(t1, t2, out=None) -> DNDarray:
 
 
 def div(t1, t2, out=None) -> DNDarray:
-    """Elementwise true division (integer operands give float64)."""
+    """Elementwise true division (an exact result type becomes inexact:
+    int64 float64, the narrower ones and bool float32)."""
     return binary_op(torch.true_divide, t1, t2, out, true_divide=True)
 
 

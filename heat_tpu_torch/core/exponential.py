@@ -1,6 +1,7 @@
 """Exponential functions (counterpart of ``heat_tpu/core/exponential.py``,
-the subset of this slice: exp, sqrt, log). Integer input gives float64,
-as in the JAX package."""
+the subset of this slice: exp, sqrt, log). Exact input gives its inexact
+type, as in the JAX package: int64 float64, bool, uint8, int8, int16 and
+int32 float32."""
 
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the redesigned flash kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, bulk tensor copies (TMA) through
-// a tensor map over the strided (B, T, H, D) view, the bulk reduce-add from
-// shared to device memory, and warpgroup matrix products (wgmma) with their
-// shared-memory descriptors.
+// Hopper building blocks shared by the redesigned kernels (flash_fwd.cu,
+// flash_bwd.cu, int8_gemm.cu, lloyd.cu): mbarriers, bulk tensor copies (TMA)
+// through a tensor map over the strided (B, T, H, D) view or over a 2-D
+// row-major matrix, the bulk reduce-add from shared to device memory, and
+// warpgroup matrix products (wgmma) with their shared-memory descriptors:
+// bf16 (f32 accumulator), s8 (exact s32 accumulator) and tf32.
 //
 // One layout serves every tile: rows of 64 bf16 (128 bytes) in the 128-byte
 // swizzle (the 16-byte chunk index of an address XORed with its row index
@@ -90,6 +91,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of the 2-D tensor map `map` at (column c0, row c1) into `dst`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // generic-proxy writes to shared memory (st.shared) become visible to the
 // asynchronous proxy (bulk copies, wgmma); every writing thread executes it
 // before the barrier that hands the data over
@@ -141,6 +152,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[NJ][4]) {
   for (int j = 0; j < NJ; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void fence_regs(int (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
   }
 }
 
@@ -221,11 +241,76 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
+// d (64 x 64, f32) = A B (+ d when acc != 0), one k8 step in tf32 (each
+// operand's low 13 mantissa bits are ignored): A from registers, the tf32
+// A fragment of mma.sync m16n8k8 for this warp's 16 rows (a[0] row g, a[1]
+// row g + 8, both column tg; a[2], a[3] the same rows, column tg + 4); B
+// (64 rows x 8, K-major: the contraction along its rows of 32 values in
+// the 128-byte swizzle) from shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HEAT_REGS32
+      ", {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : HEAT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 #undef HEAT_ACC4
 #undef HEAT_ACC32
 #undef HEAT_ACC64
 #undef HEAT_REGS32
 #undef HEAT_REGS64
+
+#define HEAT_IACC4(d, j) "+r"(d[j][0]), "+r"(d[j][1]), "+r"(d[j][2]), "+r"(d[j][3])
+#define HEAT_IACC32(d, j)                                                          \
+  HEAT_IACC4(d, j), HEAT_IACC4(d, j + 1), HEAT_IACC4(d, j + 2), HEAT_IACC4(d, j + 3), \
+      HEAT_IACC4(d, j + 4), HEAT_IACC4(d, j + 5), HEAT_IACC4(d, j + 6), HEAT_IACC4(d, j + 7)
+#define HEAT_REGS128 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47," \
+  "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71," \
+  "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95," \
+  "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119," \
+  "%120,%121,%122,%123,%124,%125,%126,%127}"
+
+// d (64 x 256, s32, exact; fragments as wgmma_ss's) = A B (+ d when acc !=
+// 0), one k32 step of int8: A (64 x 32) and B (256 rows x 32) both K-major
+// in shared memory (int8 operands cannot be read MN-major).
+__device__ __forceinline__ void wgmma_s8(int (&d)[32][4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " HEAT_REGS128 ", %128, %129, p;\n}\n"
+      : HEAT_IACC32(d, 0), HEAT_IACC32(d, 8), HEAT_IACC32(d, 16), HEAT_IACC32(d, 24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#define HEAT_IREGS64 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47," \
+  "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+
+// the same for a 64 x 128 tile of B's 128 rows
+__device__ __forceinline__ void wgmma_s8(int (&d)[16][4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HEAT_IREGS64 ", %64, %65, p;\n}\n"
+      : HEAT_IACC32(d, 0), HEAT_IACC32(d, 8)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#undef HEAT_IACC4
+#undef HEAT_IACC32
+#undef HEAT_REGS128
+#undef HEAT_IREGS64
+
+// v rounded to tf32 (10 mantissa bits, to nearest, ties away), as an f32
+__device__ __forceinline__ float tf32_round(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
 
 // d = A B^T over D for operands that both lie K-major (rows x D, D / 64
 // panels of `a_panel` and `b_panel` bytes): the scores' product, Q K^T or
@@ -273,13 +358,29 @@ typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuui
 // a map is a pure function of (pointer, shape, strides, box), which torch's
 // caching allocator repeats from step to step: the last maps are kept in a
 // small direct-mapped table.
-inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int box_rows) {
+inline TensorMapEncodeTiled tensor_map_encoder() {
   static TensorMapEncodeTiled encode = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);  // torch has loaded it
     if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
     return reinterpret_cast<TensorMapEncodeTiled>(
         lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled"));
   }();
+  return encode;
+}
+
+// The encoder needs a current CUDA context, which a thread that has not
+// launched anything yet may lack (autograd's device threads run the
+// backward so): cudaSetDevice makes the device's primary context current
+// on this thread.
+inline cudaError_t bind_current_device() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  return err;
+}
+
+inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
 
   struct Entry {
@@ -304,13 +405,7 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int
     *map = entry.map;
     return cudaSuccess;
   }
-  // The encoder needs a current CUDA context, which a thread that has not
-  // launched anything yet may lack (autograd's device threads run the
-  // backward so): cudaSetDevice makes the device's primary context current
-  // on this thread.
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaSetDevice(device);
+  const cudaError_t err = bind_current_device();
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(view.dims[0]), static_cast<cuuint64_t>(view.dims[1]),
@@ -329,6 +424,37 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int
   entry.box_rows = box_rows;
   entry.map = *map;
   return cudaSuccess;
+}
+
+// A tensor map over a (rows x cols) row-major matrix of `type` (elements of
+// `elem_bytes`; rows `row_bytes` apart, a multiple of 16, and a 16-byte
+// aligned base), whose box is `box_cols` x `box_rows` (box_cols *
+// elem_bytes = 128) written in the 128-byte swizzle; the box reads zeros
+// past either edge. Not cached: its kernels run long against the few
+// microseconds an encoding takes. The device context is bound only when
+// an encoding fails without it, so that the call also runs inside a
+// stream capture.
+inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                                      long long cols, long long rows, long long row_bytes,
+                                      int box_cols, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  auto encode_once = [&] {
+    return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult rc = encode_once();
+  if (rc != CUDA_SUCCESS) {  // a thread without a current context: bind one, once more
+    const cudaError_t err = bind_current_device();
+    if (err != cudaSuccess) return err;
+    rc = encode_once();
+  }
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Raises a kernel's dynamic shared-memory limit on the current device the

@@ -10,7 +10,7 @@ Tolerances, as in chip_smoke.py: moments mean within 1e-5 of the column's
 spread, M2 1e-4 relative; cdist squared distances within 2e-5 of
 |x|^2 + |y|^2 (the error scale of an f32 GEMM-form expansion), rbf the
 same times gamma; Lloyd counts exact on separated blobs, sums within 1e-4
-of the sum of |x|, and two runs bit-identical. Flash attention: in f32, O
+of the sum of |x|, and two runs bit-identical (both kernels). Flash attention: in f32, O
 within 2e-5 max|v| (both sum exact-f32 products in other orders); in bf16,
 O within 2^-7 max|v| (each output is rounded to bf16, one ulp of
 |O| <= max|v| is 2^-8 max|v|, and a probability near a bf16 rounding
@@ -19,7 +19,8 @@ boundary may round the other way); the LSE within 1e-5 (1 + |lse|) in both
 gradient's largest magnitude: in f32 within 2e-5; in bf16 relative RMS
 within 2e-3 and the largest error within 2^-6 (p and dS round to bf16 on
 both sides, a value near a rounding boundary may go the other way);
-fully masked rows give exactly 0. The int8 GEMM is bit-identical.
+fully masked rows give exactly 0. The int8 GEMM is bit-identical, both
+kernels.
 """
 
 import os
@@ -94,6 +95,52 @@ def test_lloyd_kernel_matches_plain(dev, n, d, k):
     assert bool(((s_k - s_p).abs() <= 1e-4 * abs_sums + 1e-5).all())
     s_k2, n_k2 = cuda_lloyd.lloyd_update(x, protos)
     assert torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2)
+
+
+@pytest.mark.parametrize("n,d,k", [(2_000_000, 64, 64), (20_011, 512, 1024), (5_000, 64, 1),
+                                   (70_001, 36, 100)])
+def test_lloyd_tc_kernel_matches_plain_and_old(dev, n, d, k):
+    """The tensor-core kernel (d % 4 == 0) at the main path's shape, at the
+    gate's corner (the centers staged again for every tile), at k = 1 and
+    at a d that is no multiple of 32: counts equal to the plain version's
+    and the old kernel's, sums within the tolerance, two runs bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(n + d + k)
+    protos = torch.randn((k, d), generator=g, device=dev) * 8
+    lab = torch.randint(0, k, (n,), generator=g, device=dev)
+    x = protos[lab] + torch.randn((n, d), generator=g, device=dev)
+    s_k, n_k = cuda_lloyd.lloyd_update(x, protos)
+    s_p, n_p = cuda_lloyd.lloyd_update_plain(x, protos)
+    s_o, n_o = cuda_lloyd.lloyd_update(x, protos, _old_kernel=True)
+    assert torch.equal(n_k, n_p) and torch.equal(n_k, n_o)
+    abs_sums = torch.zeros_like(protos).index_add_(0, torch.argmin(torch.cdist(x, protos), 1), x.abs())
+    assert bool(((s_k - s_p).abs() <= 1e-4 * abs_sums + 1e-5).all())
+    s_k2, n_k2 = cuda_lloyd.lloyd_update(x, protos)
+    assert torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2)
+
+
+def test_lloyd_off_the_tc_gate_takes_the_old_kernel(dev):
+    """d % 4 != 0: a row stride the bulk copies cannot take; the same kernel
+    runs whatever the switch says."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((10_007, 33), generator=g, device=dev)
+    c = torch.randn((17, 33), generator=g, device=dev)
+    s_k, n_k = cuda_lloyd.lloyd_update(x, c)
+    s_o, n_o = cuda_lloyd.lloyd_update(x, c, _old_kernel=True)
+    assert torch.equal(s_k, s_o) and torch.equal(n_k, n_o)
+
+
+def test_kmeans_on_card_leaves_the_tf32_flag_as_it_was(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    htt.use_device(None)
+    x = htt.array(torch.randn((5000, 16), generator=g, device=dev), split=0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        km = htt.cluster.KMeans(n_clusters=4, init="random", random_state=0, max_iter=10).fit(x)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        km.predict(x)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def test_cdist_kernel_past_65535_row_tiles(dev):
@@ -501,7 +548,35 @@ def test_int8_kernel_extreme_values_bit_identical(dev):
     qb[:, ::2] = -127
     sa = torch.rand((256, 1), device=dev)
     sb = torch.rand((1, 128), device=dev)
-    assert torch.equal(cuda_quant.int8_gemm(qa, sa, qb, sb), cuda_quant.int8_gemm_plain(qa, sa, qb, sb))
+    want = cuda_quant.int8_gemm_plain(qa, sa, qb, sb)
+    assert torch.equal(cuda_quant.int8_gemm(qa, sa, qb, sb), want)
+    assert torch.equal(cuda_quant.int8_gemm(qa, sa, qb, sb, _old_kernel=True), want)
+
+
+@pytest.mark.parametrize("m,n,k", [(8192, 8192, 8192), (8192, 4096, 1024), (1000, 777, 1040),
+                                   (129, 300, 16)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_wgmma_kernel_bit_identical_to_plain_and_old(dev, m, n, k, out_dtype):
+    """The wgmma kernel (K % 16 == 0) at the W8A8 chain's 8192^3, QuantDense's
+    8192 tokens x 1024 -> 4096, and ragged M and N with K % 128 != 0."""
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    qa, sa = quantize_int8(torch.randn((m, k), generator=g, device=dev), axis=1)
+    qb, sb = quantize_int8(torch.randn((k, n), generator=g, device=dev), axis=0)
+    htt.reset_launch_counts()
+    got = cuda_quant.int8_gemm(qa, sa, qb, sb, out_dtype)
+    assert htt.launch_counts()["int8_gemm"] == 1
+    assert got.dtype == out_dtype and torch.equal(got, cuda_quant.int8_gemm_plain(qa, sa, qb, sb,
+                                                                                  out_dtype))
+    assert torch.equal(got, cuda_quant.int8_gemm(qa, sa, qb, sb, out_dtype, _old_kernel=True))
+
+
+def test_int8_kernel_refuses_a_k_past_the_exact_accumulator(dev):
+    k = 2 ** 31 // 128 ** 2  # 128^2 K reaches 2^31
+    qa = torch.ones((1, k), dtype=torch.int8, device=dev)
+    qb = torch.ones((k, 1), dtype=torch.int8, device=dev)
+    ones = torch.ones((1, 1), device=dev)
+    with pytest.raises(ValueError, match="int32 accumulator"):
+        cuda_quant.int8_gemm(qa, ones, qb, ones)
 
 
 def test_lm_forward_launches_flash_once_per_layer(dev):

@@ -10,7 +10,8 @@
   entry point raises;
 - three gloo ranks (an uneven tail: 6, 6, 5 rows) give the world-of-one
   results for the sharded moments merge and the per-iteration Lloyd
-  allreduce.
+  allreduce, and numpy's for an operand of size 1 along the split axis
+  (held by one rank) broadcast against a split one.
 """
 
 import os
@@ -150,7 +151,9 @@ _WORKER = textwrap.dedent("""
     c0 = (protos + 0.5).astype(np.float32)
     x = ht.array(xm, split=0)
     res = {"lshape": np.array(x.lshape), "mean": ht.mean(x, axis=0).numpy(),
-           "var": ht.var(x, axis=0).numpy()}
+           "var": ht.var(x, axis=0).numpy(),
+           "row_bcast": (ht.array(xm[:1], split=0) - x).numpy(),
+           "col_bcast": (ht.array(xm[:, 1:2], split=1) * ht.array(xm, split=1)).numpy()}
     for name, init in (("dn", ht.array(c0)), ("random", "random")):
         km = ht.cluster.KMeans(n_clusters=4, init=init, max_iter=20, tol=0.0, random_state=2)
         km.fit(ht.array(xk, split=0))
@@ -196,6 +199,9 @@ def test_three_gloo_ranks_match_world_of_one(tmp_path, on_cpu):
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
     assert [tuple(r["lshape"]) for r in ranks] == [(6, 5), (6, 5), (5, 5)]
     for r in ranks:
+        # an operand of size 1 along the split axis broadcasts on every rank
+        np.testing.assert_array_equal(r["row_bcast"], xm[:1] - xm)
+        np.testing.assert_array_equal(r["col_bcast"], xm[:, 1:2] * xm)
         np.testing.assert_allclose(r["mean"], htt.mean(x, axis=0).numpy(), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(r["var"], htt.var(x, axis=0).numpy(), rtol=1e-5)
     for name, init in (("dn", htt.array(c0)), ("random", "random")):
