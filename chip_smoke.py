@@ -9,13 +9,15 @@ Phases, each printing JSON lines:
   1. the card's name and power limit, and the build of every kernel from
      heat_tpu_torch/csrc (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the card, at the
-     paths' shapes and at ragged shapes, with the stated tolerances, the
+     paths' shapes and at ragged shapes (cdist also in each
+     HEAT_TPU_CDIST_PREC strategy), with the stated tolerances, the
      kernel's, the plain version's and (where one PyTorch call computes the
      same function) the library call's times, and the bound; the flash
      kernels' times are device times (the calls replayed from a CUDA graph);
-     the Hopper (wgmma) variants of K6, K7a, K7b and K8 are also held
-     against the mma.sync kernels they replace and timed in turns with them
-     (old, new, new, old), with their registers, spills and shared memory
+     the Hopper (wgmma) variants of K3, K4, K5, K6, K7a, K7b and K8 are also
+     held against the kernels they replace (mma.sync or f32 FMAs) and timed
+     in turns with them (old, new, new, old), with their registers, spills
+     and shared memory
      from the build, and their tile choices timed against the shape rules;
      the flash backward (K7a, K7b and K8) also through autograd, and
      two-pass against fused over sequence lengths;
@@ -105,7 +107,7 @@ def main():
     from heat_tpu_torch.core.linalg.cuda_quant import _wgmma_tile_width, int8_gemm, int8_gemm_plain
     from heat_tpu_torch.parallel.cuda_attention import (
         _attention_variant, _flash_forward, _fwd_tiles, _strides, flash_attention_plain)
-    from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain
+    from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain, last_variant
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -135,7 +137,7 @@ def main():
     hopper = {}
     for name, marks in (("flash_fwd", ("flash_",)), ("flash_bwd", ("flash_",)),
                         ("int8_gemm", ("int8_gemm_wgmma", "transpose_s8")),
-                        ("lloyd", ("lloyd_tc",))):
+                        ("lloyd", ("lloyd_tc",)), ("cdist", ("cdist_tc", "cdist_prepare"))):
         log = paths[name].with_suffix(".so.log")
         lines = log.read_text().splitlines() if log.exists() else []
         for i, ln in enumerate(lines):
@@ -151,6 +153,7 @@ def main():
                 hopper.setdefault("ptxas_performance_notes", []).append(ln[:320])
     fwd_lib, bwd_lib = ctypes.CDLL(str(paths["flash_fwd"])), ctypes.CDLL(str(paths["flash_bwd"]))
     q_lib, lloyd_lib = ctypes.CDLL(str(paths["int8_gemm"])), ctypes.CDLL(str(paths["lloyd"]))
+    cdist_lib = ctypes.CDLL(str(paths["cdist"]))
     smem = {f"flash_fwd_wgmma d={d} bm={bm} bn={bn}": fwd_lib.heat_flash_fwd_wgmma_smem(d, bm, bn)
             for d in (64, 128) for bm in (64, 128) for bn in (64, 128)}
     smem.update({f"flash_bwd_fused_wgmma d={d}": bwd_lib.heat_flash_bwd_fused_wgmma_smem(d)
@@ -167,6 +170,7 @@ def main():
             "bytes": lloyd_lib.heat_lloyd_tc_plan(d, k, *(ctypes.byref(v) for v in plan)),
             **dict(zip(("blocks_per_sm", "x_slots", "accumulator_copies"),
                        (v.value for v in plan)))}
+    smem["cdist_tc"] = cdist_lib.heat_cdist_tc_smem()
     spilled = [k for k, v in hopper.items() if k != "ptxas_performance_notes"
                and "0 bytes spill stores, 0 bytes spill loads" not in v]
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas, "hopper_variants": hopper,
@@ -251,38 +255,92 @@ def main():
     moments_case("ragged lim", 1_000_003, 100, 999_990, False)
 
     # ---------------------------------------------------------------- K3
-    def cdist_case(label, m, n, k, epilogue, timed, same=False):
+    # Each case against the plain version of its own tier
+    # (HEAT_TPU_CDIST_PREC: bf16x3/high -> the 3xTF32 kernel, default -> one
+    # TF32 pass, highest -> the f32 FMA kernel; the plain TF32 forms emulate
+    # the tensor cores). Tolerance on the squared distance: 2e-5 of
+    # |x|^2 + |y|^2 (+ 1e-6), the error scale of an f32 GEMM-form expansion
+    # over k <= 512 terms; for rbf the same, times gamma
+    # (|d exp(-g d2)| <= g |d d2|). The one TF32 pass is also held to exact
+    # f32 at 2e-3 of |x|^2 + |y|^2: each operand's TF32 truncation (<= 2^-10
+    # relative) gives <= 2^-9 a product, and 2 |x.y| <= |x|^2 + |y|^2. For
+    # x = y the diagonal: out[i, i] <= sqrt(2e-5 * 2 |x_i|^2 + 1e-6) (for one
+    # TF32 pass 2e-3, its tier's scale). Every case runs twice and must be
+    # bit-identical.
+    def d2_worst(out_k, out_p, scale, gamma, epilogue, rel):
+        if epilogue == "rbf":
+            return ((out_k - out_p).abs() / (gamma * (rel * scale + 1e-6))).max().item()
+        return ((out_k * out_k - out_p * out_p).abs() / (rel * scale + 1e-6)).max().item()
+
+    def cdist_case(label, m, n, k, epilogue, expect, precision="bf16x3", same=False,
+                   timed=False, turns=False):
         x = torch.rand((m, k), generator=gen, device=dev)
         y = x if same else torch.rand((n, k), generator=gen, device=dev)
         gamma = 0.5 / k if epilogue == "rbf" else 0.0
-        out_k = euclid(x, y, gamma, epilogue)
-        out_p = euclid_plain(x, y, gamma, epilogue)
+        out_k = euclid(x, y, gamma, epilogue, precision)
+        variant = last_variant()
+        repeat = bool(torch.equal(out_k, euclid(x, y, gamma, epilogue, precision)))
+        out_p = euclid_plain(x, y, gamma, epilogue, precision)
         torch.cuda.synchronize()
-        # tolerance on the squared distance: 2e-5 of |x|^2 + |y|^2, the error
-        # scale of an f32 GEMM-form expansion over k <= 512 terms; for rbf the
-        # same, times gamma (|d exp(-g d2)| <= g |d d2|)
-        scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
-        if epilogue == "rbf":
-            worst = ((out_k - out_p).abs() / (gamma * (2e-5 * scale + 1e-6))).max().item()
-        else:
-            worst = ((out_k * out_k - out_p * out_p).abs() / (2e-5 * scale + 1e-6)).max().item()
-        max_abs = (out_k - out_p).abs().max().item()
-        fields = {"shape": [m, n, k], "epilogue": epilogue, "max_abs_err": max_abs,
-                  "worst_err_over_tol": worst,
-                  "tolerance": "|d2_k - d2_p| <= 2e-5 (|x|^2 + |y|^2) + 1e-6"}
-        del scale, out_p
+        x2 = (x * x).sum(1)
+        scale = x2[:, None] + (y * y).sum(1)[None, :]
+        worst = d2_worst(out_k, out_p, scale, gamma, epilogue, 2e-5)
+        fields = {"shape": [m, n, k], "epilogue": epilogue, "precision": precision,
+                  "variant": variant, "expected_variant": expect,
+                  "max_abs_err": (out_k - out_p).abs().max().item(),
+                  "worst_err_over_tol": worst, "repeat_bitwise": repeat,
+                  "tolerance": "|d2_k - d2_p| <= 2e-5 (|x|^2 + |y|^2) + 1e-6, "
+                               "against the plain version of the same tier"}
+        ok = worst <= 1.0 and repeat and variant == expect
+        del out_p
+        if precision == "DEFAULT":
+            out_e = euclid_plain(x, y, gamma, epilogue, "HIGHEST")
+            fields["worst_err_over_tol_vs_exact_f32"] = d2_worst(out_k, out_e, scale, gamma,
+                                                                 epilogue, 2e-3)
+            fields["tolerance_vs_exact_f32"] = "|d2_k - d2_f32| <= 2e-3 (|x|^2 + |y|^2) + 1e-6"
+            ok = ok and fields["worst_err_over_tol_vs_exact_f32"] <= 1.0
+            del out_e
+        if same and epilogue == "dist":  # the tier's own scale: 2e-3 for one TF32 pass
+            rel = 2e-3 if precision == "DEFAULT" else 2e-5
+            diag = (out_k.diagonal() / torch.sqrt(rel * 2 * x2 + 1e-6)).max().item()
+            fields["diagonal_over_bound"] = diag
+            fields["diagonal_bound"] = f"out[i, i] <= sqrt({rel} * 2 |x_i|^2 + 1e-6)"
+            ok = ok and diag <= 1.0
+        del scale, out_k
         reps = 10 if timed else 5
-        fields["kernel_ms"] = time_ms(lambda: euclid(x, y, gamma, epilogue), reps)
-        fields["plain_ms"] = time_ms(lambda: euclid_plain(x, y, gamma, epilogue), 5)
+        run = lambda: euclid(x, y, gamma, epilogue, precision)  # noqa: E731
+        if turns:  # the f32 FMA kernel at the same shape, in turns with the new one
+            fields["old_ms"], fields["kernel_ms"] = time_turns(
+                lambda: euclid(x, y, gamma, epilogue, _old_kernel=True), run, reps)
+        else:
+            fields["old_ms"], fields["kernel_ms"] = None, device_ms(run, reps)
+        fields["plain_ms"] = time_ms(lambda: euclid_plain(x, y, gamma, epilogue, precision), 5)
+        # torch.cdist with TF32 off (set above for the whole run)
         fields["library_ms"] = time_ms(lambda: torch.cdist(x, y), 5) if epilogue == "dist" else None
-        fields["bound_ms"], fields["bound_by"] = bound((m * k + n * k + m * n) * 4, 2 * m * n * k)
+        nbytes = (m * k + n * k + m * n) * 4
+        fields["bound_ms_f32_fma"], fields["bound_by_f32_fma"] = bound(nbytes, 2 * m * n * k)
+        products = {"3xtf32_wgmma": 3, "tf32_wgmma": 1}.get(variant)
+        fields["bound_ms"], fields["bound_by"] = (
+            bound(nbytes, products * 2 * m * n * k, TF32_FLOPS_PER_S) if products
+            else (fields["bound_ms_f32_fma"], fields["bound_by_f32_fma"]))
         if timed:
             report["cdist"] = fields
-        check(f"cdist {label}", worst <= 1.0, **fields)
+        check(f"cdist {label}", ok, **fields)
+        del x, y
 
-    cdist_case("main", 16384, 16384, 128, "dist", True, same=True)
-    cdist_case("ragged", 16000, 15999, 127, "dist", False)
-    cdist_case("ragged rbf", 16000, 15999, 127, "rbf", False)
+    cdist_case("main", 16384, 16384, 128, "dist", "3xtf32_wgmma", same=True, timed=True,
+               turns=True)
+    cdist_case("main, HEAT_TPU_CDIST_PREC=default", 16384, 16384, 128, "dist", "tf32_wgmma",
+               precision="DEFAULT", same=True)
+    cdist_case("main, HEAT_TPU_CDIST_PREC=highest", 16384, 16384, 128, "dist", "f32_fma",
+               precision="HIGHEST", same=True)
+    cdist_case("ragged (n % 4 != 0: guarded stores)", 16000, 15999, 124, "dist", "3xtf32_wgmma")
+    cdist_case("ragged rbf", 16000, 15999, 124, "rbf", "3xtf32_wgmma")
+    cdist_case("k = 512", 2049, 4100, 512, "dist", "3xtf32_wgmma")
+    cdist_case("k = 4", 4097, 1000, 4, "rbf", "3xtf32_wgmma")
+    cdist_case("ragged k = 127 (the f32 FMA kernel by its gate)", 16000, 15999, 127, "dist",
+               "f32_fma")
+    cdist_case("ragged k = 127 rbf", 16000, 15999, 127, "rbf", "f32_fma")
 
     # ---------------------------------------------------------------- K4
     def blobs(n, d, k, spread=8.0):
@@ -831,10 +889,13 @@ def main():
     ht.reset_launch_counts()
     stages, (mu, va, sd), dist, km = run_main_path()
     launches = {name: ht.launch_counts()[name] for name in ARRAY_PATH}
+    cdist_variant = last_variant()
     emit({"phase": "main path", "stages": stages, "launches": launches,
-          "kmeans_n_iter": km.n_iter_})
+          "kmeans_n_iter": km.n_iter_, "cdist_variant": cdist_variant})
     check("main path launched every kernel", all(v > 0 for v in launches.values()),
           launches=launches)
+    check("main path cdist ran the 3xTF32 kernel", cdist_variant == "3xtf32_wgmma",
+          variant=cdist_variant)
 
     # references in float64
     y64 = xm_t.double() * 2 + 1
@@ -1314,7 +1375,8 @@ def main():
                for name in backward_kernels},
             "int8_gemm": ("QuantDense (8192, 4096, 1024) f32 out", int8_quant_dense)}
     shapes = {"int8_gemm": "W8A8 chain (8192, 8192, 8192) f32 out",
-              "lloyd": "KMeans pass (2,000,000, 64), k = 64"}
+              "lloyd": "KMeans pass (2,000,000, 64), k = 64",
+              "cdist": "main path (16384, 16384, 128) f32, x = y, dist"}
     timing_keys = ("variant", "kernel_ms", "old_ms", "plain_ms", "library_ms", "bound_ms",
                    "bound_by", "max_abs_err")
     kernels = []
@@ -1329,7 +1391,7 @@ def main():
         if name in also or name in shapes:
             row.update({"variant": r["variant"], "old_ms": r["old_ms"],
                         "shape": shapes.get(name, "LM shape (8, 1024, 16, 64) bf16 causal")})
-        if name == "lloyd":
+        if name in ("lloyd", "cdist"):
             row["bound_ms_f32_fma"] = r["bound_ms_f32_fma"]
         if name in also:
             label, other = also[name]

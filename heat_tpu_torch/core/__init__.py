@@ -22,4 +22,7 @@ from .types import (
     int64,
     promote_types,
     uint8,
+    uint16,
+    uint32,
+    uint64,
 )

@@ -11,17 +11,25 @@ type is computed first (:func:`result_type`) and every operand is cast to
 it, so torch's own promotion decides nothing:
 
 * arrays of any rank, 0-d ones included, and numpy scalars are typed
-  strongly and join on the lattice ``torch.promote_types`` implements (the
-  JAX lattice for every type the port has); a python ``bool`` is a strong
-  ``bool``;
+  strongly and join on the JAX lattice (``types.promote_types``: torch's
+  own promotion, and the JAX package's table for uint16, uint32 and
+  uint64); a python ``bool`` is a strong ``bool``;
 * a python ``int``, ``float`` or ``complex`` is weak: it keeps the array's
   type unless its kind is higher, and then gives the 64-bit type of its
   kind (``int8 + 2`` is int8, ``bool + 2`` int64, ``int32 + 2.5`` float64,
   ``float16 + 2.5`` float16, ``float32 + 1j`` complex64);
 * true division and ``exp``/``sqrt``/``log`` make an exact result type
-  inexact: int64 gives float64, bool, uint8, int8, int16 and int32 give
-  float32. So ``int32 / 2`` and ``sqrt(bool)`` give float32, while
-  ``bool / 2`` gives float64 (``bool`` joined with a python int is int64).
+  inexact: int64 and uint64 give float64, bool, uint8, uint16, uint32,
+  int8, int16 and int32 give float32. So ``int32 / 2`` and ``sqrt(bool)``
+  give float32, while ``bool / 2`` gives float64 (``bool`` joined with a
+  python int is int64).
+
+torch has no CPU ``add``, ``neg`` or ``amax`` (among others) for uint16,
+uint32 and uint64. An operation that torch cannot compute on them raises a
+``TypeError`` naming the heat type; none is computed in another type. A
+``sum`` of an unsigned array is the exception the JAX package makes
+usable: it adds in int64 and reinterprets the bits as uint64, exact
+modulo 2^64 as the reference's uint64 sum is.
 """
 
 from __future__ import annotations
@@ -44,7 +52,24 @@ _SCALARS = (builtins.int, builtins.float, builtins.bool, builtins.complex, np.ge
 _INEXACT = {
     torch.bool: torch.float32, torch.uint8: torch.float32, torch.int8: torch.float32,
     torch.int16: torch.float32, torch.int32: torch.float32, torch.int64: torch.float64,
+    torch.uint16: torch.float32, torch.uint32: torch.float32, torch.uint64: torch.float64,
 }
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+# the unsigned types for which torch lacks most arithmetic
+_LIMITED = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def _apply(operation: Callable, *operands) -> torch.Tensor:
+    """``operation(*operands)``; where torch has no kernel for an operand's
+    limited unsigned type, a ``TypeError`` that names its heat type."""
+    try:
+        return operation(*operands)
+    except (NotImplementedError, RuntimeError) as e:
+        limited = [o.dtype for o in operands if isinstance(o, torch.Tensor) and o.dtype in _LIMITED]
+        if not limited:
+            raise
+        name = types.canonical_heat_type(limited[0]).__name__
+        raise TypeError(f"torch cannot compute this operation on heat type {name}: {e}") from e
 
 
 def _is_exact(t: torch.Tensor) -> bool:
@@ -75,7 +100,7 @@ def result_type(*operands) -> torch.dtype:
     strong += [torch.bool for x in operands if isinstance(x, builtins.bool)]
     dtype = strong[0]
     for other in strong[1:]:
-        dtype = torch.promote_types(dtype, other)
+        dtype = types.promote_types(dtype, other).torch_type()
     for x in operands:
         if isinstance(x, (builtins.int, builtins.float, builtins.complex)) and not isinstance(
                 x, builtins.bool):
@@ -157,7 +182,7 @@ def binary_op(
     dtype = result_type(a, b)
     if true_divide:
         dtype = _INEXACT.get(dtype, dtype)
-    result = operation(_cast(a, dtype), _cast(b, dtype))
+    result = _apply(operation, _cast(a, dtype), _cast(b, dtype))
 
     res = DNDarray(result, out_shape, types.canonical_heat_type(result.dtype), out_split,
                    device, comm, True)
@@ -182,7 +207,7 @@ def local_op(
     buf = x.larray
     if promote_exact:
         buf = buf.to(_INEXACT.get(buf.dtype, buf.dtype))
-    result = operation(buf)
+    result = _apply(operation, buf)
     res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,
                    x.device, x.comm, True)
     if out is not None:
@@ -228,8 +253,11 @@ def reduce_op(
         out_gshape = tuple(s for d, s in enumerate(x.shape) if d not in red_axes)
 
     buf = x.larray
+    unsigned = buf.dtype in _UNSIGNED
     if reduction == "sum":
-        if buf.dtype == torch.bool or (_is_exact(buf) and buf.dtype != torch.int64):
+        if buf.dtype == torch.uint64:
+            buf = buf.view(torch.int64)  # the same bits: sums agree modulo 2^64
+        elif buf.dtype == torch.bool or (_is_exact(buf) and buf.dtype != torch.int64):
             buf = buf.to(torch.int64)  # numpy/JAX x64 sums small ints as int64
         result = torch.sum(buf, dim=red_axes, keepdim=keepdims) if red_axes else buf.clone()
     else:
@@ -239,9 +267,12 @@ def reduce_op(
                 else tuple(s for d, s in enumerate(buf.shape) if d not in red_axes)
             result = torch.full(shape, neutral, dtype=buf.dtype, device=buf.device)
         else:
-            result = fn(buf, dim=red_axes, keepdim=keepdims) if red_axes else buf.clone()
+            result = _apply(lambda b: fn(b, dim=red_axes, keepdim=keepdims) if red_axes
+                            else b.clone(), buf)
     if crosses_split:
         result = x.comm.allreduce(result.contiguous(), reduction)
+    if reduction == "sum" and unsigned:
+        result = result.view(torch.uint64)  # the reference sums unsigned types as uint64
     if dtype is not None:
         result = result.to(types.canonical_heat_type(dtype).torch_type())
 

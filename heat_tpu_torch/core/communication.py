@@ -84,6 +84,11 @@ def counts_displs(n: int, size: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     return counts, displs
 
 
+# the signed type of the same width, which carries an unsigned type's bits
+# through a collective
+_BITS_AS = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
 class TorchCommunication:
     """The world of ranks of one ``torch.distributed`` process group (the
     default group when ``group`` is None). Without an initialised process
@@ -138,6 +143,8 @@ class TorchCommunication:
         the collective and the pad is dropped again."""
         if self.size == 1:
             return local
+        if local.dtype in _BITS_AS:  # gloo and NCCL carry no uint16/32/64: move the bits
+            return self.allgather(local.view(_BITS_AS[local.dtype]), dim, n).view(local.dtype)
         c = self.chunk_size(n)
         counts, _ = self.counts_displs(n)
         pad_shape = list(local.shape)

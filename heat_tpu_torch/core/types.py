@@ -5,8 +5,12 @@ Counterpart of ``heat_tpu/core/types.py``: the same class hierarchy
 backed here by a torch dtype (``torch_type()``). The JAX package runs with
 64-bit types on, so a float64 numpy input stays float64 and promotion
 follows the numpy-style lattice; ``torch.promote_types`` gives the same
-answers as the JAX package for every type kept here. ``uint16``/``uint32``/``uint64`` are left out:
-torch has no arithmetic for them.
+answers as the JAX package for every type but ``uint16``, ``uint32`` and
+``uint64``. Those three are backed by ``torch.uint16/32/64``, which torch
+does not promote and for which it has little arithmetic (no CPU ``add``,
+``neg`` or ``amax``); their promotion is the JAX package's, from the table
+``_UNSIGNED_PROMOTION``, and an operation torch cannot compute on them
+raises a ``TypeError`` that names the heat type (``_operations.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ __all__ = [
     "int32",
     "int64",
     "uint8",
+    "uint16",
+    "uint32",
+    "uint64",
     "float16",
     "bfloat16",
     "float32",
@@ -118,6 +125,18 @@ class uint8(unsignedinteger):
     _torch = torch.uint8
 
 
+class uint16(unsignedinteger):
+    _torch = torch.uint16
+
+
+class uint32(unsignedinteger):
+    _torch = torch.uint32
+
+
+class uint64(unsignedinteger):
+    _torch = torch.uint64
+
+
 class float16(floating):
     _torch = torch.float16
 
@@ -155,7 +174,7 @@ cfloat = complex64
 cdouble = complex128
 
 _COMPLETE_TYPES = [
-    bool, int8, int16, int32, int64, uint8,
+    bool, int8, int16, int32, int64, uint8, uint16, uint32, uint64,
     float16, bfloat16, float32, float64, complex64, complex128,
 ]
 _TORCH_MAP = {t._torch: t for t in _COMPLETE_TYPES}
@@ -194,12 +213,32 @@ def canonical_heat_type(a_type: Any) -> Type[datatype]:
     raise TypeError(f"data type {a_type!r} not understood")
 
 
+# The JAX package's promote_types for every pair with uint16, uint32 or
+# uint64 (taken from heat_tpu.core.types.promote_types, which is jnp's
+# lattice under x64), which torch.promote_types does not cover.
+_FLOATS_KEPT = {"float16": "float16", "bfloat16": "bfloat16", "float32": "float32",
+                "float64": "float64", "complex64": "complex64", "complex128": "complex128"}
+_UNSIGNED_PROMOTION = {
+    "uint16": {"bool": "uint16", "int8": "int32", "int16": "int32", "int32": "int32",
+               "int64": "int64", "uint8": "uint16", "uint16": "uint16", "uint32": "uint32",
+               "uint64": "uint64", **_FLOATS_KEPT},
+    "uint32": {"bool": "uint32", "int8": "int64", "int16": "int64", "int32": "int64",
+               "int64": "int64", "uint8": "uint32", "uint16": "uint32", "uint32": "uint32",
+               "uint64": "uint64", **_FLOATS_KEPT},
+    "uint64": {"bool": "uint64", "int8": "float64", "int16": "float64", "int32": "float64",
+               "int64": "float64", "uint8": "uint64", "uint16": "uint64", "uint32": "uint64",
+               "uint64": "uint64", **_FLOATS_KEPT},
+}
+
+
 def promote_types(type1: Any, type2: Any) -> Type[datatype]:
     """Smallest type to which both may be safely cast (reference
     types.py:836)."""
-    t1 = canonical_heat_type(type1).torch_type()
-    t2 = canonical_heat_type(type2).torch_type()
-    return canonical_heat_type(torch.promote_types(t1, t2))
+    t1, t2 = canonical_heat_type(type1), canonical_heat_type(type2)
+    for a, b in ((t1, t2), (t2, t1)):
+        if a.__name__ in _UNSIGNED_PROMOTION:
+            return _NAME_MAP[_UNSIGNED_PROMOTION[a.__name__][b.__name__]]
+    return canonical_heat_type(torch.promote_types(t1.torch_type(), t2.torch_type()))
 
 
 class iinfo:

@@ -3,10 +3,14 @@
 // dot_f32 is the counterpart of heat_tpu/core/pallas_util.py::dot_f32, the
 // f32-accumulated contraction that the TPU's cdist and Lloyd kernels share.
 // There it dispatches between precision tiers of the TPU's matrix unit
-// (a bf16x3 split product by default). Here it is one rank-1 update of a
-// register tile by plain f32 FMAs: exact f32 products with f32
-// accumulation, at least as accurate as bf16x3. The tensor-core strategies
-// (bf16x3, 3xTF32) are not ported yet.
+// (a bf16x3 split product by default). Its tiers live on this card's tensor
+// cores in the Hopper kernels: lloyd.cu's lloyd_tc and cdist.cu's cdist_tc
+// compute the split product as 3xTF32 wgmma (hi = tf32(v), lo = v - hi;
+// lo.hi + hi.lo + hi.hi), and cdist_tc one TF32 pass for the DEFAULT tier
+// (HEAT_TPU_CDIST_PREC, spatial/cuda_cdist.py). The function here is the
+// exact f32 tier (HIGHEST) of the older kernels, which run off the Hopper
+// kernels' gates: one rank-1 update of a register tile by plain f32 FMAs,
+// exact f32 products with f32 accumulation.
 //
 // Each source under csrc/ includes this header once and is built into its
 // own shared library, so the extern "C" definition below exists once per

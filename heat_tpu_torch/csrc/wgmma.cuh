@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the redesigned kernels (flash_fwd.cu,
-// flash_bwd.cu, int8_gemm.cu, lloyd.cu): mbarriers, bulk tensor copies (TMA)
-// through a tensor map over the strided (B, T, H, D) view or over a 2-D
-// row-major matrix, the bulk reduce-add from shared to device memory, and
+// flash_bwd.cu, int8_gemm.cu, lloyd.cu, cdist.cu): mbarriers, bulk tensor
+// copies (TMA) through a tensor map over the strided (B, T, H, D) view or
+// over a 2-D row-major matrix, in both directions, the bulk reduce-add from
+// shared to device memory, and
 // warpgroup matrix products (wgmma) with their shared-memory descriptors:
 // bf16 (f32 accumulator), s8 (exact s32 accumulator) and tf32.
 //
@@ -118,6 +119,18 @@ __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src,
                : "memory");
 }
 
+// shared memory at `src`, one box of the 2-D tensor map `map`, into device
+// memory at (column c0, row c1); the map clips the box at the tensor's
+// edges. Completes in this thread's current bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -126,6 +139,13 @@ __device__ __forceinline__ void bulk_commit() {
 template <int PENDING>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// until at most PENDING of this thread's bulk groups are still in flight
+// (their writes to device memory done, not only their reads of the source)
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -254,6 +274,17 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HEAT_REGS32
       ", {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
       : HEAT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// the same for a B of 128 rows: d (64 x 128, f32) = A B (+ d), one k8 step
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HEAT_REGS64
+      ", {%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
+      : HEAT_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 

@@ -7,7 +7,19 @@ Tolerances: 1e-5 relative off the diagonal (two f32 GEMM-form expansions
 that sum in different orders). On the cdist(X, X) diagonal the expansion
 cancels to a few ulps of |x|^2, which sqrt magnifies (2.8e-3 at |x|^2 = 64),
 so the diagonal is held in squared form: |d_got^2 - d_want^2| <= 8 ulps of
-|x|^2, i.e. 8 * eps(f32) * |x|^2."""
+|x|^2, i.e. 8 * eps(f32) * |x|^2.
+
+The strategies of HEAT_TPU_CDIST_PREC: ``cdist_precision`` gives the JAX
+function's answer and warning for every value; ``euclid_plain``'s 3xTF32
+emulation matches ``euclid_pallas``'s bf16x3 split product at the JAX
+package's own tolerance (rtol = atol = 2e-4, tests/test_pallas_cdist.py),
+its exact form matches ``"HIGHEST"`` at 1e-5, and its one TF32 pass stays
+within 2e-3 (|x|^2 + |y|^2) of exact f32 on d2 (each operand's TF32
+truncation is <= 2^-10 relative, so a product's <= 2^-9, and
+2 |x.y| <= |x|^2 + |y|^2). The plain product is exact f32 whatever the
+caller's TF32 flag, which it restores."""
+
+import warnings
 
 import numpy as np
 import pytest
@@ -118,3 +130,95 @@ def test_float64_input_keeps_float64():
     assert got.dtype.__name__ == ref.dtype.__name__ == "float64"
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-10, atol=1e-6)
 
+
+
+@pytest.mark.parametrize("value", [None, "", "bf16x3", "default", "high", "highest", " HIGH ",
+                                   "Default", "fastest", "bf16"])
+def test_cdist_precision_matches_jax(monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv("HEAT_TPU_CDIST_PREC", raising=False)
+    else:
+        monkeypatch.setenv("HEAT_TPU_CDIST_PREC", value)
+    with warnings.catch_warnings(record=True) as got_w:
+        warnings.simplefilter("always")
+        got = cuda_cdist.cdist_precision()
+    with warnings.catch_warnings(record=True) as want_w:
+        warnings.simplefilter("always")
+        want = jax_cdist.cdist_precision()
+    assert got == want
+    assert [str(w.message) for w in got_w] == [str(w.message) for w in want_w]
+    assert [w.category for w in got_w] == [w.category for w in want_w]
+
+
+@pytest.mark.parametrize("m,n,k", [(65, 33, 17), (130, 257, 33), (40, 40, 128), (7, 300, 512)])
+@pytest.mark.parametrize("epilogue", ["dist", "rbf"])
+def test_plain_tiers_match_jax_kernel_interpret(m, n, k, epilogue):
+    rng = np.random.default_rng(10 * m + k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    y = rng.standard_normal((n, k)).astype(np.float32)
+    gamma = 0.5 / k
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    split = jax_cdist.euclid_pallas(jnp.asarray(x), jnp.asarray(y), gamma, epilogue=epilogue,
+                                    interpret=True, precision="bf16x3")
+    np.testing.assert_allclose(cuda_cdist.euclid_plain(tx, ty, gamma, epilogue, "bf16x3").numpy(),
+                               np.asarray(split), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(cuda_cdist.euclid_plain(tx, ty, gamma, epilogue, "HIGH").numpy(),
+                               np.asarray(split), rtol=2e-4, atol=2e-4)
+    exact = jax_cdist.euclid_pallas(jnp.asarray(x), jnp.asarray(y), gamma, epilogue=epilogue,
+                                    interpret=True, precision="HIGHEST")
+    _assert_dist_close(cuda_cdist.euclid_plain(tx, ty, gamma, epilogue, "HIGHEST").numpy(), exact)
+    # one TF32 pass, held on d2 (for rbf: on exp, times gamma)
+    one = cuda_cdist.euclid_plain(tx, ty, gamma, epilogue, "DEFAULT").numpy().astype(np.float64)
+    ex = np.asarray(exact).astype(np.float64)
+    scale = (x.astype(np.float64) ** 2).sum(1)[:, None] + (y.astype(np.float64) ** 2).sum(1)[None]
+    lhs = np.abs(one - ex) if epilogue == "rbf" else np.abs(one ** 2 - ex ** 2)
+    assert (lhs <= (gamma if epilogue == "rbf" else 1.0) * (2e-3 * scale + 1e-6)).all()
+
+
+def test_tf32_emulation_clears_the_low_mantissa_bits():
+    v = torch.tensor([1.0 + 2.0 ** -10 + 2.0 ** -11, -3.0000002, 0.0], dtype=torch.float32)
+    t = cuda_cdist._tf32(v)
+    assert (t.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert t[0].item() == 1.0 + 2.0 ** -10 and t[2].item() == 0.0
+    assert ((v - t).abs() <= v.abs() * 2.0 ** -10).all()
+
+
+@pytest.fixture
+def tf32_on():
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("precision", ["HIGHEST", "bf16x3", "DEFAULT"])
+def test_euclid_plain_is_exact_f32_and_restores_the_tf32_flag(tf32_on, precision):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((50, 64)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((30, 64)).astype(np.float32))
+    got = cuda_cdist.euclid_plain(x, y, precision=precision)
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = cuda_cdist.euclid_plain(x, y, precision=precision)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError):
+        cuda_cdist._mm_f32(torch.ones((4, 3)), torch.ones((2, 5)))
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+def test_euclid_on_cpu_is_exact_whatever_the_strategy(monkeypatch):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32))
+    want = cuda_cdist.euclid_plain(x, x)
+    for value in ("default", "high", "highest", "bf16x3"):
+        monkeypatch.setenv("HEAT_TPU_CDIST_PREC", value)
+        assert torch.equal(cuda_cdist.euclid(x, x), want)
+        for precision in ("DEFAULT", "bf16x3"):
+            assert torch.equal(cuda_cdist.euclid(x, x, precision=precision), want)
+
+
+def test_unknown_precision_argument_raises():
+    x = torch.ones((3, 4))
+    with pytest.raises(ValueError, match="precision"):
+        cuda_cdist.euclid_plain(x, x, precision="fastest")

@@ -9,7 +9,9 @@ PyTorch; there, run it without the suite's jax conftest:
 Tolerances, as in chip_smoke.py: moments mean within 1e-5 of the column's
 spread, M2 1e-4 relative; cdist squared distances within 2e-5 of
 |x|^2 + |y|^2 (the error scale of an f32 GEMM-form expansion), rbf the
-same times gamma; Lloyd counts exact on separated blobs, sums within 1e-4
+same times gamma, each kernel against the plain version of its
+HEAT_TPU_CDIST_PREC tier (one TF32 pass also against exact f32 at 2e-3 of
+|x|^2 + |y|^2), two runs bit-identical; Lloyd counts exact on separated blobs, sums within 1e-4
 of the sum of |x|, and two runs bit-identical (both kernels). Flash attention: in f32, O
 within 2e-5 max|v| (both sum exact-f32 products in other orders); in bf16,
 O within 2^-7 max|v| (each output is rounded to bf16, one ulp of
@@ -67,19 +69,87 @@ def test_moments_kernel_matches_plain(dev, m, d, lim):
     assert torch.equal(mu_k, mu_k2) and torch.equal(m2_k, m2_k2)
 
 
-@pytest.mark.parametrize("m,n,k", [(1000, 999, 127), (129, 4097, 512), (1, 1, 1)])
+def _cdist_worst(out_k, out_p, x, y, gamma, epilogue, rel=2e-5):
+    """The largest error over its tolerance: on d2, rel (|x|^2 + |y|^2) + 1e-6;
+    for rbf the same times gamma."""
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    lhs = (out_k - out_p).abs() if epilogue == "rbf" else (out_k ** 2 - out_p ** 2).abs()
+    limit = (gamma if epilogue == "rbf" else 1.0) * (rel * scale + 1e-6)
+    return (lhs / limit).max().item()
+
+
+@pytest.mark.parametrize("m,n,k", [(1000, 999, 127), (129, 4097, 512), (1, 1, 1), (1000, 999, 124),
+                                   (4, 4, 4), (16000, 15999, 128)])
 @pytest.mark.parametrize("epilogue", ["dist", "rbf"])
 def test_cdist_kernel_matches_plain(dev, m, n, k, epilogue):
+    """The kernel the gate picks (3xTF32 for k % 4 == 0, else f32 FMAs)
+    against the plain version of the default strategy; two runs
+    bit-identical."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((m, k), generator=g, device=dev)
     y = torch.rand((n, k), generator=g, device=dev)
     gamma = 0.5 / k
     out_k = cuda_cdist.euclid(x, y, gamma, epilogue)
-    out_p = cuda_cdist.euclid_plain(x, y, gamma, epilogue)
-    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
-    lhs = (out_k - out_p).abs() if epilogue == "rbf" else (out_k ** 2 - out_p ** 2).abs()
-    limit = (gamma if epilogue == "rbf" else 1.0) * (2e-5 * scale + 1e-6)
-    assert bool((lhs <= limit).all())
+    assert cuda_cdist.last_variant() == ("3xtf32_wgmma" if k % 4 == 0 else "f32_fma")
+    out_p = cuda_cdist.euclid_plain(x, y, gamma, epilogue, "bf16x3")
+    assert _cdist_worst(out_k, out_p, x, y, gamma, epilogue) <= 1.0
+    assert torch.equal(out_k, cuda_cdist.euclid(x, y, gamma, epilogue))
+
+
+@pytest.mark.parametrize("value,variant,plain", [
+    (None, "3xtf32_wgmma", "bf16x3"), ("bf16x3", "3xtf32_wgmma", "bf16x3"),
+    ("high", "3xtf32_wgmma", "HIGH"), ("default", "tf32_wgmma", "DEFAULT"),
+    ("highest", "f32_fma", "HIGHEST"), ("fastest", "3xtf32_wgmma", "bf16x3")])
+def test_cdist_strategy_selects_the_kernel(dev, monkeypatch, value, variant, plain):
+    """HEAT_TPU_CDIST_PREC, read at call time: each value's kernel against
+    the plain version of its tier; one TF32 pass also against exact f32 at
+    2e-3 (|x|^2 + |y|^2) (TF32 truncation, <= 2^-10 relative an operand);
+    an unknown value warns and keeps bf16x3."""
+    if value is None:
+        monkeypatch.delenv("HEAT_TPU_CDIST_PREC", raising=False)
+    else:
+        monkeypatch.setenv("HEAT_TPU_CDIST_PREC", value)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((3000, 128), generator=g, device=dev)
+    y = torch.rand((2000, 128), generator=g, device=dev)
+    if value == "fastest":
+        with pytest.warns(UserWarning, match="keeping the bf16x3 default"):
+            out_k = cuda_cdist.euclid(x, y)
+    else:
+        out_k = cuda_cdist.euclid(x, y)
+    assert cuda_cdist.last_variant() == variant
+    assert _cdist_worst(out_k, cuda_cdist.euclid_plain(x, y, precision=plain), x, y, 0.0,
+                        "dist") <= 1.0
+    if plain == "DEFAULT":
+        exact = cuda_cdist.euclid_plain(x, y, precision="HIGHEST")
+        assert _cdist_worst(out_k, exact, x, y, 0.0, "dist", rel=2e-3) <= 1.0
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "DEFAULT", "HIGHEST"])
+def test_cdist_self_distance_diagonal(dev, precision):
+    """x = y: every out[i, i] <= sqrt(2e-5 * 2 |x_i|^2 + 1e-6) in 3xTF32 and
+    f32 (one TF32 pass: 2e-3), the rest within the tier's tolerance."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand((5000, 128), generator=g, device=dev)
+    out = cuda_cdist.euclid(x, x, precision=precision)
+    rel = 2e-3 if precision == "DEFAULT" else 2e-5
+    assert bool((out.diagonal() <= torch.sqrt(rel * 2 * (x * x).sum(1) + 1e-6)).all())
+    assert _cdist_worst(out, cuda_cdist.euclid_plain(x, x, precision=precision), x, x, 0.0,
+                        "dist") <= 1.0
+    assert torch.equal(out, cuda_cdist.euclid(x, x, precision=precision))
+
+
+def test_cdist_unaligned_data_takes_the_fma_kernel(dev):
+    """x's data one float past a 16-byte boundary: no bulk copy can read it,
+    so the f32 FMA kernel runs by the gate."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    m, n, k = 777, 555, 128
+    x = torch.rand((m * k + 1,), generator=g, device=dev)[1:].view(m, k)
+    y = torch.rand((n, k), generator=g, device=dev)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out_k = cuda_cdist.euclid(x, y)
+    assert cuda_cdist.last_variant() == "f32_fma"
+    assert _cdist_worst(out_k, cuda_cdist.euclid_plain(x, y), x, y, 0.0, "dist") <= 1.0
 
 
 @pytest.mark.parametrize("n,d,k", [(100_003, 33, 1000), (20_011, 512, 1024), (65, 1, 1)])
@@ -143,13 +213,16 @@ def test_kmeans_on_card_leaves_the_tf32_flag_as_it_was(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def test_cdist_kernel_past_65535_row_tiles(dev):
-    """More 128-row tiles of x than a grid's y dimension takes."""
+@pytest.mark.parametrize("k", [3, 4])
+def test_cdist_kernel_past_65535_row_tiles(dev, k):
+    """More 128-row tiles of x than a grid's y dimension takes, in both
+    kernels (k = 3: f32 FMAs; k = 4: 3xTF32, n % 4 != 0)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand((65535 * 128 + 5, 3), generator=g, device=dev)
-    y = torch.rand((2, 3), generator=g, device=dev)
+    x = torch.rand((65535 * 128 + 5, k), generator=g, device=dev)
+    y = torch.rand((2, k), generator=g, device=dev)
     out_k = cuda_cdist.euclid(x, y)
-    out_p = cuda_cdist.euclid_plain(x, y)
+    assert cuda_cdist.last_variant() == ("f32_fma" if k == 3 else "3xtf32_wgmma")
+    out_p = cuda_cdist.euclid_plain(x, y, precision="bf16x3")
     scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
     assert bool(((out_k ** 2 - out_p ** 2).abs() <= 2e-5 * scale + 1e-6).all())
 
@@ -180,6 +253,7 @@ def test_main_path_on_card_launches_every_kernel(dev):
     torch.testing.assert_close(mu.larray, y.larray.mean(0), rtol=1e-5, atol=1e-5)
     d = htt.spatial.cdist(y, quadratic_expansion=True)
     assert d.shape == (5000, 5000) and bool(torch.isfinite(d.larray).all())
+    assert cuda_cdist.last_variant() == "3xtf32_wgmma"
     km = htt.cluster.KMeans(n_clusters=4, init="random", random_state=0, max_iter=10).fit(x)
     assert km.labels_.larray.is_cuda
     counts = htt.launch_counts()

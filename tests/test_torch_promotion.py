@@ -8,6 +8,13 @@ the result type's tolerance (both compute in that type, with libraries
 that may round a transcendental function by an ulp or so): exact types
 equal, float16 rtol 2e-3, float32 1e-6, float64 1e-12.
 
+The unsigned types uint16, uint32 and uint64: ``promote_types`` of every
+pair with one of them is the reference's; ``sum`` of an unsigned array is
+uint64 with the reference's value, split and lshape map; the true
+division and transcendental functions give the reference's types; and an
+operation torch has no kernel for on them raises a ``TypeError`` naming the
+heat type.
+
 Broadcasting along the split axis: the result's split and its lshape map
 over the 8 ranks must be the reference's. Its values are held to numpy's
 broadcast, not to the reference's: on a mesh of more than one device the
@@ -23,6 +30,7 @@ import heat_tpu as ht_tpu
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import communication as tcomm
+from heat_tpu_torch.core import types as ttypes
 
 
 @pytest.fixture(autouse=True)
@@ -163,3 +171,75 @@ def test_d2_restores_the_tf32_flag_when_the_product_raises(tf32_on):
     with pytest.raises(RuntimeError):
         _d2(torch.ones((4, 3)), torch.ones((2, 5)))
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+ALL_TYPES = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32", "uint64",
+             "float16", "bfloat16", "float32", "float64", "complex64", "complex128"]
+NEW_UNSIGNED = ["uint16", "uint32", "uint64"]
+
+
+@pytest.mark.parametrize("other", ALL_TYPES)
+@pytest.mark.parametrize("new", NEW_UNSIGNED)
+def test_unsigned_promotion_matches_reference(new, other):
+    for a, b in ((new, other), (other, new)):
+        got = htt.promote_types(getattr(ttypes, a), getattr(ttypes, b))
+        want = ht_tpu.promote_types(getattr(ht_tpu, a), getattr(ht_tpu, b))
+        assert got.__name__ == want.__name__, (a, b)
+        assert got.torch_type() == getattr(torch, want.__name__)
+
+
+def _unsigned_data(dtype):
+    data = np.arange(24, dtype=dtype).reshape(8, 3) * np.array(37, dtype=dtype)
+    if dtype == "uint64":
+        data[0, 0] = np.uint64(2 ** 64 - 5)  # the sum wraps modulo 2^64, as the reference's
+    return data
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "uint32", "uint64"])
+def test_unsigned_sum_matches_reference(dtype, split, axis):
+    data = _unsigned_data(dtype)
+    got = htt.sum(htt.array(data, split=split), axis=axis)
+    ref = ht_tpu.sum(ht_tpu.array(data, split=split), axis=axis)
+    assert got.dtype is htt.uint64 and ref.dtype.__name__ == "uint64"
+    assert got.shape == ref.shape and got.split == ref.split
+    assert got.larray.dtype == torch.uint64
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    if got.split is not None:
+        np.testing.assert_array_equal(tcomm.lshape_map(got.shape, got.split, 8), ref.lshape_map)
+
+
+@pytest.mark.parametrize("op", ["div_int", "div_float", "rdiv_int", "exp", "sqrt", "log",
+                                "mul_float"])
+@pytest.mark.parametrize("dtype", NEW_UNSIGNED)
+def test_unsigned_result_types_match_reference(dtype, op):
+    data = _data("uint8").astype(dtype)
+    fn = OPS[op]
+    _check(fn(htt, htt.array(data, split=0)), fn(ht_tpu, ht_tpu.array(data, split=0)))
+
+
+@pytest.mark.parametrize("dtype", NEW_UNSIGNED)
+def test_unsigned_multiply_keeps_the_type(dtype):
+    data = _data("uint8").astype(dtype)
+    got = htt.array(data, split=0) * 3
+    ref = ht_tpu.array(data, split=0) * 3
+    _check(got, ref)
+    assert got.larray.dtype == getattr(torch, dtype)
+
+
+UNCOMPUTABLE = {
+    "add_int": lambda ht, x: x + 1,
+    "add_self": lambda ht, x: x + x,
+    "sub_self": lambda ht, x: x - x,
+    "max": lambda ht, x: ht.max(x),
+    "min_axis": lambda ht, x: ht.min(x, axis=0),
+}
+
+
+@pytest.mark.parametrize("op", list(UNCOMPUTABLE))
+@pytest.mark.parametrize("dtype", NEW_UNSIGNED)
+def test_unsigned_op_torch_cannot_compute_raises_type_error(dtype, op):
+    x = htt.array(np.arange(6, dtype=dtype).reshape(2, 3), split=0)
+    with pytest.raises(TypeError, match=f"heat type {dtype}"):
+        UNCOMPUTABLE[op](htt, x)

@@ -11,7 +11,8 @@
 - three gloo ranks (an uneven tail: 6, 6, 5 rows) give the world-of-one
   results for the sharded moments merge and the per-iteration Lloyd
   allreduce, and numpy's for an operand of size 1 along the split axis
-  (held by one rank) broadcast against a split one.
+  (held by one rank) broadcast against a split one, and the reference's
+  uint64 sums of uint8 and uint16 arrays (value, type, split, local shapes).
 """
 
 import os
@@ -154,6 +155,13 @@ _WORKER = textwrap.dedent("""
            "var": ht.var(x, axis=0).numpy(),
            "row_bcast": (ht.array(xm[:1], split=0) - x).numpy(),
            "col_bcast": (ht.array(xm[:, 1:2], split=1) * ht.array(xm, split=1)).numpy()}
+    for dt in ("uint8", "uint16"):
+        xu = ht.array((np.arange(17 * 5) * 7 % 256).reshape(17, 5).astype(dt), split=0)
+        for axis in (None, 0, 1):
+            su = ht.sum(xu, axis=axis)
+            res[f"sum_{dt}_{axis}"] = su.numpy()
+            res[f"sum_{dt}_{axis}_meta"] = np.array([su.dtype.__name__, str(su.split),
+                                                     str(tuple(su.lshape))])
     for name, init in (("dn", ht.array(c0)), ("random", "random")):
         km = ht.cluster.KMeans(n_clusters=4, init=init, max_iter=20, tol=0.0, random_state=2)
         km.fit(ht.array(xk, split=0))
@@ -204,6 +212,21 @@ def test_three_gloo_ranks_match_world_of_one(tmp_path, on_cpu):
         np.testing.assert_array_equal(r["col_bcast"], xm[:, 1:2] * xm)
         np.testing.assert_allclose(r["mean"], htt.mean(x, axis=0).numpy(), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(r["var"], htt.var(x, axis=0).numpy(), rtol=1e-5)
+    # unsigned sums: uint64 with the reference's value and split on every
+    # rank, and the chunk rule's local shapes across the three
+    from heat_tpu_torch.core import communication as tcomm
+
+    for dt in ("uint8", "uint16"):
+        data = (np.arange(17 * 5) * 7 % 256).reshape(17, 5).astype(dt)
+        for axis in (None, 0, 1):
+            ref = ht_tpu.sum(ht_tpu.array(data, split=0), axis=axis)
+            lmap = tcomm.lshape_map(ref.shape, ref.split, world) if ref.split is not None else None
+            for rank, r in enumerate(ranks):
+                np.testing.assert_array_equal(r[f"sum_{dt}_{axis}"], ref.numpy())
+                dtype, split, lshape = r[f"sum_{dt}_{axis}_meta"]
+                assert dtype == ref.dtype.__name__ == "uint64" and split == str(ref.split)
+                want_lshape = tuple(lmap[rank]) if lmap is not None else ref.shape
+                assert lshape == str(tuple(int(v) for v in want_lshape))
     for name, init in (("dn", htt.array(c0)), ("random", "random")):
         km = htt.cluster.KMeans(n_clusters=4, init=init, max_iter=20, tol=0.0, random_state=2)
         km.fit(htt.array(xk, split=0))
