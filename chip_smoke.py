@@ -34,12 +34,21 @@ Phases, each printing JSON lines:
      launches at 8192^3 that re-quantise the running product, checked bit
      for bit against the same chain through the plain GEMM, and one
      QuantDense(4096) call on 8192 tokens x 1024 against an f32 product;
-  6. the serving path: bench.py's lm_step TransformerLM at full width
+  6. the linear-algebra path at bench.py's sizes: the matmul, matmul_f32,
+     matmul_bf16 and matmul_1b chains through ht.matmul (TF32 on for the
+     first, off for the second; the bf16 chain also through torch.matmul
+     under torch's reduced-precision flag), each checked against float64
+     and timed (wall and CUDA events, TFLOP/s and the share of the type's
+     data-sheet rate), one f32 product profiled (one GEMM, no copy or
+     cast); qr of a 1,000,000 x 256 and a 4096^2 f32 array and svd of the
+     tall one, checked in float64; bench.py's elementwise row with clip;
+     none of the csrc/ kernels may launch on this path;
+  7. the serving path: bench.py's lm_step TransformerLM at full width
      (vocab 32768, d_model 1024, 16 heads, 12 layers, bf16, flash
      attention) answers three requests of 8 x 1024 tokens, checked against
      the same weights with the local core and in float32, and for
      causality; then one request under the profiler;
-  7. the training path: the same model trains as bench.py's lm_step does
+  8. the training path: the same model trains as bench.py's lm_step does
      (remat, bf16, the flash core with its two-pass backward, AdamW), one
      warm-up step and 8 steps on one batch, the loss falling and the
      kernels' launches counted per step; one step's gradients against the
@@ -90,6 +99,230 @@ def bound(bytes_moved, ops, rate=F32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# bench.py's linear-algebra rows: (name, n, torch type name, chained
+# products, TF32 flag for the row, the data-sheet rate of the product's type)
+MATMUL_ROWS = [("matmul", 4096, "float32", 100, True, TF32_FLOPS_PER_S),
+               ("matmul_f32", 4096, "float32", 25, False, F32_FLOPS_PER_S),
+               ("matmul_bf16", 8192, "bfloat16", 30, None, BF16_FLOPS_PER_S),
+               ("matmul_1b", 32768, "bfloat16", 5, None, BF16_FLOPS_PER_S)]
+# qr and svd of a tall 1.02 GB f32 array, qr of a square one; bench.py's
+# elementwise row (rows, columns, reps)
+QR_TALL, QR_SQUARE = (1_000_000, 256), 4096
+ELEMENTWISE = (8_000_000, 64, 10)
+
+
+def matmul_step_tolerance(dtype_name, tf32, k):
+    """The relative error of one product of positive operands against
+    float64: TF32 rounds each operand to 10 mantissa bits (2^-10 relative at
+    worst, two operands) and adds in f32 (K 2^-24 at worst for K positive
+    terms); plain f32 only adds; bf16 operands are exact in float64 and the
+    f32 sum is rounded once to bf16 (8 significant bits: 2^-8). Along a
+    chain of positive matrices the relative errors add up at worst."""
+    if dtype_name == "bfloat16":
+        return 2.0 ** -8 + k * 2.0 ** -24
+    return (2 * 2.0 ** -10 if tf32 else 0.0) + k * 2.0 ** -24
+
+
+def linalg_path(ht, dev, gen):
+    """The linear-algebra path through the user entry points at bench.py's
+    sizes: the four matmul chains, qr and svd, the elementwise row. Returns
+    the kernels' launch counts over the path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flags = torch.backends.cuda.matmul
+    ht.reset_launch_counts()
+
+    def timed_chain(step, y, reps):
+        """Wall time ending in a synchronize, and device time by CUDA events
+        around the same run, in ms."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            y = step(y)
+        end.record()
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t) * 1e3, start.elapsed_time(end)
+
+    for name, n, dtype_name, reps, tf32, rate in MATMUL_ROWS:
+        dtype = getattr(torch, dtype_name)
+        caller_tf32 = flags.allow_tf32
+        if tf32 is not None:
+            flags.allow_tf32 = tf32
+        try:
+            # as in bench.py: A = rand/n (spectral radius below 1), Y = rand, split 0
+            a_t = (torch.rand((n, n), generator=gen, device=dev) / n).to(dtype)
+            y_t = torch.rand((n, n), generator=gen, device=dev).to(dtype)
+            a = ht.array(a_t, split=0, copy=False)
+            y0 = ht.array(y_t, split=0, copy=False)
+            first = ht.matmul(a, y0)  # warm-up, and the product checked for matmul_1b
+            y, wall_ms, device_ms = timed_chain(lambda y: ht.matmul(a, y), y0, reps)
+            flops = reps * 2.0 * n ** 3
+            row = {"phase": f"linalg {name}", "n": n, "dtype": dtype_name, "chained": reps,
+                   "allow_tf32": flags.allow_tf32 if dtype_name == "float32" else None,
+                   "wall_ms": wall_ms, "device_ms": device_ms,
+                   "tflop_s_wall": flops / (wall_ms * 1e-3) / 1e12,
+                   "tflop_s_device": flops / (device_ms * 1e-3) / 1e12,
+                   "share_of_rate_device": flops / (device_ms * 1e-3) / rate,
+                   "rate_tflop_s": rate / 1e12}
+            if dtype_name == "bfloat16":
+                # the chain with the port's cleared reduced-precision flag
+                # against torch.matmul under torch's own (by default set:
+                # split-K may add in bf16), in turns: port, torch, torch, port
+                row["torch_reduced_precision_flag"] = flags.allow_bf16_reduced_precision_reduction
+                def port(t):
+                    return ht.matmul(a, t)
+
+                def lib(t):
+                    return torch.matmul(a_t, t)
+
+                turns = [timed_chain(port, y0, reps)[2], timed_chain(lib, y_t, reps)[2],
+                         timed_chain(lib, y_t, reps)[2], timed_chain(port, y0, reps)[2]]
+                port_ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                row.update({"turns_device_ms": {"port_cleared_flag": [turns[0], turns[3]],
+                                                "torch_default_flag": [turns[1], turns[2]]},
+                            "port_cleared_flag_tflop_s_device": flops / (port_ms * 1e-3) / 1e12,
+                            "torch_default_flag_tflop_s_device": flops / (lib_ms * 1e-3) / 1e12})
+            if dtype_name == "float32":
+                # one product under the profiler: one GEMM, no copy or cast
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ht.matmul(a, y0)
+                    torch.cuda.synchronize()
+                kernels = [ev.key for ev in prof.key_averages()
+                           if ev.device_type == torch.autograd.DeviceType.CUDA]
+                # cuBLAS may clear a workspace first (a device memset, no kernel)
+                launched = [k for k in kernels if not k.startswith("Memset")]
+                copies = [k for k in launched if any(w in k.lower() for w in
+                                                     ("copy", "cast", "elementwise", "memcpy"))]
+                row["profiled_product_kernels"] = [k[:120] for k in kernels]
+                check(f"linalg {name}: one product is one GEMM kernel, no copy or cast",
+                      len(launched) == 1 and not copies
+                      and any(w in launched[0].lower() for w in ("gemm", "nvjet")),
+                      kernels=kernels)
+            emit(row)
+            k_tol = matmul_step_tolerance(dtype_name, tf32, n)
+            if n <= 8192:
+                ref = y_t.double()
+                a64 = a_t.double()
+                for _ in range(reps):
+                    ref = a64 @ ref
+                err = ((y.larray.double() - ref).abs() / ref).max().item()
+                tol = reps * k_tol
+                label = f"linalg {name}: the {reps}-product chain vs float64"
+            else:
+                rows_ = torch.randint(0, n, (256,), generator=gen, device=dev)
+                ref = a_t[rows_].double() @ y_t.double()
+                err = ((first.larray[rows_].double() - ref).abs() / ref).max().item()
+                tol = k_tol
+                label = f"linalg {name}: first product vs float64 (256 sampled rows)"
+            del ref
+            ok = (y.shape == (n, n) and y.split == 0 and y.dtype.torch_type() == dtype
+                  and bool(torch.isfinite(y.larray).all()) and err <= tol)
+            check(label, ok, max_rel_err=err, tolerance=tol,
+                  tolerance_rule="chained products x per-product bound: operand rounding "
+                                 "(TF32 2 x 2^-10) + f32 sum K 2^-24 + bf16 output rounding 2^-8")
+        finally:
+            flags.allow_tf32 = caller_tf32
+        del a_t, y_t, a, y0, y, first
+        torch.cuda.empty_cache()
+
+    # qr and svd at bench.py-like sizes; on one card the general path
+    # (cuSOLVER). Bounds c n 2^-24 with c = 10 for a backward-stable
+    # factorization of an m x n matrix in f32.
+    def f64_norm(t):
+        return torch.linalg.matrix_norm(t, "fro").item()
+
+    m_t, n_t = QR_TALL
+    x_tall = torch.randn((m_t, n_t), generator=gen, device=dev)
+    for label, x_t in (("tall", x_tall),
+                       ("square", torch.randn((QR_SQUARE, QR_SQUARE), generator=gen, device=dev))):
+        x = ht.array(x_t, split=0, copy=False)
+        ht.linalg.qr(x)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        q, r = ht.linalg.qr(x)
+        torch.cuda.synchronize()
+        qr_ms = (time.perf_counter() - t) * 1e3
+        q64, r64, x64 = q.larray.double(), r.larray.double(), x_t.double()
+        n_cols = x_t.shape[1]
+        bound = 10 * n_cols * 2.0 ** -24
+        recon = f64_norm(q64 @ r64 - x64) / f64_norm(x64)
+        orth = f64_norm(q64.T @ q64 - torch.eye(n_cols, dtype=torch.float64, device=dev))
+        emit({"phase": f"linalg qr {label}", "shape": list(x_t.shape), "split": 0, "ms": qr_ms,
+              "q_split": q.split, "r_split": r.split, "rel_reconstruction_err": recon,
+              "orthogonality_err": orth, "bound": bound})
+        check(f"linalg qr {label}: |QR - A|/|A| and |Q^T Q - I| within 10 n 2^-24",
+              recon <= bound and orth <= bound and q.shape == tuple(x_t.shape)
+              and r.shape == (n_cols, n_cols), rel_reconstruction_err=recon,
+              orthogonality_err=orth, bound=bound)
+        del q, r, q64, r64, x64, x
+    x = ht.array(x_tall, split=0, copy=False)
+    ht.linalg.svd(x)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    u, s_, v = ht.linalg.svd(x)
+    torch.cuda.synchronize()
+    svd_ms = (time.perf_counter() - t) * 1e3
+    u64, x64 = u.larray.double(), x_tall.double()
+    bound = 10 * n_t * 2.0 ** -24
+    recon = f64_norm((u64 * s_.larray.double()) @ v.larray.double().T - x64) / f64_norm(x64)
+    orth = f64_norm(u64.T @ u64 - torch.eye(n_t, dtype=torch.float64, device=dev))
+    # torch's default cuSOLVER routine on the same input, for the port's choice of gesvd
+    torch.linalg.svd(x_tall, full_matrices=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    u_d, s_d, vt_d = torch.linalg.svd(x_tall, full_matrices=False)
+    torch.cuda.synchronize()
+    default_ms = (time.perf_counter() - t) * 1e3
+    ud64 = u_d.double()
+    default_orth = f64_norm(ud64.T @ ud64 - torch.eye(n_t, dtype=torch.float64, device=dev))
+    del u_d, s_d, vt_d, ud64
+    emit({"phase": "linalg svd tall", "shape": [m_t, n_t], "split": 0, "ms": svd_ms,
+          "rel_reconstruction_err": recon, "orthogonality_err": orth, "bound": bound,
+          "torch_default_routine_ms": default_ms,
+          "torch_default_routine_orthogonality_err": default_orth})
+    check("linalg svd tall: |U S V^T - A|/|A| and |U^T U - I| within 10 n 2^-24",
+          recon <= bound and orth <= bound and bool((s_.larray[:-1] >= s_.larray[1:]).all()),
+          rel_reconstruction_err=recon, orthogonality_err=orth, bound=bound)
+    del u, s_, v, u64, x64, x, x_tall
+
+    # bench.py's elementwise row, now that clip exists
+    rows_e, cols_e, reps_e = ELEMENTWISE
+    xe_t = torch.randn((rows_e, cols_e), generator=gen, device=dev)
+    xe = ht.array(xe_t, split=0, copy=False)
+    mean_, std_ = ht.array(np.float32(0.1), device=dev), ht.array(np.float32(1.3), device=dev)
+
+    def one_pass(_):
+        z = (xe - mean_) / (std_ + 1e-6)
+        z = z * 0.125 + 0.5
+        return ht.clip(z, 0.0, 1.0) * 255.0
+
+    one_pass(None)
+    out, wall_ms, device_ms = timed_chain(one_pass, None, reps_e)
+    denom = float(torch.tensor(1.3, dtype=torch.float32) + 1e-6)
+    ref = ((xe_t.double() - float(np.float32(0.1))) / denom * 0.125 + 0.5).clamp(0, 1) * 255
+    err = (out.larray.double() - ref).abs().max().item()
+    # seven f32 roundings of values within [-4, 4] before the clip, each
+    # within 2^-24 of its value: 255 x 8 x 2^-24 after the scale
+    tol = 255 * 8 * 2.0 ** -24
+    # six passes over the array a rep (-, /, *, +, clip, *), each reading and
+    # writing 4 B an element; the 0-d operands are not counted
+    bytes_e = reps_e * 6 * 2 * 4 * rows_e * cols_e
+    emit({"phase": "linalg elementwise", "shape": [rows_e, cols_e], "reps": reps_e,
+          "wall_ms": wall_ms, "device_ms": device_ms,
+          "tb_s_device": bytes_e / (device_ms * 1e-3) / 1e12,
+          "share_of_hbm_rate": bytes_e / (device_ms * 1e-3) / HBM_BYTES_PER_S})
+    check("linalg elementwise vs float64", out.dtype is ht.float32 and out.split == 0
+          and err <= tol, max_abs_err=err, tolerance=tol)
+    del xe, xe_t, out, ref
+    torch.cuda.empty_cache()
+    return dict(ht.launch_counts())
 
 
 def main():
@@ -1104,6 +1337,14 @@ def main():
           rel_rms_err=rel, max_abs_err=(yd - ref).abs().max().item(),
           tolerance={"rel_rms": 3e-2})
     del qa, sa, qb, sb, q_end, s_end, q_plain, s_plain, chain_scales, xd, yd, ref, qdense
+
+    # ------------------------------------------------ linear-algebra path
+    # bench.py's matmul rows, qr and svd, and the elementwise row through the
+    # user entry points; no kernel of csrc/ lies on this path
+    linalg_launches = linalg_path(ht, dev, gen)
+    emit({"phase": "linalg path launches", "launches": linalg_launches})
+    check("linalg path launched no kernel of csrc/", not any(linalg_launches.values()),
+          launches=linalg_launches)
 
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of

@@ -6,14 +6,22 @@ Heat), with split-axis DNDarrays whose ``larray`` is the rank-local
 process chose another device) unless the caller asks for the CPU with
 ``device="cpu"`` or ``use_device("cpu")``.
 
-Two paths are ported, each with hand-written CUDA kernels (``csrc/``):
+Ported paths, with hand-written CUDA kernels (``csrc/``) where the JAX
+package has a Pallas kernel:
   - the array path: ``array(x, split=0)`` → elementwise arithmetic →
     ``mean``/``var``/``std`` → ``spatial.cdist`` → ``cluster.KMeans.fit``
     (kernels for the column moments, the fused cdist and the Lloyd step);
-  - inference: ``nn.TransformerLM`` with ``attn_impl="flash"`` (the
-    flash-attention forward kernel) and the W8A8 path
+  - inference and training: ``nn.TransformerLM`` with ``attn_impl="flash"``
+    (the flash-attention forward and backward kernels) and the W8A8 path
     ``core.linalg.int8_matmul``/``matmul_int8``/``nn.QuantDense`` (the int8
-    GEMM kernel).
+    GEMM kernel);
+  - distributed linear algebra: ``matmul`` (``a @ b``) and the rest of
+    ``linalg``'s basics, ``linalg.qr`` (TSQR, CholeskyQR2) and
+    ``linalg.svd``, over ``reduce_scatter``, ``all_to_all`` and
+    ``ring_permute``; ``DNDarray.resplit`` between split axes is one
+    ``all_to_all``. Their products and factorizations are cuBLAS and
+    cuSOLVER through ``torch``, as the JAX package's are XLA's; the
+    rounding, relational and logical operations come with them.
 """
 
 from .core import *
@@ -24,5 +32,5 @@ from . import parallel
 from . import nn
 from . import interop
 from ._build import launch_counts, reset_launch_counts
+from .core.version import version as __version__
 
-__version__ = "0.1.0"

@@ -1,14 +1,22 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
-factories, the operations of the array path and ``linalg``'s int8 GEMM."""
+factories, the elementwise, rounding, relational and logical operations,
+the statistics of the array path, and ``linalg``."""
 
-from . import linalg
+from . import constants, linalg, version
 from .arithmetics import *
 from .communication import TorchCommunication, get_comm, use_comm
+from .constants import *
 from .devices import Device, cpu, get_device, gpu, use_device
 from .dndarray import DNDarray
 from .exponential import *
 from .factories import *
+from .linalg import *
+from .logical import *
+from .memory import *
+from .relational import *
+from .rounding import *
 from .statistics import *
+from .version import version as __version__
 from .types import (
     bool,
     canonical_heat_type,

@@ -44,7 +44,7 @@ from . import sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["binary_op", "local_op", "reduce_op", "result_type"]
+__all__ = ["binary_op", "into", "local_op", "reduce_op", "result_type"]
 
 _SCALARS = (builtins.int, builtins.float, builtins.bool, builtins.complex, np.generic)
 # the inexact type of each exact one, as jnp's true_divide and
@@ -114,6 +114,16 @@ def _cast(x, dtype: torch.dtype):
     if isinstance(x, np.generic):
         return x.item()  # its type has been joined: now a plain number of it
     return x
+
+
+def into(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
+    """``res``, or, given an ``out`` buffer of ``res``'s shape, split and
+    device, ``res`` copied into it in ``out``'s type."""
+    if out is None:
+        return res
+    sanitation.sanitize_out(out, res.shape, res.split, res.device)
+    out.larray.copy_(res.larray.to(out.dtype.torch_type()))
+    return out
 
 
 def _as_operand(x, like: DNDarray):
@@ -186,11 +196,7 @@ def binary_op(
 
     res = DNDarray(result, out_shape, types.canonical_heat_type(result.dtype), out_split,
                    device, comm, True)
-    if out is not None:
-        sanitation.sanitize_out(out, out_shape, out_split, device)
-        out.larray.copy_(result.to(out.dtype.torch_type()))
-        return out
-    return res
+    return into(res, out)
 
 
 def local_op(
@@ -210,11 +216,7 @@ def local_op(
     result = _apply(operation, buf)
     res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,
                    x.device, x.comm, True)
-    if out is not None:
-        sanitation.sanitize_out(out, x.shape, x.split, x.device)
-        out.larray.copy_(result.to(out.dtype.torch_type()))
-        return out
-    return res
+    return into(res, out)
 
 
 def reduce_op(
@@ -278,8 +280,4 @@ def reduce_op(
 
     res = DNDarray(result, out_gshape, types.canonical_heat_type(result.dtype), out_split,
                    x.device, x.comm, True)
-    if out is not None:
-        sanitation.sanitize_out(out, out_gshape, out_split, x.device)
-        out.larray.copy_(result.to(out.dtype.torch_type()))
-        return out
-    return res
+    return into(res, out)

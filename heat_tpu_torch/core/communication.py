@@ -11,6 +11,12 @@ functions of an explicit world size ``size`` (``communication.py:158-220``
 there): rank ``r`` owns global indices ``[r*c, min((r+1)*c, n))`` with
 ``c = ceil(n/size)``; tail ranks may own empty ranges. Because every rank
 holds only its own rows, no physical tail padding exists here.
+
+A collective along one dimension pads each chunk to ``c`` for the call and
+drops the pad again; the unsigned types wider than 8 bits travel as the
+signed type of the same width. Every wire is exact: the compressed wires of
+the JAX package (``precision``, ``core/collective_prec.py`` there) are not
+ported, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "PendingPermute",
     "TorchCommunication",
     "chunk",
     "chunk_size",
@@ -87,6 +94,42 @@ def counts_displs(n: int, size: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
 # the signed type of the same width, which carries an unsigned type's bits
 # through a collective
 _BITS_AS = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def _exact_wire(precision: Optional[str]) -> None:
+    """Only the exact wire is ported; a compressed one raises."""
+    if precision not in (None, "off"):
+        raise NotImplementedError(
+            f"collective precision {precision!r}: the compressed wires come with "
+            f"core/collective_prec (ROADMAP §1 item 12); only the exact wire is ported")
+
+
+def _padded(local: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """``local`` zero-padded along ``dim`` to ``length`` (no copy when it
+    already has that length)."""
+    if local.shape[dim] == length:
+        return local
+    shape = list(local.shape)
+    shape[dim] = length
+    buf = local.new_zeros(shape)
+    buf.narrow(dim, 0, local.shape[dim]).copy_(local)
+    return buf
+
+
+class PendingPermute:
+    """A permute in flight (:meth:`TorchCommunication.ppermute` with
+    ``async_op=True``): :meth:`wait` completes it and returns the received
+    tensor. It holds the sent tensor until then."""
+
+    def __init__(self, out: torch.Tensor, works: list, dtype: torch.dtype, sent: torch.Tensor):
+        self._out, self._works, self._dtype, self._sent = out, works, dtype, sent
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works, self._sent = [], None
+        return self._out.view(self._dtype)
 
 
 class TorchCommunication:
@@ -132,8 +175,7 @@ class TorchCommunication:
         """In-place all-reduce (the counterpart of the JAX package's
         ``psum`` :336, and of ``pmax``/``pmin``); returns ``tensor``."""
         if self.size > 1:
-            red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
-            dist.all_reduce(tensor, op=red, group=self.group)
+            dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
         return tensor
 
     def allgather(self, local: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -145,15 +187,114 @@ class TorchCommunication:
             return local
         if local.dtype in _BITS_AS:  # gloo and NCCL carry no uint16/32/64: move the bits
             return self.allgather(local.view(_BITS_AS[local.dtype]), dim, n).view(local.dtype)
+        counts, _ = self.counts_displs(n)
+        buf = _padded(local, dim, self.chunk_size(n)).contiguous()
+        parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(self.size)]
+        dist.all_gather(parts, buf, group=self.group)
+        return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(parts, counts)], dim=dim)
+
+    def reduce_scatter(self, tensor: torch.Tensor, dim: int, n: int, op: str = "sum",
+                       precision: Optional[str] = None) -> torch.Tensor:
+        """This rank's ceil-rule chunk, along ``dim`` of global length ``n``,
+        of the elementwise reduction of every rank's whole ``tensor`` (the
+        counterpart of ``reduce_scatter`` :363 and of ``psum_scatter``; the
+        JAX package's flat form, which scatters the flattened payload for
+        ZeRO, comes with ``optim/zero_optimizer``)."""
+        _exact_wire(precision)
+        if tensor.shape[dim] != n:
+            raise ValueError(
+                f"reduce_scatter: dimension {dim} has {tensor.shape[dim]} entries, not {n}")
+        if self.size == 1:
+            return tensor
+        if tensor.dtype in _BITS_AS:  # a sum of the signed bits is the unsigned sum modulo 2^w
+            if op != "sum":
+                raise TypeError(f"reduce_scatter {op!r} of {tensor.dtype}: only 'sum' is carried")
+            return self.reduce_scatter(tensor.view(_BITS_AS[tensor.dtype]), dim, n, op).view(
+                tensor.dtype)
         c = self.chunk_size(n)
         counts, _ = self.counts_displs(n)
-        pad_shape = list(local.shape)
-        pad_shape[dim] = c
-        buf = local.new_zeros(pad_shape)
-        buf.narrow(dim, 0, local.shape[dim]).copy_(local)
-        parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(self.size)]
-        dist.all_gather(parts, buf.contiguous(), group=self.group)
-        return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(parts, counts)], dim=dim)
+        buf = _padded(tensor.movedim(dim, 0), 0, c * self.size).contiguous()
+        out = buf.new_empty((c,) + tuple(buf.shape[1:]))
+        dist.reduce_scatter_tensor(out, buf, op=_REDUCE_OPS[op], group=self.group)
+        return out.narrow(0, 0, counts[self.rank]).movedim(0, dim)
+
+    def all_to_all(self, local: torch.Tensor, split_axis: int, concat_axis: int, n_split: int,
+                   n_concat: Optional[int] = None, precision: Optional[str] = None) -> torch.Tensor:
+        """Exchange blocks so that every rank ends with its ceil-rule chunk
+        of ``split_axis`` (global length ``n_split``) and all of
+        ``concat_axis`` (the counterpart of ``all_to_all`` :472). ``local``
+        is this rank's chunk of ``concat_axis`` (global length ``n_concat``;
+        found from every rank's length when not given) and spans all of
+        ``split_axis``. Each rank sends rank ``q`` only the block ``q`` will
+        own; no rank holds the whole array. Blocks are padded to the chunk
+        sizes of both axes for the call."""
+        _exact_wire(precision)
+        if split_axis == concat_axis:
+            raise ValueError("all_to_all: split_axis and concat_axis must differ")
+        if local.shape[split_axis] != n_split:
+            raise ValueError(f"all_to_all: axis {split_axis} has {local.shape[split_axis]} "
+                             f"entries, not {n_split}")
+        if self.size == 1:
+            return local
+        if local.dtype in _BITS_AS:
+            return self.all_to_all(local.view(_BITS_AS[local.dtype]), split_axis, concat_axis,
+                                   n_split, n_concat).view(local.dtype)
+        if n_concat is None:
+            n_concat = sum(self.allgather_object(int(local.shape[concat_axis])))
+        c_split, c_concat = self.chunk_size(n_split), self.chunk_size(n_concat)
+        counts_split, _ = self.counts_displs(n_split)
+        counts_concat, _ = self.counts_displs(n_concat)
+        # (size, ...) blocks: block q is rank q's part of split_axis, padded
+        buf = _padded(_padded(local, split_axis, c_split * self.size), concat_axis, c_concat)
+        shape = list(buf.shape)
+        shape[split_axis:split_axis + 1] = [self.size, c_split]
+        send = buf.reshape(shape).movedim(split_axis, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        # recv[r] is rank r's chunk of concat_axis; this rank's part of split_axis
+        parts = [recv[r].narrow(split_axis, 0, counts_split[self.rank])
+                 .narrow(concat_axis, 0, counts_concat[r]) for r in range(self.size)]
+        return torch.cat(parts, dim=concat_axis)
+
+    def ppermute(self, tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                 precision: Optional[str] = None, async_op: bool = False):
+        """Send ``tensor`` along the ``(source, destination)`` pairs of
+        ``perm`` (the counterpart of ``ppermute`` :442): this rank returns
+        what its source sent, or zeros when no pair names it as a
+        destination. Every rank's tensor has the same shape and type. Built
+        on ``batch_isend_irecv``: with ``async_op=True`` it returns a
+        :class:`PendingPermute` at once, so that work can run while the
+        tensors travel."""
+        _exact_wire(precision)
+        dtype = tensor.dtype
+        tensor = tensor.view(_BITS_AS.get(dtype, dtype)).contiguous()
+        dst = [d for s, d in perm if s == self.rank]
+        src = [s for s, d in perm if d == self.rank]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"ppermute: rank {self.rank} appears more than once in {perm}")
+        works, out = [], torch.zeros_like(tensor)
+        if dst and dst[0] == self.rank:  # to itself: no message
+            out = tensor.clone()
+        else:
+            ops = []
+            if dst:
+                ops.append(dist.P2POp(dist.isend, tensor, self._global_rank(dst[0]), self.group))
+            if src:
+                ops.append(dist.P2POp(dist.irecv, out, self._global_rank(src[0]), self.group))
+            if ops:
+                works = dist.batch_isend_irecv(ops)
+        pending = PendingPermute(out, works, dtype, tensor)
+        return pending if async_op else pending.wait()
+
+    def _global_rank(self, rank: int) -> int:
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+    def ring_permute(self, tensor: torch.Tensor, shift: int = 1, precision: Optional[str] = None,
+                     async_op: bool = False):
+        """Circulate around the ring: rank ``i`` sends to ``i + shift`` (the
+        counterpart of ``ring_permute`` :454)."""
+        perm = [(i, (i + shift) % self.size) for i in range(self.size)]
+        return self.ppermute(tensor, perm, precision, async_op)
 
     def allgather_object(self, obj) -> list:
         if self.size == 1:

@@ -156,12 +156,19 @@ class DNDarray:
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """A copy distributed along ``axis`` (reference dndarray.py:1213).
-        ``None`` replicates: every rank gathers the whole array (``cdist``
-        uses this to replicate ``y``). Any split axis from a replicated
-        array slices this rank's chunk."""
+        Between two split axes it is one ``all_to_all``: each rank sends
+        every other rank the block that rank will own, and no rank holds
+        the whole array. ``None`` replicates: every rank gathers the whole
+        array (``cdist`` uses this to replicate ``y``). Any split axis from
+        a replicated array slices this rank's chunk."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis,
+                            self.__device, self.__comm, True)
+        if axis is not None and self.__split is not None and self.__comm.size > 1:
+            moved = self.__comm.all_to_all(self.__array, axis, self.__split, self.__gshape[axis],
+                                           self.__gshape[self.__split])
+            return DNDarray(moved.contiguous(), self.__gshape, self.__dtype, axis,
                             self.__device, self.__comm, True)
         whole = self._global()
         if whole is self.__array:
@@ -171,3 +178,10 @@ class DNDarray:
             whole = whole[slices]
         return DNDarray(whole.contiguous(), self.__gshape, self.__dtype, axis,
                         self.__device, self.__comm, True)
+
+    @property
+    def T(self) -> "DNDarray":
+        """The transpose (reference dndarray.py:302)."""
+        from .linalg import transpose
+
+        return transpose(self)

@@ -703,7 +703,7 @@ def run(ht, device):
     return res
 """
 
-_WORKER = """
+_WORKER_HEAD = """
 import sys
 import numpy as np
 import torch
@@ -714,7 +714,8 @@ if backend == "nccl":
 dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
 import heat_tpu_torch as ht
 ht.use_device("gpu" if backend == "nccl" else "cpu")
-""" + _DATA + """
+"""
+_WORKER_TAIL = """
 res = run(ht, torch.device("cuda", rank) if backend == "nccl" else torch.device("cpu"))
 np.savez(f"{out}/rank{rank}.npz", **res)
 dist.barrier()
@@ -722,13 +723,15 @@ dist.destroy_process_group()
 """
 
 
-def _spmd_ranks(tmp_path, world, backend):
-    """Run ``_WORKER`` on ``world`` ranks; returns each rank's saved results."""
+def _spmd_ranks(tmp_path, world, backend, data=_DATA):
+    """Run ``data``'s ``run(ht, device)`` on ``world`` ranks; returns each
+    rank's saved results."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     repo = Path(__file__).resolve().parent.parent
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(world), str(port),
+    worker = _WORKER_HEAD + data + _WORKER_TAIL
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(world), str(port),
                                str(tmp_path), backend], cwd=repo, env=dict(os.environ),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -766,3 +769,145 @@ def test_nccl_ranks_match_world_of_one(dev, tmp_path):
         np.testing.assert_array_equal(r["random_centers"], want["random_centers"])
     counts, _ = communication.counts_displs(1_000_003, world)
     assert [int(r["lshape"][0]) for r in ranks] == list(counts)
+
+
+_LINALG_DATA = """
+import numpy as np
+import torch
+
+def make_linalg_data():
+    g = torch.Generator().manual_seed(1)
+    return {name: torch.randn(shape, generator=g) for name, shape in (
+        ("a", (1001, 517)), ("b", (517, 301)), ("x", (1003, 257)), ("t", (4001, 64)),
+        ("w", (100, 300)))}
+
+def run(ht, device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = {k: v.to(device) for k, v in make_linalg_data().items()}
+    res = {}
+    def keep(name, x):
+        res[name] = x.numpy()
+        res[name + "_split"] = np.array(-1 if x.split is None else x.split)
+        res[name + "_lshape"] = np.array(x.lshape)
+    for sa in (None, 0, 1):
+        for sb in (None, 0, 1):
+            keep(f"mm_{sa}_{sb}", ht.array(d["a"], split=sa) @ ht.array(d["b"], split=sb))
+    for s0, s1 in ((0, 1), (1, 0)):
+        keep(f"resplit_{s0}{s1}", ht.array(d["x"], split=s0).resplit(s1))
+    for name, split in (("tsqr", 0), ("cholqr", 1)):
+        q, r = ht.linalg.qr(ht.array(d["t"], split=split))
+        keep(name + "_Q", q)
+        keep(name + "_R", r)
+        u, s, v = ht.linalg.svd(ht.array(d["t"], split=split))
+        keep(name + "_U", u)
+        keep(name + "_S", s)
+        keep(name + "_V", v)
+    for split in (0, 1):
+        q, r = ht.linalg.qr(ht.array(d["w"], split=split))
+        keep(f"wide{split}_Q", q)
+        keep(f"wide{split}_R", r)
+    return res
+"""
+
+
+def _sign_normalised(q, r):
+    s = np.sign(np.diagonal(r))
+    s[s == 0] = 1
+    return q * s[None, :], r * s[:, None]
+
+
+def test_nccl_linalg_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: matmul in every split pair (f32, TF32
+    off; the partials summed in another order: within 1e-5 of the result's
+    largest magnitude), resplit 0 <-> 1 (exact), TSQR and CholeskyQR2 qr (Q
+    and R after sign normalisation within 1e-4, Q R within 1e-5 of |A|, Q^T Q
+    within 1e-5 of I) and svd (S within 1e-5 relative, U S V^T within 1e-5
+    of |A|), each against the world of one of this process, with the JAX
+    package's splits and the ceil rule's local shapes."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _LINALG_DATA)
+    ns = {}
+    exec(_LINALG_DATA, ns)
+    htt.use_device(None)
+    want = ns["run"](htt, dev)
+    data = {k: v.numpy().astype(np.float64) for k, v in ns["make_linalg_data"]().items()}
+    splits = {(None, None): -1, (None, 0): 0, (None, 1): 1, (0, None): 0, (0, 0): 0, (0, 1): 0,
+              (1, None): 0, (1, 0): 0, (1, 1): 0}
+    for rank, r in enumerate(ranks):
+        for (sa, sb), split in splits.items():
+            name = f"mm_{sa}_{sb}"
+            assert int(r[name + "_split"]) == split
+            scale = np.abs(want[name]).max()
+            np.testing.assert_allclose(r[name], want[name], rtol=0, atol=1e-5 * scale)
+            if split >= 0:
+                lshape = communication.chunk(want[name].shape, split, rank, world)[1]
+                assert tuple(r[name + "_lshape"]) == lshape
+        for s0, s1 in ((0, 1), (1, 0)):
+            name = f"resplit_{s0}{s1}"
+            np.testing.assert_array_equal(r[name], data["x"].astype(np.float32))
+            assert tuple(r[name + "_lshape"]) == communication.chunk((1003, 257), s1, rank, world)[1]
+        for name, a, q_split, r_split in (("tsqr", data["t"], 0, -1), ("cholqr", data["t"], 1, 1),
+                                          ("wide0", data["w"], 0, 0), ("wide1", data["w"], 1, 1)):
+            q, rr = r[name + "_Q"], r[name + "_R"]
+            assert (int(r[name + "_Q_split"]), int(r[name + "_R_split"])) == (q_split, r_split)
+            np.testing.assert_allclose(q @ rr, a, rtol=0, atol=1e-5 * np.abs(a).max())
+            np.testing.assert_allclose(q.T @ q, np.eye(q.shape[1]), rtol=0, atol=1e-5)
+            gq, gr = _sign_normalised(q, rr)
+            wq, wr = _sign_normalised(want[name + "_Q"], want[name + "_R"])
+            np.testing.assert_allclose(gq, wq, rtol=0, atol=1e-4)
+            np.testing.assert_allclose(gr, wr, rtol=0, atol=1e-4 * np.abs(wr).max())
+        for name in ("tsqr", "cholqr"):
+            u, s, v = r[name + "_U"], r[name + "_S"], r[name + "_V"]
+            np.testing.assert_allclose(s, want[name + "_S"], rtol=1e-5, atol=1e-5 * s.max())
+            np.testing.assert_allclose((u * s) @ v.T, data["t"], rtol=0,
+                                       atol=1e-5 * np.abs(data["t"]).max())
+
+
+def test_matmul_honours_the_callers_tf32_flag(dev):
+    """matmul reads torch.backends.cuda.matmul.allow_tf32 and sets nothing.
+    Errors against float64 over sum |a||b|: off, f32 accumulation, within
+    2^-16; on, TF32 operands (2^-11 relative each, rounded), within 2^-9
+    and measurably above the f32 error."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((1024, 2048), generator=g, device=dev)
+    b = torch.randn((2048, 1024), generator=g, device=dev)
+    ref = a.double() @ b.double()
+    scale = a.abs().double() @ b.abs().double()
+    flags = torch.backends.cuda.matmul
+    caller = flags.allow_tf32
+    try:
+        errs = {}
+        for on in (False, True):
+            flags.allow_tf32 = on
+            got = (htt.array(a, split=0) @ htt.array(b, split=0)).larray
+            assert flags.allow_tf32 is on
+            errs[on] = ((got.double() - ref).abs() / scale).max().item()
+    finally:
+        flags.allow_tf32 = caller
+    assert errs[False] <= 2.0 ** -16, errs
+    assert errs[True] <= 2.0 ** -9, errs
+    assert errs[True] > 4 * errs[False], errs
+
+
+def test_matmul_bf16_accumulates_in_f32(dev):
+    """A bf16 product at K = 16384 within one bf16 rounding of its output
+    (2^-8 |ref|) plus 2^-20 sum |a||b| of float64 on the same bf16 inputs,
+    with torch's reduced-precision flag cleared for the product and the
+    caller's value restored."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn((256, 16384), generator=g, device=dev).bfloat16()
+    b = torch.randn((16384, 256), generator=g, device=dev).bfloat16()
+    flags = torch.backends.cuda.matmul
+    caller = flags.allow_bf16_reduced_precision_reduction
+    try:
+        flags.allow_bf16_reduced_precision_reduction = True
+        got = (htt.array(a, split=0) @ htt.array(b)).larray
+        assert flags.allow_bf16_reduced_precision_reduction is True
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = caller
+    assert got.dtype == torch.bfloat16
+    ref = a.double() @ b.double()
+    scale = a.abs().double() @ b.abs().double()
+    assert bool(((got.double() - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -20 * scale).all())

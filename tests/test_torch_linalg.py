@@ -1,0 +1,820 @@
+"""heat_tpu_torch's distributed linear algebra and the operations under it,
+against heat_tpu.
+
+One numpy input from a seeded ``np.random.default_rng`` goes through both
+packages: heat_tpu on its 8-device CPU mesh, heat_tpu_torch as a world of
+one rank on the CPU. Shape, split, type name and the lshape map over the
+8 ranks (the port's chunk rule at world size 8) must be the reference's
+exactly; values exactly for exact types, within rtol 1e-5 for float32 over
+a few hundred terms and 1e-12 for float64.
+
+``qr`` and ``svd``: factors are unique up to column signs (the JAX
+package's TSQR gives R-diagonal signs that differ from LAPACK's on the same
+input, its CholeskyQR2 a positive diagonal), so Q and R are compared after
+both are normalised to a non-negative R diagonal, within 1e-4 for these
+well-conditioned inputs; Q·R ≈ A and QᵀQ ≈ I within 1e-5 (relative to |A|
+for Q·R). A world of one takes the general path, so its R split is held to
+the JAX package's on a one-device mesh, which takes the same path; the
+three gloo ranks take the distributed paths and are held to the 8-device
+mesh's splits.
+
+Three gloo ranks (one spawned world) with uneven chunks, 7 rows as 3, 3, 1
+and 2 columns as 1, 1, 0: the new collectives (uint64 bits included),
+``resplit`` 0 ↔ 1 through ``all_to_all`` with no ``allgather``, ``matmul``
+in every split pair, TSQR with a chunk shorter than n and with
+``tiles_per_proc=2``, CholeskyQR2 in both ring schedules (bit-identical)
+and on a rank-deficient input (the shifted fallback), both wide paths and
+``svd``; each rank against numpy, the world of one and the JAX package.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu as ht_tpu
+from heat_tpu.core.communication import MeshCommunication
+
+import heat_tpu_torch as htt
+from heat_tpu_torch.core import communication as tcomm
+
+REPO = Path(__file__).resolve().parent.parent
+MESH = 8
+RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    htt.use_device("cpu")
+    yield
+    htt.use_device(None)
+
+
+def _data(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == "bool":
+        return rng.integers(0, 2, size=shape).astype(bool)
+    if dtype.startswith(("int", "uint")):
+        return rng.integers(-6 if dtype.startswith("int") else 0, 7, size=shape).astype(dtype)
+    return (rng.standard_normal(shape) * 2).astype(dtype)
+
+
+def _meta_equal(got, ref):
+    assert got.shape == ref.shape
+    assert got.split == ref.split
+    assert got.dtype.__name__ == ref.dtype.__name__
+    if got.ndim:
+        np.testing.assert_array_equal(tcomm.lshape_map(got.shape, got.split, MESH),
+                                      ref.lshape_map)
+
+
+def _check(got, ref):
+    """Metadata exactly; values exactly for exact types, else within the
+    type's tolerance (scaled by the result's magnitude for f32 sums)."""
+    _meta_equal(got, ref)
+    g, r = got.numpy(), np.asarray(ref.numpy())
+    name = got.dtype.__name__
+    if name in RTOL:
+        scale = max(1.0, float(np.abs(r).max())) if r.size else 1.0
+        np.testing.assert_allclose(g, r, rtol=RTOL[name], atol=RTOL[name] * scale)
+    else:
+        np.testing.assert_array_equal(g, r)
+
+
+def _both(fn, *operands):
+    """``fn(ht, *arrays)`` through both packages; operands are
+    ``(numpy array, split)`` pairs."""
+    got = fn(htt, *(htt.array(x, split=s) for x, s in operands))
+    ref = fn(ht_tpu, *(ht_tpu.array(x, split=s) for x, s in operands))
+    return got, ref
+
+
+SPLITS = [None, 0, 1]
+MATMUL_TYPES = [("int32", "int32"), ("float32", "float32"), ("float64", "float64"),
+                ("int32", "float32"), ("float32", "float64")]
+
+
+@pytest.mark.parametrize("types", MATMUL_TYPES, ids=lambda t: "x".join(t))
+@pytest.mark.parametrize("sb", SPLITS)
+@pytest.mark.parametrize("sa", SPLITS)
+def test_matmul_split_pairs(sa, sb, types):
+    a, b = _data((7, 5), types[0], 1), _data((5, 3), types[1], 2)
+    got, ref = _both(lambda ht, x, y: ht.matmul(x, y), (a, sa), (b, sb))
+    _check(got, ref)
+    got, ref = _both(lambda ht, x, y: x @ y, (a, sa), (b, sb))
+    _check(got, ref)
+
+
+VECTOR_CASES = {
+    "vec@mat": ((5,), (5, 3)),
+    "mat@vec": ((7, 5), (5,)),
+    "vec@vec": ((5,), (5,)),
+    "batched3d@mat": ((4, 7, 5), (5, 3)),
+    "mat@batched3d": ((7, 5), (4, 5, 3)),
+}
+
+
+@pytest.mark.parametrize("case,sa,sb", [
+    (case, sa, sb) for case, (sha, shb) in VECTOR_CASES.items()
+    for sa in [None] + list(range(len(sha))) for sb in [None] + list(range(len(shb)))])
+def test_matmul_vectors_and_batched(case, sa, sb):
+    sha, shb = VECTOR_CASES[case]
+    a, b = _data(sha, "float32", 3), _data(shb, "float32", 4)
+    _check(*_both(lambda ht, x, y: ht.matmul(x, y), (a, sa), (b, sb)))
+
+
+@pytest.mark.parametrize("s", SPLITS)
+def test_dot_vecdot_projection(s):
+    sv = s if s != 1 else 0
+    a, b = _data((9,), "float32", 5), _data((9,), "float32", 6)
+    _check(*_both(lambda ht, x, y: ht.dot(x, y), (a, sv), (b, None)))
+    _check(*_both(lambda ht, x, y: ht.linalg.projection(x, y), (a, sv), (b, sv)))
+    m, n = _data((7, 5), "float32", 7), _data((7, 5), "float32", 8)
+    _check(*_both(lambda ht, x, y: ht.linalg.dot(x, y.T), (m, s), (n, s)))
+    for axis in (None, 0, 1):
+        for keepdims in (False, True):
+            _check(*_both(lambda ht, x, y: ht.linalg.vecdot(x, y, axis=axis, keepdims=keepdims),
+                          (m, s), (n, s)))
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("sa,sb", [(None, None), (0, None), (None, 0), (0, 0)])
+def test_outer(sa, sb, split):
+    a, b = _data((7,), "float32", 9), _data((4,), "int32", 10)
+    _check(*_both(lambda ht, x, y: ht.linalg.outer(x, y, split=split), (a, sa), (b, sb)))
+
+
+@pytest.mark.parametrize("axes", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("s", SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_trace(dtype, s, offset, axes):
+    a = _data((7, 5), dtype, 11)
+    _check(*_both(lambda ht, x: ht.linalg.trace(x, offset=offset, axis1=axes[0], axis2=axes[1]),
+                  (a, s)))
+
+
+@pytest.mark.parametrize("s", SPLITS + [2])
+def test_transpose_and_T(s):
+    a = _data((4, 7, 5), "float32", 12)
+    if s is not None:
+        _check(*_both(lambda ht, x: x.T, (a, s)))
+        _check(*_both(lambda ht, x: ht.linalg.transpose(x, (1, 0, 2)), (a, s)))
+    m = _data((7, 5), "int32", 13)
+    _check(*_both(lambda ht, x: x.T, (m, s if s != 2 else None)))
+    _check(*_both(lambda ht, x: x.transpose(), (m, s if s != 2 else None)))
+
+
+@pytest.mark.parametrize("k", [-1, 0, 1])
+@pytest.mark.parametrize("s", SPLITS)
+@pytest.mark.parametrize("op", ["tril", "triu"])
+def test_tril_triu(op, s, k):
+    m = _data((7, 5), "float32", 14)
+    _check(*_both(lambda ht, x: getattr(ht.linalg, op)(x, k), (m, s)))
+    _check(*_both(lambda ht, x: getattr(x, op)(k), (m, s)))
+    if s != 1:
+        v = _data((6,), "int32", 15)
+        _check(*_both(lambda ht, x: getattr(ht.linalg, op)(x, k), (v, s)))
+
+
+@pytest.mark.parametrize("ord", [None, 2, float("inf"), -float("inf"), 0, 3])
+@pytest.mark.parametrize("s", SPLITS)
+def test_vector_norm(s, ord):
+    v = _data((9,), "float32", 16)
+    v[2] = 0.0
+    _check(*_both(lambda ht, x: ht.linalg.vector_norm(x, ord=ord), (v, s if s != 1 else 0)))
+    m = _data((7, 5), "int32", 17)
+    for axis in (0, 1):
+        _check(*_both(lambda ht, x: ht.linalg.vector_norm(x, axis=axis, ord=ord, keepdims=True),
+                      (m, s)))
+
+
+@pytest.mark.parametrize("keepdims", [False, True])
+@pytest.mark.parametrize("ord", [None, "fro", 1, -1, float("inf"), -float("inf")])
+@pytest.mark.parametrize("s", SPLITS)
+def test_matrix_norm_and_norm(s, ord, keepdims):
+    m = _data((7, 5), "float32", 18)
+    _check(*_both(lambda ht, x: ht.linalg.matrix_norm(x, ord=ord, keepdims=keepdims), (m, s)))
+    _check(*_both(lambda ht, x: ht.linalg.matrix_norm(x, axis=(1, 0), ord=ord, keepdims=keepdims),
+                  (m, s)))
+    _check(*_both(lambda ht, x: ht.linalg.norm(x, ord=ord, keepdims=keepdims), (m, s)))
+    _check(*_both(lambda ht, x: ht.linalg.norm(x), (m, s)))
+
+
+ROUNDING = {
+    "abs": lambda ht, x: ht.abs(x),
+    "absolute_f64": lambda ht, x: ht.absolute(x, dtype=ht.float64),
+    "fabs": lambda ht, x: ht.fabs(x),
+    "ceil": lambda ht, x: ht.ceil(x),
+    "floor": lambda ht, x: ht.floor(x),
+    "trunc": lambda ht, x: ht.trunc(x),
+    "round": lambda ht, x: ht.round(x),
+    "round_1": lambda ht, x: ht.round(x * 1.37, 1),
+    "round_-1": lambda ht, x: ht.round(x * 7.0, -1),
+    "sign": lambda ht, x: ht.sign(x),
+    "clip_int_bounds": lambda ht, x: ht.clip(x, -2, 3),
+    "clip_float_bounds": lambda ht, x: ht.clip(x, -1.5, 2.5),
+    "clip_min_only": lambda ht, x: ht.clip(x, 0, None),
+    "modf_frac": lambda ht, x: ht.modf(x * 1.5)[0],
+    "modf_int": lambda ht, x: ht.modf(x)[1],
+    "method_abs": lambda ht, x: abs(x),
+}
+RELATIONAL = {name: (lambda name: lambda ht, x, y: getattr(ht, name)(x, y))(name)
+              for name in ("eq", "ne", "lt", "le", "gt", "ge", "greater", "less_equal")}
+RELATIONAL.update({
+    "eq_scalar": lambda ht, x, y: x == 2,
+    "lt_operator": lambda ht, x, y: x < y,
+    "ne_operator": lambda ht, x, y: x != y,
+})
+LOGICAL = {
+    "all": lambda ht, x, y: ht.all(x),
+    "all_axis0": lambda ht, x, y: ht.all(x, axis=0),
+    "any_axis1_keep": lambda ht, x, y: ht.any(x, axis=1, keepdims=True),
+    "any": lambda ht, x, y: x.any(),
+    "isclose": lambda ht, x, y: ht.isclose(x, y, atol=1.0),
+    "isfinite": lambda ht, x, y: ht.isfinite(x / y),
+    "isinf": lambda ht, x, y: ht.isinf(x / y),
+    "isnan": lambda ht, x, y: ht.isnan(x / y),
+    "isposinf": lambda ht, x, y: ht.isposinf(x / y),
+    "isneginf": lambda ht, x, y: ht.isneginf(x / y),
+    "logical_and": lambda ht, x, y: ht.logical_and(x, y),
+    "logical_or": lambda ht, x, y: ht.logical_or(x, y),
+    "logical_xor": lambda ht, x, y: ht.logical_xor(x, y),
+    "logical_not": lambda ht, x, y: ht.logical_not(x),
+    "signbit": lambda ht, x, y: ht.signbit(x),
+}
+
+
+@pytest.mark.parametrize("s", [None, 0])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "float64"])
+@pytest.mark.parametrize("name", list(ROUNDING))
+def test_rounding(name, dtype, s):
+    x = _data((7, 3), dtype, 19)
+    _check(*_both(ROUNDING[name], (x, s)))
+
+
+# true division and signbit of bool arrays are left out: neither package
+# defines them for bool the way numpy does
+_BOOL_LEFT_OUT = ("isfinite", "isinf", "isnan", "isposinf", "isneginf", "signbit")
+
+
+@pytest.mark.parametrize("s", [None, 0, 1])
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for name in list(RELATIONAL) + list(LOGICAL)
+    for dtype in ("float32", "int32", "bool") if not (dtype == "bool" and name in _BOOL_LEFT_OUT)])
+def test_relational_logical(name, dtype, s):
+    fn = RELATIONAL.get(name) or LOGICAL[name]
+    x, y = _data((7, 3), dtype, 20), _data((7, 3), dtype, 21)
+    if dtype == "int32":
+        y[0, 0] = 0  # x / 0: inf and nan
+    _check(*_both(fn, (x, s), (y, s)))
+
+
+def test_scalar_predicates():
+    x = _data((7, 3), "float32", 22)
+    for ht in (htt, ht_tpu):
+        a, b = ht.array(x, split=0), ht.array(x + 1e-7, split=None)
+        assert ht.equal(a, ht.array(x, split=1)) is True
+        assert ht.equal(a, b) is False
+        assert ht.allclose(a, b) is True
+        assert ht.allclose(a, b + 1) is False
+    with pytest.raises(TypeError):
+        htt.sign(htt.array(np.array([True, False])))
+
+
+def test_constants_memory_version():
+    assert (htt.pi, htt.e, htt.Euler, htt.inf) == (ht_tpu.pi, ht_tpu.e, ht_tpu.Euler, ht_tpu.inf)
+    assert np.isnan(htt.nan) and htt.Inf == htt.Infinity == htt.Infty == htt.inf
+    assert htt.__version__ == htt.version.version
+    x = htt.array(_data((7, 3), "float32", 23), split=0)
+    y = htt.copy(x)
+    assert y.larray.data_ptr() != x.larray.data_ptr()
+    np.testing.assert_array_equal(y.numpy(), x.numpy())
+    assert (y.split, y.shape, y.dtype) == (x.split, x.shape, x.dtype)
+    assert htt.sanitize_memory_layout(x, "F") is x
+    with pytest.raises(ValueError):
+        htt.sanitize_memory_layout(x, "K")
+    with pytest.raises(TypeError):
+        htt.copy(x.larray)
+
+
+def test_exports_cover_the_reference():
+    names = (list(ht_tpu.core.linalg.basics.__all__) + ["qr", "svd"]
+             + ht_tpu.core.rounding.__all__ + ht_tpu.core.relational.__all__
+             + ht_tpu.core.logical.__all__)
+    for name in names:
+        assert callable(getattr(htt, name, None)), name
+    for name in list(ht_tpu.core.linalg.basics.__all__) + ["qr", "svd"]:
+        assert callable(getattr(htt.linalg, name)), name
+    for name in ("constants", "copy", "sanitize_memory_layout"):
+        assert hasattr(htt, name), name
+
+
+# ------------------------------------------------------------- qr and svd
+
+QR_CASES = [((20, 5), 0), ((64, 12), 0), ((50, 12), 1), ((10, 30), 0), ((10, 30), 1),
+            ((9, 9), None)]
+
+
+def _one_device():
+    return MeshCommunication(devices=jax.devices()[:1])
+
+
+def _sign_normalised(q, r):
+    d = np.sign(np.diagonal(r))
+    d[d == 0] = 1
+    return q * d[None, :], r * d[:, None]
+
+
+def _qr_checks(q, r, a, tol=1e-5):
+    scale = max(1.0, float(np.abs(a).max()))
+    np.testing.assert_allclose(q @ r, a, rtol=0, atol=tol * scale)
+    np.testing.assert_allclose(q.T @ q, np.eye(q.shape[1]), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("shape,split", QR_CASES)
+def test_qr_paths_match_heat_tpu(shape, split):
+    a = _data(shape, "float32", 24)
+    got = htt.linalg.qr(htt.array(a, split=split))
+    ref = ht_tpu.linalg.qr(ht_tpu.array(a, split=split))
+    one = ht_tpu.linalg.qr(ht_tpu.array(a, split=split, comm=_one_device()))
+    for g, r, o in ((got.Q, ref.Q, one.Q), (got.R, ref.R, one.R)):
+        assert g.shape == r.shape and g.dtype.__name__ == r.dtype.__name__
+        assert g.split == o.split  # the world of one takes the one-device path
+    assert got.Q.split == ref.Q.split
+    gq, gr = _sign_normalised(got.Q.numpy(), got.R.numpy())
+    rq, rr = _sign_normalised(np.asarray(ref.Q.numpy()), np.asarray(ref.R.numpy()))
+    np.testing.assert_allclose(gq, rq, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gr, rr, rtol=0, atol=1e-4 * max(1.0, float(np.abs(rr).max())))
+    _qr_checks(got.Q.numpy(), got.R.numpy(), a)
+    r_only = htt.linalg.qr(htt.array(a, split=split), calc_q=False)
+    assert r_only.Q is None
+    np.testing.assert_array_equal(r_only.R.numpy(), got.R.numpy())
+
+
+@pytest.mark.parametrize("shape,split", QR_CASES[:3] + [((10, 30), 0), ((10, 30), 1)])
+def test_svd_matches_heat_tpu(shape, split):
+    a = _data(shape, "float32", 25)
+    got = htt.linalg.svd(htt.array(a, split=split))
+    ref = ht_tpu.linalg.svd(ht_tpu.array(a, split=split))
+    one = ht_tpu.linalg.svd(ht_tpu.array(a, split=split, comm=_one_device()))
+    for g, r, o in zip(got, ref, one):
+        assert g.shape == r.shape and g.dtype.__name__ == r.dtype.__name__ and g.split == o.split
+    np.testing.assert_allclose(got.S.numpy(), ref.S.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.S.numpy().max()))
+    u, s, v = got.U.numpy(), got.S.numpy(), got.V.numpy()
+    np.testing.assert_allclose((u * s) @ v.T, a, rtol=0, atol=1e-5 * float(np.abs(a).max()))
+    np.testing.assert_allclose(u.T @ u, np.eye(u.shape[1]), rtol=0, atol=1e-5)
+    vals = htt.linalg.svd(htt.array(a, split=split), compute_uv=False)
+    np.testing.assert_allclose(vals.numpy(), s, rtol=1e-5, atol=1e-6)
+
+
+def test_qr_svd_float64_and_ints():
+    a = _data((12, 4), "float64", 26)
+    q, r = htt.linalg.qr(htt.array(a, split=0))
+    assert q.dtype is htt.float64
+    _qr_checks(q.numpy(), r.numpy(), a, tol=1e-12)
+    ai = _data((12, 4), "int32", 27)
+    got, ref = htt.linalg.qr(htt.array(ai)), ht_tpu.linalg.qr(ht_tpu.array(ai))
+    assert got.R.dtype.__name__ == ref.R.dtype.__name__ == "float32"
+    assert htt.linalg.svd(htt.array(ai)).S.dtype is htt.float32
+
+
+# ------------------------------------------------------ flags and errors
+
+
+def _flags():
+    m = torch.backends.cuda.matmul
+    return (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+            m.allow_fp16_reduced_precision_reduction)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("caller", [False, True])
+def test_matmul_leaves_the_callers_flags(dtype, caller, monkeypatch):
+    m = torch.backends.cuda.matmul
+    before = _flags()
+    try:
+        m.allow_tf32 = caller
+        m.allow_bf16_reduced_precision_reduction = caller
+        m.allow_fp16_reduced_precision_reduction = caller
+        tdt = getattr(torch, dtype)
+        a = htt.array(torch.ones((4, 3), dtype=tdt), split=0)
+        seen = []
+        real = torch.matmul
+
+        def spy(x, y):
+            seen.append(_flags())
+            return real(x, y)
+
+        monkeypatch.setattr(torch, "matmul", spy)
+        assert (a @ a.T).dtype.__name__ == dtype
+        reduced = {"bfloat16": 1, "float16": 2}.get(dtype)
+        for flags in seen:
+            assert flags[0] == caller  # f32: the caller's TF32 flag, read and never set
+            if reduced is not None:
+                assert flags[reduced] is False  # bf16/f16: f32 accumulation
+        assert _flags() == (caller, caller, caller)
+
+        def boom(x, y):
+            raise RuntimeError("product failed")
+
+        monkeypatch.setattr(torch, "matmul", boom)
+        with pytest.raises(RuntimeError, match="product failed"):
+            a @ a.T
+        assert _flags() == (caller, caller, caller)
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction, \
+            m.allow_fp16_reduced_precision_reduction = before
+
+
+def test_matmul_does_not_copy_an_operand_of_the_result_type():
+    a = htt.array(_data((6, 4), "float32", 28), split=0)
+    b = htt.array(_data((4, 5), "float32", 29), split=0)
+    seen = []
+    real = torch.matmul
+
+    def spy(x, y):
+        seen.append((x.data_ptr(), y.data_ptr()))
+        return real(x, y)
+
+    torch.matmul, saved = spy, torch.matmul
+    try:
+        a @ b
+    finally:
+        torch.matmul = saved
+    assert seen == [(a.larray.data_ptr(), b.larray.data_ptr())]
+
+
+def test_errors():
+    a = htt.array(_data((7, 5), "float32", 30), split=0)
+    with pytest.raises(ValueError, match="last dimension"):
+        htt.matmul(a, a)
+    with pytest.raises(ValueError, match="not aligned"):
+        htt.dot(htt.array(np.ones(3)), htt.array(np.ones(4)))
+    with pytest.raises(TypeError):
+        htt.matmul(a, a.larray)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        htt.linalg.qr(a, audit=True)
+    with pytest.raises(ValueError, match="2-dimensional"):
+        htt.linalg.qr(htt.array(np.ones(3)))
+    with pytest.raises(TypeError, match="tiles_per_proc"):
+        htt.linalg.qr(a, tiles_per_proc=1.5)
+    with pytest.raises(ValueError, match="Invalid norm order"):
+        htt.linalg.matrix_norm(a, ord=3)
+    with pytest.raises(ValueError, match="either min or max"):
+        htt.clip(a, None, None)
+    for ht in (htt, ht_tpu):
+        with pytest.raises(NotImplementedError, match="decimals < 0"):
+            ht.round(ht.array(np.arange(4)), -1)
+    comm = htt.get_comm()
+    for call in (lambda: comm.reduce_scatter(a.larray, 0, 7, precision="bf16"),
+                 lambda: comm.all_to_all(a.larray, 1, 0, 5, precision="int8"),
+                 lambda: comm.ring_permute(a.larray, precision="blockwise"),
+                 lambda: comm.ppermute(a.larray, [(0, 0)], precision="bf16")):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            call()
+    # the JAX package raises the same errors
+    ra = ht_tpu.array(_data((7, 5), "float32", 30), split=0)
+    with pytest.raises(ValueError, match="last dimension"):
+        ht_tpu.matmul(ra, ra)
+
+
+def test_collectives_world_of_one():
+    comm = htt.get_comm()
+    t = torch.arange(12.0).reshape(4, 3)
+    assert comm.reduce_scatter(t, 0, 4) is t
+    assert comm.all_to_all(t, 1, 0, 3) is t
+    assert torch.equal(comm.ring_permute(t), t)
+    assert torch.equal(comm.ppermute(t, [(0, 0)], async_op=True).wait(), t)
+    assert torch.equal(comm.ppermute(t, []), torch.zeros_like(t))  # no source: zeros
+    x = htt.array(t.numpy(), split=0)
+    y = x.resplit(1)
+    assert y.split == 1 and torch.equal(y.larray, t) and y.larray.data_ptr() != t.data_ptr()
+
+
+# ------------------------------------------------- three gloo ranks
+
+_WORKER = textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.communication import TorchCommunication
+    ht.use_device("cpu")
+    comm = ht.get_comm()
+    res = {}
+
+    def keep(name, x):
+        res[name] = x.numpy()
+        res[name + "_meta"] = np.array([x.dtype.__name__, str(x.split), str(tuple(x.lshape))])
+        res[name + "_local"] = x.larray.numpy()
+
+    rng = np.random.default_rng(0)
+    base = rng.standard_normal((7, 4)).astype(np.float32)
+    big = np.array([2 ** 63 + 5, 2 ** 64 - 3, 7, 2 ** 40], dtype=np.uint64)
+    # reduce_scatter: every rank contributes (rank + 1) * base
+    res["rs0"] = comm.reduce_scatter(torch.from_numpy(base * (rank + 1)), 0, 7).numpy()
+    res["rs1"] = comm.reduce_scatter(torch.from_numpy(base * (rank + 1)), 1, 4).numpy()
+    res["rs_max"] = comm.reduce_scatter(torch.from_numpy(base * (rank + 1)), 0, 7, "max").numpy()
+    res["rs_u64"] = comm.reduce_scatter(torch.from_numpy(big * np.uint64(rank + 1)), 0, 4).numpy()
+    # all_to_all: rows (3, 3, 1) in, columns (1, 1, 0) out
+    x72 = rng.standard_normal((7, 2)).astype(np.float32)
+    mine = ht.array(x72, split=0).larray
+    res["a2a"] = comm.all_to_all(mine, 1, 0, 2, 7).numpy()
+    res["a2a_found_n"] = comm.all_to_all(mine, 1, 0, 2).numpy()
+    u72 = (np.arange(14, dtype=np.uint64) * np.uint64(2 ** 61)).reshape(7, 2)
+    res["a2a_u64"] = comm.all_to_all(ht.array(u72, split=0).larray, 1, 0, 2, 7).numpy()
+    # ring_permute and ppermute
+    mark = torch.full((3,), float(rank))
+    res["ring"] = comm.ring_permute(mark).numpy()
+    res["ring_back"] = comm.ring_permute(mark, shift=-1).numpy()
+    res["ring_async"] = comm.ring_permute(mark, async_op=True).wait().numpy()
+    res["ring_u64"] = comm.ring_permute(torch.from_numpy(big + np.uint64(rank))).numpy()
+    res["pperm"] = comm.ppermute(mark, [(0, 2), (2, 0)]).numpy()
+    # resplit 0 <-> 1 through all_to_all, with allgather counted
+    calls = []
+    real = TorchCommunication.allgather
+    x75 = rng.standard_normal((7, 5)).astype(np.float32)
+    for s0, s1 in ((0, 1), (1, 0)):
+        for name, data in (("x72", x72), ("x75", x75)):
+            x = ht.array(data, split=s0)
+            TorchCommunication.allgather = lambda self, *a, **k: (calls.append(1),
+                                                                  real(self, *a, **k))[1]
+            moved = x.resplit(s1)
+            TorchCommunication.allgather = real
+            keep(f"resplit_{name}_{s0}{s1}", moved)
+    res["resplit_allgathers"] = np.array(len(calls))
+    # matmul in every split pair, K = 5 and K = 2 (an empty chunk of K)
+    for tag, (sa_, sb_) in (("75x53", ((7, 5), (5, 3))), ("72x25", ((7, 2), (2, 5)))):
+        a = np.random.default_rng(1).standard_normal(sa_).astype(np.float32)
+        b = np.random.default_rng(2).standard_normal(sb_).astype(np.float32)
+        for sa in (None, 0, 1):
+            for sb in (None, 0, 1):
+                keep(f"mm_{tag}_{sa}_{sb}", ht.array(a, split=sa) @ ht.array(b, split=sb))
+    v = np.random.default_rng(3).standard_normal(5).astype(np.float32)
+    m = np.random.default_rng(1).standard_normal((7, 5)).astype(np.float32)
+    b53 = np.random.default_rng(2).standard_normal((5, 3)).astype(np.float32)
+    a3 = np.random.default_rng(4).standard_normal((4, 7, 5)).astype(np.float32)
+    for sv in (None, 0):
+        for sm in (None, 0, 1):
+            keep(f"mv_{sm}_{sv}", ht.matmul(ht.array(m, split=sm), ht.array(v, split=sv)))
+            keep(f"vm_{sv}_{sm}", ht.matmul(ht.array(v, split=sv), ht.array(b53, split=sm)))
+    for s3 in (None, 0, 1, 2):
+        for sb in (None, 0, 1):
+            keep(f"b3_{s3}_{sb}", ht.matmul(ht.array(a3, split=s3), ht.array(b53, split=sb)))
+    keep("trace_0", ht.linalg.trace(ht.array(m, split=0), offset=1))
+    keep("trace_1", ht.linalg.trace(ht.array(m, split=1), offset=-1))
+    keep("tril_0", ht.linalg.tril(ht.array(m, split=0), -1))
+    keep("triu_1", ht.linalg.triu(ht.array(m, split=1), 1))
+    keep("outer_1", ht.linalg.outer(ht.array(v, split=0), ht.array(v[:3], split=0), split=1))
+    keep("dot", ht.dot(ht.array(v, split=0), ht.array(v, split=None)))
+    keep("norm_1", ht.linalg.matrix_norm(ht.array(m, split=1), ord=1))
+    # qr: TSQR (a chunk shorter than n: 7 rows as 3, 3, 1 against n = 5;
+    # tiles_per_proc = 2 on 8-row chunks), CholeskyQR2 in both schedules,
+    # the shifted fallback, both wide paths
+    qa = {"tsqr_20x5": (np.random.default_rng(5).standard_normal((20, 5)), 0, 1),
+          "tsqr_short_7x5": (np.random.default_rng(6).standard_normal((7, 5)), 0, 1),
+          "tsqr_tiles_24x3": (np.random.default_rng(7).standard_normal((24, 3)), 0, 2),
+          "chol_50x12": (np.random.default_rng(8).standard_normal((50, 12)), 1, 1),
+          "chol_30x7": (np.random.default_rng(9).standard_normal((30, 7)), 1, 1),
+          "wide0_10x30": (np.random.default_rng(10).standard_normal((10, 30)), 0, 1),
+          "wide1_10x30": (np.random.default_rng(10).standard_normal((10, 30)), 1, 1)}
+    for name, (data, split, tiles) in qa.items():
+        q, r = ht.linalg.qr(ht.array(data.astype(np.float32), split=split), tiles_per_proc=tiles)
+        keep(f"qr_{name}_Q", q)
+        keep(f"qr_{name}_R", r)
+    for knob in ("0", "1"):
+        os.environ["HEAT_TPU_RING_OVERLAP"] = knob
+        q, r = ht.linalg.qr(ht.array(qa["chol_30x7"][0].astype(np.float32), split=1))
+        res[f"ring_{knob}_Q"], res[f"ring_{knob}_R"] = q.larray.numpy(), r.larray.numpy()
+    os.environ.pop("HEAT_TPU_RING_OVERLAP")
+    deficient = np.random.default_rng(11).standard_normal((30, 7)).astype(np.float32)
+    deficient[:, 3] = 0.0
+    shifted = []
+    real_chol = torch.linalg.cholesky
+    torch.linalg.cholesky = lambda g: (shifted.append(1), real_chol(g))[1]
+    q, r = ht.linalg.qr(ht.array(deficient, split=1))
+    torch.linalg.cholesky = real_chol
+    keep("deficient_Q", q)
+    keep("deficient_R", r)
+    res["deficient_shifted"] = np.array(len(shifted))
+    # svd: tall split 0, tall split 1, wide, values only
+    for name, (data, split) in {"tall0": (qa["tsqr_20x5"][0], 0), "tall1": (qa["chol_50x12"][0], 1),
+                                "wide0": (qa["wide0_10x30"][0], 0)}.items():
+        u, s, vv = ht.linalg.svd(ht.array(data.astype(np.float32), split=split))
+        keep(f"svd_{name}_U", u)
+        keep(f"svd_{name}_S", s)
+        keep(f"svd_{name}_V", vv)
+        keep(f"svdvals_{name}", ht.linalg.svd(ht.array(data.astype(np.float32), split=split),
+                                              compute_uv=False))
+    np.savez(f"{out}/rank{rank}.npz", **res)
+    dist.destroy_process_group()
+""")
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks(tmp_path_factory):
+    """One spawned world of three gloo ranks; each rank's saved results."""
+    out = tmp_path_factory.mktemp("linalg_gloo")
+    world, port = 3, _free_port()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env.pop("HEAT_TPU_RING_OVERLAP", None)
+    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(world), str(port),
+                               str(out)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=180)[0])
+        finally:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return [dict(np.load(out / f"rank{r}.npz")) for r in range(3)]
+
+
+def _meta(rank_res, name):
+    dtype, split, lshape = rank_res[name + "_meta"]
+    return dtype, split, lshape
+
+
+def _hold(ranks, name, ref, want_values=None, rtol=1e-5):
+    """Every rank's result ``name`` has the reference's type, split and
+    shape, this rank's ceil-rule chunk, and numpy's (or the given) values."""
+    values = np.asarray(ref.numpy()) if want_values is None else want_values
+    for rank, r in enumerate(ranks):
+        dtype, split, lshape = _meta(r, name)
+        assert dtype == ref.dtype.__name__ and split == str(ref.split), (name, dtype, split)
+        want_lshape = tcomm.chunk(ref.shape, ref.split, rank, 3)[1]
+        assert lshape == str(tuple(int(v) for v in want_lshape)), (name, rank, lshape)
+        scale = max(1.0, float(np.abs(values).max())) if values.size else 1.0
+        np.testing.assert_allclose(r[name], values, rtol=rtol, atol=rtol * scale, err_msg=name)
+        if ref.split is not None:
+            _, _, sl = tcomm.chunk(ref.shape, ref.split, rank, 3)
+            np.testing.assert_allclose(r[name + "_local"], values[sl], rtol=rtol,
+                                       atol=rtol * scale, err_msg=name)
+
+
+def test_gloo_collectives(gloo_ranks):
+    rng = np.random.default_rng(0)
+    base = rng.standard_normal((7, 4)).astype(np.float32)
+    big = np.array([2 ** 63 + 5, 2 ** 64 - 3, 7, 2 ** 40], dtype=np.uint64)
+    total = base * 6
+    total_u64 = big * np.uint64(1) + big * np.uint64(2) + big * np.uint64(3)
+    x72 = rng.standard_normal((7, 2)).astype(np.float32)
+    u72 = (np.arange(14, dtype=np.uint64) * np.uint64(2 ** 61)).reshape(7, 2)
+    for rank, r in enumerate(gloo_ranks):
+        rows = tcomm.chunk((7, 4), 0, rank, 3)[2]
+        cols = tcomm.chunk((7, 4), 1, rank, 3)[2]
+        np.testing.assert_allclose(r["rs0"], total[rows], rtol=1e-6)
+        np.testing.assert_allclose(r["rs1"], total[cols], rtol=1e-6)
+        np.testing.assert_allclose(r["rs_max"], np.maximum(base * 3, base)[rows], rtol=1e-6)
+        np.testing.assert_array_equal(r["rs_u64"], total_u64[tcomm.chunk((4,), 0, rank, 3)[2]])
+        assert r["rs_u64"].dtype == np.uint64
+        own = tcomm.chunk((7, 2), 1, rank, 3)[2]
+        np.testing.assert_array_equal(r["a2a"], x72[own])
+        np.testing.assert_array_equal(r["a2a_found_n"], x72[own])
+        np.testing.assert_array_equal(r["a2a_u64"], u72[own])
+        assert r["a2a"].shape == ((7, 1), (7, 1), (7, 0))[rank]
+        np.testing.assert_array_equal(r["ring"], np.full(3, (rank - 1) % 3))
+        np.testing.assert_array_equal(r["ring_back"], np.full(3, (rank + 1) % 3))
+        np.testing.assert_array_equal(r["ring_async"], r["ring"])
+        np.testing.assert_array_equal(r["ring_u64"], big + np.uint64((rank - 1) % 3))
+        np.testing.assert_array_equal(r["pperm"], np.full(3, {0: 2, 1: 0, 2: 0}[rank]))
+
+
+def test_gloo_resplit_uses_all_to_all(gloo_ranks):
+    rng = np.random.default_rng(0)
+    rng.standard_normal((7, 4))
+    x72 = rng.standard_normal((7, 2)).astype(np.float32)
+    for r in gloo_ranks:
+        assert int(r["resplit_allgathers"]) == 0
+    for s0, s1 in ((0, 1), (1, 0)):
+        ref = ht_tpu.array(x72, split=s0).resplit(s1)
+        _hold(gloo_ranks, f"resplit_x72_{s0}{s1}", ref, x72, rtol=0)
+    assert [_meta(r, "resplit_x72_01")[2] for r in gloo_ranks] == ["(7, 1)", "(7, 1)", "(7, 0)"]
+    assert [_meta(r, "resplit_x72_10")[2] for r in gloo_ranks] == ["(3, 2)", "(3, 2)", "(1, 2)"]
+    for r in gloo_ranks:
+        np.testing.assert_array_equal(r["resplit_x75_01"], r["resplit_x75_10"])
+
+
+def test_gloo_matmul_every_split_pair(gloo_ranks):
+    for tag, (sa_, sb_) in (("75x53", ((7, 5), (5, 3))), ("72x25", ((7, 2), (2, 5)))):
+        a = np.random.default_rng(1).standard_normal(sa_).astype(np.float32)
+        b = np.random.default_rng(2).standard_normal(sb_).astype(np.float32)
+        one = (htt.array(a) @ htt.array(b)).numpy()
+        for sa in (None, 0, 1):
+            for sb in (None, 0, 1):
+                ref = ht_tpu.array(a, split=sa) @ ht_tpu.array(b, split=sb)
+                _hold(gloo_ranks, f"mm_{tag}_{sa}_{sb}", ref)
+                for r in gloo_ranks:
+                    np.testing.assert_allclose(r[f"mm_{tag}_{sa}_{sb}"], one, rtol=1e-5, atol=1e-5)
+    v = np.random.default_rng(3).standard_normal(5).astype(np.float32)
+    m = np.random.default_rng(1).standard_normal((7, 5)).astype(np.float32)
+    b53 = np.random.default_rng(2).standard_normal((5, 3)).astype(np.float32)
+    a3 = np.random.default_rng(4).standard_normal((4, 7, 5)).astype(np.float32)
+    for sv in (None, 0):
+        for sm in (None, 0, 1):
+            _hold(gloo_ranks, f"mv_{sm}_{sv}",
+                  ht_tpu.matmul(ht_tpu.array(m, split=sm), ht_tpu.array(v, split=sv)))
+            _hold(gloo_ranks, f"vm_{sv}_{sm}",
+                  ht_tpu.matmul(ht_tpu.array(v, split=sv), ht_tpu.array(b53, split=sm)))
+    for s3 in (None, 0, 1, 2):
+        for sb in (None, 0, 1):
+            _hold(gloo_ranks, f"b3_{s3}_{sb}",
+                  ht_tpu.matmul(ht_tpu.array(a3, split=s3), ht_tpu.array(b53, split=sb)))
+
+
+def test_gloo_basics(gloo_ranks):
+    v = np.random.default_rng(3).standard_normal(5).astype(np.float32)
+    m = np.random.default_rng(1).standard_normal((7, 5)).astype(np.float32)
+    T = ht_tpu
+    _hold(gloo_ranks, "trace_0", T.linalg.trace(T.array(m, split=0), offset=1))
+    _hold(gloo_ranks, "trace_1", T.linalg.trace(T.array(m, split=1), offset=-1))
+    _hold(gloo_ranks, "tril_0", T.linalg.tril(T.array(m, split=0), -1))
+    _hold(gloo_ranks, "triu_1", T.linalg.triu(T.array(m, split=1), 1))
+    _hold(gloo_ranks, "outer_1", T.linalg.outer(T.array(v, split=0), T.array(v[:3], split=0),
+                                                split=1))
+    _hold(gloo_ranks, "dot", T.dot(T.array(v, split=0), T.array(v, split=None)))
+    _hold(gloo_ranks, "norm_1", T.linalg.matrix_norm(T.array(m, split=1), ord=1))
+
+
+QR_GLOO = {"tsqr_20x5": ((20, 5), 5, 0), "tsqr_short_7x5": ((7, 5), 6, 0),
+           "tsqr_tiles_24x3": ((24, 3), 7, 0), "chol_50x12": ((50, 12), 8, 1),
+           "chol_30x7": ((30, 7), 9, 1), "wide0_10x30": ((10, 30), 10, 0),
+           "wide1_10x30": ((10, 30), 10, 1)}
+
+
+@pytest.mark.parametrize("name", list(QR_GLOO))
+def test_gloo_qr_paths(gloo_ranks, name):
+    shape, seed, split = QR_GLOO[name]
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    ref = ht_tpu.linalg.qr(ht_tpu.array(a, split=split))
+    rq, rr = _sign_normalised(np.asarray(ref.Q.numpy()), np.asarray(ref.R.numpy()))
+    one = htt.linalg.qr(htt.array(a))
+    oq, orr = _sign_normalised(one.Q.numpy(), one.R.numpy())
+    for rank, r in enumerate(gloo_ranks):
+        q, rr_ = r[f"qr_{name}_Q"], r[f"qr_{name}_R"]
+        _qr_checks(q, rr_, a)
+        gq, gr = _sign_normalised(q, rr_)
+        for wq, wr in ((rq, rr), (oq, orr)):
+            np.testing.assert_allclose(gq, wq, rtol=0, atol=1e-4)
+            np.testing.assert_allclose(gr, wr, rtol=0, atol=1e-4 * float(np.abs(wr).max()))
+        for part, refpart in (("Q", ref.Q), ("R", ref.R)):
+            dtype, split, lshape = _meta(r, f"qr_{name}_{part}")
+            assert (dtype, split) == (refpart.dtype.__name__, str(refpart.split)), (name, part)
+            want = tcomm.chunk(refpart.shape, refpart.split, rank, 3)[1]
+            assert lshape == str(tuple(int(x) for x in want))
+
+
+def test_gloo_cholqr_schedules_and_fallback(gloo_ranks):
+    for r in gloo_ranks:
+        np.testing.assert_array_equal(r["ring_0_Q"], r["ring_1_Q"])
+        np.testing.assert_array_equal(r["ring_0_R"], r["ring_1_R"])
+        assert int(r["deficient_shifted"]) > 0
+    deficient = np.random.default_rng(11).standard_normal((30, 7)).astype(np.float32)
+    deficient[:, 3] = 0.0  # G is singular in any rounding: both packages shift
+    ref = ht_tpu.linalg.qr(ht_tpu.array(deficient, split=1))
+    for r in gloo_ranks:
+        q, rr = r["deficient_Q"], r["deficient_R"]
+        np.testing.assert_allclose(q @ rr, deficient, rtol=0, atol=1e-4 * np.abs(deficient).max())
+        np.testing.assert_allclose(q @ rr, np.asarray(ref.Q.numpy()) @ np.asarray(ref.R.numpy()),
+                                   rtol=0, atol=1e-4 * np.abs(deficient).max())
+        assert _meta(r, "deficient_R")[1] == str(ref.R.split) == "1"
+
+
+@pytest.mark.parametrize("name,qr_name,split", [("tall0", "tsqr_20x5", 0),
+                                                ("tall1", "chol_50x12", 1),
+                                                ("wide0", "wide0_10x30", 0)])
+def test_gloo_svd(gloo_ranks, name, qr_name, split):
+    shape, seed, _ = QR_GLOO[qr_name]
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    ref = ht_tpu.linalg.svd(ht_tpu.array(a, split=split))
+    s_ref = np.asarray(ref.S.numpy())
+    for r in gloo_ranks:
+        u, s, v = r[f"svd_{name}_U"], r[f"svd_{name}_S"], r[f"svd_{name}_V"]
+        np.testing.assert_allclose(s, s_ref, rtol=1e-5, atol=1e-5 * s_ref.max())
+        np.testing.assert_allclose(r[f"svdvals_{name}"], s_ref, rtol=1e-5, atol=1e-5 * s_ref.max())
+        np.testing.assert_allclose((u * s) @ v.T, a, rtol=0, atol=1e-5 * np.abs(a).max())
+        np.testing.assert_allclose(u.T @ u, np.eye(u.shape[1]), rtol=0, atol=1e-5)
+        for part, refpart in (("U", ref.U), ("S", ref.S), ("V", ref.V)):
+            assert _meta(r, f"svd_{name}_{part}")[:2] == (refpart.dtype.__name__,
+                                                         str(refpart.split)), (name, part)
