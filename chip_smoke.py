@@ -21,10 +21,19 @@ Phases, each printing JSON lines:
      from the build, and their tile choices timed against the shape rules;
      the flash backward (K7a, K7b and K8) also through autograd, and
      two-pass against fused over sequence lengths;
-  3. the array path at bench.py's sizes through the user entry points:
+  3. the random kernel (threefry2x32, the JAX package's stream) against
+     its plain version in every epilogue on ragged shapes and split slices
+     (bit-identical), the JAX package's golden values (randn's first and
+     last four, randint's first 16), and its device time at bench.py's
+     moments shape beside its plain version, torch.randn (another stream,
+     for scale) and its bound from the function's operations (beside the
+     instructions the compiler emitted, from the SASS); then the array path
+     at bench.py's sizes through the user entry points, its inputs drawn by
+     ht.random from seed 0:
      array(split=0) -> x*2+1 -> mean/var/std(axis=0) -> cdist -> KMeans.fit
      (bench.py's fit: randn data, init='random', random_state=1, 50
-     iterations, tol=0), with the kernels' launch counts read around it;
+     iterations, tol=0; its first centers the JAX package's rows), with the
+     kernels' launch counts read around it (the seeding's draws included);
      each stage is checked against a float64 reference, the fit both step
      by step along its own trajectory and end to end;
   4. the array path again under the profiler, for the device's busy share
@@ -42,7 +51,11 @@ Phases, each printing JSON lines:
      data-sheet rate), one f32 product profiled (one GEMM, no copy or
      cast); qr of a 1,000,000 x 256 and a 4096^2 f32 array and svd of the
      tall one, checked in float64; bench.py's elementwise row with clip;
-     none of the csrc/ kernels may launch on this path;
+     none of the csrc/ kernels may launch on this path; then bench.py's
+     reduction row and this slice's statistics (argmax/argmin, average,
+     cov, histogram, bincount, skew, kurtosis, nanmean/nanvar with NaNs,
+     cumsum, chunk_moments at one K2 launch) at its moments shape, each
+     against float64 with its wall time;
   7. the serving path: bench.py's lm_step TransformerLM at full width
      (vocab 32768, d_model 1024, 16 heads, 12 layers, bf16, flash
      attention) answers three requests of 8 x 1024 tokens, checked against
@@ -75,10 +88,30 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 TF32_FLOPS_PER_S = 495e12
-ARRAY_PATH = ("moments", "cdist", "lloyd")
+ARRAY_PATH = ("moments", "cdist", "lloyd", "random")
 # the wgmma K7a's (query rows a block, keys a tile) instantiations, by head dim
 DQ_TILES = [(64, (64, 64)), (64, (64, 128)), (64, (128, 64)), (64, (128, 128)),
             (128, (128, 64))]
+
+# golden values from the JAX package (tests/test_torch_random.py pins them):
+# seed(0); randn(8_000_000, 64, split=0)'s first and last four values, the
+# 64 rows of KMeans(64, init='random', random_state=1) over 2,000,000 rows,
+# and seed(0); randint(0, 8, (8192, 1))'s first 16
+GOLDEN_RANDN_SHAPE = (8_000_000, 64)
+GOLDEN_RANDN_FIRST4 = [1.004014253616333, -0.9063372015953064, -0.7481722235679626,
+                       -1.1713669300079346]
+GOLDEN_RANDN_LAST4 = [1.3848791122436523, 0.11706317216157913, -0.40688031911849976,
+                      1.7099376916885376]
+GOLDEN_KMEANS_ROWS_OF = (2_000_000, 64)
+GOLDEN_KMEANS_ROWS = [
+    63401, 372458, 715379, 624832, 584277, 1580600, 773191, 1480569, 1816410, 1711003,
+    1248872, 1498924, 1086903, 1808292, 405756, 1521495, 928483, 39798, 1841261, 635976,
+    1048063, 1631096, 1201706, 438454, 1136256, 1798459, 267488, 1612066, 411328, 232216,
+    1440796, 1475886, 1955296, 1437595, 1917081, 853868, 1326493, 166623, 217579, 1534357,
+    766412, 144957, 136500, 993163, 872953, 379193, 1048879, 461236, 987743, 719783, 1544887,
+    1777258, 942199, 1137366, 1600132, 1856413, 1623776, 1495837, 1732343, 928225, 1777631,
+    1506766, 1740124, 1897027]
+GOLDEN_RANDINT_FIRST16 = [7, 1, 7, 1, 2, 0, 1, 5, 5, 4, 5, 1, 7, 3, 5, 5]
 
 FAILURES = []
 
@@ -323,6 +356,247 @@ def linalg_path(ht, dev, gen):
     del xe, xe_t, out, ref
     torch.cuda.empty_cache()
     return dict(ht.launch_counts())
+
+
+# the random kernel's bound from the function it computes, not from the
+# instructions the compiler emitted: per element, operations that only the
+# ALU pipe runs (64 lanes an SM a clock), integer adds that the ALU or the
+# FMA pipe (IMAD.IADD) runs, and FP32 operations of the FMA pipes; every
+# operation takes an issue slot (4 warps an SM a clock, 128 lanes). The
+# least clocks an element an SM is then max(alu / 64, all / 128).
+#   hash: 41 ALU (20 rotations, 20 xors, the final x0 ^ x1) and 32 adds
+#         (20 in the rounds, 2 + 10 key injections; the key words' sums
+#         with the round number are the same for every element)
+#   normal_f32 adds the uniform's shift, or and max and erf_inv's branch
+#         test on the ALU (4), and 27 FP32 operations: the uniform's
+#         subtract, multiply and add (3), x * -x, log1p as one MUFU.LG2
+#         beside 4, w - 2.5, the nine-term Horner (16), p * x, sqrt(2) * (1
+#         each); this run's data takes the w < 5 branch and never u = +-1
+INT_ALU_LANES, ISSUE_LANES = 64, 128
+FUNCTION_OPS = {"bits32": {"alu": 41, "all": 41 + 32},
+                "normal_f32": {"alu": 41 + 4, "all": 41 + 32 + 4 + 27 + 1}}
+ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "PRMT", "LEA", "IABS", "IMNMX", "FLO",
+           "POPC", "BMSK", "MOV", "SHL", "SHR", "VIADD")
+
+
+def sass_per_element(lib_path, epilogue):
+    """Instructions a thread issues for one element in the grid-stride loop
+    of the random kernel's ``epilogue`` instantiation, read from its SASS
+    (``cuobjdump -sass``): from the counter's setup before the first
+    rotation to the loop's back branch. Returns (all, ALU-pipe integer)."""
+    import re
+
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f"threefry_drawILi{epilogue}E" in f.splitlines()[0])
+    ops = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P[T\d]\s+)?([A-Z][A-Z0-9_.]*)", body)]
+    first = next(i for i, (_, op) in enumerate(ops) if op.startswith("SHF.L.W"))
+    store = next(i for i in range(first, len(ops)) if ops[i][1].startswith("STG"))
+    back = next(i for i in range(store, len(ops)) if ops[i][1] == "BRA")
+    hot = [op for _, op in ops[first - 2:back + 1] if op not in ("NOP", "BSSY", "BSYNC")]
+    alu = [op for op in hot if op.split(".")[0] in ALU_OPS]
+    return len(hot), len(alu)
+
+
+def random_phase(ht, dev, time_ms, paths):
+    """The threefry kernel against its plain version on the card (every
+    epilogue; ragged sizes; slices of a split axis, a rank's chunk
+    included: bit-identical), the golden values of the JAX package, and
+    its device time at bench.py's moments shape with the bound from the
+    function's operations. Returns the kernels line's fields and the
+    phase's launches."""
+    import torch
+    from heat_tpu_torch.core import _threefry as tf, cuda_random
+
+    key = tf.fold_in(tf.prng_key(0), 0)
+    rows, cols = GOLDEN_RANDN_SHAPE
+    worst = {epi: 0 for epi in tf.EPILOGUES}
+    cases = [((1000, 7), None, 0, None), ((10, 3), 0, 7, 3), ((4, 37, 11), 1, 5, 9),
+             ((3, 5, 2), 2, 1, 1), ((123457,), 0, 1000, 5000),
+             ((rows, cols), 0, 2_666_667, 2_666_667)]  # rank 1's chunk of 3
+    ht.reset_launch_counts()
+    for shape, split, start, length in cases:
+        sl = tf.Slice(shape, split, start, length)
+        for epi in tf.EPILOGUES:
+            lo, hi = (-2.5, 7.25) if epi == "uniform_f32" else (0.0, 1.0)
+            got = cuda_random.draw(key, sl, epi, lo, hi, device=dev)
+            want = tf.draw_plain(key, sl, epi, lo, hi, device=dev)
+            if got.is_floating_point():
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            worst[epi] = max(worst[epi], int((got.long() - want.long()).abs().max()))
+            del got, want
+    compare_launches = ht.launch_counts()["random"]
+    check("random kernel vs its plain version: every epilogue, ragged and split slices, "
+          "bit-identical", not any(worst.values()) and compare_launches == 4 * len(cases),
+          worst_ulp_or_bits=worst, launches=compare_launches, tolerance="bit-identical")
+
+    # the golden values: the JAX package's draws at those indices
+    ht.random.seed(0)
+    x = ht.random.randn(rows, cols, split=0)
+    flat = x.larray.reshape(-1)
+    ends = torch.cat([flat[:4], flat[-4:]]).cpu()
+    gold = torch.tensor(GOLDEN_RANDN_FIRST4 + GOLDEN_RANDN_LAST4, dtype=torch.float32)
+    randn_ulp = int((ends.view(torch.int32).long() - gold.view(torch.int32).long()).abs().max())
+    ht.random.seed(0)
+    ints = ht.random.randint(0, 8, (8192, 1)).larray.reshape(-1)[:16].cpu().tolist()
+    check("random golden values: randn within 4 ulp of the JAX package's, randint equal",
+          randn_ulp <= 4 and ints == GOLDEN_RANDINT_FIRST16 and x.larray.is_cuda,
+          randn_max_ulp=randn_ulp, randint_first16=ints)
+
+    # device time at the moments shape; the plain version's; torch.randn's
+    n = rows * cols
+    sl = tf.Slice.whole((rows, cols))
+    fields = {"shape": [rows, cols]}
+    for epi in tf.EPILOGUES:
+        fields[f"{epi}_ms"] = time_ms(lambda: cuda_random.draw(key, sl, epi, device=dev), 5)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = tf.draw_plain(key, sl, "normal_f32", device=dev)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    kern = cuda_random.draw(key, sl, "normal_f32", device=dev)
+    max_abs_err = (kern - plain).abs().max().item()
+    del plain, kern, x, flat
+    fields["torch_randn_ms"] = time_ms(lambda: torch.randn((rows, cols), device=dev), 5)
+    props = torch.cuda.get_device_properties(dev)
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    clocks = props.multi_processor_count * mhz * 1e6
+    per_elem = {}
+    for epi, code in (("bits32", 0), ("normal_f32", 3)):
+        ops = FUNCTION_OPS[epi]
+        total, alu = sass_per_element(paths["random"], code)
+        t_ops_epi = max(ops["alu"] / INT_ALU_LANES, ops["all"] / ISSUE_LANES) * n / clocks * 1e3
+        per_elem[epi] = {"function_alu_ops": ops["alu"], "function_ops": ops["all"],
+                         "operations_bound_ms": t_ops_epi,
+                         "bound_ms": max(t_ops_epi, n * 4 / HBM_BYTES_PER_S * 1e3),
+                         "emitted_instructions": total, "emitted_alu_integer": alu,
+                         "emitted_alu_bound_ms": alu * n / (INT_ALU_LANES * clocks) * 1e3,
+                         "emitted_issue_bound_ms": total * n / (ISSUE_LANES * clocks) * 1e3}
+    t_bytes = n * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = per_elem["normal_f32"]["operations_bound_ms"]
+    fields.update({"per_element": per_elem, "sm_count": props.multi_processor_count,
+                   "max_sm_mhz": mhz, "bytes_bound_ms": t_bytes})
+    emit({"phase": "random kernel", **fields})
+    return {"variant": "normal_f32", "kernel_ms": fields["normal_f32_ms"], "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": max_abs_err, "old_ms": None,
+            "torch_randn_ms": fields["torch_randn_ms"]}
+
+
+def statistics_path(ht, dev):
+    """bench.py's reduction row and the statistics of this slice at its
+    moments shape, through the user entry points, each against float64 on
+    the same data with its wall time. Returns the launch counts over the
+    path and the K2 launches of chunk_moments."""
+    import numpy as np
+    import torch
+
+    rows, cols = GOLDEN_RANDN_SHAPE
+    ht.reset_launch_counts()
+    ht.random.seed(1)
+    x = ht.random.randn(rows, cols, split=0)
+    xt = x.larray
+    x64 = xt.double()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # bench.py's reduction row: 10 reps of (x - m) / (s + 1e-6) * 0.125,
+    # summed over axis 0
+    m, sd = ht.array(np.float32(0.1), device=dev), ht.array(np.float32(1.3), device=dev)
+    out, red_ms = timed(lambda: [ht.sum((x - m) / (sd + 1e-6) * 0.125, axis=0)
+                                 for _ in range(10)][-1])
+    ref = ((x64 - 0.1) / (1.3 + 1e-6) * 0.125).sum(0)
+    scale = (x64.abs() / 1.3 * 0.125).sum(0)
+    red_err = ((out.larray.double() - ref).abs() / scale).max().item()
+    bytes_rep = 7 * rows * cols * 4  # three elementwise passes read and write, the sum reads
+    emit({"phase": "reduction row", "shape": [rows, cols], "reps": 10, "wall_ms": red_ms,
+          "gb_per_s": 10 * bytes_rep / (red_ms * 1e-3) / 1e9, "err_over_sum_abs": red_err})
+    check("reduction row vs float64", out.shape == (cols,) and red_err <= 1e-5,
+          err_over_sum_abs=red_err, tolerance=1e-5)
+
+    results = {}
+
+    def hold(name, got, err, tol, ms, **extra):
+        results[name] = {"wall_ms": ms, "err": err, "tolerance": tol, **extra}
+        check(f"statistics {name} vs float64", err <= tol, err=err, tolerance=tol)
+
+    g, ms = timed(lambda: (ht.argmax(x, axis=0), ht.argmin(x, axis=0)))
+    exact = bool(torch.equal(g[0].larray, x64.argmax(0)) and torch.equal(g[1].larray,
+                                                                          x64.argmin(0)))
+    hold("argmax/argmin(axis=0)", g, 0.0 if exact else 1.0, 0.0, ms)
+    w = ht.random.rand(rows, split=0)
+    g, ms = timed(lambda: ht.average(x, axis=0, weights=w))
+    w64 = w.larray.double()
+    ref = (x64 * w64[:, None]).sum(0) / w64.sum()
+    hold("average(axis=0, weights)", g, ((g.larray.double() - ref).abs()
+                                         / ((x64.abs() * w64[:, None]).sum(0) / w64.sum())
+                                         ).max().item(), 1e-5, ms)
+    g, ms = timed(lambda: ht.cov(x, rowvar=False))
+    ref = torch.cov(x64.T)
+    hold("cov(rowvar=False)", g, ((g.larray.double() - ref).abs().max()
+                                  / ref.abs().max()).item(), 1e-4, ms)
+    g, ms = timed(lambda: ht.histogram(x, bins=64))
+    edges = g[1].larray
+    idx = torch.bucketize(x64.reshape(-1), edges, right=True)  # numpy's bins, the last closed
+    idx = torch.where(x64.reshape(-1) == edges[-1], 64, idx)
+    ref = torch.bincount(idx, minlength=66)[1:65].double()
+    del idx
+    hold("histogram(bins=64)", g, float((g[0].larray.double() - ref).abs().max()), 0.0, ms,
+         dtype=str(g[0].larray.dtype))
+    labels = ht.random.randint(0, cols, (rows,), dtype=ht.int64, split=0)
+    g, ms = timed(lambda: ht.bincount(labels))
+    hold("bincount", g, float((g.larray - torch.bincount(labels.larray)).abs().max()), 0.0, ms)
+    mu64 = x64.mean(0)
+    dev64 = x64 - mu64
+    m2, m3, m4 = (dev64 ** 2).mean(0), (dev64 ** 3).mean(0), (dev64 ** 4).mean(0)
+    del dev64
+    g, ms = timed(lambda: ht.skew(x, axis=0, unbiased=False))
+    hold("skew(axis=0)", g, (g.larray.double() - m3 / m2 ** 1.5).abs().max().item(), 1e-4, ms)
+    g, ms = timed(lambda: ht.kurtosis(x, axis=0))
+    hold("kurtosis(axis=0)", g, (g.larray.double() - (m4 / m2 ** 2 - 3)).abs().max().item(),
+         1e-4, ms)
+    holes = xt.clone()
+    holes[::1000, ::7] = float("nan")
+    xn = ht.array(holes, split=0)
+    h64 = holes.double()
+    g, ms = timed(lambda: ht.nanmean(xn, axis=0))
+    ref = h64.nanmean(0)
+    hold("nanmean(axis=0), NaNs planted", g, ((g.larray.double() - ref).abs()
+                                              / h64.abs().nanmean(0)).max().item(), 1e-5, ms)
+    g, ms = timed(lambda: ht.nanvar(xn, axis=0))
+    ref = ((h64 - ref) ** 2).nanmean(0)
+    hold("nanvar(axis=0), NaNs planted", g, ((g.larray.double() - ref).abs() / ref).max().item(),
+         1e-4, ms)
+    del holes, xn, h64
+    g, ms = timed(lambda: ht.cumsum(x, axis=0))
+    ref = x64.cumsum(0)
+    err = ((g.larray.double() - ref).abs() / x64.abs().cumsum(0).clamp(min=1.0)).max().item()
+    del ref
+    hold("cumsum(axis=0)", g, err, 1e-5, ms)
+    del g
+    before = ht.launch_counts()["moments"]
+    (n_c, mu_c, m2_c), ms = timed(lambda: ht.chunk_moments(x))
+    k2 = ht.launch_counts()["moments"] - before
+    err = max(((mu_c.double() - mu64).abs() / (mu64.abs() + x64.std(0))).max().item(),
+              ((m2_c.double() - m2 * rows).abs() / (m2 * rows)).max().item())
+    hold("chunk_moments", (n_c, mu_c, m2_c), err, 1e-4, ms, k2_launches=k2)
+    check("chunk_moments: one K2 launch", k2 == 1 and n_c == rows, launches=k2)
+    launches = dict(ht.launch_counts())
+    emit({"phase": "statistics path", "shape": [rows, cols], "results": results,
+          "launches": launches})
+    del x, xt, x64, w, labels
+    return launches
 
 
 def main():
@@ -1092,11 +1366,21 @@ def main():
         int8_case("ragged (K % 16 != 0: the mma.sync kernel)", 1000, 1000, 999, out_dtype, 5)
         int8_case("ragged M, N; K % 128 != 0", 1000, 777, 1040, out_dtype, 5)
 
+    # ------------------------------------------------------ random kernel
+    report["random"] = random_phase(ht, dev, time_ms, paths)
+
     # ---------------------------------------------------------- main path
-    xm_t = torch.randn((8_000_000, 64), generator=gen, device=dev)
-    xc_t = torch.rand((16384, 128), generator=gen, device=dev)
-    xk_t = torch.randn((2_000_000, 64), generator=gen, device=dev)
+    # the inputs drawn as bench.py draws them, through ht.random (the
+    # threefry kernel), from seed 0
+    ht.random.seed(0)
+    ht.reset_launch_counts()
+    xm_t = ht.random.randn(8_000_000, 64, split=0).larray
+    xc_t = ht.random.rand(16384, 128, split=0).larray
+    xk_t = ht.random.randn(2_000_000, 64, split=0).larray
     torch.cuda.synchronize()
+    draw_launches = ht.launch_counts()["random"]
+    check("main path inputs drawn by the random kernel", draw_launches == 3 and xm_t.is_cuda,
+          launches=draw_launches)
 
     def run_main_path():
         stages = {}
@@ -1165,9 +1449,13 @@ def main():
     # label, so its |x| and its count are allowed to either center; the rest
     # of the sums within 1e-4 of the sum of |x| (another summation order).
     n_rows, d_k, k_k = xk_t.shape[0], xk_t.shape[1], 64
-    pick = torch.Generator()
-    pick.manual_seed(1)  # init='random', random_state=1: k distinct rows
-    c0 = xk_t[torch.randperm(n_rows, generator=pick)[:k_k].to(dev)].clone()
+    # init='random', random_state=1: the JAX package's 64 rows
+    c0 = xk_t[torch.tensor(GOLDEN_KMEANS_ROWS, device=dev)].clone()
+    c_first = ht.cluster.KMeans(n_clusters=k_k, init="random", random_state=1)
+    c_first = c_first._initialize_cluster_centers(ht.array(xk_t, split=0))
+    check("main path kmeans starts from the JAX package's rows", bool(torch.equal(c_first, c0)),
+          rows_of=list(GOLDEN_KMEANS_ROWS_OF))
+    del c_first
     xk64 = xk_t.double()
     xnorm = xk64.norm(dim=1)
     steps = {"worst_sum_err_over_tol": 0.0, "worst_count_err_over_tol": 0.0,
@@ -1238,9 +1526,10 @@ def main():
           tolerance={"n_iter": 50, "inertia_rel": 1e-4})
     del xk64, xnorm, mu, va, sd, c_plain, lab_plain
 
-    # the KMeans stage's host time: the 'random' draw (a randperm of the
-    # rows on the host), the wrapper's host time per pass (no sync), and a
-    # warm Lloyd iteration with its shift read, against the pass alone
+    # the KMeans stage's host time: the 'random' draw (threefry sort keys
+    # and two stable sorts of the rows on the card), the wrapper's host
+    # time per pass (no sync), and a warm Lloyd iteration with its shift
+    # read, against the pass alone
     xk = ht.array(xk_t, split=0)
     est = ht.cluster.KMeans(n_clusters=64, init="random", random_state=1)
     torch.cuda.synchronize()
@@ -1345,6 +1634,14 @@ def main():
     emit({"phase": "linalg path launches", "launches": linalg_launches})
     check("linalg path launched no kernel of csrc/", not any(linalg_launches.values()),
           launches=linalg_launches)
+
+    # ------------------------------------------------------ statistics path
+    # bench.py's reduction row and the statistics at its moments shape,
+    # inputs from ht.random
+    stats_launches = statistics_path(ht, dev)
+    check("statistics path drew with the random kernel and reduced with K2",
+          stats_launches["random"] > 0 and stats_launches["moments"] > 0,
+          launches=stats_launches)
 
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of
@@ -1604,6 +1901,8 @@ def main():
                           "heat_tpu/parallel/pallas_attention.py:364"),
         "flash_bwd_fused": ("heat_tpu_torch/csrc/flash_bwd.cu",
                             "heat_tpu/parallel/pallas_attention.py:436"),
+        # no Pallas kernel: XLA's threefry2x32, reached from the draws there
+        "random": ("heat_tpu_torch/csrc/random.cu", "heat_tpu/core/random.py:59"),
     }
     launches = {**launches, **w8a8_launches, **lm_launches,
                 **{name: train_launches[name] for name in backward_kernels}}
@@ -1617,7 +1916,8 @@ def main():
             "int8_gemm": ("QuantDense (8192, 4096, 1024) f32 out", int8_quant_dense)}
     shapes = {"int8_gemm": "W8A8 chain (8192, 8192, 8192) f32 out",
               "lloyd": "KMeans pass (2,000,000, 64), k = 64",
-              "cdist": "main path (16384, 16384, 128) f32, x = y, dist"}
+              "cdist": "main path (16384, 16384, 128) f32, x = y, dist",
+              "random": "randn (8,000,000, 64) f32: the normal_f32 epilogue"}
     timing_keys = ("variant", "kernel_ms", "old_ms", "plain_ms", "library_ms", "bound_ms",
                    "bound_by", "max_abs_err")
     kernels = []
@@ -1634,6 +1934,8 @@ def main():
                         "shape": shapes.get(name, "LM shape (8, 1024, 16, 64) bf16 causal")})
         if name in ("lloyd", "cdist"):
             row["bound_ms_f32_fma"] = r["bound_ms_f32_fma"]
+        if name == "random":
+            row["torch_randn_ms_other_stream"] = r["torch_randn_ms"]
         if name in also:
             label, other = also[name]
             row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}

@@ -21,11 +21,23 @@ package has a Pallas kernel:
     ``ring_permute``; ``DNDarray.resplit`` between split axes is one
     ``all_to_all``. Their products and factorizations are cuBLAS and
     cuSOLVER through ``torch``, as the JAX package's are XLA's; the
-    rounding, relational and logical operations come with them.
+    rounding, relational and logical operations come with them;
+  - ``random``: the JAX package's ``jax.random`` stream reproduced (counter-
+    mode threefry2x32 and its transforms), each rank drawing only its own
+    chunk, on a kernel that computes the draw on the card; KMeans seeds
+    from it as the JAX package does (``'random'`` and
+    ``'probability_based'``);
+  - the rest of the elementwise API (cumulative operations, the bitwise
+    and remaining arithmetic, exponential, trigonometric and complex
+    functions, printing) and the statistics (``argmax``/``argmin``,
+    ``average``, ``bincount``, ``cov``, ``histogram``, ``skew``,
+    ``kurtosis``, the nan-reductions, ``chunk_moments`` on the moments
+    kernel); ``percentile`` and ``median`` wait for the distributed sort.
 """
 
 from .core import *
 from . import core
+from .core import random
 from . import cluster
 from . import spatial
 from . import parallel

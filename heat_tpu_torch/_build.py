@@ -41,10 +41,10 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "heat_tpu_torch"
-SOURCES = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm", "flash_bwd")
+SOURCES = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm", "flash_bwd", "random")
 # the launch counters: one per kernel, named by source where it holds one
 KERNELS = ("moments", "cdist", "lloyd", "flash_fwd", "int8_gemm",
-           "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+           "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused", "random")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

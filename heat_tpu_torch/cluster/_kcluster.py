@@ -7,11 +7,25 @@ from typing import Optional
 
 import torch
 
-from ..core import types
+from ..core import _threefry, cuda_random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 
 __all__ = ["_KCluster", "_d2"]
+
+
+def _rows(x: DNDarray, data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` (global indices, the same on every rank) of ``x``
+    on every rank; ``data`` is the local rows (all rows unless ``x`` is
+    split along 0). Across ranks each rank fills the rows it owns and one
+    allreduce joins them."""
+    if x.split != 0 or x.comm.size == 1:
+        return data[idx].clone()
+    offset, lshape, _ = x.comm.chunk(x.shape, 0)
+    mine = (idx >= offset) & (idx < offset + lshape[0])
+    rows = torch.zeros((idx.shape[0], x.shape[1]), dtype=data.dtype, device=data.device)
+    rows[mine] = data[idx[mine] - offset]
+    return x.comm.allreduce(rows)
 
 
 def _d2(xb: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -33,11 +47,14 @@ def _d2(xb: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 class _KCluster(BaseEstimator, ClusteringMixin):
     """Base for the K-family clusterers (reference _kcluster.py:10).
 
-    ``init`` is ``'random'`` (k distinct data rows) or a DNDarray of initial
-    centers. ``'random'`` draws the rows with a ``torch.Generator`` seeded
-    by ``random_state`` (0 when None); it does not reproduce the JAX
-    package's ``jax.random`` draw, so the two packages start from different
-    rows for the same seed. ``'probability_based'`` is not ported yet.
+    ``init`` is ``'random'`` (k distinct data rows), ``'probability_based'``
+    (k-means++; also ``'kmeans++'``) or a DNDarray of initial centers. The
+    draws are the JAX package's, from ``PRNGKey(random_state)`` (0 when
+    None) through the port's threefry stream, on the card: ``'random'``
+    takes the first k of ``permutation(n)`` and picks the same rows as the
+    JAX package; k-means++ draws its first row with ``randint`` and each
+    further one with ``choice(p = d2 / sum d2)``, the same rows unless a
+    draw falls within rounding of a boundary of the cumulative ``p``.
     """
 
     def __init__(self, metric: str, n_clusters: int, init, max_iter: int, tol: float,
@@ -72,7 +89,9 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         return self._n_iter
 
     def _initialize_cluster_centers(self, x: DNDarray) -> torch.Tensor:
-        """Initial (k, d) centers, the same on every rank."""
+        """Initial (k, d) centers, the same on every rank, drawn as the JAX
+        package draws them from ``PRNGKey(random_state or 0)`` (its
+        ``_kcluster.py:103-133``)."""
         k = self.n_clusters
         if isinstance(self.init, DNDarray):
             if self.init.shape != (k, x.shape[1]):
@@ -80,23 +99,31 @@ class _KCluster(BaseEstimator, ClusteringMixin):
                     f"passed centroids need to be of shape ({k}, {x.shape[1]}), but are {self.init.shape}"
                 )
             return self.init._global().to(x.larray.device)
+        key = _threefry.prng_key(self.random_state if self.random_state is not None else 0)
+        n, tdev = x.shape[0], x.larray.device
+        data = x.larray if x.split in (None, 0) else x._global()
+        sharded = x.split == 0 and x.comm.size > 1
         if self.init == "random":
-            n = x.shape[0]
-            if k > n:
-                raise ValueError(f"cannot draw {k} initial centers from {n} rows")
-            gen = torch.Generator(device="cpu")
-            gen.manual_seed(self.random_state if self.random_state is not None else 0)
-            idx = torch.randperm(n, generator=gen)[:k].to(x.larray.device)
-            if x.split is None or x.comm.size == 1:
-                return x.larray[idx].clone()
-            # each rank fills the drawn rows it owns; one allreduce joins them
-            offset, lshape, _ = x.comm.chunk(x.shape, x.split)
-            mine = (idx >= offset) & (idx < offset + lshape[0])
-            centers = torch.zeros((k, x.shape[1]), dtype=x.larray.dtype, device=x.larray.device)
-            centers[mine] = x.larray[idx[mine] - offset]
-            return x.comm.allreduce(centers)
+            idx = _threefry.choice(key, n, (k,), replace=False, device=tdev,
+                                   draw=cuda_random.draw)
+            return _rows(x, data, idx)
         if self.init in ("probability_based", "kmeans++", "k-means++"):
-            raise NotImplementedError("init='probability_based' is not ported yet")
+            # k-means++: the first row uniformly, each further one with
+            # probability proportional to its squared distance from the
+            # nearest center so far
+            first = _threefry.randint(key, _threefry.Slice.whole(()), 0, n, torch.int64,
+                                      cuda_random.draw, tdev)
+            centers = [_rows(x, data, first.reshape(1))]
+            xf = data.to(torch.float32)
+            for _ in range(1, k):
+                key, sub = _threefry.split(key)
+                d2 = _d2(xf, torch.cat(centers).to(torch.float32)).min(dim=1).values
+                if sharded:
+                    d2 = x.comm.allgather(d2, 0, n)
+                probs = d2 / torch.clamp(d2.sum(), min=1e-30)
+                nxt = _threefry.choice(sub, n, p=probs, device=tdev, draw=cuda_random.draw)
+                centers.append(_rows(x, data, nxt.reshape(1)))
+            return torch.cat(centers)
         raise ValueError(
             f"initialization needs to be 'random', 'probability_based' or a DNDarray, but was {self.init}"
         )

@@ -31,9 +31,10 @@ class KMeans(_KCluster):
     Parameters
     ----------
     n_clusters : int
-    init : 'random' | DNDarray
-        ``'random'`` draws k distinct rows with a ``torch.Generator`` seeded
-        by ``random_state``; it does not reproduce the JAX package's draw.
+    init : 'random' | 'probability_based' | DNDarray
+        ``'random'`` draws k distinct rows, ``'probability_based'`` seeds by
+        k-means++; both draw from ``random_state`` as the JAX package does
+        and pick its rows.
     max_iter : int
     tol : float
         Convergence threshold on the squared centroid shift.

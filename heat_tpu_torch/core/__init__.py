@@ -1,10 +1,12 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
-factories, the elementwise, rounding, relational and logical operations,
-the statistics of the array path, and ``linalg``."""
+factories, the elementwise (arithmetic, exponential, trigonometric,
+complex, rounding, relational and logical) operations, printing, the
+statistics, ``random`` and ``linalg``."""
 
-from . import constants, linalg, version
+from . import constants, linalg, random, version
 from .arithmetics import *
 from .communication import TorchCommunication, get_comm, use_comm
+from .complex_math import *
 from .constants import *
 from .devices import Device, cpu, get_device, gpu, use_device
 from .dndarray import DNDarray
@@ -13,13 +15,17 @@ from .factories import *
 from .linalg import *
 from .logical import *
 from .memory import *
+from .printing import *
 from .relational import *
 from .rounding import *
 from .statistics import *
+from .trigonometrics import *
 from .version import version as __version__
 from .types import (
     bool,
     canonical_heat_type,
+    complex64,
+    complex128,
     float16,
     float32,
     float64,

@@ -44,7 +44,7 @@ from . import sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["binary_op", "into", "local_op", "reduce_op", "result_type"]
+__all__ = ["binary_op", "cum_op", "into", "local_op", "reduce_op", "result_type", "tensor_operands"]
 
 _SCALARS = (builtins.int, builtins.float, builtins.bool, builtins.complex, np.generic)
 # the inexact type of each exact one, as jnp's true_divide and
@@ -116,6 +116,20 @@ def _cast(x, dtype: torch.dtype):
     return x
 
 
+def tensor_operands(operation: Callable) -> Callable:
+    """``operation`` for torch functions that take no python number (such
+    as ``hypot``, ``atan2``, ``maximum``): a number operand becomes a 0-d
+    tensor of the other operand's type and device."""
+    def apply(a, b):
+        if not isinstance(a, torch.Tensor):
+            a = torch.tensor(a, dtype=b.dtype, device=b.device)
+        if not isinstance(b, torch.Tensor):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        return operation(a, b)
+
+    return apply
+
+
 def into(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
     """``res``, or, given an ``out`` buffer of ``res``'s shape, split and
     device, ``res`` copied into it in ``out``'s type."""
@@ -139,14 +153,15 @@ def binary_op(
     t1,
     t2,
     out: Optional[DNDarray] = None,
-    true_divide: bool = False,
+    inexact: bool = False,
 ) -> DNDarray:
     """Elementwise binary operation with broadcasting and split
     reconciliation (reference _operations.py:25-181). A replicated operand
     that spans the output's split dimension is cut to this rank's chunk; a
     split operand of size 1 along its split axis is gathered whole and
     broadcasts. The result's split is an operand's split, as in the JAX
-    package."""
+    package. ``inexact`` makes an exact result type inexact, as true
+    division and jnp's ``hypot``, ``arctan2``, ``logaddexp`` do."""
     arrays = [a for a in (t1, t2) if isinstance(a, DNDarray)]
     if not arrays:
         raise TypeError(f"expected at least one DNDarray operand, got {type(t1)}, {type(t2)}")
@@ -190,7 +205,7 @@ def binary_op(
 
     a, b = local(t1, s1), local(t2, s2)
     dtype = result_type(a, b)
-    if true_divide:
+    if inexact:
         dtype = _INEXACT.get(dtype, dtype)
     result = _apply(operation, _cast(a, dtype), _cast(b, dtype))
 
@@ -219,6 +234,10 @@ def local_op(
     return into(res, out)
 
 
+_ALLREDUCE = {"sum": "sum", "prod": "prod", "max": "max", "min": "min", "nansum": "sum",
+              "nanprod": "prod"}
+
+
 def reduce_op(
     reduction: str,
     x: DNDarray,
@@ -228,10 +247,12 @@ def reduce_op(
     keepdims: bool = False,
     dtype: Optional[Type[types.datatype]] = None,
 ) -> DNDarray:
-    """Reduction ``reduction`` in ``{"sum", "max", "min"}`` (reference
-    _operations.py:355-478): local reduce, then one allreduce when the
-    reduction crosses the split dimension. An empty chunk contributes the
-    neutral element."""
+    """Reduction ``reduction`` in ``{"sum", "prod", "max", "min", "nansum",
+    "nanprod"}`` (reference _operations.py:355-478): local reduce, then one
+    allreduce when the reduction crosses the split dimension. An empty chunk
+    contributes the neutral element; the nan-variants count a NaN as it.
+    Sums and products of exact types are taken in 64 bits, as numpy's and
+    the JAX package's are (unsigned input gives uint64)."""
     sanitation.sanitize_in(x)
     axes = sanitize_axis(x.shape, axis)
     if axes is None:
@@ -256,12 +277,21 @@ def reduce_op(
 
     buf = x.larray
     unsigned = buf.dtype in _UNSIGNED
-    if reduction == "sum":
+    if reduction in ("nansum", "nanprod") and buf.is_floating_point():
+        buf = torch.where(torch.isnan(buf), neutral, buf)
+    if reduction in ("sum", "prod", "nansum", "nanprod"):
         if buf.dtype == torch.uint64:
-            buf = buf.view(torch.int64)  # the same bits: sums agree modulo 2^64
+            buf = buf.view(torch.int64)  # the same bits: sums and products agree modulo 2^64
         elif buf.dtype == torch.bool or (_is_exact(buf) and buf.dtype != torch.int64):
-            buf = buf.to(torch.int64)  # numpy/JAX x64 sums small ints as int64
-        result = torch.sum(buf, dim=red_axes, keepdim=keepdims) if red_axes else buf.clone()
+            buf = buf.to(torch.int64)  # numpy/JAX x64 reduce small ints as int64
+        if not red_axes:
+            result = buf.clone()
+        elif reduction in ("sum", "nansum"):
+            result = torch.sum(buf, dim=red_axes, keepdim=keepdims)
+        else:
+            result = buf
+            for d in sorted(red_axes, reverse=True):
+                result = torch.prod(result, dim=d, keepdim=keepdims)
     else:
         fn = torch.amax if reduction == "max" else torch.amin
         if buf.numel() == 0:
@@ -272,12 +302,63 @@ def reduce_op(
             result = _apply(lambda b: fn(b, dim=red_axes, keepdim=keepdims) if red_axes
                             else b.clone(), buf)
     if crosses_split:
-        result = x.comm.allreduce(result.contiguous(), reduction)
-    if reduction == "sum" and unsigned:
-        result = result.view(torch.uint64)  # the reference sums unsigned types as uint64
+        result = x.comm.allreduce(result.contiguous(), _ALLREDUCE[reduction])
+    if reduction in ("sum", "prod", "nansum", "nanprod") and unsigned:
+        result = result.view(torch.uint64)  # the reference reduces unsigned types as uint64
     if dtype is not None:
         result = result.to(types.canonical_heat_type(dtype).torch_type())
 
     res = DNDarray(result, out_gshape, types.canonical_heat_type(result.dtype), out_split,
                    x.device, x.comm, True)
+    return into(res, out)
+
+
+def cum_op(
+    operation: str,
+    x: DNDarray,
+    axis: int,
+    out: Optional[DNDarray] = None,
+    dtype: Optional[Type[types.datatype]] = None,
+) -> DNDarray:
+    """Cumulative ``"sum"`` or ``"prod"`` along ``axis`` (the JAX package's
+    ``cum_op``, _operations.py:256; the original Heat's local scan +
+    exclusive scan + combine). Off the split axis it is local. Along it,
+    each rank scans its chunk, the ranks' last slices are gathered, and each
+    rank combines those of the ranks before it, in rank order, with its own
+    scan. Types are the JAX package's: every type keeps its own (bool
+    accumulates in int64); ``dtype`` casts the result."""
+    sanitation.sanitize_in(x)
+    axis = sanitize_axis(x.shape, axis)
+    if not isinstance(axis, builtins.int):
+        raise TypeError(f"axis must be an integer, got {axis!r}")
+    buf = x.larray
+    unsigned = buf.dtype == torch.uint64
+    if unsigned:
+        buf = buf.view(torch.int64)
+    elif buf.dtype == torch.bool:
+        buf = buf.to(torch.int64)
+    scan = torch.cumsum if operation == "sum" else torch.cumprod
+    # along the last axis of a contiguous copy: torch's scan along a strided
+    # axis of a large array is ~1000x slower on the card than along rows
+    result = _apply(lambda b: scan(b.movedim(axis, -1).contiguous(), dim=-1, dtype=b.dtype)
+                    .movedim(-1, axis).contiguous(), buf)
+    comm = x.comm
+    if x.split == axis and comm.size > 1:
+        neutral = 0 if operation == "sum" else 1
+        shape = list(result.shape)
+        shape[axis] = 1
+        last = result.narrow(axis, result.shape[axis] - 1, 1) if result.shape[axis] else \
+            torch.full(shape, neutral, dtype=result.dtype, device=result.device)
+        lasts = comm.allgather(last.contiguous(), axis, comm.size)
+        carry = torch.full(shape, neutral, dtype=result.dtype, device=result.device)
+        for r in range(comm.rank):
+            piece = lasts.narrow(axis, r, 1)
+            carry = carry + piece if operation == "sum" else carry * piece
+        result = result + carry if operation == "sum" else result * carry
+    if unsigned:
+        result = result.view(torch.uint64)
+    if dtype is not None:
+        result = result.to(types.canonical_heat_type(dtype).torch_type())
+    res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,
+                   x.device, comm, True)
     return into(res, out)

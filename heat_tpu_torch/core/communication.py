@@ -94,7 +94,8 @@ def counts_displs(n: int, size: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
 # the signed type of the same width, which carries an unsigned type's bits
 # through a collective
 _BITS_AS = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
-_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
 
 
 def _exact_wire(precision: Optional[str]) -> None:
@@ -285,6 +286,24 @@ class TorchCommunication:
                 works = dist.batch_isend_irecv(ops)
         pending = PendingPermute(out, works, dtype, tensor)
         return pending if async_op else pending.wait()
+
+    def alltoallv(self, send: torch.Tensor, send_counts: Sequence[int],
+                  recv_counts: Sequence[int]) -> torch.Tensor:
+        """Exchange rows (dimension 0) of uneven counts: the first
+        ``send_counts[0]`` rows of ``send`` go to rank 0, the next
+        ``send_counts[1]`` to rank 1, and so on; returns the
+        ``recv_counts[p]`` rows from each rank ``p``, in rank order (the
+        counterpart of an ``all_to_all`` with counts; ``all_to_all_single``
+        with split sizes)."""
+        if self.size == 1:
+            return send
+        dtype = send.dtype
+        wire = {torch.bool: torch.uint8, **_BITS_AS}.get(dtype, dtype)
+        send = send.view(wire).contiguous()
+        recv = send.new_empty((sum(recv_counts),) + tuple(send.shape[1:]))
+        dist.all_to_all_single(recv, send, output_split_sizes=list(recv_counts),
+                               input_split_sizes=list(send_counts), group=self.group)
+        return recv.view(dtype)
 
     def _global_rank(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)

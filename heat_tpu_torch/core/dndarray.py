@@ -124,10 +124,14 @@ class DNDarray:
         return self.__gshape[0]
 
     def __repr__(self) -> str:
-        return (
-            f"DNDarray(gshape={self.__gshape}, dtype={self.__dtype.__name__}, "
-            f"split={self.__split}, device={self.__device}, rank={self.__comm.rank})"
-        )
+        """The values, type, device and split, as the JAX package prints
+        them (``printing.__str__``); a collective across ranks, which
+        gathers only the edge items of an array above the threshold."""
+        from . import printing
+
+        return printing.__str__(self)
+
+    __str__ = __repr__
 
     # ---------------------------------------------------------- conversions
 

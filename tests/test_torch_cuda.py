@@ -669,6 +669,60 @@ def test_lm_forward_launches_flash_once_per_layer(dev):
     assert err <= 2e-2, err
 
 
+RANDOM_SLICES = [((1000, 7), None, 0, None), ((10, 3), 0, 7, 3), ((4, 37, 11), 1, 5, 9),
+                 ((3, 5, 2), 2, 1, 1), ((123457,), 0, 1000, 5000), ((2_000_001, 3), 0, 0, 1)]
+
+
+@pytest.mark.parametrize("epilogue", ["bits32", "bits64", "uniform_f32", "normal_f32"])
+@pytest.mark.parametrize("shape,split,start,length", RANDOM_SLICES)
+def test_random_kernel_matches_plain(dev, epilogue, shape, split, start, length):
+    """The threefry kernel bit for bit against its plain version on the
+    card: the same counters, the same rounded float operations (no FMA
+    contraction on either side), the same log1pf."""
+    from heat_tpu_torch.core import _threefry as tf, cuda_random
+
+    key = tf.fold_in(tf.prng_key(9), 4)
+    sl = tf.Slice(shape, split, start, length)
+    before = htt.launch_counts()["random"]
+    got = cuda_random.draw(key, sl, epilogue, -2.5, 7.25, device=dev)
+    torch.cuda.synchronize()
+    assert htt.launch_counts()["random"] == before + 1
+    want = tf.draw_plain(key, sl, epilogue, -2.5, 7.25, device=dev)
+    assert got.shape == want.shape == sl.shape and got.dtype == want.dtype and got.is_cuda
+    if got.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_random_golden_values_on_card(dev):
+    """The card's draws give the golden values that chip_smoke.py embeds
+    (pinned against the JAX package in test_torch_random.py)."""
+    import importlib.util
+
+    from heat_tpu_torch.core import _threefry as tf, cuda_random
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rows, cols = smoke.GOLDEN_RANDN_SHAPE
+    key = tf.fold_in(tf.prng_key(0), 0)
+    first = cuda_random.draw(key, tf.Slice((rows, cols), 0, 0, 1), "normal_f32", device=dev)
+    last = cuda_random.draw(key, tf.Slice((rows, cols), 0, rows - 1, 1), "normal_f32",
+                            device=dev)
+    got = torch.cat([first.reshape(-1)[:4], last.reshape(-1)[-4:]]).cpu()
+    gold = torch.tensor(smoke.GOLDEN_RANDN_FIRST4 + smoke.GOLDEN_RANDN_LAST4)
+    assert (got.view(torch.int32).long() - gold.view(torch.int32).long()).abs().max() <= 4
+    idx = tf.choice(tf.prng_key(1), smoke.GOLDEN_KMEANS_ROWS_OF[0], (64,), replace=False,
+                    device=dev, draw=cuda_random.draw)
+    assert idx.cpu().tolist() == smoke.GOLDEN_KMEANS_ROWS
+    htt.use_device(None)
+    htt.random.seed(0)
+    ints = htt.random.randint(0, 8, (8192, 1))
+    assert ints.larray.is_cuda and ints.larray.reshape(-1)[:16].cpu().tolist() == \
+        smoke.GOLDEN_RANDINT_FIRST16
+
+
 _DATA = """
 import numpy as np
 import torch
@@ -700,6 +754,13 @@ def run(ht, device):
         res[name + "_labels"] = km.labels_.numpy()
         res[name + "_n_iter"] = np.array(km.n_iter_)
     res["launches"] = np.array([ht.launch_counts()[n] for n in ("moments", "cdist", "lloyd")])
+    # ht.random: each rank draws its own chunk of the global stream
+    ht.random.seed(3)
+    res["draw_rand_0"] = ht.random.rand(1_000_003, 7, split=0).numpy()
+    res["draw_randn_1"] = ht.random.randn(33, 1001, split=1).numpy()
+    res["draw_randint_0"] = ht.random.randint(-7, 2 ** 40, (100_003,), dtype=ht.int64,
+                                              split=0).numpy()
+    res["draw_permutation_0"] = ht.random.permutation(ht.array(xc, split=0)).numpy()
     return res
 """
 
@@ -748,7 +809,9 @@ def _spmd_ranks(tmp_path, world, backend, data=_DATA):
 def test_nccl_ranks_match_world_of_one(dev, tmp_path):
     """Every card of the machine is one rank over NCCL; the sharded moments
     merge, the replicated y of cdist and the per-iteration Lloyd allreduce
-    must give the world-of-one results of this process."""
+    must give the world-of-one results of this process, and the random
+    draws split 0 and 1 (and ``permutation`` of a split array) its arrays
+    bit for bit."""
     world = torch.cuda.device_count()
     if world < 2:
         pytest.skip("needs two or more CUDA cards")
@@ -767,6 +830,8 @@ def test_nccl_ranks_match_world_of_one(dev, tmp_path):
         np.testing.assert_array_equal(r["dn_labels"], want["dn_labels"])
         np.testing.assert_allclose(r["dn_centers"], want["dn_centers"], rtol=0, atol=1e-4)
         np.testing.assert_array_equal(r["random_centers"], want["random_centers"])
+        for name in ("draw_rand_0", "draw_randn_1", "draw_randint_0", "draw_permutation_0"):
+            np.testing.assert_array_equal(r[name], want[name])
     counts, _ = communication.counts_displs(1_000_003, world)
     assert [int(r["lshape"][0]) for r in ranks] == list(counts)
 

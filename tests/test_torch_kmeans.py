@@ -126,8 +126,10 @@ def test_random_init_is_seeded_and_deterministic():
             .fit(htt.array(x, split=0)) for _ in range(2)]
     np.testing.assert_array_equal(fits[0].cluster_centers_.numpy(), fits[1].cluster_centers_.numpy())
     np.testing.assert_array_equal(fits[0].labels_.numpy(), fits[1].labels_.numpy())
-    with pytest.raises(NotImplementedError):
-        htt.cluster.KMeans(n_clusters=3, init="probability_based").fit(htt.array(x))
+    # k-means++ seeding is ported too: seeded and deterministic as well
+    pp = [htt.cluster.KMeans(n_clusters=5, init="probability_based", random_state=3, max_iter=15)
+          .fit(htt.array(x, split=0)) for _ in range(2)]
+    np.testing.assert_array_equal(pp[0].cluster_centers_.numpy(), pp[1].cluster_centers_.numpy())
     with pytest.raises(ValueError):
         htt.cluster.KMeans(n_clusters=3, init=htt.array(np.zeros((2, 4), np.float32))).fit(htt.array(x))
 

@@ -19,7 +19,11 @@ three gloo ranks take the distributed paths and are held to the 8-device
 mesh's splits.
 
 Three gloo ranks (one spawned world) with uneven chunks, 7 rows as 3, 3, 1
-and 2 columns as 1, 1, 0: the new collectives (uint64 bits included),
+and 2 columns as 1, 1, 0: the ``random`` draws split 0 and 1 and
+``permutation`` of a split array (each rank draws its own chunk; bit for
+bit the world of one's), ``cumsum``/``cumprod``/``diff`` along the split
+axis, ``argmax``/``argmin`` ties across ranks, ``histogram``, ``histc``,
+``bincount``, ``nanmean`` and ``prod``; the collectives (uint64 bits included),
 ``resplit`` 0 ↔ 1 through ``all_to_all`` with no ``allgather``, ``matmul``
 in every split pair, TSQR with a chunk shorter than n and with
 ``tiles_per_proc=2``, CholeskyQR2 in both ring schedules (bit-identical)
@@ -503,7 +507,7 @@ def test_collectives_world_of_one():
 # ------------------------------------------------- three gloo ranks
 
 _WORKER = textwrap.dedent("""
-    import os, sys
+    import os, sys, time
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -619,9 +623,77 @@ _WORKER = textwrap.dedent("""
         keep(f"svd_{name}_V", vv)
         keep(f"svdvals_{name}", ht.linalg.svd(ht.array(data.astype(np.float32), split=split),
                                               compute_uv=False))
+    # ht.random: each rank draws its own chunk of the global stream
+    ht.random.seed(21)
+    for name, draw in _RANDOM_CALLS(ht, base):
+        keep(f"random_{name}", draw())
+    # cumulative operations and diff along the split axis, argmax/argmin
+    # with ties across ranks, histogram and bincount counted per rank
+    for name, call in _SPLIT_AXIS_CALLS(ht, base):
+        keep(f"axis_{name}", call())
+    # printing above the threshold: each rank sends its edge items
+    wide = np.arange(50 * 31, dtype=np.float32).reshape(50, 31) / 7
+    for sp in (0, 1):
+        res[f"printed_{sp}"] = np.array(str(ht.array(wide, split=sp)))
+    # seed() without a value, each rank at another millisecond: rank 0's
+    # clock is every rank's seed
+    time.sleep(0.05 * rank)
+    ht.random.seed()
+    res["clock_seed"] = np.array(ht.random.get_state()[1])
+    keep("random_clock_randperm", ht.random.randperm(13, split=0))
     np.savez(f"{out}/rank{rank}.npz", **res)
     dist.destroy_process_group()
 """)
+
+# the draws and the split-axis calls the gloo ranks make, in this order;
+# the test makes the same calls as a world of one
+_CALLS = textwrap.dedent("""
+    def _RANDOM_CALLS(ht, base):
+        return [
+            ("rand_0", lambda: ht.random.rand(7, 4, split=0)),
+            ("randn_1", lambda: ht.random.randn(7, 4, split=1)),
+            ("randn_f64_0", lambda: ht.random.randn(7, 4, dtype=ht.float64, split=0)),
+            ("randint_0", lambda: ht.random.randint(-5, 2 ** 31, (7, 4), dtype=ht.int64, split=0)),
+            ("randint8_1", lambda: ht.random.randint(0, 100, (7, 4), dtype=ht.int8, split=1)),
+            ("uniform_1", lambda: ht.random.uniform(-1.0, 2.0, (7, 4), split=1)),
+            ("normal_0", lambda: ht.random.normal(3.0, 0.5, (9, 2), split=0)),
+            ("randperm_0", lambda: ht.random.randperm(13, split=0)),
+            ("permutation_x0", lambda: ht.random.permutation(ht.array(base, split=0))),
+            ("permutation_x1", lambda: ht.random.permutation(ht.array(base, split=1))),
+        ]
+
+
+    def _SPLIT_AXIS_CALLS(ht, base):
+        xi = (np.arange(28).reshape(7, 4) % 5 - 2).astype(np.int64)
+        ties = np.zeros((7, 3), np.float32)
+        ties[1], ties[4], ties[6] = 9, 9, 9  # rows of ranks 0, 1 and 2
+        ties[5, 2] = 10
+        return [
+            ("cumsum_0", lambda: ht.cumsum(ht.array(xi, split=0), 0)),
+            ("cumsum_f32_0", lambda: ht.cumsum(ht.array(base, split=0), 0)),
+            ("cumprod_1", lambda: ht.cumprod(ht.array(xi + 3, split=1), 1)),
+            ("cumprod_0", lambda: ht.cumprod(ht.array(base, split=0), 0)),
+            ("diff_0", lambda: ht.diff(ht.array(xi, split=0), axis=0)),
+            ("diff2_0", lambda: ht.diff(ht.array(base, split=0), n=2, axis=0)),
+            ("diff_1", lambda: ht.diff(ht.array(xi, split=1), axis=1)),
+            ("argmax_0", lambda: ht.argmax(ht.array(ties, split=0), axis=0)),
+            ("argmax_flat", lambda: ht.argmax(ht.array(ties[:, :2], split=0))),
+            ("argmin_0", lambda: ht.argmin(ht.array(-ties, split=0), axis=0, keepdims=True)),
+            ("argmax_1", lambda: ht.argmax(ht.array(ties.T.copy(), split=1), axis=1)),
+            ("histogram_0", lambda: ht.histogram(ht.array(base, split=0), bins=5)[0]),
+            ("histogram_w_1", lambda: ht.histogram(ht.array(base, split=1), bins=4,
+                                                   weights=ht.array(np.abs(base), split=1))[0]),
+            ("histc_0", lambda: ht.histc(ht.array(base, split=0), bins=6)),
+            ("bincount_0", lambda: ht.bincount(ht.array(np.arange(7) % 3, split=0), minlength=4)),
+            ("bincount_w_0", lambda: ht.bincount(ht.array(np.arange(7) % 3, split=0),
+                                                 weights=ht.array(base[:, 0], split=0))),
+            ("nanmean_0", lambda: ht.nanmean(ht.array(np.where(base > 1, np.nan, base),
+                                                      split=0), axis=0)),
+            ("prod_0", lambda: ht.prod(ht.array(xi + 3, split=0), axis=0)),
+        ]
+""")
+_WORKER = _CALLS + _WORKER
+exec(_CALLS)
 
 
 def _free_port():
@@ -818,3 +890,73 @@ def test_gloo_svd(gloo_ranks, name, qr_name, split):
         for part, refpart in (("U", ref.U), ("S", ref.S), ("V", ref.V)):
             assert _meta(r, f"svd_{name}_{part}")[:2] == (refpart.dtype.__name__,
                                                          str(refpart.split)), (name, part)
+
+
+def _world_of_one(calls):
+    return {name: call() for name, call in calls}
+
+
+def _base():
+    return np.random.default_rng(0).standard_normal((7, 4)).astype(np.float32)
+
+
+def test_gloo_random_draws_equal_a_world_of_one(gloo_ranks):
+    """Each of three ranks drew only its own chunk; the global arrays are
+    the world of one's (and so the JAX package's) bit for bit, and each
+    rank's chunk is its ceil-rule part of them."""
+    base = _base()
+    htt.random.seed(21)
+    one = {name: draw() for name, draw in _RANDOM_CALLS(htt, base)}
+    ht_tpu.random.seed(21)
+    ref = {name: draw() for name, draw in _RANDOM_CALLS(ht_tpu, base)}
+    for name, want in one.items():
+        if not name.startswith(("randn", "normal")):  # the normals: within 4 ulp, elsewhere
+            np.testing.assert_array_equal(want.numpy(), np.asarray(ref[name].numpy()))
+        _hold(gloo_ranks, f"random_{name}", want, want.numpy(), rtol=0)
+    rows = gloo_ranks[0]["random_permutation_x0"]
+    assert sorted(map(tuple, rows)) == sorted(map(tuple, base))
+
+
+def test_gloo_split_axis_operations_equal_a_world_of_one(gloo_ranks):
+    """cumsum/cumprod/diff along the split axis, argmax/argmin with ties on
+    every rank (the lowest global index wins), histograms and bincount: each
+    rank's result is the world of one's, exactly for exact results and
+    within 1e-6 relative for float32 scans (the carry adds in another
+    order)."""
+    ref = _world_of_one(_SPLIT_AXIS_CALLS(ht_tpu, _base()))
+    for name, want in _world_of_one(_SPLIT_AXIS_CALLS(htt, _base())).items():
+        rtol = 1e-6 if want.dtype.__name__.startswith("float") else 0
+        _hold(gloo_ranks, f"axis_{name}", want, want.numpy(), rtol=rtol)
+        # the world of one against the JAX package on its 8-device mesh:
+        # exact types bit for bit, float32 within 1e-5 relative
+        got, exp = want.numpy(), np.asarray(ref[name].numpy())
+        assert (want.dtype.__name__, want.split, got.shape) == \
+            (ref[name].dtype.__name__, ref[name].split, exp.shape), name
+        if want.dtype.__name__.startswith("float"):
+            np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, exp, err_msg=name)
+    assert gloo_ranks[1]["axis_argmax_0"].tolist() == [1, 1, 5]
+    assert int(gloo_ranks[2]["axis_argmax_flat"]) == 2
+
+
+@pytest.mark.parametrize("split", [0, 1])
+def test_gloo_summarised_printing(gloo_ranks, split):
+    """A split array above the threshold prints on three ranks as in the
+    JAX package, from the edge items each rank holds."""
+    wide = np.arange(50 * 31, dtype=np.float32).reshape(50, 31) / 7
+    want = str(ht_tpu.array(wide, split=split))
+    assert "..." in want
+    assert [str(r[f"printed_{split}"]) for r in gloo_ranks] == [want] * 3
+
+
+def test_gloo_seed_without_value_takes_rank_zeros_clock(gloo_ranks):
+    """``seed()`` on three ranks that read their clocks apart: every rank
+    holds rank 0's seed, so ``randperm(13, split=0)`` is one permutation,
+    the same on every rank and the world of one's under that seed."""
+    seeds = {int(r["clock_seed"]) for r in gloo_ranks}
+    assert len(seeds) == 1, seeds
+    htt.random.seed(seeds.pop())
+    want = htt.random.randperm(13, split=0)
+    assert sorted(want.numpy().tolist()) == list(range(13))
+    _hold(gloo_ranks, "random_clock_randperm", want, want.numpy(), rtol=0)
