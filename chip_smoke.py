@@ -55,7 +55,12 @@ Phases, each printing JSON lines:
      reduction row and this slice's statistics (argmax/argmin, average,
      cov, histogram, bincount, skew, kurtosis, nanmean/nanvar with NaNs,
      cumsum, chunk_moments at one K2 launch) at its moments shape, each
-     against float64 with its wall time;
+     against float64 with its wall time; then indexing and the
+     manipulations at the same shape (sort both ways bit for bit against
+     torch.sort, percentile and median against float64, unique with its
+     inverse, topk, x[::3], x[idx] for 1,000,000 rows, a row mask, a full
+     mask, x[x > 3] = 0, reshape, concatenate, flip, roll), only the random
+     kernel launching;
   7. the serving path: bench.py's lm_step TransformerLM at full width
      (vocab 32768, d_model 1024, 16 heads, 12 layers, bf16, flash
      attention) answers three requests of 8 x 1024 tokens, checked against
@@ -596,6 +601,96 @@ def statistics_path(ht, dev):
     emit({"phase": "statistics path", "shape": [rows, cols], "results": results,
           "launches": launches})
     del x, xt, x64, w, labels
+    return launches
+
+
+def manipulations_path(ht, dev, smi):
+    """Indexing and the manipulations at bench.py's moments shape through
+    the user entry points, each checked on the card (bit for bit against
+    torch's own operations where the result is exact, against float64 on
+    the host for the percentiles) with its wall time. No kernel of csrc/
+    lies on this path but the random draw of its inputs. Returns the launch
+    counts over the path."""
+    import numpy as np
+    import torch
+
+    rows, cols = GOLDEN_RANDN_SHAPE
+    ht.reset_launch_counts()
+    ht.random.seed(0)
+    x = ht.random.randn(rows, cols, split=0)
+    ints = ht.random.randint(0, 2 ** 20, (rows,), split=0)
+    xt = x.larray
+    results = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def hold(name, ok, ms, **extra):
+        results[name] = {"wall_ms": ms, "ok": bool(ok), **extra}
+        check(f"manipulations {name}", ok, wall_ms=ms, **extra)
+
+    for descending in (False, True):
+        (v, i), ms = timed(lambda: ht.sort(x, axis=0, descending=descending))
+        rv, ri = torch.sort(xt, dim=0, stable=True, descending=descending)
+        back = torch.equal(torch.gather(xt, 0, i.larray), v.larray)
+        hold(f"sort(axis=0, descending={descending})", torch.equal(v.larray, rv)
+             and torch.equal(i.larray, ri) and back and v.split == 0, ms,
+             bitwise_vs_torch_sort=True)
+        del v, i, rv, ri
+    q = [5, 25, 50, 75, 95]
+    p, ms = timed(lambda: ht.percentile(x, q, axis=0))
+    med, ms_med = timed(lambda: ht.median(x, axis=0))
+    picked = [0, 17, 40, 63]
+    host = xt[:, picked].double().cpu().numpy()
+    want = np.percentile(host, q, axis=0)
+    err = float(np.abs(p.larray[:, picked].cpu().numpy() - want).max())
+    err_med = float(np.abs(med.larray[picked].cpu().numpy() - np.median(host, axis=0)).max())
+    hold("percentile([5, 25, 50, 75, 95], axis=0)", p.shape == (5, cols) and err <= 1e-12, ms,
+         columns_checked=picked, max_abs_err_vs_float64=err, tolerance=1e-12)
+    hold("median(axis=0)", med.shape == (cols,) and err_med <= 1e-12, ms_med,
+         max_abs_err_vs_float64=err_med, tolerance=1e-12)
+    del p, med, host
+    (u, inv), ms = timed(lambda: ht.unique(ints, return_inverse=True))
+    ru, rinv = torch.unique(ints.larray, sorted=True, return_inverse=True)
+    hold("unique(ints, return_inverse=True)", torch.equal(u.larray, ru)
+         and torch.equal(inv.larray, rinv), ms, n_unique=int(ru.numel()))
+    del u, inv, ru, rinv
+    (tv, ti), ms = timed(lambda: ht.topk(x, 64, dim=0))
+    rv, ri = torch.sort(xt, dim=0, stable=True, descending=True)
+    hold("topk(x, 64, dim=0)", torch.equal(tv.larray, rv[:64]) and torch.equal(ti.larray, ri[:64]),
+         ms)
+    del tv, ti, rv, ri
+    g, ms = timed(lambda: x[::3])
+    hold("x[::3]", torch.equal(g.larray, xt[::3]) and g.shape == ((rows + 2) // 3, cols), ms)
+    idx = ht.random.randint(0, rows, (rows // 8,))
+    g, ms = timed(lambda: x[idx])
+    hold(f"x[idx], {rows // 8:,} random rows", torch.equal(g.larray, xt[idx.larray]), ms)
+    g, ms = timed(lambda: x[x[:, 0] > 0])
+    hold("x[x[:, 0] > 0]", torch.equal(g.larray, xt[xt[:, 0] > 0]), ms, rows=g.shape[0])
+    g, ms = timed(lambda: x[x > 2])
+    hold("x[x > 2]", torch.equal(g.larray, xt[xt > 2]), ms, selected=g.shape[0])
+    g, ms = timed(lambda: ht.reshape(x, (rows // 2, 2 * cols)))
+    hold(f"reshape(x, ({rows // 2:_}, {2 * cols}))",
+         torch.equal(g.larray, xt.reshape(rows // 2, 2 * cols)), ms)
+    g, ms = timed(lambda: ht.concatenate([x[:rows // 2], x[rows // 2:]], axis=0))
+    hold("concatenate of two halves", torch.equal(g.larray, xt) and g.split == 0, ms)
+    g, ms = timed(lambda: ht.flip(x, 0))
+    hold("flip(x, 0)", torch.equal(g.larray, xt.flip(0)), ms)
+    g, ms = timed(lambda: ht.roll(x, 1000, 0))
+    hold("roll(x, 1000, 0)", torch.equal(g.larray, torch.roll(xt, 1000, 0)), ms)
+    del g
+    want = torch.where(xt > 3, 0.0, xt)
+    _, ms = timed(lambda: x.__setitem__(x > 3, 0))
+    hold("x[x > 3] = 0", torch.equal(x.larray, want) and not bool((x.larray > 3).any()), ms)
+    del want
+    launches = dict(ht.launch_counts())
+    emit({"phase": "manipulations path", "shape": [rows, cols], "card": smi, "results": results,
+          "launches": launches})
+    del x, xt, ints, idx
     return launches
 
 
@@ -1642,6 +1737,15 @@ def main():
     check("statistics path drew with the random kernel and reduced with K2",
           stats_launches["random"] > 0 and stats_launches["moments"] > 0,
           launches=stats_launches)
+
+    # --------------------------------------------------- manipulations path
+    # sort, percentile, unique, topk, getitem/setitem and the layout
+    # operations at the moments shape; only the random kernel launches
+    manip_launches = manipulations_path(ht, dev, smi)
+    check("manipulations path launched only the random kernel",
+          manip_launches["random"] > 0 and not any(
+              n for name, n in manip_launches.items() if name != "random"),
+          launches=manip_launches)
 
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of

@@ -32,7 +32,12 @@ package has a Pallas kernel:
     functions, printing) and the statistics (``argmax``/``argmin``,
     ``average``, ``bincount``, ``cov``, ``histogram``, ``skew``,
     ``kurtosis``, the nan-reductions, ``chunk_moments`` on the moments
-    kernel); ``percentile`` and ``median`` wait for the distributed sort.
+    kernel, ``percentile`` and ``median``);
+  - indexing and manipulations: ``x[key]`` and ``x[key] = v`` for every key
+    numpy takes, ``nonzero``, ``where``, and the manipulations (``sort``,
+    ``topk`` and ``unique`` distributed along the split axis by the odd-even
+    merge-split network, ``concatenate``, ``reshape``, ``flip``, ``roll``,
+    the stacks and splits, ``pad``, ``tile``, ``repeat``, ...).
 """
 
 from .core import *

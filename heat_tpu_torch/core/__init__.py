@@ -1,7 +1,7 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
 factories, the elementwise (arithmetic, exponential, trigonometric,
-complex, rounding, relational and logical) operations, printing, the
-statistics, ``random`` and ``linalg``."""
+complex, rounding, relational and logical) operations, indexing, the
+manipulations, printing, the statistics, ``random`` and ``linalg``."""
 
 from . import constants, linalg, random, version
 from .arithmetics import *
@@ -12,8 +12,10 @@ from .devices import Device, cpu, get_device, gpu, use_device
 from .dndarray import DNDarray
 from .exponential import *
 from .factories import *
+from .indexing import *
 from .linalg import *
 from .logical import *
+from .manipulations import *
 from .memory import *
 from .printing import *
 from .relational import *

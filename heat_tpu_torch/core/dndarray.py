@@ -1,12 +1,17 @@
 """The DNDarray: a distributed n-dimensional array over ranks.
 
-Counterpart of ``heat_tpu/core/dndarray.py`` (the subset this slice needs).
+Counterpart of ``heat_tpu/core/dndarray.py``.
 The JAX package wraps one sharded, tail-padded global buffer under a single
 controller. Here, as in the original Heat, a DNDarray is a per-rank object:
 the global metadata, identical on every rank, plus ``larray``, the
 rank-local ``torch.Tensor``. For ``split=s`` rank ``r`` holds exactly its
 ceil-rule chunk of dimension ``s`` (``communication.chunk``), so there is
 no pad to mask; for ``split=None`` every rank holds the whole array.
+``padded_shape`` and ``pad_count`` report the JAX package's numbers (the
+chunk rule's ``ceil(n/p)*p``) for layout parity; nothing is stored there.
+Indexing (``x[key]``, ``x[key] = v``) goes through ``indexing``; ``lloc``
+indexes this rank's chunk alone, and the halos are this rank's
+neighbours' edge rows.
 """
 
 from __future__ import annotations
@@ -22,6 +27,23 @@ from .devices import Device
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
+
+
+class LocalIndex:
+    """Indexing of this rank's chunk alone (reference dndarray.py:65): the
+    result of a read is the torch tensor, and a write changes the chunk in
+    place (copied first when another array shares it)."""
+
+    def __init__(self, obj: "DNDarray"):
+        self.obj = obj
+
+    def __getitem__(self, key):
+        return self.obj.larray[key]
+
+    def __setitem__(self, key, value):
+        from .indexing import _writable
+
+        _writable(self.obj)[key] = value
 
 
 class DNDarray:
@@ -59,6 +81,7 @@ class DNDarray:
         self.__device = device
         self.__comm = comm
         self.__balanced = True if balanced is None else balanced
+        self.__halo_prev = self.__halo_next = None
 
     # ------------------------------------------------------------------ meta
 
@@ -66,6 +89,17 @@ class DNDarray:
     def larray(self) -> torch.Tensor:
         """The rank-local torch tensor (reference dndarray.py:106)."""
         return self.__array
+
+    @larray.setter
+    def larray(self, array: torch.Tensor) -> None:
+        """Replace this rank's chunk (same local shape; internal)."""
+        self.__array = array
+        self.__halo_prev = self.__halo_next = None
+
+    @property
+    def lloc(self) -> LocalIndex:
+        """Indexing of this rank's chunk (reference dndarray.py:199)."""
+        return LocalIndex(self)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -101,6 +135,65 @@ class DNDarray:
     def size(self) -> int:
         return int(np.prod(self.__gshape, dtype=np.int64)) if self.__gshape else 1
 
+    gnumel = size
+
+    @property
+    def lnumel(self) -> int:
+        return int(np.prod(self.lshape, dtype=np.int64))
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.__array.element_size()
+
+    gnbytes = nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        return self.lnumel * self.__array.element_size()
+
+    @property
+    def padded_shape(self) -> Tuple[int, ...]:
+        """The JAX package's stored shape: the split dimension rounded up to
+        ``ceil(n/p)*p`` (this package stores no pad)."""
+        if self.__split is None:
+            return self.__gshape
+        s = self.__split
+        return self.__gshape[:s] + (self.__comm.padded_size(self.__gshape[s]),) + \
+            self.__gshape[s + 1:]
+
+    @property
+    def pad_count(self) -> int:
+        """``padded_shape`` less the shape along the split dimension."""
+        if self.__split is None:
+            return 0
+        return self.padded_shape[self.__split] - self.__gshape[self.__split]
+
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
+    def stride(self) -> Tuple[int, ...]:
+        """Element strides of this rank's chunk, C order."""
+        return self.strides
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Element strides of this rank's chunk, C order (reference
+        dndarray.py:933)."""
+        out, acc = [], 1
+        for dim in reversed(self.lshape):
+            out.append(acc)
+            acc *= max(dim, 1)
+        return tuple(reversed(out))
+
     @property
     def lshape(self) -> Tuple[int, ...]:
         """Shape of this rank's chunk (reference dndarray.py:170)."""
@@ -122,6 +215,20 @@ class DNDarray:
         if not self.__gshape:
             raise TypeError("len() of unsized DNDarray")
         return self.__gshape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __getitem__(self, key) -> "DNDarray":
+        from . import indexing
+
+        return indexing.getitem(self, key)
+
+    def __setitem__(self, key, value) -> None:
+        from . import indexing
+
+        indexing.setitem(self, key, value)
 
     def __repr__(self) -> str:
         """The values, type, device and split, as the JAX package prints
@@ -145,6 +252,46 @@ class DNDarray:
     def numpy(self) -> np.ndarray:
         """Gather the global array to host numpy (reference `numpy`)."""
         return self._global().detach().cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def tolist(self) -> list:
+        return self.numpy().tolist()
+
+    def item(self):
+        """The one element of a size-1 array as a python scalar (reference
+        dndarray.py:683)."""
+        if self.size != 1:
+            raise ValueError("only one-element DNDarrays can be converted to python scalars")
+        return self._global().reshape(()).item()
+
+    def __cast(self, cast_function):
+        if self.size == 1:
+            return cast_function(self.item())
+        raise TypeError("only size-1 arrays can be converted to Python scalars")
+
+    def __bool__(self) -> bool:
+        return bool(self.__cast(bool))
+
+    def __float__(self) -> float:
+        return self.__cast(float)
+
+    def __int__(self) -> int:
+        return self.__cast(int)
+
+    __index__ = __int__
+
+    def __complex__(self) -> complex:
+        return self.__cast(complex)
+
+    def cpu(self) -> "DNDarray":
+        """A copy on the CPU (reference dndarray.py:730)."""
+        from .devices import cpu
+
+        return DNDarray(self.__array.cpu().clone(), self.__gshape, self.__dtype, self.__split,
+                        cpu, self.__comm, True)
 
     # -------------------------------------------------------------- methods
 
@@ -182,6 +329,114 @@ class DNDarray:
             whole = whole[slices]
         return DNDarray(whole.contiguous(), self.__gshape, self.__dtype, axis,
                         self.__device, self.__comm, True)
+
+    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+        """Redistribute in place along ``axis`` (reference dndarray.py:764)."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis != self.__split:
+            moved = self.resplit(axis)
+            self.__array, self.__split = moved.larray, axis
+            self.__halo_prev = self.__halo_next = None
+        return self
+
+    def is_distributed(self) -> bool:
+        """True if the data lies on more than one rank."""
+        return self.__split is not None and self.__comm.size > 1
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """The ceil-rule layout is balanced by construction."""
+        return True
+
+    def balance_(self) -> None:
+        """Nothing to do: every array lies on the ceil-rule chunks."""
+        return None
+
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        return self.lshape_map
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> None:
+        """Accepted for the canonical (ceil-rule) map, which every array
+        already has; another map raises, as in the JAX package
+        (dndarray.py:805)."""
+        if target_map is None:
+            return None
+        want = np.asarray(target_map)
+        have = self.lshape_map
+        if want.shape == have.shape and (want == have).all():
+            return None
+        raise NotImplementedError(
+            "redistribute_ to a non-canonical (ragged) lshape_map is not supported: every "
+            "array lies on the ceil-rule chunks of its split dimension. Use resplit_() to "
+            "change the distribution axis")
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Fill the main diagonal in place (reference dndarray.py:846): each
+        rank writes the diagonal entries of its chunk."""
+        if self.ndim != 2:
+            raise ValueError("DNDarray must be 2D")
+        from .indexing import _bits, _writable
+
+        k = min(self.__gshape)
+        off = self.__comm.chunk(self.__gshape, self.__split)[0] if self.__split is not None else 0
+        n_local = self.lshape[self.__split] if self.__split is not None else k
+        i = torch.arange(max(0, min(off + n_local, k) - off), device=self.__array.device) + off
+        rows, cols = (i - off, i) if self.__split == 0 else ((i, i - off) if self.__split == 1
+                                                             else (i, i))
+        buf = _writable(self)
+        value = torch.as_tensor(value, device=buf.device).to(buf.dtype)
+        _bits(buf)[rows, cols] = _bits(value)
+        self.__halo_prev = self.__halo_next = None
+        return self
+
+    # ---------------------------------------------------------------- halos
+
+    def __check_halo_size(self, halo_size: int) -> None:
+        if not isinstance(halo_size, int) or halo_size <= 0:
+            raise ValueError(f"halo_size needs to be a positive integer, got {halo_size}")
+        if self.__split is not None and self.__comm.size > 1:
+            min_chunk = int(self.lshape_map[:, self.__split].min())
+            if halo_size > min_chunk:
+                raise ValueError(f"halo_size {halo_size} exceeds the smallest local chunk "
+                                 f"({min_chunk}) along split {self.__split}")
+
+    def get_halo(self, halo_size: int) -> None:
+        """Fetch the edge rows of the neighbouring ranks along the split
+        dimension (reference dndarray.py:896): ``halo_prev`` holds the last
+        ``halo_size`` rows of the previous rank, ``halo_next`` the first of
+        the next, zeros at the global edges; one permute each way."""
+        self.__check_halo_size(halo_size)
+        if self.__split is None or self.__comm.size == 1:
+            self.__halo_prev = self.__halo_next = None
+            return
+        s, p = self.__split, self.__comm.size
+        n_local = self.__array.shape[s]
+        last = self.__array.narrow(s, n_local - halo_size, halo_size).contiguous()
+        first = self.__array.narrow(s, 0, halo_size).contiguous()
+        self.__halo_prev = self.__comm.ppermute(last, [(i, i + 1) for i in range(p - 1)])
+        self.__halo_next = self.__comm.ppermute(first, [(i + 1, i) for i in range(p - 1)])
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        """The rows received from the previous rank by the last
+        :meth:`get_halo` (None before one)."""
+        return self.__halo_prev
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        """The rows received from the next rank by the last :meth:`get_halo`."""
+        return self.__halo_next
+
+    def array_with_halos(self, halo_size: int) -> torch.Tensor:
+        """This rank's chunk extended by ``halo_size`` rows of both
+        neighbours along the split dimension (zeros at the global edges)."""
+        self.__check_halo_size(halo_size)
+        if self.__split is None or self.__comm.size == 1:
+            return self.__array
+        prev, nxt = self.__halo_prev, self.__halo_next
+        if prev is None or prev.shape[self.__split] != halo_size:
+            self.get_halo(halo_size)
+            prev, nxt = self.__halo_prev, self.__halo_next
+        return torch.cat([prev, self.__array, nxt], dim=self.__split)
 
     @property
     def T(self) -> "DNDarray":

@@ -1,6 +1,4 @@
-"""Statistical functions (counterpart of ``heat_tpu/core/statistics.py``,
-all of it but ``percentile`` and ``median``, which need the distributed
-sort of ``manipulations``).
+"""Statistical functions (counterpart of ``heat_tpu/core/statistics.py``).
 
 ``mean`` and ``var`` route the f32 axis-0 reduction of a 2-D array through
 the moments kernel exactly where the JAX package routes them through its
@@ -14,6 +12,10 @@ Across ranks: ``argmax``/``argmin`` gather each rank's extreme and its
 global index and keep numpy's rule, the lowest global index wins a tie;
 ``bincount`` and ``histogram`` count each rank's chunk and allreduce the
 counts; the nan-reductions allreduce their sums, extremes and counts.
+``percentile`` and ``median`` along the split axis sort with the
+distributed sort of ``manipulations`` and fetch only the order-statistic
+rows from their owners; elsewhere they compute on the whole array as the
+JAX package's ``jnp.percentile`` does (its arithmetic and types too).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ __all__ = [
     "max",
     "maximum",
     "mean",
+    "median",
     "min",
     "minimum",
     "nanmax",
@@ -49,6 +52,7 @@ __all__ = [
     "nanmin",
     "nanstd",
     "nanvar",
+    "percentile",
     "skew",
     "std",
     "var",
@@ -341,24 +345,13 @@ def skew(x: DNDarray, axis=None, unbiased: bool = True) -> DNDarray:
     return res
 
 
-def _join_rows(a: DNDarray, b: DNDarray) -> DNDarray:
-    """``a`` and ``b`` joined along axis 0, split as ``a`` (or ``b``); a
-    private stand-in for ``manipulations.concatenate``."""
-    split = a.split if a.split is not None else b.split
-    whole = torch.cat([a._global(), b._global().to(a.larray.device)], dim=0)
-    gshape = tuple(whole.shape)
-    if split is not None:
-        whole = whole[a.comm.chunk(gshape, split)[2]].contiguous()
-    return DNDarray(whole, gshape, types.canonical_heat_type(whole.dtype), split, a.device,
-                    a.comm, True)
-
-
 def cov(m: DNDarray, y: Optional[DNDarray] = None, rowvar: bool = True, bias: bool = False,
         ddof: Optional[int] = None) -> DNDarray:
     """The covariance matrix of the variables (rows when ``rowvar``) over
     the observations: centered product over ``n - ddof`` (ddof 1, or 0 with
     ``bias``), through the distributed ``matmul``."""
     from .linalg import matmul, transpose
+    from .manipulations import concatenate
 
     if ddof is not None and not isinstance(ddof, builtins.int):
         raise ValueError("ddof must be integer")
@@ -374,7 +367,7 @@ def cov(m: DNDarray, y: Optional[DNDarray] = None, rowvar: bool = True, bias: bo
 
     x = as_rows(m)
     if y is not None:
-        x = _join_rows(x, as_rows(y))
+        x = concatenate([x, as_rows(y)], axis=0)
     if ddof is None:
         ddof = 0 if bias else 1
     n = x.shape[1]
@@ -597,3 +590,132 @@ DNDarray.std = lambda self, axis=None, ddof=0, keepdims=False: std(self, axis, d
 DNDarray.var = lambda self, axis=None, ddof=0, keepdims=False: var(self, axis, ddof, keepdims)
 DNDarray.average = lambda self, axis=None, weights=None, returned=False: average(
     self, axis, weights, returned)
+
+
+# ------------------------------------------------------ order statistics
+
+_PERCENTILE_METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+
+def _positions(q_flat: np.ndarray, n: int):
+    """The fractional positions of the percentiles among ``n`` sorted values
+    and their floor and ceiling (float64, as the JAX package computes them)."""
+    pos = q_flat / 100.0 * (n - 1)
+    return pos, np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+
+
+def _percentile_split_axis(x: DNDarray, q_flat: np.ndarray, method: str, ax: int) -> torch.Tensor:
+    """Percentiles along the split axis (reference statistics.py:730): the
+    distributed sort, then only the order-statistic rows, fetched from their
+    owners to every rank, interpolated in float64. A lane with a NaN gives
+    NaN. Returns ``(len(q), *rest)``."""
+    from .indexing import _fetch_rows, _index_select
+    from .manipulations import sort
+
+    n = x.shape[ax]
+    vals, _ = sort(x, axis=ax)
+    pos, i0, i1 = _positions(q_flat, n)
+    m = len(q_flat)
+    picks = {"lower": i0, "higher": i1, "nearest": np.round(pos).astype(np.int64)}
+    idx = picks.get(method, np.concatenate([i0, i1]))
+    dev = x.larray.device
+    want = torch.as_tensor(idx, device=dev)
+    moved = vals.larray.movedim(ax, 0)
+    if x.comm.size > 1:
+        rows = _fetch_rows(moved, n, x.comm, lambda q: want)
+    else:
+        rows = _index_select(moved, 0, want)
+    rows = rows.to(torch.float64)
+    if method == "linear":
+        frac = torch.as_tensor(pos - i0, device=dev).reshape((m,) + (1,) * (x.ndim - 1))
+        res = rows[:m] + (rows[m:] - rows[:m]) * frac
+    elif method == "midpoint":
+        res = (rows[:m] + rows[m:]) / 2.0
+    else:
+        res = rows
+    if x.larray.is_floating_point():
+        lane = torch.isnan(x.larray).any(ax).to(torch.uint8)
+        if x.comm.size > 1:
+            x.comm.allreduce(lane, "max")
+        res = torch.where(lane.to(torch.bool)[None], torch.nan, res)
+    return res
+
+
+def _percentile_whole(t: torch.Tensor, q_flat: np.ndarray, axes, method: str) -> torch.Tensor:
+    """``jnp.percentile`` on a whole array, reduced over ``axes`` (all when
+    None): the values in their inexact type, sorted, a lane with a NaN all
+    NaN; ``linear`` in float64 rounded to that type, ``midpoint`` in it.
+    ``nearest`` picks the values at the half-to-even rounded positions
+    (the JAX package's own rule). Returns ``(len(q), *kept)`` in float64."""
+    from ._operations import _INEXACT
+
+    if method != "nearest":
+        t = t.to(_INEXACT.get(t.dtype, t.dtype))
+    nd = t.ndim
+    axes = tuple(range(nd)) if axes is None else axes
+    kept = [d for d in range(nd) if d not in axes]
+    t = t.permute(kept + list(axes))
+    t = t.reshape(t.shape[:len(kept)] + (-1,))
+    n = t.shape[-1]
+    nan = torch.isnan(t).any(-1, keepdim=True) if t.is_floating_point() else None
+    if nan is not None and method != "nearest":
+        t = torch.where(nan, torch.nan, t)
+    srt = torch.sort(t, dim=-1).values if t.dtype != torch.bool else \
+        torch.sort(t.to(torch.uint8), dim=-1).values.to(torch.bool)
+    pos, i0, i1 = _positions(q_flat, n)
+    dev = t.device
+    if method == "nearest":
+        res = srt[..., torch.as_tensor(np.round(pos).astype(np.int64), device=dev)]
+        res = res.to(torch.float64)
+        if nan is not None:
+            res = torch.where(nan, torch.nan, res)
+        return res.movedim(-1, 0)
+    lo = srt[..., torch.as_tensor(np.clip(i0, 0, n - 1), device=dev)]
+    hi = srt[..., torch.as_tensor(np.clip(i1, 0, n - 1), device=dev)]
+    if method == "linear":
+        hw = torch.as_tensor(pos - i0, device=dev)
+        res = (lo.to(torch.float64) * (1.0 - hw) + hi.to(torch.float64) * hw).to(t.dtype)
+    elif method == "lower":
+        res = lo
+    elif method == "higher":
+        res = hi
+    else:
+        res = (lo + hi) * 0.5
+    return res.to(torch.float64).movedim(-1, 0)
+
+
+def percentile(x: DNDarray, q, axis=None, out=None, interpolation: str = "linear",
+               keepdims: bool = False) -> DNDarray:
+    """The ``q``-th percentiles (reference statistics.py:785), float64 and
+    replicated. Along the split axis (a 1-D array, or the split axis of an
+    n-D one) :func:`_percentile_split_axis`; otherwise the whole array.
+    ``q`` may be a scalar or an array of any shape, whose dimensions lead
+    the result's."""
+    qv = np.asarray(q.numpy() if isinstance(q, DNDarray) else q, dtype=np.float64)
+    if np.any(~((qv >= 0.0) & (qv <= 100.0))):
+        raise ValueError("percentiles must be in the range [0, 100]")
+    if interpolation not in _PERCENTILE_METHODS:
+        raise ValueError("method can only be 'linear', 'lower', 'higher', 'midpoint', or "
+                         "'nearest'")
+    q_shape, q_flat = qv.shape, np.atleast_1d(qv).ravel()
+    ax = sanitize_axis(x.shape, axis) if axis is not None else None
+    axes = None if ax is None else ((ax,) if isinstance(ax, builtins.int) else tuple(ax))
+    s = x.split
+    if s is not None and x.shape[s] > 0 and q_flat.size > 0 and (
+            (x.ndim == 1 and axes in (None, (0,))) or (x.ndim > 1 and axes == (s,))):
+        res = _percentile_split_axis(x, q_flat, interpolation, s)
+        reduced = (s,)
+    else:
+        res = _percentile_whole(x._global(), q_flat, axes, interpolation)
+        reduced = tuple(range(x.ndim)) if axes is None else axes
+    if keepdims:
+        for d in sorted(reduced):
+            res = res.unsqueeze(d + 1)
+    res = res.reshape(q_shape + tuple(res.shape[1:]))
+    res = _replicated(res.contiguous(), x)
+    return into(res, out)
+
+
+def median(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
+    """The median, ``percentile(x, 50)``."""
+    return percentile(x, 50.0, axis=axis, keepdims=keepdims)

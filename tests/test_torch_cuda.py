@@ -930,6 +930,86 @@ def test_nccl_linalg_ranks_match_world_of_one(dev, tmp_path):
                                        atol=1e-5 * np.abs(data["t"]).max())
 
 
+_MANIP_DATA = """
+import numpy as np
+import torch
+
+def make_manip_data():
+    g = torch.Generator().manual_seed(2)
+    x = torch.round(torch.randn((100_003, 16), generator=g) * 4)  # ties
+    ints = torch.randint(0, 1000, (100_003,), generator=g)
+    rows = torch.randint(0, 3, (20_001, 2), generator=g)
+    idx = torch.randint(-100_003, 100_003, (5_000,), generator=g)
+    return x, ints, rows, idx
+
+def run(ht, device):
+    x_t, ints_t, rows_t, idx_t = (t.to(device) for t in make_manip_data())
+    res = {}
+    def keep(name, x):
+        if isinstance(x, (tuple, list)):
+            for j, part in enumerate(x):
+                keep(f"{name}.{j}", part)
+            return
+        res[name] = x.numpy()
+        res[name + "_split"] = np.array(-1 if x.split is None else x.split)
+        res[name + "_lshape"] = np.array(x.lshape)
+    x, ints = ht.array(x_t, split=0), ht.array(ints_t, split=0)
+    keep("sort", ht.sort(x, axis=0))
+    keep("sort_desc", ht.sort(x, axis=0, descending=True))
+    keep("topk", ht.topk(x, 50, dim=0))
+    keep("unique", ht.unique(ints, return_inverse=True))
+    keep("unique_rows", ht.unique(ht.array(rows_t, split=0), return_inverse=True, axis=0))
+    keep("percentile", ht.percentile(x, [1, 33.3, 50, 99.9], axis=0))
+    keep("get_step", x[5::7])
+    keep("get_negstep", x[::-3])
+    keep("get_int", x[77_777])
+    keep("get_idx", x[ht.array(idx_t)])
+    keep("get_mask", x[x > 3])
+    keep("get_rows", x[x[:, 0] > 0])
+    y = ht.array(x_t, split=0)
+    y[10:90_010] = ht.array(x_t[:90_000] * 2, split=1)
+    keep("set_split_value", y)
+    y = ht.array(x_t, split=0)
+    y[y > 2] = 0
+    keep("set_mask", y)
+    keep("concat", ht.concatenate([x, x[:1001], ht.array(x_t[:7], split=None)], axis=0))
+    keep("reshape", ht.reshape(x, (16, 100_003), new_split=1))
+    keep("flip", ht.flip(x, 0))
+    keep("roll", ht.roll(x, 40_000, 0))
+    keep("nonzero", ht.nonzero(ints < 3))
+    return res
+"""
+
+
+def test_nccl_manipulations_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: sort both ways, topk, unique (flat
+    and rows, with the inverse), percentile, getitem (steps, an int, an
+    index vector, masks), setitem (a value split along the other axis, a
+    mask), concatenate, reshape with new_split, flip, roll and nonzero give
+    the world of one's results exactly, each on the ceil-rule chunks of the
+    JAX package's split."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _MANIP_DATA)
+    _hold_manip_ranks(ranks, world, dev)
+
+
+def _hold_manip_ranks(ranks, world, dev):
+    ns = {}
+    exec(_MANIP_DATA, ns)
+    want = ns["run"](htt, dev)
+    names = [k for k in want if not k.endswith(("_split", "_lshape"))]
+    for rank, r in enumerate(ranks):
+        for name in names:
+            np.testing.assert_array_equal(r[name], want[name], err_msg=f"{name}, rank {rank}")
+            split = int(want[name + "_split"])
+            assert int(r[name + "_split"]) == split, name
+            if split >= 0:
+                lshape = communication.chunk(want[name].shape, split, rank, world)[1]
+                assert tuple(r[name + "_lshape"]) == lshape, (name, rank)
+
+
 def test_matmul_honours_the_callers_tf32_flag(dev):
     """matmul reads torch.backends.cuda.matmul.allow_tf32 and sets nothing.
     Errors against float64 over sum |a||b|: off, f32 accumulation, within

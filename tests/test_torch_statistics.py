@@ -1,7 +1,7 @@
 """heat_tpu_torch's statistics against heat_tpu: ``argmax``/``argmin``,
 ``average``, ``bincount``, ``cov``, ``histc``, ``histogram``, ``kurtosis``,
-``skew``, ``maximum``/``minimum``, the nan-reductions and
-``chunk_moments``.
+``skew``, ``maximum``/``minimum``, the nan-reductions, ``chunk_moments``,
+``percentile`` and ``median``.
 
 One numpy input from a seeded ``np.random.default_rng`` goes through both
 packages: heat_tpu on its 8-device CPU mesh, heat_tpu_torch as a world of
@@ -10,7 +10,9 @@ devices). Shape, split, type name and the lshape map over 8 ranks must be
 the reference's exactly; indices, counts and other exact results bit for
 bit; float32 results within rtol 1e-5 (atol 1e-5 times the result's
 magnitude: sums of tens of terms in another order, and the third and
-fourth powers of ``skew`` and ``kurtosis``), float64 within 1e-12.
+fourth powers of ``skew`` and ``kurtosis``), float64 within 1e-12. The
+percentiles, float64 interpolations of the same order statistics, are
+within 1 ulp, with NaN where the reference has NaN.
 Histogram counts of float32 data are exact: both bin in float64 against
 the same float64 edges. Ties across ranks for ``argmax``/``argmin`` and the
 counts of ``histogram``/``bincount`` on three gloo ranks are held to a
@@ -301,9 +303,66 @@ def test_exports_cover_the_reference():
     import heat_tpu_torch.core.statistics as got_stats
 
     missing = sorted(set(ref_stats.__all__) - set(got_stats.__all__))
-    assert missing == ["median", "percentile"]
+    assert missing == []
     for name in got_stats.__all__:
         assert getattr(htt, name) is getattr(got_stats, name)
     assert htt.maximum(htt.array([1.0, np.nan]), 0.5).numpy()[1] != htt.maximum(
         htt.array([1.0, np.nan]), 0.5).numpy()[1]
     assert torch.equal(htt.minimum(2, htt.array([1, 5])).larray, torch.tensor([1, 2]))
+
+
+PERCENTILE_X = _data((11, 6), "float32")
+
+
+def _check_percentile(got, ref):
+    assert got.shape == tuple(ref.shape) and got.split == ref.split
+    assert got.dtype.__name__ == ref.dtype.__name__ == "float64"
+    g, r = got.numpy(), np.asarray(ref.numpy())
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(r))
+    np.testing.assert_array_max_ulp(g[~np.isnan(g)], r[~np.isnan(r)], maxulp=1)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("method", ["linear", "lower", "higher", "midpoint", "nearest"])
+@pytest.mark.parametrize("q", [37.5, [5, 25, 50, 75, 95], [[10, 90], [0, 100]]], ids=str)
+def test_percentile(q, method, split):
+    """Along the split axis (the distributed sort), along the other axis and
+    over all; scalar, vector and 2-D q; keepdims."""
+    for axis, keepdims in ((0, False), (1, False), (None, False), (0, True), (None, True)):
+        _check_percentile(
+            htt.percentile(htt.array(PERCENTILE_X, split=split), q, axis=axis,
+                           interpolation=method, keepdims=keepdims),
+            ht_tpu.percentile(ht_tpu.array(PERCENTILE_X, split=split), q, axis=axis,
+                              interpolation=method, keepdims=keepdims))
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["int32", "float64", "bool", "int64"])
+def test_percentile_types_nan_and_median(dtype, split):
+    x = _data((11, 6), dtype)
+    for axis in (0, 1, None):
+        _check_percentile(htt.percentile(htt.array(x, split=split), [10, 50, 93], axis=axis),
+                          ht_tpu.percentile(ht_tpu.array(x, split=split), [10, 50, 93],
+                                            axis=axis))
+        _check_percentile(htt.median(htt.array(x, split=split), axis=axis, keepdims=True),
+                          ht_tpu.median(ht_tpu.array(x, split=split), axis=axis, keepdims=True))
+    xn = PERCENTILE_X.copy()
+    xn[3, 2] = np.nan
+    for axis in (0, 1):
+        _check_percentile(htt.percentile(htt.array(xn, split=split), [20, 70], axis=axis),
+                          ht_tpu.percentile(ht_tpu.array(xn, split=split), [20, 70], axis=axis))
+    v = _data((13,), "float32")
+    _check_percentile(htt.median(htt.array(v, split=0 if split is not None else None)),
+                      ht_tpu.median(ht_tpu.array(v, split=0 if split is not None else None)))
+
+
+def test_percentile_errors_and_out():
+    for ht in (htt, ht_tpu):
+        with pytest.raises(ValueError):
+            ht.percentile(ht.array(PERCENTILE_X, split=0), 101.0, axis=0)
+        with pytest.raises(ValueError):
+            ht.percentile(ht.array(PERCENTILE_X, split=0), [10, np.nan], axis=0)
+    out = htt.zeros((6,), dtype=htt.float64)
+    res = htt.percentile(htt.array(PERCENTILE_X, split=0), 40, axis=0, out=out)
+    assert res is out
+    np.testing.assert_allclose(out.numpy(), np.percentile(PERCENTILE_X, 40, axis=0), rtol=1e-6)
