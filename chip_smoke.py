@@ -66,6 +66,17 @@ Phases, each printing JSON lines:
      attention) answers three requests of 8 x 1024 tokens, checked against
      the same weights with the local core and in float32, and for
      causality; then one request under the profiler;
+  6b. exact-type products (bool, int8, int32, int64, uint8, uint32 at
+     1024^2) and the wide unsigned types (uint16, uint32, uint64: +, > 2, a
+     mask, max, argmax, cumsum, //, %, sort, float64) against numpy; cg on a
+     4096^2 s.p.d. system (its residual and time); bench.py's lasso row
+     (2,000,000 x 64, 200 epochs at tol 0: fit times, device time and busy
+     share under the profiler, launches of one graph-replayed epoch, that
+     epoch against the eager one, coef_ against float64, the bytes bound)
+     and spectral row (8192 x 32, k = 8, m = 64: the cdist kernel's rbf
+     epilogue and the Lloyd kernel launched by the fit and held against
+     their plain versions at its shapes, labels against the blob ids, the
+     stages' times, the Lanczos basis);
   8. the training path: the same model trains as bench.py's lm_step does
      (remat, bf16, the flash core with its two-pass backward, AdamW), one
      warm-up step and 8 steps on one batch, the loss falling and the
@@ -692,6 +703,357 @@ def manipulations_path(ht, dev, smi):
           "launches": launches})
     del x, xt, ints, idx
     return launches
+
+
+EXACT_TYPES = ("bool", "int8", "int32", "int64", "uint8", "uint32")
+EXACT_N = 1024
+WIDE_TYPES = ("uint16", "uint32", "uint64")
+# bench.py's lasso row (:341-356) and spectral row (:439-459), and the
+# solver phase's s.p.d. system
+LASSO = (2_000_000, 64, 200, 0.01)
+SPECTRAL = (8192, 32, 8, 64, 0.05)
+CG_N = 4096
+
+
+def exact_phase(ht, dev, time_ms):
+    """matmul and dot of bool and the integer types at 1024^2 on the card,
+    exactly as numpy's (bool: True where some pair is; the integers wrap
+    modulo 2^w), with the card's time of the product."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    results = {}
+    for name in EXACT_TYPES:
+        if name == "bool":
+            a, b = (rng.integers(0, 2, (EXACT_N, EXACT_N)).astype(bool) for _ in range(2))
+        else:
+            info = np.iinfo(name)
+            a, b = (rng.integers(info.min, info.max, (EXACT_N, EXACT_N), dtype=name,
+                                 endpoint=True) for _ in range(2))
+        x, y = ht.array(a), ht.array(b)
+        got = (x @ y).numpy()
+        got_dot = ht.dot(x[0], y[:, 0]).numpy()
+        with np.errstate(over="ignore"):
+            want = (a.astype(np.int64) @ b.astype(np.int64)) > 0 if name == "bool" else a @ b
+            want_dot = np.dot(a[0].astype(np.int64), b[:, 0].astype(np.int64)) > 0 \
+                if name == "bool" else np.dot(a[0], b[:, 0])
+        ms = time_ms(lambda: x @ y, 5)
+        ok = got.dtype == want.dtype and np.array_equal(got, want) and \
+            np.array_equal(got_dot, want_dot)
+        results[name] = {"ok": bool(ok), "matmul_ms": ms}
+        check(f"exact products {name} {EXACT_N}^2 equal numpy", ok, matmul_ms=ms)
+        del x, y
+    emit({"phase": "exact products", "n": EXACT_N, "results": results})
+
+
+def unsigned_phase(ht, dev):
+    """uint16, uint32 and uint64 on the card: +, > 2, a mask, max, argmax,
+    cumsum, floor division, remainder, sort and the float64 conversion of
+    values across the whole range (past 2^31 and 2^63), exactly as numpy's
+    (cumsum in the type, wrapping as the JAX package's does)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    results = {}
+    for name in WIDE_TYPES:
+        info = np.iinfo(name)
+        a, b = (rng.integers(0, info.max, (1024, 1024), dtype=name, endpoint=True)
+                for _ in range(2))
+        a[0, 0], a[1, 1] = info.max, 2 ** (info.bits - 1) + 5
+        x, y = ht.array(a), ht.array(b)
+        with np.errstate(over="ignore", divide="ignore"):
+            cases = {
+                "x + y": ((x + y).numpy(), a + b),
+                "x > 2": ((x > 2).numpy(), a > 2),
+                "x[x > 2]": (x[x > 2].numpy(), a[a > 2]),
+                "max": (ht.max(x).numpy(), a.max()),
+                "argmax": (ht.argmax(x).numpy(), a.argmax()),
+                "min(axis=0)": (ht.min(x, axis=0).numpy(), a.min(axis=0)),
+                "cumsum(axis=0)": (ht.cumsum(x, 0).numpy(), np.cumsum(a, 0, dtype=a.dtype)),
+                "x // (y | 1)": ((x // (y | 1)).numpy(), a // (b | 1)),
+                "x % (y | 1)": ((x % (y | 1)).numpy(), a % (b | 1)),
+                "sort(axis=0)": (ht.sort(x, axis=0)[0].numpy(), np.sort(a, axis=0)),
+                "astype(float64)": (x.astype(ht.float64).numpy(), a.astype(np.float64)),
+            }
+        for case, (got, want) in cases.items():
+            ok = np.asarray(got).dtype == np.asarray(want).dtype and np.array_equal(got, want)
+            results[f"{name} {case}"] = bool(ok)
+            check(f"unsigned {name} {case} equals numpy", ok)
+        del x, y
+    emit({"phase": "unsigned", "shape": [1024, 1024], "results": results})
+
+
+def _lasso_f64(x, y, lam, sweeps):
+    """The coordinate descent of the JAX package's _cd_sweep in float64, in
+    plain torch on the card: the reference for the lasso path."""
+    import torch
+
+    n = x.shape[0]
+    xt = torch.cat([torch.ones((n, 1), dtype=torch.float64, device=x.device),
+                    x.double()], dim=1).t().contiguous()
+    yd = y.double()
+    z = (xt * xt).sum(dim=1) / n
+    theta = torch.zeros(xt.shape[0], dtype=torch.float64, device=x.device)
+    for _ in range(sweeps):
+        y_est = theta @ xt
+        for j in range(xt.shape[0]):
+            rho = torch.dot(xt[j], yd - y_est + theta[j] * xt[j]) / n
+            if j > 0:
+                rho = torch.sign(rho) * torch.clamp(rho.abs() - lam, min=0.0)
+            new = rho / torch.clamp(z[j], min=1e-30)
+            y_est = y_est + (new - theta[j]) * xt[j]
+            theta[j] = new
+    return theta
+
+
+def lasso_path(ht, dev, smi):
+    """bench.py's lasso row through the user entry points: x = randn(2,000,000,
+    64, split=0), y = x @ randn(64, 1) from ht.random, Lasso(lam=0.01,
+    max_iter=200, tol=0): one warm-up fit and three timed, the device time
+    and busy share of one fit under the profiler, the launches of one
+    graph-replayed epoch, the replayed epoch against the eager one on the
+    same state, and coef_/intercept_ against the same descent in float64.
+    No kernel of csrc/ lies on this path but the random draw of its inputs.
+    Returns the launch counts over the path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat_tpu_torch.regression.lasso import _design, _Sweep
+
+    rows, cols, sweeps, lam = LASSO
+    ht.reset_launch_counts()
+    ht.random.seed(0)
+    x = ht.random.randn(rows, cols, dtype=ht.float32, split=0)
+    y = ht.matmul(x, ht.random.randn(cols, 1, dtype=ht.float32))
+
+    def fit():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        est = ht.regression.Lasso(lam=lam, max_iter=sweeps, tol=0.0).fit(x, y)
+        torch.cuda.synchronize()
+        return est, (time.perf_counter() - t) * 1e3
+
+    est, warm_ms = fit()
+    walls = [fit()[1] for _ in range(3)]
+    launches = dict(ht.launch_counts())
+    check("lasso ran max_iter epochs at tol=0", est.n_iter == sweeps, n_iter=est.n_iter)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = fit()
+    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    # one epoch replayed from its graph against the same epoch run eagerly
+    xt, yb, _ = _design(x, y, torch.float32)
+    start = est.theta.larray.clone()
+    eager = _Sweep(xt, yb, start.clone(), rows, lam, None)
+    eager()
+    graphed = _Sweep(xt, yb, start.clone(), rows, lam, None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graphed.theta.copy_(start)
+        graphed()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed()
+    graphed.theta.copy_(start)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_err = float((graphed.theta - eager.theta).abs().max())
+    check("lasso graph-replayed epoch equals the eager epoch", replay_err == 0.0,
+          max_abs_diff=replay_err)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_epoch:
+        graph.replay()
+        torch.cuda.synchronize()
+    kernels_per_epoch = sum(ev.count for ev in prof_epoch.key_averages()
+                            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    epoch_start, epoch_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    epoch_start.record()
+    for _ in range(10):
+        graph.replay()
+    epoch_end.record()
+    epoch_end.synchronize()
+    epoch_ms = epoch_start.elapsed_time(epoch_end) / 10
+    del graph, eager, graphed
+
+    theta64 = _lasso_f64(x.larray, y.larray[:, 0], lam, sweeps)
+    got = est.theta.larray.double()
+    err = float((got - theta64).abs().max())
+    tol = 2e-3 * max(1.0, float(theta64.abs().max()))
+    check("lasso coef_ and intercept_ within 2e-3 of the float64 descent", err <= tol,
+          max_abs_err=err, tolerance=tol)
+    # bytes: the function must read x_j, y and y_est and write y_est for each
+    # coordinate, and read X^T and write y_est once an epoch; the code as
+    # written reads 9 and writes 4 vectors a coordinate (y - y_est, t_j x_j,
+    # their sum, the dot, the addcmul)
+    vec = rows * 4
+    must = sweeps * ((cols + 1) * 4 * vec + (cols + 1) * vec + vec)
+    code = sweeps * ((cols + 1) * 13 * vec + (cols + 1) * vec + vec)
+    bound_ms = must / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "lasso path", "card": smi, "shape": [rows, cols], "sweeps": sweeps,
+          "lam": lam, "warmup_fit_ms": warm_ms, "fit_wall_ms": walls,
+          "profiled_fit_wall_ms": prof_wall, "profiled_fit_device_ms": device_ms,
+          "device_busy_share": device_ms / prof_wall, "graphed_epoch_ms": epoch_ms,
+          "launches_per_epoch": kernels_per_epoch, "graph_vs_eager_max_abs_diff": replay_err,
+          "coef_max_abs_err_vs_float64": err, "tolerance": tol,
+          "bytes_bound_gb": must / 1e9, "bytes_bound_ms": bound_ms,
+          "bytes_as_written_gb": code / 1e9, "bytes_as_written_ms": code / HBM_BYTES_PER_S * 1e3,
+          "launches": launches})
+    del x, y, xt, yb, est
+    return launches
+
+
+def _adjusted_rand(a, b):
+    """The adjusted Rand index of two labelings."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    table = np.zeros((a.max() + 1, b.max() + 1), dtype=np.int64)
+    np.add.at(table, (a, b), 1)
+    comb = lambda v: (v * (v - 1) / 2.0).sum()
+    pairs, rows, cols = comb(table), comb(table.sum(1)), comb(table.sum(0))
+    expected = rows * cols / comb(np.array([a.size]))
+    return float((pairs - expected) / (0.5 * (rows + cols) - expected))
+
+
+def spectral_path(ht, dev, smi, time_ms):
+    """bench.py's spectral row through the user entry points: 8192 x 32
+    randn points shifted by randint(0, 8) * 8, Spectral(n_clusters=8,
+    gamma=0.05, n_lanczos=64). The launches of the one fit (rbf on the
+    cdist kernel's rbf epilogue, KMeans on the Lloyd kernel), the labels
+    against the generating blob ids (adjusted Rand index), each stage's
+    wall time, the Lanczos basis (V^T V = I, V^T L V = T), and the two
+    kernels against their plain versions at these shapes with their times.
+    Returns (launch counts over the fit, the kernels' rows)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.cluster.cuda_lloyd import lloyd_update, lloyd_update_plain
+    from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain, last_variant
+
+    n, d, k, m, gamma = SPECTRAL
+    ht.random.seed(0)
+    base = ht.random.randn(n, d, dtype=ht.float32, split=0)
+    ids = ht.random.randint(0, k, (n, 1))
+    x = base + ids.astype(ht.float32) * 8.0
+    truth = ids.numpy()[:, 0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    ht.random.seed(1)
+    ht.reset_launch_counts()
+    sp, fit_ms = timed(lambda: ht.cluster.Spectral(n_clusters=k, gamma=gamma,
+                                                   n_lanczos=m).fit(x))
+    launches = dict(ht.launch_counts())
+    cdist_variant = last_variant()
+    check("spectral fit launched the cdist and Lloyd kernels",
+          launches["cdist"] > 0 and launches["lloyd"] > 0, launches=launches,
+          cdist_variant=cdist_variant)
+    ari = _adjusted_rand(sp.labels_.numpy(), truth)
+    # the JAX package's labels on this input reach 0.8349 (measured on the CPU):
+    # the norm_sym embedding leaves each blob along a ray of its degrees, so
+    # KMeans splits one blob and merges two
+    check("spectral labels recover the blob ids: adjusted Rand index >= 0.80", ari >= 0.80,
+          adjusted_rand_index=ari)
+
+    sigma = float(np.sqrt(1.0 / (2.0 * gamma)))
+    stages = {}
+    _, stages["rbf"] = timed(lambda: ht.spatial.rbf(x, sigma=sigma, quadratic_expansion=True))
+    L, laplacian_ms = timed(lambda: sp._laplacian.construct(x))
+    stages["laplacian (rbf included)"] = laplacian_ms
+    (V, T), stages["lanczos"] = timed(lambda: ht.linalg.lanczos(L, m))
+    t_host = T.numpy().astype(np.float64)
+    (eigval, eigvec), stages["eigh of T (host)"] = timed(lambda: np.linalg.eigh(t_host))
+    emb = sp._embedding
+    ht.random.seed(1)
+    _, stages["kmeans"] = timed(lambda: ht.cluster.KMeans(n_clusters=k, init="probability_based")
+                                .fit(emb))
+    v64 = V.larray.double()
+    orth = float((v64.t() @ v64 - torch.eye(m, dtype=torch.float64, device=v64.device))
+                 .abs().max())
+    krylov = float((v64.t() @ (L.larray.double() @ v64) - torch.as_tensor(t_host, device=v64.device))
+                   .abs().max())
+    check("lanczos basis orthonormal: max|V^T V - I| <= 1e-4", orth <= 1e-4, value=orth)
+    check("lanczos relation: max|V^T L V - T| <= 1e-3", krylov <= 1e-3, value=krylov)
+
+    # the two kernels at the shapes this path gives them, against their plain versions
+    xt = x.larray.contiguous()
+    gamma_rbf = 1.0 / (2.0 * sigma * sigma)
+    k3, k3_plain = euclid(xt, xt, gamma_rbf, epilogue="rbf"), euclid_plain(
+        xt, xt, gamma_rbf, epilogue="rbf", precision=None)
+    k3_err = float((k3 - k3_plain).abs().max())
+    # on d2 within 2e-5 (|x|^2 + |y|^2) + 1e-6, times gamma for rbf (as the cdist checks)
+    norms = (xt * xt).sum(1)
+    k3_worst = float(((k3 - k3_plain).abs() / (gamma_rbf * (
+        2e-5 * (norms[:, None] + norms[None, :]) + 1e-6))).max())
+    centers = emb.larray[:k].clone()
+    sums, counts = lloyd_update(emb.larray, centers)
+    p_sums, p_counts = lloyd_update_plain(emb.larray, centers)
+    k4_err = float((sums - p_sums).abs().max())
+    check("spectral shape: cdist rbf kernel within gamma (2e-5 (|x|^2 + |y|^2) + 1e-6) of its "
+          "plain version", k3_worst <= 1.0, max_abs_err=k3_err, worst_over_tolerance=k3_worst)
+    check("spectral shape: Lloyd kernel counts exact, sums within 1e-4 of sum|x|",
+          torch.equal(counts, p_counts) and k4_err <= 1e-4 * float(emb.larray.abs().sum()),
+          max_abs_err=k4_err)
+    k3_ms = time_ms(lambda: euclid(xt, xt, gamma_rbf, epilogue="rbf"), 20)
+    k3_plain_ms = time_ms(lambda: euclid_plain(xt, xt, gamma_rbf, epilogue="rbf",
+                                               precision=None), 5)
+    k4_ms = time_ms(lambda: lloyd_update(emb.larray, centers), 50)
+    k4_plain_ms = time_ms(lambda: lloyd_update_plain(emb.larray, centers), 50)
+    # bounds: K3 writes the n x n f32 result (3 TF32 products of 2 n^2 d
+    # operations each); K4 reads the (n, k) embedding (2 n k^2 f32 operations)
+    k3_bound = bound(n * d * 4 + n * n * 4, 3 * 2 * n * n * d, TF32_FLOPS_PER_S)
+    k4_bound = bound(n * k * 4, 3 * 2 * n * k * k, TF32_FLOPS_PER_S)
+    rows = {
+        "cdist": {"shape": f"spectral rbf ({n}, {n}, {d}) f32", "launches": launches["cdist"],
+                  "variant": cdist_variant, "max_abs_err": k3_err, "ms": k3_ms,
+                  "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+                  "library_ms": None},
+        "lloyd": {"shape": f"spectral KMeans pass ({n}, {k}), k = {k}",
+                  "launches": launches["lloyd"], "max_abs_err": k4_err, "ms": k4_ms,
+                  "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+                  "library_ms": None},
+    }
+    emit({"phase": "spectral path", "card": smi, "shape": [n, d], "k": k, "m": m,
+          "gamma": gamma, "fit_wall_ms": fit_ms, "stage_wall_ms": stages,
+          "adjusted_rand_index": ari, "VtV_minus_I": orth, "VtLV_minus_T": krylov,
+          "launches": launches, "kernels": rows})
+    del x, base, L, V, T, xt, k3, k3_plain, sp, norms
+    return launches, rows
+
+
+def solver_phase(ht, dev, smi):
+    """cg on a 4096^2 s.p.d. f32 system (M M^T / n + I from a seeded
+    generator on the card, A split along its rows), with its relative
+    residual and wall time."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m = torch.randn((CG_N, CG_N), generator=gen, device=dev)
+    a = m @ m.T / CG_N + torch.eye(CG_N, device=dev)
+    b = torch.randn((CG_N,), generator=gen, device=dev)
+    A, B = ht.array(a, split=0), ht.array(b)
+    x0 = ht.zeros(CG_N)
+    ht.linalg.cg(A, B, x0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x = ht.linalg.cg(A, B, x0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    a64, b64 = a.double(), b.double()
+    res = float(torch.linalg.vector_norm(a64 @ x.larray.double() - b64) /
+                torch.linalg.vector_norm(b64))
+    check("cg relative residual <= 1e-5", res <= 1e-5, relative_residual=res)
+    emit({"phase": "solver", "card": smi, "n": CG_N, "cg_wall_ms": wall,
+          "relative_residual": res})
 
 
 def main():
@@ -1747,6 +2109,19 @@ def main():
               n for name, n in manip_launches.items() if name != "random"),
           launches=manip_launches)
 
+    # ------------------------- exact products, unsigned types, the solvers
+    exact_phase(ht, dev, time_ms)
+    unsigned_phase(ht, dev)
+    solver_phase(ht, dev, smi)
+
+    # ------------------------------------------------ lasso and spectral paths
+    lasso_launches = lasso_path(ht, dev, smi)
+    check("lasso path launched only the random kernel",
+          lasso_launches["random"] > 0 and not any(
+              n for name, n in lasso_launches.items() if name != "random"),
+          launches=lasso_launches)
+    spectral_launches, spectral_rows = spectral_path(ht, dev, smi, time_ms)
+
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of
     # 8 x 1024 tokens drawn from a numpy seed, random weights from a seeded
@@ -2043,6 +2418,8 @@ def main():
         if name in also:
             label, other = also[name]
             row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}
+        if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
+            row["spectral_path"] = spectral_rows[name]
         kernels.append(row)
     if FAILURES:
         print(f"chip_smoke: failed checks: {FAILURES}", file=sys.stderr)

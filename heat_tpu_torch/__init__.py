@@ -37,13 +37,24 @@ package has a Pallas kernel:
     numpy takes, ``nonzero``, ``where``, and the manipulations (``sort``,
     ``topk`` and ``unique`` distributed along the split axis by the odd-even
     merge-split network, ``concatenate``, ``reshape``, ``flip``, ``roll``,
-    the stacks and splits, ``pad``, ``tile``, ``repeat``, ...).
+    the stacks and splits, ``pad``, ``tile``, ``repeat``, ...);
+  - the ``lasso`` and ``spectral`` paths: ``regression.Lasso`` (coordinate
+    descent, one epoch a CUDA graph on one card), ``linalg.cg`` and
+    ``linalg.lanczos``, ``graph.Laplacian`` and ``cluster.Spectral`` (on
+    the cdist kernel's ``rbf`` epilogue and the Lloyd kernel), with the
+    factories ``eye``/``linspace``/``logspace``/``meshgrid``,
+    ``spatial.manhattan``, the type functions and names, the estimator
+    mixins and the validation helpers. Exact products (bool and the
+    integers) and the wide unsigned types compute on the card as in the JAX
+    package.
 """
 
 from .core import *
 from . import core
 from .core import random
 from . import cluster
+from . import graph
+from . import regression
 from . import spatial
 from . import parallel
 from . import nn

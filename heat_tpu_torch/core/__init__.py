@@ -1,14 +1,15 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
 factories, the elementwise (arithmetic, exponential, trigonometric,
 complex, rounding, relational and logical) operations, indexing, the
-manipulations, printing, the statistics, ``random`` and ``linalg``."""
+manipulations, printing, the statistics, ``random``, ``linalg``, the
+estimator bases and the validation helpers."""
 
 from . import constants, linalg, random, version
 from .arithmetics import *
-from .communication import TorchCommunication, get_comm, use_comm
+from .communication import TorchCommunication, get_comm, sanitize_comm, use_comm
 from .complex_math import *
 from .constants import *
-from .devices import Device, cpu, get_device, gpu, use_device
+from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
 from .dndarray import DNDarray
 from .exponential import *
 from .factories import *
@@ -23,22 +24,7 @@ from .rounding import *
 from .statistics import *
 from .trigonometrics import *
 from .version import version as __version__
-from .types import (
-    bool,
-    canonical_heat_type,
-    complex64,
-    complex128,
-    float16,
-    float32,
-    float64,
-    bfloat16,
-    int8,
-    int16,
-    int32,
-    int64,
-    promote_types,
-    uint8,
-    uint16,
-    uint32,
-    uint64,
-)
+from .base import *
+from .sanitation import *
+from .stride_tricks import *
+from .types import *

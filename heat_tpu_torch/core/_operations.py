@@ -24,12 +24,26 @@ it, so torch's own promotion decides nothing:
   give float32, while ``bool / 2`` gives float64 (``bool`` joined with a
   python int is int64).
 
-torch has no CPU ``add``, ``neg`` or ``amax`` (among others) for uint16,
-uint32 and uint64. An operation that torch cannot compute on them raises a
-``TypeError`` naming the heat type; none is computed in another type. A
-``sum`` of an unsigned array is the exception the JAX package makes
-usable: it adds in int64 and reinterprets the bits as uint64, exact
-modulo 2^64 as the reference's uint64 sum is.
+torch has few kernels for uint16, uint32 and uint64 (on the card no
+``add``, ``mul``, comparison, ``amax``, ``where`` or ``sort``), so every
+operation on them runs on the signed type of their width
+(:func:`_apply`), in one of three ways that the caller names:
+
+* ``"bits"`` (add, subtract, multiply, negate, power, the bitwise
+  operations, the left shift, the cumulative sum and product): two's
+  complement gives the same bits modulo 2^w, so the operation runs on the
+  bits as the signed type and its result is read back as unsigned;
+* ``"order"`` (comparisons, ``maximum``/``minimum``, ``clip``, ``max``/
+  ``min``, ``argmax``/``argmin``, sort keys): the bits with the sign bit
+  flipped (:func:`order_key`) order as the unsigned values do;
+* ``"value"`` (floor division, remainder, the right shift): uint16 and
+  uint32 widen to int64 and wrap back modulo 2^w; the routines of
+  :data:`_VALUE` divide and shift such values and uint64 bits as unsigned
+  (a zero divisor gives the quotient all ones and the remainder 0, as
+  ``jnp``'s do).
+
+Sums and products reduce unsigned types as uint64, exact modulo 2^64 as
+the reference's are.
 """
 
 from __future__ import annotations
@@ -55,21 +69,131 @@ _INEXACT = {
     torch.uint16: torch.float32, torch.uint32: torch.float32, torch.uint64: torch.float64,
 }
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
-# the unsigned types for which torch lacks most arithmetic
-_LIMITED = (torch.uint16, torch.uint32, torch.uint64)
+# the unsigned types for which torch lacks most kernels, and their widths
+_WIDTH = {torch.uint16: 16, torch.uint32: 32, torch.uint64: 64}
+# the signed type of the same width, whose kernels compute on their bits
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
 
 
-def _apply(operation: Callable, *operands) -> torch.Tensor:
-    """``operation(*operands)``; where torch has no kernel for an operand's
-    limited unsigned type, a ``TypeError`` that names its heat type."""
-    try:
+def _sign_bit(dtype: torch.dtype) -> builtins.int:
+    return -(1 << (_WIDTH[dtype] - 1))
+
+
+def order_key(t: torch.Tensor) -> torch.Tensor:
+    """A tensor that orders as ``t``'s values do: for uint16, uint32 and
+    uint64 their bits as the signed type of the width with the sign bit
+    flipped; any other tensor is its own key."""
+    if t.dtype not in _WIDTH:
+        return t
+    return t.view(_SIGNED[t.dtype]) ^ _sign_bit(t.dtype)
+
+
+def from_order_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The values of type ``dtype`` whose :func:`order_key` is ``k``."""
+    if dtype not in _WIDTH:
+        return k
+    return (k ^ _sign_bit(dtype)).view(dtype)
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """The values of a uint16 or uint32 tensor in int64."""
+    return t.view(_SIGNED[t.dtype]).to(torch.int64) & ((1 << _WIDTH[t.dtype]) - 1)
+
+
+def _wrap(r: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An int64 tensor modulo 2^w as the unsigned type ``dtype``."""
+    return r.to(_SIGNED[dtype]).view(dtype)
+
+
+_U64_MAX_SIGNED = (1 << 63) - 1
+
+
+def _u64_divmod(a: torch.Tensor, b: torch.Tensor):
+    """Quotient and remainder of uint64 values given as their int64 bits.
+    For a divisor below 2^63 the halved dividend is divided as a signed
+    value, doubled, and corrected once (the remainder is then below twice
+    the divisor); a divisor from 2^63 up goes at most once. A zero divisor
+    gives the quotient all ones and the remainder 0, as ``jnp``'s do."""
+    a, b = torch.broadcast_tensors(a, torch.as_tensor(b, dtype=torch.int64, device=a.device))
+    big = b < 0
+    zero = b == 0
+    bs = torch.where(big | zero, torch.ones_like(b), b)
+    q = (((a >> 1) & _U64_MAX_SIGNED) // bs) << 1
+    r = a - q * bs
+    more = ((r ^ _sign_bit(torch.uint64)) >= (bs ^ _sign_bit(torch.uint64))).to(torch.int64)
+    q, r = q + more, r - more * bs
+    once = ((a ^ _sign_bit(torch.uint64)) >= (b ^ _sign_bit(torch.uint64))).to(torch.int64)
+    q = torch.where(big, once, q)
+    r = torch.where(big, a - once * b, r)
+    return torch.where(zero, torch.full_like(q, -1), q), torch.where(zero, torch.zeros_like(r), r)
+
+
+def _u64_right_shift(a: torch.Tensor, s) -> torch.Tensor:
+    """The logical right shift of uint64 bits ``a`` by ``s``: one shift
+    that clears the sign, then an arithmetic shift of a non-negative
+    value."""
+    s = torch.as_tensor(s, dtype=torch.int64, device=a.device)
+    half = ((a >> 1) & _U64_MAX_SIGNED) >> (s - 1).clamp(min=0)
+    return torch.where(s <= 0, a, half)
+
+
+# the "value" operations on uint64 bits in int64 (uint16 and uint32 values
+# widened to int64 are such bits too)
+_VALUE = {
+    torch.floor_divide: lambda a, b: _u64_divmod(a, b)[0],
+    torch.remainder: lambda a, b: _u64_divmod(a, b)[1],
+    torch.fmod: lambda a, b: _u64_divmod(a, b)[1],
+    torch.bitwise_right_shift: _u64_right_shift,
+}
+
+
+def _apply(operation: Callable, *operands, unsigned: str = "bits") -> torch.Tensor:
+    """``operation(*operands)``. Operands of a limited unsigned type (all of
+    one type: the caller casts them to the result type first) go through
+    the signed type of their width as ``unsigned`` names (``"bits"``,
+    ``"order"`` or ``"value"``, the module docstring); a python int beside
+    them is mapped as they are."""
+    limited = [o.dtype for o in operands if isinstance(o, torch.Tensor) and o.dtype in _WIDTH]
+    if not limited:
         return operation(*operands)
-    except (NotImplementedError, RuntimeError) as e:
-        limited = [o.dtype for o in operands if isinstance(o, torch.Tensor) and o.dtype in _LIMITED]
-        if not limited:
-            raise
-        name = types.canonical_heat_type(limited[0]).__name__
-        raise TypeError(f"torch cannot compute this operation on heat type {name}: {e}") from e
+    dtype = limited[0]
+    width, signed = _WIDTH[dtype], _SIGNED[dtype]
+    if unsigned == "value":
+        if operation not in _VALUE:
+            raise TypeError(f"no unsigned form of {operation!r}")
+        operation = _VALUE[operation]
+
+        def enter(o):
+            if isinstance(o, torch.Tensor) and o.dtype == dtype:
+                return o.view(signed) if dtype == torch.uint64 else _widen(o)
+            return o
+
+        def leave(r):
+            return r.view(dtype) if dtype == torch.uint64 else _wrap(r, dtype)
+    elif unsigned == "order":
+        def enter(o):
+            if isinstance(o, torch.Tensor) and o.dtype == dtype:
+                return order_key(o)
+            if isinstance(o, (builtins.int, np.integer)) and not isinstance(o, builtins.bool):
+                # a number past the type's range wraps into it, as the JAX package casts it
+                return builtins.int(o) % (1 << width) + _sign_bit(dtype)
+            return o
+
+        def leave(r):
+            return from_order_key(r, dtype) if r.dtype == signed else r
+    elif unsigned == "bits":
+        def enter(o):
+            if isinstance(o, torch.Tensor) and o.dtype == dtype:
+                return o.view(signed)
+            if isinstance(o, (builtins.int, np.integer)) and not isinstance(o, builtins.bool):
+                return (builtins.int(o) - _sign_bit(dtype)) % (1 << width) + _sign_bit(dtype)
+            return o
+
+        def leave(r):
+            return r.view(dtype) if r.dtype == signed else r
+    else:
+        raise ValueError(f"unsigned must be 'bits', 'order' or 'value', got {unsigned!r}")
+    return leave(operation(*(enter(o) for o in operands)))
 
 
 def _is_exact(t: torch.Tensor) -> bool:
@@ -154,6 +278,7 @@ def binary_op(
     t2,
     out: Optional[DNDarray] = None,
     inexact: bool = False,
+    unsigned: str = "bits",
 ) -> DNDarray:
     """Elementwise binary operation with broadcasting and split
     reconciliation (reference _operations.py:25-181). A replicated operand
@@ -161,7 +286,9 @@ def binary_op(
     split operand of size 1 along its split axis is gathered whole and
     broadcasts. The result's split is an operand's split, as in the JAX
     package. ``inexact`` makes an exact result type inexact, as true
-    division and jnp's ``hypot``, ``arctan2``, ``logaddexp`` do."""
+    division and jnp's ``hypot``, ``arctan2``, ``logaddexp`` do.
+    ``unsigned`` names how the operation sees uint16, uint32 and uint64
+    (:func:`_apply`)."""
     arrays = [a for a in (t1, t2) if isinstance(a, DNDarray)]
     if not arrays:
         raise TypeError(f"expected at least one DNDarray operand, got {type(t1)}, {type(t2)}")
@@ -207,7 +334,7 @@ def binary_op(
     dtype = result_type(a, b)
     if inexact:
         dtype = _INEXACT.get(dtype, dtype)
-    result = _apply(operation, _cast(a, dtype), _cast(b, dtype))
+    result = _apply(operation, _cast(a, dtype), _cast(b, dtype), unsigned=unsigned)
 
     res = DNDarray(result, out_shape, types.canonical_heat_type(result.dtype), out_split,
                    device, comm, True)
@@ -219,16 +346,18 @@ def local_op(
     x: DNDarray,
     out: Optional[DNDarray] = None,
     promote_exact: bool = False,
+    unsigned: str = "bits",
 ) -> DNDarray:
     """Elementwise operation, independent on every rank (reference
     _operations.py:281-352). ``promote_exact`` casts exact input to its
     inexact type first (int64 to float64, the narrower ones and bool to
-    float32), as the JAX package's transcendental functions do."""
+    float32), as the JAX package's transcendental functions do.
+    ``unsigned`` is :func:`_apply`'s."""
     sanitation.sanitize_in(x)
     buf = x.larray
     if promote_exact:
         buf = buf.to(_INEXACT.get(buf.dtype, buf.dtype))
-    result = _apply(operation, buf)
+    result = _apply(operation, buf, unsigned=unsigned)
     res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,
                    x.device, x.comm, True)
     return into(res, out)
@@ -294,15 +423,17 @@ def reduce_op(
                 result = torch.prod(result, dim=d, keepdim=keepdims)
     else:
         fn = torch.amax if reduction == "max" else torch.amin
+        keyed = order_key(buf)  # max and min of the wide unsigned types on their order keys
         if buf.numel() == 0:
             shape = tuple(1 if d in red_axes else s for d, s in enumerate(buf.shape)) if keepdims \
                 else tuple(s for d, s in enumerate(buf.shape) if d not in red_axes)
-            result = torch.full(shape, neutral, dtype=buf.dtype, device=buf.device)
+            result = order_key(torch.full(shape, neutral, dtype=buf.dtype, device=buf.device))
         else:
-            result = _apply(lambda b: fn(b, dim=red_axes, keepdim=keepdims) if red_axes
-                            else b.clone(), buf)
+            result = fn(keyed, dim=red_axes, keepdim=keepdims) if red_axes else keyed.clone()
     if crosses_split:
         result = x.comm.allreduce(result.contiguous(), _ALLREDUCE[reduction])
+    if reduction in ("max", "min"):
+        result = from_order_key(result, buf.dtype)
     if reduction in ("sum", "prod", "nansum", "nanprod") and unsigned:
         result = result.view(torch.uint64)  # the reference reduces unsigned types as uint64
     if dtype is not None:
@@ -332,16 +463,16 @@ def cum_op(
     if not isinstance(axis, builtins.int):
         raise TypeError(f"axis must be an integer, got {axis!r}")
     buf = x.larray
-    unsigned = buf.dtype == torch.uint64
-    if unsigned:
-        buf = buf.view(torch.int64)
+    unsigned = buf.dtype in _WIDTH
+    if unsigned:  # the sums and products of the bits wrap as the unsigned values do
+        buf = buf.view(_SIGNED[buf.dtype])
     elif buf.dtype == torch.bool:
         buf = buf.to(torch.int64)
     scan = torch.cumsum if operation == "sum" else torch.cumprod
     # along the last axis of a contiguous copy: torch's scan along a strided
     # axis of a large array is ~1000x slower on the card than along rows
-    result = _apply(lambda b: scan(b.movedim(axis, -1).contiguous(), dim=-1, dtype=b.dtype)
-                    .movedim(-1, axis).contiguous(), buf)
+    result = scan(buf.movedim(axis, -1).contiguous(), dim=-1, dtype=buf.dtype) \
+        .movedim(-1, axis).contiguous()
     comm = x.comm
     if x.split == axis and comm.size > 1:
         neutral = 0 if operation == "sum" else 1
@@ -356,7 +487,7 @@ def cum_op(
             carry = carry + piece if operation == "sum" else carry * piece
         result = result + carry if operation == "sum" else result * carry
     if unsigned:
-        result = result.view(torch.uint64)
+        result = result.view(x.larray.dtype)
     if dtype is not None:
         result = result.to(types.canonical_heat_type(dtype).torch_type())
     res = DNDarray(result, x.shape, types.canonical_heat_type(result.dtype), x.split,

@@ -16,7 +16,7 @@ import builtins
 import torch
 
 from . import types
-from ._operations import binary_op, cum_op, local_op, reduce_op, tensor_operands
+from ._operations import _apply, binary_op, cum_op, local_op, reduce_op, tensor_operands
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -113,7 +113,7 @@ def _diff(t: torch.Tensor, n: int, axis: int) -> torch.Tensor:
     for _ in range(n):
         hi, lo = t.narrow(axis, 1, max(t.shape[axis] - 1, 0)), t.narrow(
             axis, 0, max(t.shape[axis] - 1, 0))
-        t = hi != lo if t.dtype == torch.bool else hi - lo
+        t = hi != lo if t.dtype == torch.bool else _apply(torch.sub, hi, lo)
     return t
 
 
@@ -159,7 +159,7 @@ divide = div
 
 def floordiv(t1, t2, out=None) -> DNDarray:
     """Elementwise division rounded toward minus infinity."""
-    return binary_op(torch.floor_divide, t1, t2, out)
+    return binary_op(torch.floor_divide, t1, t2, out, unsigned="value")
 
 
 floor_divide = floordiv
@@ -167,7 +167,7 @@ floor_divide = floordiv
 
 def fmod(t1, t2, out=None) -> DNDarray:
     """Elementwise C-style remainder (the sign of the dividend)."""
-    return binary_op(torch.fmod, t1, t2, out)
+    return binary_op(torch.fmod, t1, t2, out, unsigned="value")
 
 
 def left_shift(t1, t2, out=None) -> DNDarray:
@@ -177,7 +177,7 @@ def left_shift(t1, t2, out=None) -> DNDarray:
 
 def mod(t1, t2, out=None) -> DNDarray:
     """Elementwise python-style modulo (the sign of the divisor)."""
-    return binary_op(torch.remainder, t1, t2, out)
+    return binary_op(torch.remainder, t1, t2, out, unsigned="value")
 
 
 remainder = mod
@@ -237,7 +237,7 @@ def nansum(a: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray
 
 def right_shift(t1, t2, out=None) -> DNDarray:
     _check_int_or_bool(t1)
-    return binary_op(torch.bitwise_right_shift, t1, t2, out)
+    return binary_op(torch.bitwise_right_shift, t1, t2, out, unsigned="value")
 
 
 def sub(t1, t2, out=None) -> DNDarray:

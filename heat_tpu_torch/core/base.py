@@ -1,5 +1,5 @@
 """sklearn-style estimator base classes (counterpart of
-``heat_tpu/core/base.py``, the subset the clusterers need)."""
+``heat_tpu/core/base.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,17 @@ from typing import Any, Dict, List
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "TransformMixin",
+    "is_classifier",
+    "is_estimator",
+    "is_regressor",
+    "is_transformer",
+]
 
 
 class BaseEstimator:
@@ -65,3 +75,61 @@ class ClusteringMixin:
         self.fit(x)
         return self.predict(x)
 
+
+
+class ClassificationMixin:
+    """fit/predict contract for classifiers."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
+class TransformMixin:
+    """fit/transform contract for transformers."""
+
+    def fit(self, x: DNDarray):
+        raise NotImplementedError()
+
+    def fit_transform(self, x: DNDarray) -> DNDarray:
+        self.fit(x)
+        return self.transform(x)
+
+    def transform(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
+class RegressionMixin:
+    """fit/predict contract for regressors."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
+def is_classifier(estimator: Any) -> bool:
+    return isinstance(estimator, ClassificationMixin)
+
+
+def is_estimator(estimator: Any) -> bool:
+    return isinstance(estimator, BaseEstimator)
+
+
+def is_regressor(estimator: Any) -> bool:
+    return isinstance(estimator, RegressionMixin)
+
+
+def is_transformer(estimator: Any) -> bool:
+    return isinstance(estimator, TransformMixin)

@@ -10,6 +10,8 @@ redistributed to it.
 
 from __future__ import annotations
 
+import builtins
+import math
 from typing import Any, Optional, Type, Union
 
 import numpy as np
@@ -27,8 +29,12 @@ __all__ = [
     "asarray",
     "empty",
     "empty_like",
+    "eye",
     "full",
     "full_like",
+    "linspace",
+    "logspace",
+    "meshgrid",
     "ones",
     "ones_like",
     "zeros",
@@ -172,7 +178,11 @@ def full(shape, fill_value, dtype=types.float32, split=None, device=None, comm=N
 
 def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     """Evenly spaced values in [start, stop) with step (reference
-    factories.py:40)."""
+    factories.py:40). Integer arguments of an exact type count exactly;
+    otherwise the elements are numpy's, as ``jnp.arange`` gives them: the
+    first two rounded to the type, then ``first + i * delta`` computed in
+    the type (float32 for the 16-bit floats), ``delta`` their
+    difference."""
     if len(args) == 1:
         start, stop, step = 0, args[0], 1
     elif len(args) == 2:
@@ -189,7 +199,17 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     dtype = types.canonical_heat_type(dtype)
     device = sanitize_device(device)
     comm = sanitize_comm(comm)
-    data = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=device.torch_device)
+    t, dev = dtype.torch_type(), device.torch_device
+    if all(isinstance(a, int) for a in (start, stop, step)) and not (
+            t.is_floating_point or t.is_complex):
+        data = torch.arange(start, stop, step, dtype=t, device=dev)
+    else:
+        n = builtins.max(math.ceil((stop - start) / step), 0)
+        work = torch.float32 if t in (torch.float16, torch.bfloat16) else t
+        first = torch.tensor(start, dtype=t, device=dev).to(work)
+        second = torch.tensor(start + step, dtype=t, device=dev).to(work)
+        data = (first + torch.arange(n, device=dev).to(work) * (second - first)).to(t)
+        data[:2] = torch.stack([first, second])[:n].to(t)
     return _from_global(data, split, device, comm, dtype)
 
 
@@ -218,3 +238,89 @@ def empty_like(a: DNDarray, dtype=None, split=None, device=None, comm=None) -> D
 def full_like(a: DNDarray, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
     shape, dt, sp, dev, cm = _like(a, dtype, split, device, comm)
     return full(shape, fill_value, dt, sp, dev, cm)
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """A 2-D array with ones on the diagonal (reference factories.py:408);
+    each rank builds only its own chunk."""
+    if isinstance(shape, (builtins.int, np.integer)):
+        gshape = (builtins.int(shape), builtins.int(shape))
+    else:
+        shape = tuple(shape)
+        gshape = (builtins.int(shape[0]), builtins.int(shape[1] if len(shape) > 1 else shape[0]))
+    dtype = types.canonical_heat_type(dtype)
+    device = sanitize_device(device)
+    comm = sanitize_comm(comm)
+    split = sanitize_axis(gshape, split)
+    _, _, (rows, cols) = comm.chunk(gshape, split)
+    dev = device.torch_device
+    r = torch.arange(rows.start, rows.stop, device=dev)[:, None]
+    c = torch.arange(cols.start, cols.stop, device=dev)[None, :]
+    return DNDarray((r == c).to(dtype.torch_type()), gshape, dtype, split, device, comm, True)
+
+
+def linspace(start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False,
+             dtype=None, split=None, device=None, comm=None):
+    """``num`` evenly spaced samples over [start, stop] (reference
+    factories.py:422): computed in float64 as ``jnp.linspace`` computes
+    them (``start * (1 - i/div) + stop * i/div``, the end point appended),
+    then float32 unless ``dtype`` is given."""
+    num = builtins.int(num)
+    if num <= 0:
+        raise ValueError(f"number of samples 'num' must be non-negative integer, but was {num}")
+    start, stop = builtins.float(start), builtins.float(stop)
+    div = num - 1 if endpoint else num
+    step = (stop - start) / builtins.max(1, div)
+    device = sanitize_device(device)
+    comm = sanitize_comm(comm)
+    dev = device.torch_device
+    if num > 1:
+        frac = torch.arange(div, dtype=torch.float64, device=dev) / div
+        data = start * (1 - frac) + stop * frac
+        if endpoint:
+            data = torch.cat([data, torch.tensor([stop], dtype=torch.float64, device=dev)])
+    else:
+        data = torch.tensor([start], dtype=torch.float64, device=dev)
+    dt = types.float32 if dtype is None else types.canonical_heat_type(dtype)
+    res = _from_global(data.to(dt.torch_type()), split, device, comm, dt)
+    return (res, step) if retstep else res
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None, split=None, device=None,
+             comm=None) -> DNDarray:
+    """``num`` samples on a log scale, ``base ** linspace(start, stop)``
+    (reference factories.py:454)."""
+    from . import arithmetics
+
+    y = linspace(start, stop, num=num, endpoint=endpoint, split=split, device=device, comm=comm)
+    res = arithmetics.pow(builtins.float(base), y)
+    return res if dtype is None else res.astype(types.canonical_heat_type(dtype))
+
+
+def meshgrid(*arrays, indexing: str = "xy"):
+    """Coordinate matrices from 1-D coordinate vectors (reference
+    factories.py:467). The vectors are gathered; if one is split, every grid
+    is split along the dimension that carries its coordinate."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
+    if not arrays:
+        return []
+    hts = [a if isinstance(a, DNDarray) else array(a) for a in arrays]
+    splits = [a.split for a in hts]
+    if builtins.sum(s is not None for s in splits) > 1:
+        raise ValueError("split axis can be defined for at most one input")
+    which = next((i for i, s in enumerate(splits) if s is not None), None)
+    out_split = None
+    if which is not None:
+        out_split = 1 - which if indexing == "xy" and which < 2 and len(hts) > 1 else which
+    vecs = [a._global().reshape(-1) for a in hts]
+    shape = [v.shape[0] for v in vecs]
+    if indexing == "xy" and len(vecs) > 1:
+        shape[0], shape[1] = shape[1], shape[0]
+    grids = []
+    for i, v in enumerate(vecs):
+        dim = (1 - i if i < 2 else i) if indexing == "xy" and len(vecs) > 1 else i
+        view = [1] * len(vecs)
+        view[dim] = -1
+        grids.append(v.reshape(view).expand(shape).contiguous())
+    return [_from_global(g, out_split, hts[0].device, hts[0].comm) for g in grids]

@@ -517,7 +517,7 @@ def _compact(selected: torch.Tensor, mask: torch.Tensor, gshape, split, comm):
 
 def _masked_select(x: DNDarray, mask: torch.Tensor) -> DNDarray:
     """``x[mask]`` for a full-shape mask: 1-D, split=0 when ``x`` is split."""
-    sel = x.larray[mask]
+    sel = _unbits(_bits(x.larray)[mask], x.larray.dtype)
     data, total = _compact(sel, mask, x.shape, x.split, x.comm)
     split = 0 if x.split is not None else None
     return DNDarray(data.contiguous(), (total,), x.dtype, split, x.device, x.comm, True)
@@ -534,7 +534,7 @@ def _row_mask_select(x: DNDarray, mask: torch.Tensor) -> DNDarray:
     mask = mask.to(dev)
     if x.split == 0 and not local:
         mask = mask[x.comm.chunk((x.shape[0],), 0)[2][0]]
-    rows = x.larray[mask]
+    rows = _unbits(_bits(x.larray)[mask], x.larray.dtype)
     if x.split != 0 or x.comm.size == 1:
         gshape = (rows.shape[0],) + x.shape[1:]
         return DNDarray(rows.contiguous(), gshape, x.dtype, x.split, x.device, x.comm, True)
@@ -885,7 +885,7 @@ def where(cond: DNDarray, x=None, y=None) -> DNDarray:
     dimensions raise; a replicated operand spanning the result's split
     dimension is cut to this rank's chunk."""
     from . import factories
-    from ._operations import _cast, result_type
+    from ._operations import _apply, _cast, result_type
     from .stride_tricks import broadcast_shape
 
     if x is None and y is None:
@@ -924,6 +924,6 @@ def where(cond: DNDarray, x=None, y=None) -> DNDarray:
     dev = c.device
     a = a if isinstance(a, torch.Tensor) else torch.tensor(a, dtype=dtype, device=dev)
     b = b if isinstance(b, torch.Tensor) else torch.tensor(b, dtype=dtype, device=dev)
-    res = torch.where(c.to(torch.bool), a, b)
+    res = _apply(lambda u, v: torch.where(c.to(torch.bool), u, v), a, b)
     return DNDarray(res, out_shape, types.canonical_heat_type(res.dtype), out_split, device,
                     comm, True)

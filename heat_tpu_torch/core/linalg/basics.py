@@ -20,7 +20,12 @@ Uneven tails and empty chunks (a dimension shorter than the world) need no
 mask: an empty chunk contributes a zero partial.
 
 The product is ``torch.matmul`` (cuBLAS on the card): the JAX package runs
-``jnp.matmul`` outside any Pallas kernel. Its f32 precision is the caller's
+``jnp.matmul`` outside any Pallas kernel. torch has no product of exact
+types on the card (and on the CPU none of bool or the wide unsigned
+types), so an exact product is summed from float64 products of 16-bit
+limbs, exact in int64 modulo 2^64, and cast back with the wrap of its type
+as the JAX package's product wraps; bool is the count of true pairs, > 0
+(:func:`_exact_products`). Its f32 precision is the caller's
 ``torch.backends.cuda.matmul.allow_tf32``, read and never set, as the JAX
 package reads the caller's ``jax.default_matmul_precision``. A bf16 or f16
 product clears torch's reduced-precision reduction flag for itself and
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from .. import types
-from .._operations import into, result_type
+from .._operations import _apply, into, result_type
 from ..dndarray import DNDarray
 from ..stride_tricks import sanitize_axis
 
@@ -65,10 +70,62 @@ _REDUCED_PRECISION_FLAG = {
 }
 
 
-def _product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+_LIMB_BITS = 16
+# 16-bit limbs multiply below 2^32; 2^20 such products add below 2^53,
+# where float64 holds every integer
+_EXACT_K = 1 << 20
+
+
+def _exact(dtype: torch.dtype) -> builtins.bool:
+    return not (dtype.is_floating_point or dtype.is_complex)
+
+
+def _exact_products(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x, y)`` of exact tensors of one type, as int64 modulo
+    2^64 (for bool, the count of true pairs). Each operand's int64 value is
+    cut into the 16-bit limbs that its type's width needs; the limb
+    products whose weight stays below 2^64 are float64 products over
+    contraction chunks of ``_EXACT_K``, exact, and are added in int64."""
+    width = 8 if x.dtype == torch.bool else torch.iinfo(x.dtype).bits
+    limbs = -(-width // _LIMB_BITS)
+    xi = x.view(torch.int64) if x.dtype == torch.uint64 else x.to(torch.int64)
+    yi = y.view(torch.int64) if y.dtype == torch.uint64 else y.to(torch.int64)
+    y_k = 0 if y.ndim == 1 else y.ndim - 2
+    k = x.shape[-1]
+    acc = None
+    for k0 in range(0, builtins.max(k, 1), _EXACT_K):
+        kc = builtins.min(_EXACT_K, k - k0)
+        xs, ys = xi.narrow(-1, k0, kc), yi.narrow(y_k, k0, kc)
+        xl = [((xs >> (_LIMB_BITS * i)) & 0xFFFF).to(torch.float64) for i in range(limbs)]
+        yl = [((ys >> (_LIMB_BITS * j)) & 0xFFFF).to(torch.float64) for j in range(limbs)]
+        for i in range(limbs):
+            for j in range(limbs - i):
+                part = torch.matmul(xl[i], yl[j]).to(torch.int64) << (_LIMB_BITS * (i + j))
+                acc = part if acc is None else acc + part
+    return acc
+
+
+def _exact_result(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An int64 sum of products as ``dtype``: bool where positive, else
+    modulo 2^w of the type's width."""
+    if dtype == torch.bool:
+        return acc > 0
+    if dtype == torch.uint64:
+        return acc.view(torch.uint64)
+    signed = {torch.uint8: torch.int8, torch.uint16: torch.int16,
+              torch.uint32: torch.int32}.get(dtype, dtype)
+    return acc.to(signed).view(dtype)
+
+
+def _product(x: torch.Tensor, y: torch.Tensor, accumulate: builtins.bool = False) -> torch.Tensor:
     """``torch.matmul``; a bf16 or f16 product accumulates in f32 (the
     reduced-precision flag cleared for it alone and restored after it, also
-    when it raises)."""
+    when it raises). An exact product is :func:`_exact_products`, left as
+    its int64 sum with ``accumulate`` (for a sum across ranks) and in the
+    operands' type otherwise."""
+    if _exact(x.dtype):
+        acc = _exact_products(x, y)
+        return acc if accumulate else _exact_result(acc, x.dtype)
     flag = _REDUCED_PRECISION_FLAG.get(x.dtype)
     if flag is None:
         return torch.matmul(x, y)
@@ -109,9 +166,11 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
             a, b = (a.resplit(b.split), b) if a.split is None else (a, b.resplit(a.split))
         dtype = types.promote_types(a.dtype, b.dtype)
         tdt = dtype.torch_type()
-        res = torch.dot(a.larray.to(tdt), b.larray.to(tdt))
+        res = _product(a.larray.to(tdt), b.larray.to(tdt), accumulate=True)
         if a.split is not None:
             res = a.comm.allreduce(res)
+        if _exact(tdt):
+            res = _exact_result(res, tdt)
         return into(_replicated(res, a, dtype), out)
     if a.ndim <= 2 and b.ndim <= 2:
         return into(matmul(a, b), out)
@@ -220,10 +279,12 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
                 return _narrow_chunk(promoted(x, x.larray), k, comm)
             return promoted(x, x.resplit(k).larray)  # not a vector: k is its own axis
 
-        partial = _product(k_chunk(a, a_ps, ka), k_chunk(b, b_ps, kb))
+        partial = _product(k_chunk(a, a_ps, ka), k_chunk(b, b_ps, kb), accumulate=True)
         if psplit is None:
-            return finish(comm.allreduce(partial))
-        return finish(comm.reduce_scatter(partial, psplit, pshape[psplit]))
+            summed = comm.allreduce(partial)
+        else:
+            summed = comm.reduce_scatter(partial, psplit, pshape[psplit])
+        return finish(_exact_result(summed, tdt) if _exact(tdt) else summed)
 
     # carried: the operand that owns the result's split axis keeps its chunk
     def own_dim(xshape, carried_dim, carried_at):
@@ -322,7 +383,7 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None,
     rows = chunk(a) if split == 0 else a._global()
     cols = chunk(b) if split == 1 else b._global()
     dtype = result_type(rows, cols)
-    res = rows.to(dtype)[:, None] * cols.to(dtype)[None, :]
+    res = _apply(torch.mul, rows.to(dtype)[:, None], cols.to(dtype)[None, :])
     return into(DNDarray(res, (a.shape[0], b.shape[0]), types.canonical_heat_type(dtype),
                          split, a.device, a.comm, True), out)
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from . import types
+from ._operations import from_order_key, order_key
 from .communication import _exact_wire
 from .dndarray import DNDarray
 from .indexing import (_BITS_AS, _assemble, _bits, _exchange_rows, _fetch_rows, _flip,
@@ -700,7 +701,7 @@ def _keys(t: torch.Tensor, dtype: torch.dtype) -> List[torch.Tensor]:
     """The sort keys of carried values, primary first: torch sorts the
     unsigned types (from their bits) and complex values by (real, imag)."""
     if dtype in _BITS_AS:
-        return [t.view(dtype)]
+        return [order_key(t.view(dtype))]
     if t.is_complex():
         return [t.real, t.imag]
     return [t]
@@ -802,7 +803,9 @@ def _sort_local(t: torch.Tensor, dim: int, descending: bool):
     keys = _keys(c, dtype)
     if len(keys) == 1:
         vals, perm = torch.sort(keys[0], dim=dim, stable=True, descending=descending)
-        return (vals.to(torch.bool) if dtype == torch.bool else vals), perm
+        if dtype == torch.bool:
+            vals = vals.to(torch.bool)
+        return from_order_key(vals, dtype), perm
     moved = c.movedim(dim, -1)
     flat = moved.reshape(builtins.int(np.prod(moved.shape[:-1], dtype=np.int64)), moved.shape[-1])
     perm = _lexsort([(k.movedim(dim, -1).reshape(flat.shape), descending) for k in keys])
@@ -926,7 +929,7 @@ def _runs(v, idx, n, comm, distributed, equal_nan, return_inverse):
         ranges = [[(builtins.int(starts[q]), counts[q])] for q in range(comm.size)]
         uniq = _uncarry(_assemble([_carry(v[isf])], ranges, u, comm, _carry(v)), v.dtype)
     else:
-        before, u, uniq = 0, cnt, v[isf]
+        before, u, uniq = 0, cnt, _uncarry(_carry(v)[isf], v.dtype)
     if not return_inverse:
         return uniq, u, None
     gid = before + cum - 1

@@ -48,28 +48,28 @@ def equal(t1, t2) -> bool:
 
 
 def ge(t1, t2) -> DNDarray:
-    return binary_op(torch.ge, t1, t2)
+    return binary_op(torch.ge, t1, t2, unsigned="order")
 
 
 greater_equal = ge
 
 
 def gt(t1, t2) -> DNDarray:
-    return binary_op(torch.gt, t1, t2)
+    return binary_op(torch.gt, t1, t2, unsigned="order")
 
 
 greater = gt
 
 
 def le(t1, t2) -> DNDarray:
-    return binary_op(torch.le, t1, t2)
+    return binary_op(torch.le, t1, t2, unsigned="order")
 
 
 less_equal = le
 
 
 def lt(t1, t2) -> DNDarray:
-    return binary_op(torch.lt, t1, t2)
+    return binary_op(torch.lt, t1, t2, unsigned="order")
 
 
 less = lt

@@ -16,7 +16,7 @@ import builtins
 import torch
 
 from . import types
-from ._operations import _apply, into, local_op, result_type
+from ._operations import _UNSIGNED, _apply, into, local_op, result_type
 from .dndarray import DNDarray
 
 __all__ = ["abs", "absolute", "ceil", "clip", "fabs", "floor", "modf", "round", "sign", "trunc"]
@@ -32,9 +32,10 @@ def _whole(fn):
 
 
 def abs(x, out=None, dtype=None) -> DNDarray:
-    """Elementwise absolute value (reference rounding.py `abs`); a bool
-    array is its own absolute value."""
-    res = local_op(lambda t: t.clone() if t.dtype == torch.bool else torch.abs(t), x)
+    """Elementwise absolute value (reference rounding.py `abs`); a bool or
+    unsigned array is its own absolute value."""
+    whole = x.larray.dtype == torch.bool or x.larray.dtype in _UNSIGNED
+    res = local_op(torch.clone if whole else torch.abs, x)
     if dtype is not None:
         res = res.astype(types.canonical_heat_type(dtype), copy=False)
     return into(res, out)
@@ -53,12 +54,10 @@ def clip(x: DNDarray, min, max, out=None) -> DNDarray:
     if min is None and max is None:
         raise ValueError("either min or max must be set")
     bounds = [b for b in (min, max) if b is not None]
-
-    def op(t):
-        dtype = result_type(t, *bounds)
-        return _apply(lambda u: torch.clamp(u, min, max), t.to(dtype))
-
-    return local_op(op, x, out)
+    buf = x.larray
+    res = _apply(torch.clamp, buf.to(result_type(buf, *bounds)), min, max, unsigned="order")
+    return into(DNDarray(res, x.shape, types.canonical_heat_type(res.dtype), x.split, x.device,
+                         x.comm, True), out)
 
 
 def fabs(x, out=None) -> DNDarray:
@@ -110,6 +109,8 @@ def sign(x, out=None) -> DNDarray:
     """Elementwise sign indicator (-1, 0 or 1 in the type of ``x``)."""
     if isinstance(x, DNDarray) and x.dtype is types.bool:
         raise TypeError("sign is not defined for bool arrays")
+    if x.larray.dtype in _UNSIGNED:  # on the bits of the wide ones: a value is 0 or positive
+        return local_op(lambda t: (t != 0).to(t.dtype), x, out)
     return local_op(torch.sign, x, out)
 
 

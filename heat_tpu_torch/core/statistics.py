@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import arithmetics, exponential, types
-from ._operations import binary_op, into, reduce_op, tensor_operands
+from ._operations import _WIDTH, binary_op, into, order_key, reduce_op, tensor_operands
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -113,6 +113,9 @@ def _arg_reduce(x: DNDarray, axis, is_max: bool, out=None, keepdims: bool = Fals
     if buf.dtype == torch.bool:
         buf = buf.to(torch.uint8)
     neutral = _neutral_extreme(x, is_max)
+    if buf.dtype in _WIDTH:  # the wide unsigned types compare on their order keys
+        neutral = order_key(torch.tensor(neutral, dtype=buf.dtype)).item()
+        buf = order_key(buf)
     comm = x.comm
     offset = comm.chunk(x.shape, x.split)[0] if x.split is not None else 0
     if axis is None:
@@ -231,12 +234,12 @@ def min(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
 
 def maximum(x1, x2, out=None) -> DNDarray:
     """Elementwise maximum (NaN propagates)."""
-    return binary_op(tensor_operands(torch.maximum), x1, x2, out)
+    return binary_op(tensor_operands(torch.maximum), x1, x2, out, unsigned="order")
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
     """Elementwise minimum (NaN propagates)."""
-    return binary_op(tensor_operands(torch.minimum), x1, x2, out)
+    return binary_op(tensor_operands(torch.minimum), x1, x2, out, unsigned="order")
 
 
 def mean(x: DNDarray, axis=None, keepdims_internal: bool = False, keepdims: bool = False) -> DNDarray:
@@ -455,6 +458,8 @@ def _global_minmax(x: DNDarray):
     buf = x.larray
     if buf.dtype == torch.bool:
         buf = buf.to(torch.uint8)
+    if buf.dtype in _WIDTH:
+        return builtins.int(min(x).larray.item()), builtins.int(max(x).larray.item())
     if buf.numel():
         lo, hi = buf.amin().reshape(1), buf.amax().reshape(1)
         has_nan = torch.isnan(buf).any().reshape(1).to(torch.uint8) if buf.is_floating_point() \
@@ -719,3 +724,6 @@ def percentile(x: DNDarray, q, axis=None, out=None, interpolation: str = "linear
 def median(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     """The median, ``percentile(x, 50)``."""
     return percentile(x, 50.0, axis=axis, keepdims=keepdims)
+
+
+DNDarray.median = lambda self, axis=None, keepdims=False: median(self, axis, keepdims)

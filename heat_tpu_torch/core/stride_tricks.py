@@ -6,7 +6,7 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape", "sanitize_slice"]
 
 
 def broadcast_shape(shape_a: Sequence[int], shape_b: Sequence[int]) -> Tuple[int, ...]:
@@ -61,3 +61,11 @@ def sanitize_shape(shape: Union[int, Sequence[int]], lval: int = 0) -> Tuple[int
         if int(dim) < lval:
             raise ValueError(f"negative dimensions are not allowed, got {dim}")
     return tuple(int(d) for d in shape)
+
+
+def sanitize_slice(sl: slice, max_dim: int) -> slice:
+    """``sl`` with explicit start, stop and step for a dimension of length
+    ``max_dim``."""
+    if not isinstance(sl, slice):
+        raise TypeError("can only be used for slices")
+    return slice(*sl.indices(max_dim))

@@ -31,6 +31,7 @@ __all__ = [
     "bool_",
     "floating",
     "complexfloating",
+    "flexible",
     "int8",
     "int16",
     "int32",
@@ -55,10 +56,21 @@ __all__ = [
     "float_",
     "double",
     "cfloat",
+    "csingle",
     "cdouble",
+    "can_cast",
     "canonical_heat_type",
-    "promote_types",
+    "finfo",
+    "heat_type_is_complexfloating",
+    "heat_type_is_exact",
+    "heat_type_is_inexact",
+    "heat_type_of",
     "iinfo",
+    "iscomplex",
+    "isreal",
+    "issubdtype",
+    "promote_types",
+    "result_type",
 ]
 
 
@@ -102,6 +114,10 @@ class floating(number):
 
 
 class complexfloating(number):
+    pass
+
+
+class flexible(datatype):
     pass
 
 
@@ -171,6 +187,7 @@ float = float32
 float_ = float32
 double = float64
 cfloat = complex64
+csingle = complex64
 cdouble = complex128
 
 _COMPLETE_TYPES = [
@@ -239,6 +256,157 @@ def promote_types(type1: Any, type2: Any) -> Type[datatype]:
         if a.__name__ in _UNSIGNED_PROMOTION:
             return _NAME_MAP[_UNSIGNED_PROMOTION[a.__name__][b.__name__]]
     return canonical_heat_type(torch.promote_types(t1.torch_type(), t2.torch_type()))
+
+
+def heat_type_of(obj: Any) -> Type[datatype]:
+    """The heat type of an object's elements (reference types.py:284):
+    python numbers map as the JAX package maps them (int to int64, float to
+    float32)."""
+    from .dndarray import DNDarray
+
+    if isinstance(obj, DNDarray):
+        return obj.dtype
+    if isinstance(obj, (torch.Tensor, np.ndarray)) or hasattr(obj, "dtype"):
+        return canonical_heat_type(obj.dtype)
+    if isinstance(obj, (builtins.bool, np.bool_)):
+        return bool
+    if isinstance(obj, (builtins.int, builtins.float, builtins.complex)):
+        return _ALIAS_MAP[type(obj)]
+    try:
+        return canonical_heat_type(np.asarray(obj).dtype)
+    except TypeError:
+        raise TypeError(f"data type of {obj!r} not understood") from None
+
+
+def _kind_of(ht_dtype: Any, kinds) -> builtins.bool:
+    try:
+        return issubclass(canonical_heat_type(ht_dtype), kinds)
+    except TypeError:
+        return False
+
+
+def heat_type_is_exact(ht_dtype: Any) -> builtins.bool:
+    """True for the integer types and bool."""
+    return _kind_of(ht_dtype, (integer, bool))
+
+
+def heat_type_is_inexact(ht_dtype: Any) -> builtins.bool:
+    """True for the floating and complex types."""
+    return _kind_of(ht_dtype, (floating, complexfloating))
+
+
+def heat_type_is_complexfloating(ht_dtype: Any) -> builtins.bool:
+    return _kind_of(ht_dtype, complexfloating)
+
+
+def issubdtype(arg1: Any, arg2: Any) -> builtins.bool:
+    """numpy's abstract type lattice: whether ``arg1`` is ``arg2`` or below
+    it."""
+    return issubclass(canonical_heat_type(arg1), canonical_heat_type(arg2))
+
+
+def result_type(*args: Any) -> Type[datatype]:
+    """The result heat type of an operation on ``args`` (reference
+    types.py:343): arrays, tensors and types join strongly, python numbers
+    weakly, as the elementwise operations join them."""
+    from ._operations import result_type as joined
+    from .dndarray import DNDarray
+
+    operands = []
+    for a in args:
+        if isinstance(a, DNDarray):
+            operands.append(torch.empty(0, dtype=a.dtype.torch_type()))
+        elif isinstance(a, torch.Tensor) or isinstance(a, (builtins.int, builtins.float,
+                                                             builtins.complex, np.generic)):
+            operands.append(a)
+        else:
+            try:
+                t = canonical_heat_type(a)
+            except TypeError:
+                t = canonical_heat_type(np.asarray(a).dtype)
+            operands.append(torch.empty(0, dtype=t.torch_type()))
+    if not builtins.any(isinstance(o, (torch.Tensor, np.generic, builtins.bool)) for o in operands):
+        # python numbers alone: the first gives its kind's 64-bit type, as in jnp
+        first = {builtins.int: torch.int64, builtins.float: torch.float64,
+                 builtins.complex: torch.complex128}[type(operands[0])]
+        operands = [torch.empty(0, dtype=first)] + operands[1:]
+    return canonical_heat_type(joined(*operands))
+
+
+def can_cast(from_: Any, to: Any, casting: str = "intuitive") -> builtins.bool:
+    """Whether a cast is possible under ``casting`` (reference types.py:365):
+    numpy's ``'no'``, ``'safe'``, ``'same_kind'`` and ``'unsafe'``, and the
+    default ``'intuitive'`` ('safe', and any integer to an inexact type,
+    and bool to anything)."""
+    try:
+        frm = canonical_heat_type(from_) if not np.isscalar(from_) else None
+    except TypeError:
+        frm = None
+    if frm is None:
+        try:
+            frm = heat_type_of(from_)
+        except TypeError:
+            raise TypeError(f"cannot cast from {from_!r}") from None
+    to_t = canonical_heat_type(to)
+    if casting == "intuitive":
+        if frm is to_t or issubclass(frm, bool):
+            return True
+        if issubclass(frm, integer) and issubclass(to_t, (integer, floating, complexfloating)):
+            return True
+        casting = "safe"
+    if casting not in ("no", "safe", "same_kind", "unsafe"):
+        raise ValueError(
+            f"casting must be one of 'no', 'safe', 'same_kind', 'unsafe', 'intuitive', "
+            f"got {casting!r}")
+    if frm is bfloat16 or to_t is bfloat16:  # numpy has no bfloat16: ml_dtypes' table
+        if casting in ("no", "unsafe") or frm is to_t:
+            return casting == "unsafe" or frm is to_t
+        if frm is bfloat16:
+            return to_t in (float32, float64, complex64, complex128)
+        return casting == "same_kind" or frm in (bool, int8, uint8)
+    return builtins.bool(np.can_cast(np.dtype(frm.__name__), np.dtype(to_t.__name__),
+                                     casting=casting))
+
+
+def iscomplex(x):
+    """Elementwise test for a non-zero imaginary part."""
+    from . import complex_math, factories, relational
+    from .dndarray import DNDarray
+
+    if not isinstance(x, DNDarray):
+        x = factories.array(x)
+    if issubclass(x.dtype, complexfloating):
+        return relational.ne(complex_math.imag(x), 0)
+    return factories.zeros(x.shape, dtype=bool, split=x.split, device=x.device, comm=x.comm)
+
+
+def isreal(x):
+    """Elementwise test for a zero imaginary part."""
+    from . import complex_math, factories, relational
+    from .dndarray import DNDarray
+
+    if not isinstance(x, DNDarray):
+        x = factories.array(x)
+    if issubclass(x.dtype, complexfloating):
+        return relational.eq(complex_math.imag(x), 0)
+    return factories.ones(x.shape, dtype=bool, split=x.split, device=x.device, comm=x.comm)
+
+
+class finfo:
+    """Machine limits for floating point types (reference types.py:441)."""
+
+    def __new__(cls, dtype):
+        t = canonical_heat_type(dtype)
+        if not issubclass(t, (floating, complexfloating)):
+            raise TypeError(f"data type {t!r} not inexact")
+        info = torch.finfo(t.torch_type())
+        self = object.__new__(cls)
+        self.bits = info.bits
+        self.eps = builtins.float(info.eps)
+        self.max = builtins.float(info.max)
+        self.min = builtins.float(info.min)
+        self.tiny = builtins.float(info.tiny)
+        return self
 
 
 class iinfo:

@@ -1,5 +1,5 @@
 """Spatial functions (counterpart of ``heat_tpu/spatial``)."""
 
-from .distance import cdist, rbf
+from .distance import cdist, manhattan, rbf
 
-__all__ = ["cdist", "rbf"]
+__all__ = ["cdist", "manhattan", "rbf"]

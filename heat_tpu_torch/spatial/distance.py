@@ -1,5 +1,5 @@
 """Pairwise distance computations (counterpart of
-``heat_tpu/spatial/distance.py``: ``cdist`` and ``rbf``).
+``heat_tpu/spatial/distance.py``: ``cdist``, ``rbf`` and ``manhattan``).
 
 The result is (n_x, n_y), distributed along the rows of x; y is replicated
 on every rank first (``resplit(None)``, the JAX package's
@@ -7,9 +7,10 @@ on every rank first (``resplit(None)``, the JAX package's
 kernel's gate (f32, k <= 512, one rank or x split along its rows) every
 rank computes its row slab with the cdist kernel, whose epilogue gives
 distances or, for ``rbf``, the Gaussian kernel directly (``:317-344``
-there). Otherwise the GEMM form or the broadcast form runs in plain torch.
-A kernel failure raises; nothing falls back. The ring schedule
-(``_ring_dist`` :101) is not ported yet.
+there). Otherwise the GEMM form or the broadcast form runs in plain torch;
+``manhattan`` is always the broadcast form, as in the JAX package. A kernel
+failure raises; nothing falls back. The ring schedule (``_ring_dist`` :101,
+``ring=True``) is not ported yet (ROADMAP item 2).
 """
 
 from __future__ import annotations
@@ -21,14 +22,15 @@ import torch
 from ..core import types
 from ..core.dndarray import DNDarray
 
-__all__ = ["cdist", "rbf"]
+__all__ = ["cdist", "manhattan", "rbf"]
 
 _BLOCK_BUDGET = 1 << 28  # bytes of the broadcast form's (rows, n, k) temporary
 
 
-def _blocked_euclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The broadcast form over row blocks of x, so that the (rows, n, k)
-    temporary stays under 256 MiB (the JAX package's ``_blocked_rows`` :56)."""
+def _blocked(x: torch.Tensor, y: torch.Tensor, manhattan: bool = False) -> torch.Tensor:
+    """The broadcast form of the euclidean (or city-block) distance over row
+    blocks of x, so that the (rows, n, k) temporary stays under 256 MiB (the
+    JAX package's ``_blocked_rows`` :56)."""
     m, k = x.shape
     n = y.shape[0]
     per_row = max(1, n * k * x.element_size())
@@ -36,12 +38,12 @@ def _blocked_euclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     for s in range(0, m, bs):
         diff = x[s:s + bs, None, :] - y[None, :, :]
-        out[s:s + bs] = torch.sqrt((diff * diff).sum(dim=-1))
+        out[s:s + bs] = diff.abs().sum(dim=-1) if manhattan else torch.sqrt((diff * diff).sum(dim=-1))
     return out
 
 
 def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
-          rbf_gamma: Optional[float] = None) -> DNDarray:
+          rbf_gamma: Optional[float] = None, manhattan: bool = False) -> DNDarray:
     from .cuda_cdist import euclid, euclid_plain, pallas_cdist_applicable
 
     if not isinstance(x, DNDarray):
@@ -76,7 +78,7 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
         epi = "rbf" if rbf_gamma is not None else "dist"
         out = fn(xb, yb, 0.0 if rbf_gamma is None else float(rbf_gamma), epilogue=epi)
     else:
-        out = _blocked_euclidean(xb, yb)
+        out = _blocked(xb, yb, manhattan)
         if rbf_gamma is not None:
             out = torch.exp(-rbf_gamma * out * out)
     return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
@@ -96,3 +98,14 @@ def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
     kernel's epilogue."""
     gamma = 1.0 / (2.0 * sigma * sigma)
     return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma)
+
+
+def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False,
+              ring: bool = False) -> DNDarray:
+    """City-block distance matrix (reference distance.py:363), in the
+    broadcast form. ``expand`` is accepted for parity and changes nothing,
+    as in the JAX package; ``ring=True`` is not ported yet."""
+    if ring:
+        raise NotImplementedError(
+            "manhattan(ring=True): the ring schedule comes with ROADMAP item 2")
+    return _dist(X, Y, False, manhattan=True)

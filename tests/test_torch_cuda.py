@@ -1056,3 +1056,169 @@ def test_matmul_bf16_accumulates_in_f32(dev):
     ref = a.double() @ b.double()
     scale = a.abs().double() @ b.abs().double()
     assert bool(((got.double() - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -20 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", ["bool", "int8", "int32", "int64", "uint8", "uint32"])
+def test_exact_products_on_card(dev, dtype):
+    """matmul and dot of bool and the integer types on the card (torch's
+    CUDA GEMM has none) equal numpy's, wrapping as the type does."""
+    rng = np.random.default_rng(3)
+    if dtype == "bool":
+        a, b = (rng.integers(0, 2, (300, 257)).astype(bool), rng.integers(0, 2, (257, 129))
+                .astype(bool))
+    else:
+        info = np.iinfo(dtype)
+        a, b = (rng.integers(info.min, info.max, s, dtype=dtype, endpoint=True)
+                for s in ((300, 257), (257, 129)))
+    htt.use_device(None)
+    got = (htt.array(a) @ htt.array(b)).numpy()
+    got_dot = htt.dot(htt.array(a[0]), htt.array(b[:, 0])).numpy()
+    with np.errstate(over="ignore"):
+        want = (a.astype(np.int64) @ b.astype(np.int64)) > 0 if dtype == "bool" else a @ b
+        want_dot = np.dot(a[0].astype(np.int64), b[:, 0].astype(np.int64)) > 0 \
+            if dtype == "bool" else np.dot(a[0], b[:, 0])
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_dot, want_dot)
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_wide_unsigned_operations_on_card(dev, dtype):
+    """uint16, uint32 and uint64 on the card, values past 2^31 and 2^63:
+    each operation equals numpy's (cumsum in the type)."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(4)
+    a, b = (rng.integers(0, info.max, (301, 33), dtype=dtype, endpoint=True) for _ in range(2))
+    a[0, 0], a[1, 1] = info.max, 2 ** (info.bits - 1) + 5
+    htt.use_device(None)
+    x, y = htt.array(a, split=0), htt.array(b, split=0)
+    with np.errstate(over="ignore"):
+        cases = [((x + y), a + b), ((x * y), a * b), ((x > 2), a > 2), (x[x > 2], a[a > 2]),
+                 (htt.max(x), a.max()), (htt.argmax(x), a.argmax()),
+                 (htt.min(x, axis=0), a.min(axis=0)), (htt.cumsum(x, 0), np.cumsum(a, 0, dtype=a.dtype)),
+                 (x // (y | 1), a // (b | 1)), (x % (y | 1), a % (b | 1)), (x >> 3, a >> 3),
+                 (htt.sort(x, axis=0)[0], np.sort(a, axis=0)),
+                 (htt.where(x > y, x, y), np.where(a > b, a, b)),
+                 (x.astype(htt.float64), a.astype(np.float64))]
+    for got, want in cases:
+        got = got.numpy()
+        assert got.dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_lasso_graph_replayed_epoch_equals_the_eager_epoch(dev):
+    """One coordinate-descent epoch captured as a CUDA graph and replayed
+    gives the eager epoch's coefficients bit for bit, and three epochs on
+    the card equal the same epochs on the CPU within 1e-5."""
+    from heat_tpu_torch.regression.lasso import _Sweep
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((100_003, 17), generator=g, device=dev)
+    y = x @ torch.randn((17,), generator=g, device=dev) + 0.25 + 0.1 * torch.randn(
+        (x.shape[0],), generator=g, device=dev)
+    xt = torch.cat([torch.ones((x.shape[0], 1), device=dev), x], 1).t().contiguous()
+    start = torch.randn((18,), generator=g, device=dev) * 0.1
+    eager = _Sweep(xt, y, start.clone(), x.shape[0], 0.01, None)
+    eager()
+    graphed = _Sweep(xt, y, start.clone(), x.shape[0], 0.01, None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graphed()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed()
+    graphed.theta.copy_(start)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graphed.theta, eager.theta)
+    htt.use_device(None)
+    card = htt.regression.Lasso(lam=0.01, max_iter=3, tol=0.0).fit(
+        htt.array(x, split=0), htt.array(y, split=0))
+    cpu = htt.regression.Lasso(lam=0.01, max_iter=3, tol=0.0).fit(
+        htt.array(x.cpu(), split=0, device="cpu"), htt.array(y.cpu(), split=0, device="cpu"))
+    assert card.n_iter == cpu.n_iter == 3
+    np.testing.assert_allclose(card.theta.numpy(), cpu.theta.numpy(), atol=1e-5)
+
+
+_SLICE_DATA = """
+import numpy as np
+import torch
+
+def make_slice_data():
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((100_003, 64), generator=g)
+    y = x @ torch.randn((64, 1), generator=g)
+    ids = torch.randint(0, 8, (4001, 1), generator=g)
+    pts = 0.1 * torch.randn((4001, 32), generator=g) + ids * 8.0
+    return x, y, pts
+
+def run(ht, device):
+    from heat_tpu_torch.regression.lasso import _design, _Sweep
+    x_t, y_t, pts_t = (t.to(device) for t in make_slice_data())
+    res = {}
+    x, y = ht.array(x_t, split=0), ht.array(y_t, split=0)
+    est = ht.regression.Lasso(lam=0.01, max_iter=30, tol=0.0).fit(x, y)
+    res["lasso_theta"] = est.theta.numpy()
+    res["lasso_n_iter"] = np.array(est.n_iter)
+    res["lasso_1_theta"] = ht.regression.Lasso(lam=0.01, max_iter=30, tol=0.0).fit(
+        ht.array(x_t, split=1), ht.array(y_t)).theta.numpy()
+    ht.random.seed(3)
+    sp = ht.cluster.Spectral(n_clusters=8, gamma=0.05, n_lanczos=40).fit(ht.array(pts_t, split=0))
+    res["spectral_labels"] = sp.labels_.numpy()
+    res["spectral_split"] = np.array(sp.labels_.split)
+    # whether one epoch with its NCCL allreduces can be captured as a CUDA
+    # graph (the fit itself runs several ranks eagerly)
+    if x_t.is_cuda and x.comm.size > 1:
+        xt, yb, comm = _design(x, y, torch.float32)
+        sweep = _Sweep(xt, yb, torch.zeros(65, device=device), x.shape[0], 0.01, comm)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sweep()
+        torch.cuda.current_stream().wait_stream(side)
+        eager = sweep.theta.clone()
+        sweep.theta.zero_()
+        sweep()
+        again = sweep.theta.clone()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            sweep.theta.zero_()
+            with torch.cuda.graph(graph):
+                sweep()
+            sweep.theta.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            res["capture"] = np.array("captured, replay equals eager: "
+                                      f"{bool(torch.equal(sweep.theta, again))}")
+        except RuntimeError as e:
+            res["capture"] = np.array(f"capture failed: {str(e)[:300]}")
+        res["eager_repeat_equal"] = np.array(bool(torch.equal(eager, again)))
+    return res
+"""
+
+
+def test_nccl_lasso_spectral_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: Lasso (rows split, and a feature split
+    resplit once; one scalar allreduce a coordinate, eager) within 1e-5 of
+    the world of one's coefficients with the same epoch count, and Spectral
+    with the world of one's labels up to a relabelling. Prints whether one
+    epoch with its NCCL allreduces could be captured as a CUDA graph."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _SLICE_DATA)
+    ns = {}
+    exec(_SLICE_DATA, ns)
+    htt.use_device(None)
+    want = ns["run"](htt, dev)
+    for r in ranks:
+        assert int(r["lasso_n_iter"]) == int(want["lasso_n_iter"]) == 30
+        np.testing.assert_allclose(r["lasso_theta"], want["lasso_theta"], atol=1e-5)
+        np.testing.assert_allclose(r["lasso_1_theta"], want["lasso_theta"], atol=1e-5)
+        pairs = set(zip(r["spectral_labels"].tolist(), want["spectral_labels"].tolist()))
+        assert len(pairs) == len(set(want["spectral_labels"].tolist()))
+        assert int(r["spectral_split"]) == 0
+        assert bool(r["eager_repeat_equal"])
+    print("lasso epoch under NCCL:", str(ranks[0]["capture"]))

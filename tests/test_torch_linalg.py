@@ -631,6 +631,9 @@ _WORKER = textwrap.dedent("""
     # with ties across ranks, histogram and bincount counted per rank
     for name, call in _SPLIT_AXIS_CALLS(ht, base):
         keep(f"axis_{name}", call())
+    # Lasso, cg, lanczos, the Laplacian and Spectral across ranks
+    for name, call in _SLICE_CALLS(ht):
+        keep(f"slice_{name}", call())
     # printing above the threshold: each rank sends its edge items
     wide = np.arange(50 * 31, dtype=np.float32).reshape(50, 31) / 7
     for sp in (0, 1):
@@ -691,6 +694,65 @@ _CALLS = textwrap.dedent("""
                                                       split=0), axis=0)),
             ("prod_0", lambda: ht.prod(ht.array(xi + 3, split=0), axis=0)),
         ]
+
+
+    def _SLICE_CALLS(ht):
+        rng = np.random.default_rng(12)
+        x = rng.standard_normal((31, 5)).astype(np.float32)
+        y = (x @ np.array([1.0, 0.0, -2.0, 0.5, 0.0], np.float32) + 0.3).astype(np.float32)
+        m = rng.standard_normal((13, 13))
+        spd = (m @ m.T + 13 * np.eye(13)).astype(np.float32)
+        b = rng.standard_normal(13).astype(np.float32)
+        centers = np.array([[0, 0], [6, 6], [0, 6]], np.float32)
+        blobs = np.concatenate([c + 0.3 * rng.standard_normal((20, 2)) for c in centers])
+        blobs = blobs[:59].astype(np.float32)
+        rbf = lambda v: ht.spatial.rbf(v, sigma=1.0, quadratic_expansion=True)
+
+        def lasso(split, y_split, **kw):
+            return ht.regression.Lasso(lam=0.05, **kw).fit(ht.array(x, split=split),
+                                                           ht.array(y, split=y_split))
+
+        def partial():
+            est = ht.regression.Lasso(lam=0.05, max_iter=4, tol=0.0)
+            for lo, hi in ((0, 12), (12, 31)):
+                est.partial_fit(ht.array(x[lo:hi], split=0), ht.array(y[lo:hi], split=0))
+            return est.theta
+
+        def spectral(split, metric):
+            ht.random.seed(1)
+            return ht.cluster.Spectral(n_clusters=3, gamma=1.0, metric=metric,
+                                       n_lanczos=20).fit(ht.array(blobs, split=split)).labels_
+
+        calls = [
+            ("lasso_0", lambda: lasso(0, 0, max_iter=10, tol=0.0).theta),
+            ("lasso_0_yrep", lambda: lasso(0, None, max_iter=10, tol=0.0).theta),
+            ("lasso_1", lambda: lasso(1, None, max_iter=10, tol=0.0).theta),
+            ("lasso_tol_iters", lambda: ht.array(np.array([lasso(0, 0, max_iter=100,
+                                                                 tol=1e-6).n_iter]))),
+            ("lasso_predict", lambda: lasso(0, 0, max_iter=10, tol=0.0).predict(
+                ht.array(x, split=0))),
+            ("lasso_partial", partial),
+            ("cg_0", lambda: ht.linalg.cg(ht.array(spd, split=0), ht.array(b),
+                                          ht.array(np.zeros(13, np.float32), split=0))),
+            ("cg_1", lambda: ht.linalg.cg(ht.array(spd, split=1), ht.array(b, split=0),
+                                          ht.array(np.zeros(13, np.float32)))),
+            ("lanczos_V_0", lambda: ht.linalg.lanczos(ht.array(spd, split=0), 6)[0]),
+            ("lanczos_T_0", lambda: ht.linalg.lanczos(ht.array(spd, split=0), 6)[1]),
+            ("lanczos_T_1", lambda: ht.linalg.lanczos(ht.array(spd, split=1), 6)[1]),
+        ]
+        for definition in ("simple", "norm_sym"):
+            for mode in ("fully_connected", "eNeighbour"):
+                calls.append((f"laplacian_{definition}_{mode}", (
+                    lambda d, md: lambda: ht.graph.Laplacian(
+                        rbf, definition=d, mode=md, threshold_key="lower",
+                        threshold_value=0.5).construct(ht.array(blobs[:20], split=0)))(
+                            definition, mode)))
+        calls += [
+            ("spectral_rbf_0", lambda: spectral(0, "rbf")),
+            ("spectral_rbf_1", lambda: spectral(1, "rbf")),
+            ("spectral_manhattan_0", lambda: spectral(0, "manhattan")),
+        ]
+        return calls
 """)
 _WORKER = _CALLS + _WORKER
 exec(_CALLS)
@@ -938,6 +1000,44 @@ def test_gloo_split_axis_operations_equal_a_world_of_one(gloo_ranks):
             np.testing.assert_array_equal(got, exp, err_msg=name)
     assert gloo_ranks[1]["axis_argmax_0"].tolist() == [1, 1, 5]
     assert int(gloo_ranks[2]["axis_argmax_flat"]) == 2
+
+
+def test_gloo_lasso_solvers_laplacian_spectral_equal_a_world_of_one(gloo_ranks):
+    """Lasso (rows split, y cut to x's chunks or replicated, feature split
+    resplit once, partial_fit), cg and lanczos on a split matrix (matvecs of
+    local rows and one allgather), the Laplacian of row-split data (only the
+    degree vector gathered) and Spectral on three ranks: each rank holds the
+    world of one's result (float32 within 1e-5 relative to the largest
+    value: sums across ranks add in another order; Spectral's labels equal
+    up to a relabelling, and the iteration counts exactly), and the world of
+    one holds the JAX package's within the same tolerance."""
+    ref_calls = dict(_SLICE_CALLS(ht_tpu))
+    for name, want in _world_of_one(_SLICE_CALLS(htt)).items():
+        key = f"slice_{name}"
+        # the JAX package's Lasso needs y split as x is: no reference for that case
+        ref = {} if name == "lasso_0_yrep" else {name: ref_calls[name]()}
+        if name.startswith("spectral"):
+            for r in gloo_ranks:
+                assert _meta(r, key)[:2] == (want.dtype.__name__, str(want.split)), name
+                pairs = set(zip(r[key].tolist(), want.numpy().tolist()))
+                assert len(pairs) == len(set(r[key].tolist())) == 3, name
+            pairs = set(zip(want.numpy().tolist(), np.asarray(ref[name].numpy()).tolist()))
+            assert len(pairs) == 3, name
+            continue
+        if not ref:
+            _hold(gloo_ranks, key, want, want.numpy(), rtol=1e-5)
+            continue
+        if name.startswith("lanczos_T"):  # the Ritz values: the basis' signs may differ
+            for r in gloo_ranks:
+                np.testing.assert_allclose(np.linalg.eigvalsh(r[key].astype(np.float64)),
+                                           np.linalg.eigvalsh(want.numpy().astype(np.float64)),
+                                           rtol=1e-5, atol=1e-4, err_msg=name)
+            continue
+        _hold(gloo_ranks, key, want, want.numpy(), rtol=0 if name.endswith("iters") else 1e-5)
+        got, exp = want.numpy(), np.asarray(ref[name].numpy())
+        assert (want.dtype.__name__, want.split, got.shape) == \
+            (ref[name].dtype.__name__, ref[name].split, exp.shape), name
+        np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("split", [0, 1])
