@@ -77,6 +77,15 @@ Phases, each printing JSON lines:
      epilogue and the Lloyd kernel launched by the fit and held against
      their plain versions at its shapes, labels against the blob ids, the
      stages' times, the Lanczos basis);
+  7b. the sparse arrays and what uses them: bench.py's sparse row uncut
+     (16384^2 at 1%: csr_from_dense, spmv against float64, spmm, the
+     transpose twice and staged, times beside torch.mv and the bytes
+     bound); the eNeighbour Spectral on the spectral row's data (L sparse,
+     K3 at the block shape and K4 launched and held against their plain
+     versions, each stage's time, labels against the blob ids and the dense
+     graph's, the Lanczos basis); connected components of that adjacency
+     against scipy; KMedians, KMedoids, GaussianNB and KNN on 1,000,000 x
+     64 in 8 blobs, each checked in float64;
   8. the training path: the same model trains as bench.py's lm_step does
      (remat, bf16, the flash core with its two-pass backward, AdamW), one
      warm-up step and 8 steps on one batch, the loss falling and the
@@ -1054,6 +1063,413 @@ def solver_phase(ht, dev, smi):
     check("cg relative residual <= 1e-5", res <= 1e-5, relative_residual=res)
     emit({"phase": "solver", "card": smi, "n": CG_N, "cg_wall_ms": wall,
           "relative_residual": res})
+
+
+# bench.py:461-482's sparse row (n, spmv repetitions, density); the sparse
+# spectral path's threshold (an eNeighbour graph on SPECTRAL's data); the
+# estimators' data (rows, columns, blobs, iterations) and KNN's training and
+# query rows and k
+SPARSE = (16384, 5, 0.01)
+SPARSE_THRESHOLD = 0.01
+ESTIMATORS = (1_000_000, 64, 8, 10)
+KNN = (65_536, 16_384, 5)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _sum_tolerance(abs_terms, terms):
+    """Per entry: the float32 error bound of a sum of ``terms`` products
+    (each rounded once, then added in any order), 2^-23 (terms + 1) times
+    the sum of the magnitudes."""
+    return (terms.double() + 1.0) * 2.0 ** -23 * abs_terms + 1e-30
+
+
+def sparse_path(ht, dev, smi, time_ms):
+    """bench.py's sparse row uncut: the 16384^2 operand at 1% density drawn
+    as bench.py draws it (np.random.default_rng(11)), csr_from_dense, x from
+    the same generator, 5 x spmv(A, x, out_split=None); against a float64
+    product of the masked dense operand on the card, an spmm of 8 columns,
+    transpose().transpose() == A and a staged transpose bit for bit, whether
+    two identical spmv agree bit for bit; times: csr_from_dense wall, spmv
+    wall and device (profiler), torch.mv of the dense operand, the CSR
+    product alone, and the bytes bound. Returns the kernels' launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ns, reps, density = SPARSE
+    rng = np.random.default_rng(11)
+    dense_h = rng.standard_normal((ns, ns)).astype(np.float32)
+    dense_h[rng.random((ns, ns)) > density] = 0.0
+    xh = rng.standard_normal(ns).astype(np.float32)
+    x8_h = rng.standard_normal((ns, 8)).astype(np.float32)
+
+    ht.reset_launch_counts()
+    A, build_ms = _timed(lambda: ht.sparse.csr_from_dense(dense_h))
+    x = ht.array(xh)
+    _, first_ms = _timed(lambda: ht.sparse.spmv(A, x, out_split=None))  # builds the CSR tensor
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        y = ht.sparse.spmv(A, x, out_split=None)
+    torch.cuda.synchronize()
+    spmv_wall = (time.perf_counter() - t) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ht.sparse.spmv(A, x, out_split=None)
+        torch.cuda.synchronize()
+    spmv_device = sum(ev.self_device_time_total for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    spmv_device = spmv_device or None  # the profiler saw no device activity: not measured
+    spmv_events = time_ms(lambda: ht.sparse.spmv(A, x, out_split=None), 20)
+    y2 = ht.sparse.spmv(A, x, out_split=None)
+    repeat_bitwise = bool(torch.equal(y.larray, y2.larray))
+    launches = dict(ht.launch_counts())
+
+    dense = torch.from_numpy(dense_h).to(dev)
+    xd = x.larray
+    mv_ms = time_ms(lambda: torch.mv(dense, xd), 20)
+    csr = A._csr(torch.float32)
+    csr_ms = time_ms(lambda: csr @ xd, 20)
+    mask = dense != 0
+    row_nnz = mask.sum(1)
+    ref = dense.double() @ xd.double()
+    err = (y.larray.double() - ref).abs()
+    tol = _sum_tolerance(dense.abs().double() @ xd.abs().double(), row_nnz)
+    check("sparse spmv within 2^-23 (row nnz + 1) sum|a x| of float64", bool((err <= tol).all()),
+          max_abs_err=float(err.max()), worst_over_tolerance=float((err / tol).max()))
+    X8 = ht.array(x8_h)
+    Y8 = ht.sparse.spmm(A, X8, out_split=None)
+    ref8 = dense.double() @ X8.larray.double()
+    err8 = (Y8.larray.double() - ref8).abs()
+    tol8 = _sum_tolerance(dense.abs().double() @ X8.larray.abs().double(), row_nnz[:, None])
+    check("sparse spmm (8 columns) within the same bound", bool((err8 <= tol8).all()),
+          max_abs_err=float(err8.max()))
+    del ref, ref8, err8, tol8, mask
+
+    def same(a, b):
+        c = a.lnnz
+        return (a.shape == b.shape and a.counts.tolist() == b.counts.tolist()
+                and a.capacity == b.capacity and torch.equal(a.indptr, b.indptr)
+                and torch.equal(a.indices[:c], b.indices[:c])
+                and torch.equal(a.values[:c], b.values[:c]))
+
+    T, t_first_ms = _timed(lambda: A.transpose())
+    T, t_ms = _timed(lambda: A.transpose())
+    TT = T.transpose()
+    slab = max(1, A.capacity // 4)
+    T4, t4_ms = _timed(lambda: ht.sparse.transpose(A, slab=slab))
+    check("transpose().transpose() equals A bit for bit", same(TT, A))
+    check("transpose(slab=cap // 4) equals transpose() bit for bit", same(T4, T), slab=slab)
+    check("sparse path launched no kernel of csrc/", not any(launches.values()), launches=launches)
+    nnz = A.nnz
+    # spmv's bytes: each stored element's column id and value, the row
+    # pointers, x and y; 2 nnz float32 operations
+    sp_bound = bound(nnz * 8 + (ns + 1) * 4 + 2 * ns * 4, 2 * nnz)
+    emit({"phase": "sparse path", "card": smi, "n": ns, "density": density, "nnz": nnz,
+          "capacity": A.capacity, "csr_from_dense_wall_ms": build_ms, "first_spmv_wall_ms": first_ms,
+          "spmv_wall_ms": spmv_wall, "spmv_device_ms_profiler": spmv_device,
+          "spmv_cuda_events_ms": spmv_events, "csr_product_alone_ms": csr_ms,
+          "dense_torch_mv_ms": mv_ms, "spmv_bound_ms": sp_bound[0], "bound_by": sp_bound[1],
+          "first_transpose_wall_ms": t_first_ms, "transpose_wall_ms": t_ms,
+          "staged_transpose_wall_ms": t4_ms, "slab": slab,
+          "spmv_repeat_bit_identical": repeat_bitwise, "launches": launches})
+    del dense, dense_h, A, T, TT, T4, csr
+    return launches
+
+
+def sparse_spectral_path(ht, dev, smi, time_ms):
+    """bench.py's spectral data (8192 x 32 randn plus randint(0, 8) * 8)
+    through Spectral(n_clusters=8, gamma=0.05, metric='rbf',
+    laplacian='eNeighbour', threshold=0.01, boundary='lower', n_lanczos=64):
+    L a SparseDNDarray (density printed), K3 and K4 launched and held
+    against their plain versions at these shapes, each stage's wall time,
+    the labels against the blob ids and against the same Spectral with
+    sparse=False, V^T V = I and V^T L V = T (L V by spmm). Returns (the
+    launches, the kernels' rows, the eNeighbour adjacency)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.cluster.cuda_lloyd import lloyd_update, lloyd_update_plain
+    from heat_tpu_torch.sparse.ops import _pack_rows
+    from heat_tpu_torch.spatial.cuda_cdist import euclid, euclid_plain, last_variant
+
+    n, d, k, m, gamma = SPECTRAL
+    ht.random.seed(0)
+    base = ht.random.randn(n, d, dtype=ht.float32, split=0)
+    ids = ht.random.randint(0, k, (n, 1))
+    x = base + ids.astype(ht.float32) * 8.0
+    truth = ids.numpy()[:, 0]
+    kw = dict(n_clusters=k, gamma=gamma, metric="rbf", laplacian="eNeighbour",
+              threshold=SPARSE_THRESHOLD, boundary="lower", n_lanczos=m)
+
+    ht.random.seed(1)
+    ht.reset_launch_counts()
+    sp, fit_ms = _timed(lambda: ht.cluster.Spectral(**kw).fit(x))
+    launches = dict(ht.launch_counts())
+    cdist_variant = last_variant()
+    ht.random.seed(1)
+    _, warm_fit_ms = _timed(lambda: ht.cluster.Spectral(**kw).fit(x))
+    check("sparse spectral fit launched the cdist, Lloyd and random kernels",
+          launches["cdist"] > 0 and launches["lloyd"] > 0 and launches["random"] > 0,
+          launches=launches, cdist_variant=cdist_variant)
+    ari = _adjusted_rand(sp.labels_.numpy(), truth)
+    # the JAX package's labels on this input (CPU, its sparse and its dense
+    # eNeighbour paths alike): 0.8354
+    check("sparse spectral labels recover the blob ids: adjusted Rand index >= 0.80",
+          ari >= 0.80, adjusted_rand_index=ari)
+
+    lap = sp._laplacian
+    stages = {}
+    (rows, cols, vals, dt), stages["blocked rbf, threshold, compaction"] = _timed(
+        lambda: lap._sparse_adjacency(x))
+    A, stages["pack rows (csr)"] = _timed(lambda: _pack_rows(rows, cols, vals, (n, n), x.comm,
+                                                             x.device, dt))
+    del rows, cols, vals
+    ones = ht.ones(n, dtype=dt)
+    L, stages["degree spmv and value rewrite"] = _timed(
+        lambda: lap._sparse_laplacian_values(A, ht.sparse.spmv(A, ones, out_split=None), dt))
+    L_fit, stages["construct (all of the above)"] = _timed(lambda: lap.construct(x))
+    check("eNeighbour L is a SparseDNDarray (sparse=None, under the density gate)",
+          isinstance(L_fit, ht.sparse.SparseDNDarray), density=A.density, nnz=A.nnz)
+    (V, T), stages["lanczos"] = _timed(lambda: ht.linalg.lanczos(L, m))
+    t_host = T.numpy().astype(np.float64)
+    _, stages["eigh of T (host)"] = _timed(lambda: np.linalg.eigh(t_host))
+    emb = sp._embedding
+    ht.random.seed(1)
+    _, stages["kmeans"] = _timed(lambda: ht.cluster.KMeans(n_clusters=k,
+                                                           init="probability_based").fit(emb))
+    v64 = V.larray.double()
+    orth = float((v64.t() @ v64 - torch.eye(m, dtype=torch.float64, device=v64.device))
+                 .abs().max())
+    LV = ht.sparse.spmm(L, V).larray.double()
+    krylov = float((v64.t() @ LV - torch.as_tensor(t_host, device=v64.device)).abs().max())
+    check("sparse lanczos basis orthonormal: max|V^T V - I| <= 1e-4", orth <= 1e-4, value=orth)
+    check("sparse lanczos relation (L V by spmm): max|V^T L V - T| <= 1e-3", krylov <= 1e-3,
+          value=krylov)
+    ht.random.seed(1)
+    dense_sp, dense_ms = _timed(lambda: ht.cluster.Spectral(**kw, sparse=False).fit(x))
+    ari_dense = _adjusted_rand(sp.labels_.numpy(), dense_sp.labels_.numpy())
+    # the JAX package's sparse and dense labels on this input agree exactly (1.0)
+    check("sparse spectral labels against sparse=False: adjusted Rand index >= 0.99",
+          ari_dense >= 0.99, adjusted_rand_index=ari_dense)
+
+    # K3 at the eNeighbour block shape and K4 at the embedding's, against their plain versions
+    bs = min(n, (1 << 28) // (n * 4))
+    xt = x.larray.contiguous()
+    xb = xt[:bs].contiguous()
+    gamma_rbf = gamma
+    k3 = euclid(xb, xt, gamma_rbf, epilogue="rbf")
+    k3_plain = euclid_plain(xb, xt, gamma_rbf, epilogue="rbf", precision=None)
+    k3_err = float((k3 - k3_plain).abs().max())
+    norms = (xt * xt).sum(1)
+    k3_worst = float(((k3 - k3_plain).abs() / (gamma_rbf * (
+        2e-5 * (norms[:bs, None] + norms[None, :]) + 1e-6))).max())
+    centers = emb.larray[:k].clone()
+    sums, counts = lloyd_update(emb.larray, centers)
+    p_sums, p_counts = lloyd_update_plain(emb.larray, centers)
+    k4_err = float((sums - p_sums).abs().max())
+    check("sparse spectral block shape: cdist rbf kernel within gamma (2e-5 (|x|^2 + |y|^2) + "
+          "1e-6) of its plain version", k3_worst <= 1.0, max_abs_err=k3_err,
+          worst_over_tolerance=k3_worst)
+    check("sparse spectral embedding: Lloyd kernel counts exact, sums within 1e-4 of sum|x|",
+          torch.equal(counts, p_counts) and k4_err <= 1e-4 * float(emb.larray.abs().sum()),
+          max_abs_err=k4_err)
+    k3_ms = time_ms(lambda: euclid(xb, xt, gamma_rbf, epilogue="rbf"), 20)
+    k3_plain_ms = time_ms(lambda: euclid_plain(xb, xt, gamma_rbf, epilogue="rbf",
+                                               precision=None), 5)
+    k4_ms = time_ms(lambda: lloyd_update(emb.larray, centers), 50)
+    k4_plain_ms = time_ms(lambda: lloyd_update_plain(emb.larray, centers), 50)
+    k3_bound = bound(n * d * 4 + bs * d * 4 + bs * n * 4, 3 * 2 * bs * n * d, TF32_FLOPS_PER_S)
+    k4_bound = bound(n * k * 4, 3 * 2 * n * k * k, TF32_FLOPS_PER_S)
+    rows_out = {
+        "cdist": {"shape": f"eNeighbour block rbf ({bs}, {n}, {d}) f32",
+                  "launches": launches["cdist"], "variant": cdist_variant, "max_abs_err": k3_err,
+                  "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+                  "bound_by": k3_bound[1], "library_ms": None},
+        "lloyd": {"shape": f"sparse spectral KMeans pass ({n}, {k}), k = {k}",
+                  "launches": launches["lloyd"], "max_abs_err": k4_err, "ms": k4_ms,
+                  "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+                  "library_ms": None},
+    }
+    emit({"phase": "sparse spectral path", "card": smi, "shape": [n, d], "k": k, "m": m,
+          "gamma": gamma, "threshold": SPARSE_THRESHOLD, "density": A.density, "nnz": A.nnz,
+          "capacity": A.capacity, "first_fit_wall_ms": fit_ms, "warm_fit_wall_ms": warm_fit_ms,
+          "stage_wall_ms": stages,
+          "dense_eNeighbour_fit_wall_ms": dense_ms, "adjusted_rand_index": ari,
+          "adjusted_rand_index_vs_dense": ari_dense, "VtV_minus_I": orth,
+          "VtLV_minus_T": krylov, "launches": launches, "kernels": rows_out})
+    del x, base, L, L_fit, V, T, xt, xb, k3, k3_plain, sp, dense_sp, LV, v64, norms
+    return launches, rows_out, A
+
+
+def components_phase(ht, A, smi):
+    """connected_components of the sparse spectral path's eNeighbour
+    adjacency with assume_symmetric=False (so the transpose runs), against
+    scipy's weak components of the same coo(): the same partition, each
+    label its component's least index; the rounds and the wall time.
+    Returns the kernels' launches."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    calls = []
+    real = ht.sparse.spmv
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    ht.reset_launch_counts()
+    ht.sparse.spmv = counted  # counts the rounds: two products a round
+    try:
+        labels, ms = _timed(lambda: ht.graph.connected_components(A))
+    finally:
+        ht.sparse.spmv = real
+    launches = dict(ht.launch_counts())
+    got = labels.numpy()
+    r, c, _ = A.coo()
+    n = A.shape[0]
+    graph = scipy.sparse.coo_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n)).tocsr()
+    n_comp, want = scipy.sparse.csgraph.connected_components(graph, connection="weak")
+    pairs = set(zip(got.tolist(), want.tolist()))
+    same = len(pairs) == len(set(got.tolist())) == n_comp
+    least = all(lab == np.flatnonzero(got == lab).min() for lab in np.unique(got))
+    check("components: scipy's partition, each label its component's least index",
+          same and least, components=n_comp)
+    check("components launched no kernel of csrc/", not any(launches.values()), launches=launches)
+    emit({"phase": "components", "card": smi, "n": n, "nnz": A.nnz, "components": n_comp,
+          "rounds": len(calls) // 2, "wall_ms": ms, "launches": launches})
+    return launches
+
+
+def estimators_path(ht, dev, smi):
+    """KMedians and KMedoids (8 clusters, 10 iterations), GaussianNB and
+    KNeighborsClassifier(5) on 1,000,000 x 64 f32 in 8 blobs (randn plus
+    randint(0, 8) * 8, ht.random seed 0), each checked in float64: the
+    centers against numpy's median of each cluster's members (KMedoids: the
+    data point L1-nearest to it), the labels as the L1 argmin, GaussianNB's
+    theta_/var_ against numpy, KNN against a float64 brute force with ties
+    by index. Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    rows, cols, k, iters = ESTIMATORS
+    ht.random.seed(0)
+    base = ht.random.randn(rows, cols, dtype=ht.float32, split=0)
+    ids = ht.random.randint(0, k, (rows, 1))
+    x = base + ids.astype(ht.float32) * 8.0
+    y = ids[:, 0]
+    del base
+    x64 = x.larray.double()
+    x_host = x.larray.cpu().numpy().astype(np.float64)
+    scale = float(x64.abs().max())
+    results = {}
+
+    def l1_argmin(centers64):
+        """(labels, distance of the nearest and second nearest) in float64."""
+        out, gap = [], []
+        for s in range(0, rows, 65536):
+            dist = (x64[s:s + 65536, None, :] - centers64[None]).abs().sum(-1)
+            two = torch.topk(dist, 2, dim=1, largest=False)
+            out.append(two.indices[:, 0])
+            gap.append((two.values[:, 1] - two.values[:, 0]) / two.values[:, 1])
+        return torch.cat(out), torch.cat(gap)
+
+    ht.reset_launch_counts()
+    for name in ("KMedians", "KMedoids"):
+        fit = lambda n_iter: getattr(ht.cluster, name)(n_clusters=k, max_iter=n_iter).fit(x)
+        est, ms = _timed(lambda: fit(iters))
+        _, warm_ms = _timed(lambda: fit(iters))
+        centers = est.cluster_centers_.larray.double()
+        labels = est.labels_.larray
+        lab_h = labels.cpu().numpy()
+        # the last update's members: the assignment to the previous iteration's
+        # centers (the same fit stopped one iteration earlier)
+        before = fit(est.n_iter_ - 1)
+        prev = before.predict(x).numpy()
+        medians = np.stack([np.median(x_host[prev == c], axis=0) if (prev == c).any()
+                            else before.cluster_centers_.numpy()[c] for c in range(k)])
+        if name == "KMedians":
+            center_err = float(np.abs(centers.cpu().numpy() - medians).max())
+            ok_centers = center_err <= 2.0 ** -22 * scale
+        else:
+            med = torch.as_tensor(medians, device=dev)
+            best = torch.stack([(x64 - med[c]).abs().sum(1).min() for c in range(k)])
+            own = (centers - med).abs().sum(1)
+            center_err = float(((own - best) / best.clamp(min=1e-30)).max())
+            is_row = all(bool((x.larray == est.cluster_centers_.larray[c]).all(1).any())
+                         for c in range(k))
+            ok_centers = is_row and center_err <= 1e-5
+        want, gap = l1_argmin(centers)
+        wrong = labels != want
+        check(f"{name}: centers the float64 median of the last update's members"
+              f"{' snapped to the L1-nearest row' if name == 'KMedoids' else ''}",
+              ok_centers, n_iter=est.n_iter_, center_err=center_err)
+        check(f"{name}: labels the float64 L1 argmin (a mismatch only at a relative gap <= 1e-5)",
+              bool((gap[wrong] <= 1e-5).all()), mismatches=int(wrong.sum()))
+        results[name] = {"fit_wall_ms": ms, "warm_fit_wall_ms": warm_ms, "n_iter": est.n_iter_,
+                         "inertia": est.inertia_, "center_err": center_err,
+                         "label_mismatches": int(wrong.sum()),
+                         "adjusted_rand_index": _adjusted_rand(lab_h, y.numpy())}
+        del est, centers, labels, want, gap
+
+    nb, nb_ms = _timed(lambda: ht.naive_bayes.GaussianNB().fit(x, y))
+    pred, nb_pred_ms = _timed(lambda: nb.predict(x))
+    y_h = y.numpy()
+    theta = np.stack([x_host[y_h == c].mean(0) for c in range(k)])
+    var = np.stack([x_host[y_h == c].var(0) for c in range(k)]) + nb.epsilon_
+    theta_err = float(np.abs(nb.theta_.numpy() - theta).max() / np.abs(theta).max())
+    var_err = float(np.abs(nb.var_.numpy() - var).max() / np.abs(var).max())
+    check("GaussianNB theta_ and var_ within 1e-9 of numpy float64", max(theta_err, var_err)
+          <= 1e-9, theta_rel_err=theta_err, var_rel_err=var_err)
+    accuracy = float((pred.numpy() == y_h).mean())
+    results["GaussianNB"] = {"fit_wall_ms": nb_ms, "predict_wall_ms": nb_pred_ms,
+                             "theta_rel_err": theta_err, "var_rel_err": var_err,
+                             "accuracy": accuracy}
+
+    n_train, n_query, kn = KNN
+    xt, yt = x[:n_train], y[:n_train]
+    xq = x[n_train:n_train + n_query]
+    knn = ht.classification.KNeighborsClassifier(kn)
+    _, knn_fit_ms = _timed(lambda: knn.fit(xt, yt))
+    pred, knn_ms = _timed(lambda: knn.predict(xq))
+    t64, q64 = xt.larray.double(), xq.larray.double()
+    y_t = yt.larray
+    want, near_tie = [], []
+    for s in range(0, n_query, 2048):
+        q = q64[s:s + 2048]
+        d2 = (q * q).sum(1, keepdim=True) + (t64 * t64).sum(1)[None] - 2.0 * q @ t64.T
+        d_sorted, order = torch.sort(d2, dim=1, stable=True)
+        votes = torch.nn.functional.one_hot(y_t[order[:, :kn]].long(), k).sum(1)
+        want.append(torch.argmax(votes, dim=1))
+        near_tie.append((d_sorted[:, kn] - d_sorted[:, kn - 1]) <= 1e-5 * d_sorted[:, kn])
+    want, near_tie = torch.cat(want), torch.cat(near_tie)
+    wrong = pred.larray != want
+    check("KNN equals the float64 brute force with ties by index (a mismatch only at a "
+          "k-th/k+1-th distance tie within 1e-5)", bool(near_tie[wrong].all()),
+          mismatches=int(wrong.sum()))
+    results["KNeighborsClassifier"] = {"train": n_train, "queries": n_query, "k": kn,
+                                       "fit_wall_ms": knn_fit_ms, "predict_wall_ms": knn_ms,
+                                       "mismatches": int(wrong.sum()),
+                                       "accuracy": float((pred.numpy() == y_h[
+                                           n_train:n_train + n_query]).mean())}
+    launches = dict(ht.launch_counts())
+    check("estimators launched only the random kernel (the seeding draws)",
+          launches["random"] > 0 and not any(v for name, v in launches.items() if name != "random"),
+          launches=launches)
+    emit({"phase": "estimators", "card": smi, "shape": [rows, cols], "blobs": k,
+          "max_iter": iters, "results": results, "launches": launches})
+    del x, x64, x_host, y
+    return launches
 
 
 def main():
@@ -2122,6 +2538,13 @@ def main():
           launches=lasso_launches)
     spectral_launches, spectral_rows = spectral_path(ht, dev, smi, time_ms)
 
+    # ------------------------- sparse arrays, the sparse graph, the estimators
+    sparse_path(ht, dev, smi, time_ms)
+    _, sparse_spectral_rows, adjacency = sparse_spectral_path(ht, dev, smi, time_ms)
+    components_phase(ht, adjacency, smi)
+    del adjacency
+    estimators_path(ht, dev, smi)
+
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of
     # 8 x 1024 tokens drawn from a numpy seed, random weights from a seeded
@@ -2420,6 +2843,7 @@ def main():
             row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}
         if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
             row["spectral_path"] = spectral_rows[name]
+            row["sparse_spectral_path"] = sparse_spectral_rows[name]
         kernels.append(row)
     if FAILURES:
         print(f"chip_smoke: failed checks: {FAILURES}", file=sys.stderr)

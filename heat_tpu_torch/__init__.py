@@ -46,14 +46,27 @@ package has a Pallas kernel:
     ``spatial.manhattan``, the type functions and names, the estimator
     mixins and the validation helpers. Exact products (bool and the
     integers) and the wide unsigned types compute on the card as in the JAX
-    package.
+    package;
+  - the sparse arrays: ``sparse.SparseDNDarray`` with ``spmv``/``spmm``
+    (torch's CSR product, cuSPARSE on the card, for float sums),
+    ``transpose`` (``alltoallv``), ``csr_from_dense`` and ``csr_from_coo``;
+    ``SplitTiles``, ``SquareDiagTiles``, ``Ragged``; the sparse eNeighbour
+    ``graph.Laplacian``, ``cg``/``lanczos`` on a sparse operator, the
+    sparse ``cluster.Spectral`` (the cdist and Lloyd kernels) and
+    ``graph.connected_components``; and ``cluster.KMedians``,
+    ``cluster.KMedoids``, ``naive_bayes.GaussianNB`` and
+    ``classification.KNeighborsClassifier``.
 """
 
 from .core import *
 from . import core
 from .core import random
+from .core.ragged import Ragged, ragged
+from . import sparse
 from . import cluster
+from . import classification
 from . import graph
+from . import naive_bayes
 from . import regression
 from . import spatial
 from . import parallel

@@ -1,5 +1,5 @@
 """Shared machinery for the K-family clusterers (counterpart of
-``heat_tpu/cluster/_kcluster.py``: ``_d2`` and ``_KCluster``)."""
+``heat_tpu/cluster/_kcluster.py``: ``_d2``, ``_d1`` and ``_KCluster``)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from ..core import _threefry, cuda_random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 
-__all__ = ["_KCluster", "_d2"]
+__all__ = ["_KCluster", "_d1", "_d2"]
 
 
 def _rows(x: DNDarray, data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -44,6 +44,33 @@ def _d2(xb: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x2 + c2 - 2.0 * xc, min=0.0)
 
 
+def _d1(xb: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(m, k) Manhattan distances, the assignment metric of KMedians and
+    KMedoids, over row blocks of ``xb`` so that the (rows, k, d) difference
+    stays under 256 MiB (``spatial``'s broadcast form)."""
+    from ..spatial.distance import _blocked
+
+    return _blocked(xb, centers, manhattan=True)
+
+
+def _argmin_rows(x: DNDarray, d: torch.Tensor) -> torch.Tensor:
+    """The global row index of each column's minimum of ``d`` (this rank's
+    rows of an (n, k) matrix, rows split as ``x``), the lowest index among
+    equal minima, the same on every rank."""
+    idx = torch.argmin(d, dim=0) if d.shape[0] else d.new_zeros(d.shape[1], dtype=torch.int64)
+    if x.split != 0 or x.comm.size == 1:
+        return idx
+    best = d.gather(0, idx[None]).squeeze(0) if d.shape[0] else torch.full_like(
+        idx, float("inf"), dtype=d.dtype)
+    offset = x.comm.chunk(x.shape, 0)[0]
+    p = x.comm.size
+    vals = x.comm.allgather(best[None], 0, p)  # (p, k)
+    rows = x.comm.allgather((idx + offset)[None], 0, p)
+    # the lowest rank among the minima holds the lowest index
+    winner = torch.argmin(vals, dim=0)
+    return rows.gather(0, winner[None]).squeeze(0)
+
+
 class _KCluster(BaseEstimator, ClusteringMixin):
     """Base for the K-family clusterers (reference _kcluster.py:10).
 
@@ -59,8 +86,8 @@ class _KCluster(BaseEstimator, ClusteringMixin):
 
     def __init__(self, metric: str, n_clusters: int, init, max_iter: int, tol: float,
                  random_state: Optional[int]):
-        if metric != "euclidean":
-            raise ValueError(f"metric must be 'euclidean', got {metric!r}")
+        if metric not in ("euclidean", "manhattan"):
+            raise ValueError(f"metric must be 'euclidean' or 'manhattan', got {metric!r}")
         self._metric_name = metric
         self.n_clusters = n_clusters
         self.init = init
@@ -129,9 +156,11 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         )
 
     def _assign_to_cluster(self, x: DNDarray) -> DNDarray:
-        """Nearest center of each sample (reference _kcluster.py:196)."""
+        """Nearest center of each sample under the estimator's metric
+        (reference _kcluster.py:196)."""
         centers = self._cluster_centers._global()
-        d = _d2(x.larray.to(centers.dtype), centers)
+        dist = _d1 if self._metric_name == "manhattan" else _d2
+        d = dist(x.larray.to(centers.dtype), centers)
         labels = torch.argmin(d, dim=1).to(torch.int64)
         return DNDarray(labels, (x.shape[0],), types.int64, x.split, x.device, x.comm, True)
 

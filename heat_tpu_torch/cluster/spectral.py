@@ -5,9 +5,12 @@ The JAX package's pipeline: ``rbf(quadratic_expansion=True)`` (or
 ``lanczos(L, min(n_lanczos, n))`` → ``eigh`` of ``T`` in float64 on the
 host → Ritz vectors ``V·eigvec`` in float64 → the ``k`` lowest as float32 →
 ``KMeans(init="probability_based")``. On the card ``rbf`` is the cdist
-kernel's ``rbf`` epilogue and KMeans runs the Lloyd kernel. The rows stay
-on their ranks throughout: the Ritz vectors are this rank's rows of ``V``
-times the small eigenvector matrix.
+kernel's ``rbf`` epilogue and KMeans runs the Lloyd kernel. An eNeighbour
+graph is built from the two-operand similarity in row blocks and reaches
+``lanczos`` as a ``sparse.SparseDNDarray`` (its matvecs are spmv) unless
+it is too dense or ``sparse=False``. The rows stay on their ranks
+throughout: the Ritz vectors are this rank's rows of ``V`` times the small
+eigenvector matrix.
 """
 
 from __future__ import annotations
@@ -60,14 +63,18 @@ class Spectral(BaseEstimator, ClusteringMixin):
         self.sparse = sparse
 
         sigma = float(np.sqrt(1.0 / (2.0 * gamma)))
+        pair = None  # the two-operand form the sparse graph is built from
         if callable(metric):
             sim = metric
         elif metric == "rbf":
             sim = lambda x: spatial.rbf(x, sigma=sigma, quadratic_expansion=True)
+            pair = lambda a, b: spatial.rbf(a, b, sigma=sigma, quadratic_expansion=True)
         elif metric == "euclidean":
             sim = lambda x: spatial.cdist(x, quadratic_expansion=True)
+            pair = lambda a, b: spatial.cdist(a, b, quadratic_expansion=True)
         elif metric == "manhattan":
             sim = spatial.manhattan
+            pair = spatial.manhattan
         else:
             raise NotImplementedError(f"Metric {metric} is currently not implemented")
         self._laplacian = Laplacian(
@@ -77,6 +84,7 @@ class Spectral(BaseEstimator, ClusteringMixin):
             threshold_key=boundary,
             threshold_value=threshold,
             sparse=sparse,
+            pair_similarity=pair,
         )
         if assign_labels != "kmeans":
             raise NotImplementedError(f"Linkage via {assign_labels} is currently not implemented")
@@ -94,6 +102,8 @@ class Spectral(BaseEstimator, ClusteringMixin):
         vectors)."""
         L = self._laplacian.construct(x)
         V, T = lanczos(L, min(self.n_lanczos, x.shape[0]))
+        if V.split != x.split:  # a sparse L's basis is row-split
+            V = V.resplit(x.split)
         eigval, eigvec = np.linalg.eigh(np.asarray(T.numpy(), dtype=np.float64))
         v = V.larray.to(torch.float64)
         return eigval, v @ torch.as_tensor(eigvec, device=v.device)

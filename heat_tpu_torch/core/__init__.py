@@ -4,7 +4,7 @@ complex, rounding, relational and logical) operations, indexing, the
 manipulations, printing, the statistics, ``random``, ``linalg``, the
 estimator bases and the validation helpers."""
 
-from . import constants, linalg, random, version
+from . import constants, linalg, random, tiling, version
 from .arithmetics import *
 from .communication import TorchCommunication, get_comm, sanitize_comm, use_comm
 from .complex_math import *
@@ -27,4 +27,5 @@ from .version import version as __version__
 from .base import *
 from .sanitation import *
 from .stride_tricks import *
+from .tiling import *
 from .types import *

@@ -3,14 +3,15 @@ conjugate gradients and Lanczos tridiagonalisation.
 
 A split-0 ``A`` stays split: each matvec is this rank's rows times the
 vector and one ``allgather`` of the n-vector (a split-1 ``A`` is resplit to
-its rows once, one ``all_to_all``); nothing gathers the n × n matrix. The
-vectors are whole on every rank. The JAX package runs each solve as one
-compiled loop; here the loop is on the host and reads one scalar an
-iteration (CG's ``r·r``, Lanczos' ``β``). The breakdown restart of Lanczos
-draws ``normal(fold_in(PRNGKey(0), i), (n,))`` with the port's threefry,
-the JAX package's vector. Operators that expose ``_matvec_spec`` (the
-sparse arrays) and the ``checkpoint_every``/``resume`` windows are not
-ported yet.
+its rows once, one ``all_to_all``); nothing gathers the n × n matrix. An
+operator that exposes ``_matvec_spec`` (a ``sparse.SparseDNDarray``) gives
+its own matvec: the shard-local CSR product and one allreduce of the
+n-vector. The vectors are whole on every rank. The JAX package runs each
+solve as one compiled loop; here the loop is on the host and reads one
+scalar an iteration (CG's ``r·r``, Lanczos' ``β``). The breakdown restart
+of Lanczos draws ``normal(fold_in(PRNGKey(0), i), (n,))`` with the port's
+threefry, the JAX package's vector. The ``checkpoint_every``/``resume``
+windows come with the resilience layer (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -27,19 +28,22 @@ from ..factories import _from_global
 __all__ = ["cg", "lanczos"]
 
 
-def _not_ported(A, checkpoint_every, resume) -> None:
-    if hasattr(A, "_matvec_spec"):
-        raise NotImplementedError(
-            "sparse operators come with the sparse arrays (ROADMAP item 10a)")
+def _not_ported(checkpoint_every, resume) -> None:
     if checkpoint_every is not None or resume:
         raise NotImplementedError(
             "the checkpoint_every/resume windows come with the resilience layer "
             "(ROADMAP item 13)")
 
 
-def _matvec(A: DNDarray, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+def _is_operator(A) -> bool:
+    return isinstance(A, DNDarray) or hasattr(A, "_matvec_spec")
+
+
+def _matvec(A, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
     """``x -> A @ x`` for a whole vector ``x``, the result whole on every
     rank."""
+    if not isinstance(A, DNDarray):
+        return A._matvec_spec(types.canonical_heat_type(dtype))
     if A.split is not None and A.comm.size > 1:
         rows = (A if A.split == 0 else A.resplit(0)).larray.to(dtype)
         comm, n = A.comm, A.shape[0]
@@ -54,8 +58,8 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None, *
     """Conjugate gradients for a symmetric positive definite ``A x = b``
     (reference solver.py:127): at most n iterations, until ``r·r < 1e-20``.
     A non-finite iterate raises ``RuntimeError``."""
-    _not_ported(A, checkpoint_every, resume)
-    if not all(isinstance(t, DNDarray) for t in (A, b, x0)):
+    _not_ported(checkpoint_every, resume)
+    if not (_is_operator(A) and isinstance(b, DNDarray) and isinstance(x0, DNDarray)):
         raise TypeError("cg expects DNDarray (or sparse operator) A, and DNDarray b and x0")
     if A.ndim != 2:
         raise RuntimeError(f"cg expects a 2-D matrix A, got {A.ndim}-D")
@@ -103,8 +107,8 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
     ``numpy.random.default_rng(0).standard_normal(n)``; a breakdown
     (``β ≤ 1e-6``, ``1e-13`` in float64) restarts from the JAX package's
     ``normal(fold_in(PRNGKey(0), i), (n,))``."""
-    _not_ported(A, checkpoint_every, resume)
-    if not isinstance(A, DNDarray):
+    _not_ported(checkpoint_every, resume)
+    if not _is_operator(A):
         raise TypeError(f"A needs to be a ht.DNDarray or sparse operator, but was {type(A)}")
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise RuntimeError("A needs to be a square matrix")
@@ -112,7 +116,8 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
         raise TypeError(f"m must be a positive integer, got {m}")
     n = A.shape[0]
     dt = types.promote_types(A.dtype, types.float32)
-    tdt, dev = dt.torch_type(), A.larray.device
+    tdt = dt.torch_type()
+    dev = A.larray.device if isinstance(A, DNDarray) else A.values.device
     matvec = _matvec(A, tdt)
     if v0 is None:
         v = torch.as_tensor(np.random.default_rng(0).standard_normal(n), device=dev).to(tdt)

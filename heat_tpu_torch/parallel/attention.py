@@ -14,8 +14,8 @@ first, which is the same product (a bf16 x bf16 product is exact in f32)
 summed in another order.
 
 The sequence-parallel variants ``ring_attention`` and
-``ulysses_attention`` need the ``ppermute`` and ``all_to_all`` collectives,
-which the port does not have yet (ROADMAP §1 item 2).
+``ulysses_attention`` are not ported yet (ROADMAP §1 item 2); the
+``ppermute`` and ``all_to_all`` collectives they would run over are.
 """
 
 from __future__ import annotations
@@ -99,14 +99,14 @@ def local_attention(
 def ring_attention(*args, **kwargs):
     """Ring attention over a sequence-sharded world: not ported yet."""
     raise NotImplementedError(
-        "ring_attention needs the ppermute collective, which heat_tpu_torch does not "
-        "have yet (ROADMAP §1 item 2)"
+        "ring_attention: the sequence-parallel attention itself (K/V blocks circulated "
+        "with ppermute) is not ported yet (ROADMAP §1 item 2)"
     )
 
 
 def ulysses_attention(*args, **kwargs):
     """Ulysses sequence parallelism: not ported yet."""
     raise NotImplementedError(
-        "ulysses_attention needs the all_to_all collective, which heat_tpu_torch does not "
-        "have yet (ROADMAP §1 item 2)"
+        "ulysses_attention: the sequence-parallel attention itself (heads exchanged with "
+        "all_to_all) is not ported yet (ROADMAP §1 item 2)"
     )

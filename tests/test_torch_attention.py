@@ -140,9 +140,11 @@ def test_bwd_impl_is_validated_as_in_jax():
 
 
 def test_sequence_parallel_variants_name_the_missing_collectives():
-    with pytest.raises(NotImplementedError, match="ppermute"):
+    # the collectives exist (ROADMAP item 2 ports the attention over them)
+    assert callable(htt.get_comm().ppermute) and callable(htt.get_comm().all_to_all)
+    with pytest.raises(NotImplementedError, match=r"ppermute\) is not ported yet .*item 2"):
         htt.parallel.ring_attention(None, None, None)
-    with pytest.raises(NotImplementedError, match="all_to_all"):
+    with pytest.raises(NotImplementedError, match=r"all_to_all\) is not ported yet .*item 2"):
         htt.parallel.ulysses_attention(None, None, None)
 
 

@@ -22,7 +22,9 @@ gradient's largest magnitude: in f32 within 2e-5; in bf16 relative RMS
 within 2e-3 and the largest error within 2^-6 (p and dS round to bf16 on
 both sides, a value near a rounding boundary may go the other way);
 fully masked rows give exactly 0. The int8 GEMM is bit-identical, both
-kernels.
+kernels. The sparse products on the card against the CPU port: structure,
+integer, ``pattern`` and min/max results bit for bit, float sums (cuSPARSE)
+within 1e-5 of the largest |value|.
 """
 
 import os
@@ -1222,3 +1224,135 @@ def test_nccl_lasso_spectral_ranks_match_world_of_one(dev, tmp_path):
         assert int(r["spectral_split"]) == 0
         assert bool(r["eager_repeat_equal"])
     print("lasso epoch under NCCL:", str(ranks[0]["capture"]))
+
+
+def _sparse_inputs(seed=21, m=3001, n=2503, density=0.01):
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((m, n)) * (rng.random((m, n)) < density)).astype(np.float32)
+    a[7] = 0.0  # an empty row
+    return a, rng.standard_normal(n).astype(np.float32)
+
+
+def test_sparse_products_on_card_match_the_cpu_port(dev):
+    """csr_from_dense compacted on the card, an integer spmv, a pattern
+    min-spmv over int64 labels, min/max, a float spmv and spmm (cuSPARSE) and
+    the transpose, each against the CPU port on the same input: structure,
+    integer, pattern and min/max results bit for bit, float sums within
+    1e-5 of the largest |value|."""
+    htt.use_device(None)
+    a, x = _sparse_inputs()
+    ai = np.round(a * 4).astype(np.int64)
+    labels = np.arange(a.shape[1], dtype=np.int64)[::-1].copy()
+    results = {}
+    for where in ("cuda", "cpu"):
+        kw = {} if where == "cuda" else {"device": "cpu"}
+        A = htt.sparse.csr_from_dense(htt.array(a, split=0, **kw))
+        Ai = htt.sparse.csr_from_dense(ai, **kw)
+        assert A.indptr.device.type == where and A.values.device.type == where
+        results[where] = {
+            "indptr": A.indptr.cpu(), "indices": A.indices[:A.lnnz].cpu(),
+            "int_sum": htt.sparse.spmv(Ai, htt.array(labels, **kw)).numpy(),
+            "pattern_min": htt.sparse.spmv(A, htt.array(labels, **kw), reduce="min",
+                                           pattern=True, out_split=None).numpy(),
+            "min": htt.sparse.spmv(A, htt.array(x, **kw), reduce="min").numpy(),
+            "max": htt.sparse.spmv(A, htt.array(x, split=0, **kw), reduce="max").numpy(),
+            "sum": htt.sparse.spmv(A, htt.array(x, **kw), out_split=None).numpy(),
+            "spmm": htt.sparse.spmm(A, htt.array(np.stack([x] * 8, 1), **kw)).numpy(),
+            "T": A.transpose().to_dense().numpy(),
+            "T_slab": htt.sparse.transpose(A, slab=max(1, A.capacity // 4)).to_dense().numpy(),
+        }
+    got, want = results["cuda"], results["cpu"]
+    for name in ("indptr", "indices"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("int_sum", "pattern_min", "min", "max", "T", "T_slab"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in ("sum", "spmm"):
+        np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                   atol=1e-5 * float(np.abs(want[name]).max()), err_msg=name)
+    np.testing.assert_array_equal(got["T"], a.T)
+
+
+def test_knn_planted_ties_on_card(dev):
+    """Equal distances on the card: the lower training index is nearer, a
+    tied vote goes to the lower class, as on the CPU."""
+    htt.use_device(None)
+    x = np.array([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0], [5.0, 5.0]], np.float32)
+    y = np.array([3, 1, 1, 3, 0])
+    for k, want in ((1, 3), (2, 1), (3, 1), (4, 1)):
+        est = htt.classification.KNeighborsClassifier(k).fit(htt.array(x), htt.array(y))
+        assert int(est.predict(htt.array(np.zeros((1, 2), np.float32))).numpy()[0]) == want
+
+
+_SPARSE_DATA = """
+import numpy as np
+import torch
+
+def make_sparse_data():
+    rng = np.random.default_rng(17)
+    a = (rng.standard_normal((4099, 4099)) * (rng.random((4099, 4099)) < 0.01)).astype(np.float32)
+    x = rng.standard_normal(4099).astype(np.float32)
+    ids = rng.integers(0, 8, (2003, 1))
+    # blobs close enough to link into one graph: a non-degenerate embedding
+    pts = (rng.standard_normal((2003, 32)) + ids * 1.5).astype(np.float32)
+    return a, x, pts
+
+def run(ht, device):
+    a, x, pts = make_sparse_data()
+    res = {}
+    A = ht.sparse.csr_from_dense(ht.array(torch.from_numpy(a).to(device), split=0))
+    res["counts"] = A.counts
+    res["dense"] = A.to_dense().numpy()
+    xs = ht.array(torch.from_numpy(x).to(device), split=0)
+    res["spmv"] = ht.sparse.spmv(A, xs, out_split=None).numpy()
+    res["spmv_0"] = ht.sparse.spmv(A, xs).numpy()
+    res["spmv_max"] = ht.sparse.spmv(A, xs, reduce="max").numpy()
+    res["spmm"] = ht.sparse.spmm(A, ht.array(torch.from_numpy(np.stack([x] * 8, 1)).to(device)),
+                                 out_split=None).numpy()
+    res["T"] = A.transpose().to_dense().numpy()
+    res["T_slab"] = ht.sparse.transpose(A, slab=max(1, A.capacity // 4)).to_dense().numpy()
+    res["components"] = ht.graph.connected_components(
+        ht.sparse.csr_from_dense(ht.array(torch.from_numpy(a[:600, :600]).to(device),
+                                          split=0))).numpy()
+    ht.random.seed(3)
+    sp = ht.cluster.Spectral(n_clusters=8, gamma=0.05, laplacian="eNeighbour", threshold=3e-3,
+                             boundary="lower", n_lanczos=40)
+    pts_d = ht.array(torch.from_numpy(pts).to(device), split=0)
+    L = sp._laplacian.construct(pts_d)
+    res["laplacian_sparse"] = np.array(isinstance(L, ht.sparse.SparseDNDarray))
+    res["laplacian"] = L.to_dense().numpy()
+    res["spectral_labels"] = sp.fit(pts_d).labels_.numpy()
+    return res
+"""
+
+
+def test_nccl_sparse_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: csr_from_dense of a 1% 4099² matrix,
+    spmv (a row-split x gathered; replicated and row-split results), spmm,
+    the transpose staged and not, connected components and the sparse
+    Spectral's Laplacian and labels equal the world of one (structure,
+    max and labels bit for bit, float sums within 1e-5 of the largest
+    |value|, Spectral's labels up to a relabelling; its blobs are linked
+    into one graph, since the null space of disconnected ones is taken in
+    an order that rounding decides)."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _SPARSE_DATA)
+    ns = {}
+    exec(_SPARSE_DATA, ns)
+    htt.use_device(None)
+    want = ns["run"](htt, dev)
+    _hold_sparse_ranks(ranks, want, world)
+
+
+def _hold_sparse_ranks(ranks, want, world):
+    for r in ranks:
+        assert int(r["counts"].sum()) == int(want["counts"].sum()) and len(r["counts"]) == world
+        for name in ("dense", "spmv_max", "T", "T_slab", "components"):
+            np.testing.assert_array_equal(r[name], want[name], err_msg=name)
+        for name in ("spmv", "spmv_0", "spmm", "laplacian"):
+            np.testing.assert_allclose(r[name], want[name], rtol=0,
+                                       atol=1e-5 * float(np.abs(want[name]).max()), err_msg=name)
+        assert bool(r["laplacian_sparse"]) and bool(want["laplacian_sparse"])
+        pairs = set(zip(r["spectral_labels"].tolist(), want["spectral_labels"].tolist()))
+        assert len(pairs) == len(set(want["spectral_labels"].tolist()))

@@ -29,6 +29,12 @@ in every split pair, TSQR with a chunk shorter than n and with
 ``tiles_per_proc=2``, CholeskyQR2 in both ring schedules (bit-identical)
 and on a rank-deficient input (the shifted fallback), both wide paths and
 ``svd``; each rank against numpy, the world of one and the JAX package.
+The same world runs the sparse arrays, the sparse graph paths and item
+8c's estimators (``_SPARSE_CALLS``): each rank's shard (an empty shard and
+m < p among them) bit for bit the JAX package's on three devices, every
+product, transpose, the components, ``cg``/``lanczos``, the Laplacian (also
+in blocks of 3 rows a rank), Spectral, KMedians, KMedoids' global argmin,
+GaussianNB and KNN against the world of one and the JAX package.
 """
 
 import os
@@ -634,6 +640,19 @@ _WORKER = textwrap.dedent("""
     # Lasso, cg, lanczos, the Laplacian and Spectral across ranks
     for name, call in _SLICE_CALLS(ht):
         keep(f"slice_{name}", call())
+    # the sparse arrays, the sparse graph paths and the estimators of item 8c
+    for name, call in _SPARSE_CALLS(ht, {}):
+        got = call()
+        if isinstance(got, ht.sparse.SparseDNDarray):
+            c = got.lnnz
+            res[f"sparse_{name}_indptr"] = got.indptr.numpy()
+            res[f"sparse_{name}_indices"] = got.indices[:c].numpy()
+            res[f"sparse_{name}_values"] = got.values[:c].numpy()
+            res[f"sparse_{name}_counts"] = got.counts
+            res[f"sparse_{name}_cap"] = np.array(got.capacity)
+            keep(f"sparse_{name}_dense", got.to_dense())
+        else:
+            keep(f"sparse_{name}", got)
     # printing above the threshold: each rank sends its edge items
     wide = np.arange(50 * 31, dtype=np.float32).reshape(50, 31) / 7
     for sp in (0, 1):
@@ -752,6 +771,108 @@ _CALLS = textwrap.dedent("""
             ("spectral_rbf_1", lambda: spectral(1, "rbf")),
             ("spectral_manhattan_0", lambda: spectral(0, "manhattan")),
         ]
+        return calls
+
+
+    def _SPARSE_CALLS(ht, kw):
+        # kw carries the JAX package's three-device communicator (empty for the port)
+        rng = np.random.default_rng(31)
+        a = (rng.standard_normal((7, 5)) * (rng.random((7, 5)) < 0.6)).astype(np.float32)
+        a[1] = 0.0      # an empty row
+        a[3:6] = 0.0    # rank 1's rows (3, 3, 1) all empty
+        short = np.array([[0, 1.5, 0, 2], [3, 0, 0, 0]], np.float32)  # m < p: rank 2 has none
+        sq = (rng.standard_normal((7, 7)) * (rng.random((7, 7)) < 0.4)).astype(np.float32)
+        rows, cols = np.nonzero(sq)
+        perm = rng.permutation(rows.shape[0])
+        rows, cols = rows[perm], cols[perm]
+        vals = sq[rows, cols]
+        x5 = rng.standard_normal(5).astype(np.float32)
+        X5 = rng.standard_normal((5, 3)).astype(np.float32)
+        labels = np.arange(5, dtype=np.int64)[::-1].copy()
+        graph = np.zeros((10, 10), np.float32)
+        graph[[0, 2, 3, 5, 8, 9], [2, 7, 3, 6, 1, 4]] = 1.0  # directed edges
+        m = rng.standard_normal((11, 11)) * (rng.random((11, 11)) < 0.3)
+        spd = (m + m.T + np.diag(np.abs(m).sum(0) + np.abs(m).sum(1) + 1.0)).astype(np.float32)
+        b = rng.standard_normal(11).astype(np.float32)
+        centers = np.array([[0, 0], [6, 6], [0, 6]], np.float32)
+        blobs = np.concatenate([c + 0.3 * rng.standard_normal((10, 2)) for c in centers])
+        blobs = blobs[:29].astype(np.float32)
+        truth = np.repeat(np.arange(3), 10)[:29]
+        rbf = lambda v: ht.spatial.rbf(v, sigma=1.0, quadratic_expansion=True)
+        pair = lambda u, v: ht.spatial.rbf(u, v, sigma=1.0, quadratic_expansion=True)
+        A = lambda: ht.sparse.csr_from_dense(a, **kw)
+        arr = lambda v, split=None: ht.array(v, split=split, **kw)
+
+        def fitted(cls, **params):
+            est = getattr(ht.cluster, cls)(n_clusters=3, random_state=2, **params)
+            return est.fit(arr(blobs, 0))
+
+        def laplacian(block_rows=None):
+            # the port builds the graph in blocks of block_rows rows a rank
+            mod = sys.modules[ht.graph.Laplacian.__module__]
+            budget = getattr(mod, "_BLOCK_BUDGET", None)
+            if block_rows is not None and budget is not None:
+                mod._BLOCK_BUDGET = blobs.shape[0] * 4 * block_rows
+            try:
+                return ht.graph.Laplacian(
+                    rbf, mode="eNeighbour", threshold_key="lower", threshold_value=0.5,
+                    sparse=True, pair_similarity=pair).construct(arr(blobs, 0))
+            finally:
+                if budget is not None:
+                    mod._BLOCK_BUDGET = budget
+
+        def sparse_spectral():
+            ht.random.seed(1)
+            sp = ht.cluster.Spectral(n_clusters=3, gamma=0.5, laplacian="eNeighbour",
+                                     threshold=0.05, boundary="lower", n_lanczos=20, sparse=True)
+            return sp.fit(arr(blobs, 0)).labels_
+
+        calls = [
+            ("dense_np", A),
+            ("dense_0", lambda: ht.sparse.csr_from_dense(arr(a, 0))),
+            ("dense_none", lambda: ht.sparse.csr_from_dense(arr(a))),
+            ("dense_1", lambda: ht.sparse.csr_from_dense(arr(a, 1))),
+            ("short", lambda: ht.sparse.csr_from_dense(arr(short, 0))),
+            ("diag_above", lambda: ht.sparse.csr_from_dense(sq, keep="above", threshold=0.3,
+                                                            include_diagonal=True, **kw)),
+            ("coo_host", lambda: ht.sparse.csr_from_coo(rows, cols, vals, (7, 7), **kw)),
+            ("coo_0", lambda: ht.sparse.csr_from_coo(arr(rows, 0), arr(cols, 0), arr(vals, 0),
+                                                     (7, 7))),
+            ("T", lambda: A().transpose()),
+            ("T_slab1", lambda: ht.sparse.transpose(A(), slab=1)),
+            ("T_short", lambda: ht.sparse.transpose(ht.sparse.csr_from_dense(short, **kw),
+                                                    slab=2)),
+            ("pattern_min", lambda: ht.sparse.spmv(A(), arr(labels, 0), reduce="min",
+                                                   pattern=True, out_split=None)),
+            ("pattern_max_0", lambda: ht.sparse.spmv(A(), arr(labels), reduce="max",
+                                                     pattern=True)),
+            ("components", lambda: ht.graph.connected_components(
+                ht.sparse.csr_from_dense(graph, **kw))),
+            ("cg", lambda: ht.linalg.cg(ht.sparse.csr_from_dense(spd, **kw), arr(b),
+                                        arr(np.zeros(11, np.float32), 0))),
+            ("lanczos_V", lambda: ht.linalg.lanczos(ht.sparse.csr_from_dense(spd, **kw), 5)[0]),
+            ("lanczos_T", lambda: ht.linalg.lanczos(ht.sparse.csr_from_dense(spd, **kw), 5)[1]),
+            ("laplacian", laplacian),
+            ("laplacian_blocks", lambda: laplacian(block_rows=3)),
+            ("spectral", sparse_spectral),
+            ("kmedians_labels", lambda: fitted("KMedians").labels_),
+            ("kmedians_centers", lambda: fitted("KMedians").cluster_centers_),
+            ("kmedoids_labels", lambda: fitted("KMedoids", init="probability_based").labels_),
+            ("kmedoids_centers", lambda: fitted("KMedoids",
+                                                init="probability_based").cluster_centers_),
+            ("gnb", lambda: ht.naive_bayes.GaussianNB().fit(arr(blobs, 0), arr(truth, 0))
+             .predict_proba(arr(blobs[::2] + 0.4, 0))),
+            ("knn", lambda: ht.classification.KNeighborsClassifier(4).fit(
+                arr(blobs, 0), arr(truth, 0)).predict(arr(blobs[::3] + 1.0, 0))),
+        ]
+        for xs in (None, 0):
+            for os_ in (None, 0):
+                for red in ("sum", "min", "max"):
+                    calls.append((f"spmv_{xs}_{os_}_{red}", (
+                        lambda xs, os_, red: lambda: ht.sparse.spmv(
+                            A(), arr(x5, xs), out_split=os_, reduce=red))(xs, os_, red)))
+                calls.append((f"spmm_{xs}_{os_}", (lambda xs, os_: lambda: ht.sparse.spmm(
+                    A(), arr(X5, xs), out_split=os_))(xs, os_)))
         return calls
 """)
 _WORKER = _CALLS + _WORKER
@@ -1060,3 +1181,78 @@ def test_gloo_seed_without_value_takes_rank_zeros_clock(gloo_ranks):
     want = htt.random.randperm(13, split=0)
     assert sorted(want.numpy().tolist()) == list(range(13))
     _hold(gloo_ranks, "random_clock_randperm", want, want.numpy(), rtol=0)
+
+
+# the sparse arrays, the sparse graph paths and item 8c's estimators on three
+# ranks: against the world of one and the JAX package on three devices
+
+_SPARSE_NAMES = [name for name, _ in _SPARSE_CALLS(htt, {})]
+# results that sum floats in an order that depends on the ranks or the
+# package: relative tolerance; every other result bit for bit
+_SPARSE_RTOL = {"laplacian": 1e-5, "laplacian_blocks": 1e-5, "cg": 1e-5, "lanczos_V": 1e-4, "lanczos_T": 1e-5,
+                "gnb": 1e-10, **{f"spmv_{xs}_{os_}_sum": 1e-6 for xs in (None, 0)
+                                  for os_ in (None, 0)},
+                **{f"spmm_{xs}_{os_}": 1e-6 for xs in (None, 0) for os_ in (None, 0)}}
+
+
+def _three_devices():
+    return MeshCommunication(devices=jax.devices()[:3])
+
+
+@pytest.mark.parametrize("name", _SPARSE_NAMES)
+def test_gloo_sparse_paths_equal_a_world_of_one_and_the_reference(gloo_ranks, name):
+    """Each rank's shard of a sparse result (indptr, the first counts[rank]
+    indices and values, counts, capacity) is the JAX package's shard on three
+    devices, bit for bit (an empty shard and m < p included); dense results
+    hold the world of one's values on every rank, and the world of one holds
+    the JAX package's (float sums within the stated tolerance; Spectral's
+    labels up to a relabelling; Lanczos' T by its Ritz values)."""
+    one = dict(_SPARSE_CALLS(htt, {}))[name]()
+    ref = dict(_SPARSE_CALLS(ht_tpu, {"comm": _three_devices()}))[name]()
+    rtol = _SPARSE_RTOL.get(name, 0)
+    key = f"sparse_{name}"
+    if isinstance(one, htt.sparse.SparseDNDarray):
+        r, cap = ref.row_chunk, ref.capacity
+        ip = np.asarray(ref.indptr).reshape(3, r + 1)
+        ix = np.asarray(ref.indices).reshape(3, cap)
+        vals = np.asarray(ref.values).reshape(3, cap)
+        for rank, res in enumerate(gloo_ranks):
+            assert res[f"{key}_counts"].tolist() == ref.counts.tolist(), (name, rank)
+            assert int(res[f"{key}_cap"]) == cap, (name, rank)
+            np.testing.assert_array_equal(res[f"{key}_indptr"], ip[rank])
+            c = int(ref.counts[rank])
+            np.testing.assert_array_equal(res[f"{key}_indices"], ix[rank, :c])
+            np.testing.assert_allclose(res[f"{key}_values"], vals[rank, :c], rtol=rtol, atol=rtol)
+        dense = one.to_dense()
+        _hold(gloo_ranks, f"{key}_dense", dense, dense.numpy(), rtol=rtol)
+        np.testing.assert_allclose(dense.numpy(), np.asarray(ref.to_dense().numpy()), rtol=rtol,
+                                   atol=rtol)
+        return
+    want = one.numpy()
+    if name == "spectral":
+        for res in gloo_ranks:
+            assert len(set(zip(res[key].tolist(), want.tolist()))) == 3
+        assert len(set(zip(want.tolist(), np.asarray(ref.numpy()).tolist()))) == 3
+        return
+    if name == "lanczos_T":  # the Ritz values
+        ritz = lambda t: np.linalg.eigvalsh(np.asarray(t, np.float64))
+        for res in gloo_ranks:
+            np.testing.assert_allclose(ritz(res[key]), ritz(want), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(ritz(want), ritz(ref.numpy()), rtol=1e-5, atol=1e-4)
+        return
+    if name.endswith(("None_min", "None_max")):
+        # an empty row of a replicated float min/max is +-finfo.max on three
+        # ranks and +-inf on one, in both packages: the ranks are held to the
+        # JAX package on three devices, the world of one on the other rows
+        rows = np.isfinite(want)
+        want = np.where(rows, want, np.asarray(ref.numpy()))
+        assert (~rows).any()
+    _hold(gloo_ranks, key, one, want, rtol=rtol)
+    assert (one.dtype.__name__, one.split, one.shape) == \
+        (ref.dtype.__name__, ref.split, tuple(ref.shape)), name
+    want = one.numpy()
+    if rtol:
+        np.testing.assert_allclose(want, np.asarray(ref.numpy()), rtol=rtol, atol=rtol)
+    else:
+        rows = np.isfinite(want) if want.dtype.kind == "f" else slice(None)
+        np.testing.assert_array_equal(want[rows], np.asarray(ref.numpy())[rows])

@@ -16,6 +16,7 @@ world of one rank on the CPU. Tolerances:
 """
 
 import numpy as np
+import torch
 import pytest
 
 import heat_tpu as ht_tpu
@@ -66,12 +67,15 @@ def test_cg_out_x0_split_and_errors():
         htt.linalg.cg(htt.array(a), htt.array(b), htt.array(x0), checkpoint_every=2,
                       checkpoint_path="ckpt")
 
-    class Sparse:
-        def _matvec_spec(self, dt):
-            raise AssertionError
+    class Operator:  # any object with the solver hook: cg calls its matvec
+        ndim, shape, dtype = 2, a.shape, htt.float32
 
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        htt.linalg.cg(Sparse(), htt.array(b), htt.array(x0))
+        def _matvec_spec(self, dt):
+            dense = torch.as_tensor(a).to(dt.torch_type())
+            return lambda v: dense @ v
+
+    np.testing.assert_allclose(htt.linalg.cg(Operator(), htt.array(b), htt.array(x0)).numpy(),
+                               np.linalg.solve(a.astype(np.float64), b), atol=1e-6)
 
 
 def _ritz(t):

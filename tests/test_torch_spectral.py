@@ -80,8 +80,10 @@ def test_laplacian_matches_reference(definition, mode, key, weighted, split):
 
 
 def test_laplacian_errors():
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        htt.graph.Laplacian(_rbf(htt), mode="eNeighbour", sparse=True)
+    # sparse=True is ported: it builds the sparse array (tests/test_torch_graph.py)
+    x, _ = _blobs()
+    got = htt.graph.Laplacian(_rbf(htt), mode="eNeighbour", sparse=True).construct(htt.array(x))
+    assert isinstance(got, htt.sparse.SparseDNDarray)
     for ht in (htt, ht_tpu):
         with pytest.raises(NotImplementedError):
             ht.graph.Laplacian(_rbf(ht), definition="random_walk")
