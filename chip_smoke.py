@@ -91,7 +91,20 @@ Phases, each printing JSON lines:
      warm-up step and 8 steps on one batch, the loss falling and the
      kernels' launches counted per step; one step's gradients against the
      local core in bf16 and f32, the fused backward and remat off; peak
-     memory with and without remat; one step under the profiler.
+     memory with and without remat; one step under the profiler;
+  9. data parallelism: the same model through nn.DataParallel on a world of
+     one, DataParallelOptimizer(AdamW) with the CosineAnnealingLR schedule:
+     3 blocking steps against the training path's plain step on the same
+     batches, 3 double-buffered steps (the first applies zero gradients),
+     the double-buffered second update against the blocking first (SGD),
+     K6/K7a/K7b launches per step against the layer count, one step under
+     the profiler;
+ 10. sequence parallelism at (1, 8192, 16, 64) bf16 causal on a world of
+     one: ring_attention and ulysses_attention(use_pallas=True), forward and
+     backward, against flash_attention and the kernels' plain versions,
+     Ulysses launching K6, K7a and K7b; times and the ring's peak memory;
+ 11. DASO: examples/nn/daso_training.py's classifier through warmup,
+     cycling and cooldown, the schedule state and accuracy per epoch.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -1472,6 +1485,390 @@ def estimators_path(ht, dev, smi):
     return launches
 
 
+# bench.py's lm_step model trained under DataParallel (world of one): steps of
+# each mode, the lr schedule over all of them
+DP_STEPS = 3
+# the sequence-parallel attention at a real context: (B, T, H, D) bf16, causal
+SEQ_PARALLEL = (1, 8192, 16, 64)
+# examples/nn/daso_training.py: classes, features, hidden width, epochs,
+# batches an epoch, batch rows, eval rows
+DASO_EXAMPLE = (10, 64, 64, 8, 16, 128, 1024)
+
+
+def _lm_loss(vocab):
+    import torch.nn.functional as F
+
+    def lm_loss(model, tokens):
+        logits = model(tokens)
+        return F.cross_entropy(logits[:, :-1].float().reshape(-1, vocab),
+                               tokens[:, 1:].reshape(-1))
+
+    return lm_loss
+
+
+def _update_error(got, ref, init):
+    """Relative RMS of the difference of two runs' parameter updates (from
+    the same initial state), over all tensors and the worst tensor, and
+    whether the parameters are bit-identical."""
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        du = (got[name].double() - r.double())
+        ru = (r.double() - init[name].double())
+        d2, r2 = du.pow(2).sum().item(), ru.pow(2).sum().item()
+        rel = (d2 / r2) ** 0.5 if r2 else d2 ** 0.5
+        if rel > worst:
+            worst, worst_name = rel, name
+        num, den = num + d2, den + r2
+    bitwise = all(bool((got[name] == r).all()) for name, r in ref.items())
+    return (num / den) ** 0.5 if den else num ** 0.5, worst, worst_name, bitwise
+
+
+def data_parallel_path(ht, dev, cfg, steps=DP_STEPS, batch=(8, 1024)):
+    """bench.py's lm_step model (``cfg``: full width, bf16, remat, flash with
+    the two-pass backward) trained through ``nn.DataParallel`` on a world of
+    one with ``optim.DataParallelOptimizer(torch.optim.AdamW)`` at optax.adamw's
+    defaults and the ``lr_scheduler.CosineAnnealingLR`` schedule (through
+    ``LambdaLR``): ``steps`` blocking steps, held against the training path's
+    plain step (forward, backward, AdamW, the same schedule) on the same
+    batches; ``steps`` double-buffered steps from the same weights (the first
+    applies zero gradients: AdamW decays the weights and nothing else), and
+    the double-buffered second update against the blocking first one, both
+    with SGD (the JAX package's test). Launches of K6, K7a and K7b per step
+    against the layer count; one blocking step under the profiler. Returns the
+    kernels' launches of the DataParallel steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    train_cfg = dict(cfg, attn_impl="flash", dtype=torch.bfloat16, remat=True,
+                     flash_bwd_impl="two_pass")
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                "flash_bwd_fused": 0}
+    lm_loss = _lm_loss(vocab)
+    rng = np.random.default_rng(2)
+    batches = [torch.from_numpy(rng.integers(0, vocab, batch)).to(dev) for _ in range(steps + 1)]
+    lr, wd = 1e-3, 1e-4
+    schedule = ht.optim.lr_scheduler.CosineAnnealingLR(lr, T_max=4 * steps)
+
+    def fresh(init=None, sgd=False):
+        model = ht.nn.TransformerLM(**train_cfg,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+        if init is not None:
+            model.load_state_dict(init)
+        if sgd:
+            return model, torch.optim.SGD(model.parameters(), lr=lr), None
+        opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd)
+        return model, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: schedule(k) / lr)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = fn()
+        torch.cuda.synchronize()
+        return loss, (time.perf_counter() - t) * 1e3
+
+    def run_dp(model, opt, sched, blocking, n, launches=None, walls=None, after=None):
+        """``n`` steps in one DataParallel run (the double-buffered steps
+        carry their pending gradients from one to the next); ``after(i)``
+        runs after step ``i``, outside its timing."""
+        dpo = ht.optim.DataParallelOptimizer(opt, blocking=blocking)
+        dp = ht.nn.DataParallel(model, optimizer=dpo, blocking_parameter_updates=blocking)
+        step = dp.make_train_step(lm_loss)
+        state, pending, losses = dpo.init(model), dp.init_pending(model), []
+        for i in range(n):
+            ht.reset_launch_counts()
+
+            def one():
+                nonlocal pending
+                if blocking:
+                    _, _, loss = step(model, state, *dp.shard_batch(batches[i]))
+                else:
+                    _, _, pending, loss = step(model, state, pending, *dp.shard_batch(batches[i]))
+                if sched is not None:
+                    sched.step()
+                return loss.item()
+
+            loss, ms = timed(one)
+            losses.append(loss)
+            if launches is not None:
+                launches.append({name: ht.launch_counts()[name] for name in per_step})
+            if walls is not None:
+                walls.append(ms)
+            if after is not None:
+                after(i)
+        return losses, step, dp, state
+
+    def params_of(model):
+        return {name: p.detach().clone() for name, p in model.named_parameters()}
+
+    report = {}
+    model, opt, sched = fresh()
+    init = {name: t.detach().clone() for name, t in model.state_dict().items()}
+    init_params = params_of(model)
+    blocking_launches, blocking_walls = [], []
+    losses, step, dp, state = run_dp(model, opt, sched, True, steps, blocking_launches,
+                                     blocking_walls)
+    dp_params = params_of(model)
+    # one more blocking step under the profiler (device activity only)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = timed(lambda: step(model, state, *dp.shard_batch(batches[steps]))[2].item())
+    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    del model, opt, sched, dp, step, state
+
+    plain, popt, psched = fresh(init)
+    plain_losses, plain_walls = [], []
+    for i in range(steps):
+        def one():
+            popt.zero_grad(set_to_none=True)
+            loss = lm_loss(plain, batches[i])
+            loss.backward()
+            popt.step()
+            psched.step()
+            return loss.item()
+
+        loss, ms = timed(one)
+        plain_losses.append(loss)
+        plain_walls.append(ms)
+    rel, worst, worst_name, bitwise = _update_error(dp_params, params_of(plain), init_params)
+    del plain, popt, psched, dp_params
+    emit({"phase": "data-parallel path", "world": 1, "steps": steps,
+          "blocking": {"losses": losses, "step_wall_ms": blocking_walls,
+                       "launches_per_step": blocking_launches},
+          "plain": {"losses": plain_losses, "step_wall_ms": plain_walls},
+          "profiled_step": {"wall_ms": prof_wall, "device_ms": device_ms,
+                            "device_busy_share": device_ms / prof_wall}})
+    check("data-parallel: blocking losses finite", all(np.isfinite(losses)), losses=losses)
+    # tolerance: the DataParallel step and the plain step run the same kernels
+    # on the same bf16 activations (a world of one averages nothing), so the
+    # updates may differ only where a gradient is summed in another order;
+    # 1e-2 of the update's RMS over all tensors, 5e-2 per tensor
+    check("data-parallel: blocking steps equal the plain training step",
+          rel <= 1e-2 and worst <= 5e-2, update_rel_rms=rel, worst_tensor=worst_name,
+          worst_tensor_rel_rms=worst, bit_identical=bitwise,
+          tolerance={"global": 1e-2, "per_tensor": 5e-2})
+    check("data-parallel: blocking launches per step match the layer count",
+          all(c == per_step for c in blocking_launches), launches=blocking_launches,
+          want=per_step)
+    check("data-parallel: profiled step saw device time", device_ms > 0, device_ms=device_ms)
+
+    model, opt, sched = fresh(init)
+    db_launches, db_walls = [], []
+    # the first step applies zeros: AdamW decays every weight by lr*wd, and m, v
+    # stay zero (the optax step with zero gradients)
+    decay = 1.0 - schedule(0) * wd
+    first_err = None
+
+    def after_first(i):
+        nonlocal first_err
+        if i == 0:
+            first_err = max(((p.detach() - init_params[name] * decay).abs().max().item()
+                             for name, p in model.named_parameters()))
+
+    db_losses, *_ = run_dp(model, opt, sched, False, steps, db_launches, db_walls, after_first)
+    del model, opt, sched
+    emit({"phase": "data-parallel path, double-buffered", "steps": steps, "losses": db_losses,
+          "step_wall_ms": db_walls, "launches_per_step": db_launches,
+          "first_step_max_abs_err_vs_decay_only": first_err})
+    check("data-parallel: double-buffered losses finite", all(np.isfinite(db_losses)),
+          losses=db_losses)
+    check("data-parallel: the first double-buffered step applies zero gradients",
+          first_err <= 1e-6, max_abs_err=first_err, tolerance=1e-6)
+    check("data-parallel: double-buffered launches per step match the layer count",
+          all(c == per_step for c in db_launches), launches=db_launches, want=per_step)
+
+    # the JAX package's test_second_step_matches_blocking_first_update, with SGD
+    one_step, opt1, _ = fresh(init, sgd=True)
+    run_dp(one_step, opt1, None, True, 1)
+    two_steps, opt2, _ = fresh(init, sgd=True)
+    run_dp(two_steps, opt2, None, False, 2)
+    rel2, worst2, worst_name2, bitwise2 = _update_error(params_of(two_steps), params_of(one_step),
+                                                        init_params)
+    del one_step, two_steps, opt1, opt2
+    check("data-parallel: double-buffered second update equals the blocking first",
+          rel2 <= 1e-3 and worst2 <= 1e-2, update_rel_rms=rel2, worst_tensor=worst_name2,
+          worst_tensor_rel_rms=worst2, bit_identical=bitwise2,
+          tolerance={"global": 1e-3, "per_tensor": 1e-2})
+    total = {name: sum(c[name] for c in blocking_launches + db_launches) for name in per_step}
+    return total
+
+
+def _grad_error(got, ref):
+    """Relative RMS and the largest error over the reference's largest
+    magnitude, of one tensor (an output or a gradient)."""
+    g, r = got.double(), ref.double()
+    rms = ((g - r).pow(2).sum() / r.pow(2).sum()).sqrt().item()
+    return rms, ((g - r).abs().max() / r.abs().max()).item()
+
+
+def sequence_parallel_phase(ht, dev, time_ms, shape=SEQ_PARALLEL):
+    """ring_attention and ulysses_attention(use_pallas=True) on a world of
+    one at ``shape`` (bf16, causal), forward and backward through autograd
+    (the loss sum(O * dO)), held against flash_attention and the flash
+    kernels' plain versions on the same inputs; Ulysses must launch K6 and
+    the two-pass backward (K7a, K7b), the ring none (the JAX package's ring
+    runs its plain block). Times of the forward and of forward + backward
+    (CUDA events), the ring's peak memory. Returns Ulysses' launches."""
+    import torch
+
+    from heat_tpu_torch.parallel.cuda_attention import (flash_attention_bwd_plain,
+                                                        flash_attention_plain)
+
+    b, t, h, d = shape
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    comm = ht.get_comm()
+    fns = {
+        "ulysses": lambda *a: ht.parallel.ulysses_attention(*a, comm=comm, causal=True,
+                                                            use_pallas=True),
+        "ring": lambda *a: ht.parallel.ring_attention(*a, comm=comm, causal=True),
+        "flash": lambda *a: ht.parallel.flash_attention(*a, causal=True),
+    }
+
+    def run(fn):
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+        o = fn(qs, ks, vs)
+        o.backward(do)
+        return o.detach(), qs.grad, ks.grad, vs.grad
+
+    results, launches, peaks = {}, {}, {}
+    for name, fn in fns.items():
+        ht.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        results[name] = run(fn)
+        torch.cuda.synchronize()
+        launches[name] = {key: ht.launch_counts()[key] for key in
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")}
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    o_p, lse_p = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    plain = (o_p,) + tuple(flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=True,
+                                                     scale=1.0 / d ** 0.5))
+    del lse_p
+    times = {}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            fwd = time_ms(lambda: fn(q, k, v), 3, warmup=1)
+        times[name] = {"forward_ms": fwd, "forward_backward_ms": time_ms(lambda: run(fn), 3,
+                                                                         warmup=1)}
+    vmax = v.float().abs().max().item()
+
+    def held(got, ref):
+        """O's largest error, and O's and the gradients' relative RMS and
+        largest error over the largest magnitude, of ``got`` against ``ref``."""
+        e = {"o_max_abs_err": (got[0].float() - ref[0].float()).abs().max().item()}
+        for gname, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+            e[f"{gname}_rel_rms"], e[f"{gname}_max_over_max"] = _grad_error(a, r)
+        return e
+
+    errors = {name: held(results[name], plain) for name in ("ulysses", "ring", "flash")}
+    ring_vs_flash = held(results["ring"], results["flash"])
+    same = all(torch.equal(a, c) for a, c in zip(results["ulysses"], results["flash"]))
+    emit({"phase": "sequence-parallel attention", "world": 1, "shape": list(shape),
+          "dtype": "bfloat16", "causal": True, "launches": launches, "times": times,
+          "peak_memory_gib": peaks, "errors_vs_plain": errors, "ring_vs_flash": ring_vs_flash,
+          "ulysses_bit_identical_to_flash": same})
+    # tolerances (tests/test_torch_cuda.py's for bf16), for O by O's own
+    # scale as for the gradients (at this length a late row's |O| is far
+    # below max|v|): the kernels relative RMS 2e-3 and largest error 2^-6 of
+    # the largest; the ring rounds P to bf16 against each block's own maximum
+    # and its backward is autograd's, which rounds dP and the gradients at
+    # other points than the kernels: relative RMS 1e-2, largest error 2^-5;
+    # and O within 2^-7 max|v|
+    for name, against, e, (rms_tol, max_tol) in (
+            ("ulysses", "the plain flash version", errors["ulysses"], (2e-3, 2.0 ** -6)),
+            ("flash", "the plain flash version", errors["flash"], (2e-3, 2.0 ** -6)),
+            ("ring", "the plain flash version", errors["ring"], (1e-2, 2.0 ** -5)),
+            ("ring", "flash_attention", ring_vs_flash, (1e-2, 2.0 ** -5))):
+        ok = e["o_max_abs_err"] <= 2.0 ** -7 * vmax and all(
+            e[f"{gn}_rel_rms"] <= rms_tol and e[f"{gn}_max_over_max"] <= max_tol
+            for gn in ("o", "dq", "dk", "dv"))
+        check(f"sequence-parallel: {name} against {against}", ok, **e,
+              tolerance={"rel_rms": rms_tol, "max_over_max": max_tol, "o_abs": "2^-7 max|v|",
+                         "o_abs_value": 2.0 ** -7 * vmax})
+    check("sequence-parallel: ulysses (world of one) equals flash_attention bit for bit", same)
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_bwd_fused": 0}
+    check("sequence-parallel: ulysses launched K6, K7a and K7b once each",
+          launches["ulysses"] == want, launches=launches["ulysses"])
+    check("sequence-parallel: the ring launched no kernel (its block is plain, as in the JAX "
+          "package)", not any(launches["ring"].values()), launches=launches["ring"])
+    return launches["ulysses"]
+
+
+def daso_phase(ht, dev, sizes=DASO_EXAMPLE):
+    """examples/nn/daso_training.py's classifier at its sizes, on one card:
+    DASO(Adam 2e-3) through warmup (2 epochs), cycling and cooldown (2),
+    max_global_skips 4; the schedule state and the eval accuracy at each
+    epoch's end. The accuracy must reach the example's 0.95."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    n_classes, d_in, d_hidden, epochs, per_epoch, bs, n_eval = sizes
+    protos = np.random.default_rng(42).standard_normal((n_classes, d_in)).astype(np.float32)
+
+    def make_data(n, seed):
+        rng = np.random.default_rng(seed)
+        labels = rng.integers(0, n_classes, n)
+        feats = protos[labels] + 0.4 * rng.standard_normal((n, d_in)).astype(np.float32)
+        return torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
+
+    class Classifier(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            rng = np.random.default_rng(0)
+            w1 = rng.standard_normal((d_in, d_hidden)).astype(np.float32) * 0.1
+            w2 = rng.standard_normal((d_hidden, n_classes)).astype(np.float32) * 0.1
+            self.w1 = torch.nn.Parameter(torch.from_numpy(w1).to(dev))
+            self.b1 = torch.nn.Parameter(torch.zeros(d_hidden, device=dev))
+            self.w2 = torch.nn.Parameter(torch.from_numpy(w2).to(dev))
+            self.b2 = torch.nn.Parameter(torch.zeros(n_classes, device=dev))
+
+        def forward(self, x):
+            return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2
+
+    def loss_fn(model, xb, yb):
+        return F.cross_entropy(model(xb), yb)
+
+    x, y = make_data(per_epoch * bs, 0)
+    x_eval, y_eval = make_data(n_eval, 1)
+    model = Classifier()
+    daso = ht.optim.DASO(torch.optim.Adam(model.parameters(), lr=2e-3), total_epochs=epochs,
+                         warmup_epochs=2, cooldown_epochs=2, max_global_skips=4)
+    daso.set_loss(loss_fn)
+    daso.last_batch = per_epoch - 1
+    params = daso.stack_params(model)
+    opt_state = daso.init(params)
+    rows, acc = [], 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        total = 0.0
+        for i in range(per_epoch):
+            lo = i * bs
+            params, opt_state, loss = daso.step(params, opt_state, (x[lo:lo + bs], y[lo:lo + bs]))
+            total += float(loss)
+        daso.epoch_loss_logic(total / per_epoch)
+        synced = daso.unstack_params(params)
+        with torch.no_grad():
+            h = torch.relu(x_eval @ synced["w1"] + synced["b1"])
+            acc = ((h @ synced["w2"] + synced["b2"]).argmax(-1) == y_eval).float().mean().item()
+        rows.append({"epoch": daso.epoch, "loss": total / per_epoch, "eval_accuracy": acc,
+                     "global_skip": daso.global_skip, "local_skip": daso.local_skip,
+                     "batches_to_wait": daso.batches_to_wait})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "DASO", "world": 1, "n_nodes": daso.n_nodes, "n_local": daso.n_local,
+          "epochs": rows, "wall_ms": wall, "steps": epochs * per_epoch})
+    skips = [r["global_skip"] for r in rows]
+    check("DASO: warmup, cycling and cooldown ran (global skip 0, then 4, then 0)",
+          skips[:1] == [0] and 4 in skips and skips[-2:] == [0, 0], global_skips=skips)
+    check("DASO: eval accuracy reaches the example's 0.95", acc >= 0.95, accuracy=acc)
+
+
 def main():
     import torch
 
@@ -2790,6 +3187,15 @@ def main():
     check("training profile saw device time", device_ms > 0, device_ms=device_ms)
     del lm, opt, init_state
 
+    # ---------------------------------- data and sequence parallelism, DASO
+    dp_launches = data_parallel_path(ht, dev, cfg)
+    sp_launches = sequence_parallel_phase(ht, dev, time_ms)
+    daso_phase(ht, dev)
+    parallel_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    check("DataParallel and Ulysses launched K6, K7a and K7b",
+          all(dp_launches[name] > 0 and sp_launches[name] > 0 for name in parallel_kernels),
+          data_parallel=dp_launches, ulysses=sp_launches)
+
     sources = {
         "moments": ("heat_tpu_torch/csrc/moments.cu", "heat_tpu/core/pallas_moments.py:64"),
         "cdist": ("heat_tpu_torch/csrc/cdist.cu", "heat_tpu/spatial/pallas_cdist.py:80"),
@@ -2841,6 +3247,9 @@ def main():
         if name in also:
             label, other = also[name]
             row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}
+        if name in parallel_kernels:  # the launches of this slice's paths
+            row["data_parallel_path_launches"] = dp_launches[name]
+            row["ulysses_launches"] = sp_launches[name]
         if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
             row["spectral_path"] = spectral_rows[name]
             row["sparse_spectral_path"] = sparse_spectral_rows[name]

@@ -55,7 +55,16 @@ package has a Pallas kernel:
     sparse ``cluster.Spectral`` (the cdist and Lloyd kernels) and
     ``graph.connected_components``; and ``cluster.KMedians``,
     ``cluster.KMedoids``, ``naive_bayes.GaussianNB`` and
-    ``classification.KNeighborsClassifier``.
+    ``classification.KNeighborsClassifier``;
+  - sequence and data parallelism: ``parallel.ring_attention`` and
+    ``parallel.ulysses_attention`` (the flash kernels under the latter with
+    ``use_pallas=True``), ``TransformerLM(attn_impl="ring"|"ulysses",
+    comm=...)``, the ring ``cdist``/``rbf``/``manhattan``,
+    ``parallel.ring_pipeline``, ``parallel.halo_exchange``/``halo_stencil``,
+    ``nn.functional``, ``nn.DataParallel`` (one flat all-reduce a step,
+    blocking or double-buffered), ``nn.DataParallelMultiGPU``, ``nn.MoEMLP``
+    (experts split over the ranks), and ``optim`` (``DataParallelOptimizer``,
+    ``DASO``, ``DetectMetricPlateau``, the ``lr_scheduler`` factories).
 """
 
 from .core import *
@@ -71,6 +80,7 @@ from . import regression
 from . import spatial
 from . import parallel
 from . import nn
+from . import optim
 from . import interop
 from ._build import launch_counts, reset_launch_counts
 from .core.version import version as __version__

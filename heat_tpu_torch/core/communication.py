@@ -17,10 +17,21 @@ drops the pad again; the unsigned types wider than 8 bits travel as the
 signed type of the same width. Every wire is exact: the compressed wires of
 the JAX package (``precision``, ``core/collective_prec.py`` there) are not
 ported, and asking for one raises.
+
+Autograd sees through the hops that sequence parallelism differentiates:
+``ppermute``/``ring_permute`` (its backward sends the gradient along the
+inverse permutation) and ``all_to_all`` (its backward is the inverse
+``all_to_all``), as JAX's transpose rules do for ``ppermute`` and
+``all_to_all``. ``node_local`` splits a world into the two levels DASO
+averages over, and ``allreduce_flat`` reduces a list of tensors as one
+flat buffer (one collective a training step, as the JAX package's one
+``psum``). ``ring_steps`` is the hop loop that every ring of the package
+runs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "PendingAllreduce",
     "PendingPermute",
     "TorchCommunication",
     "chunk",
@@ -36,6 +48,8 @@ __all__ = [
     "get_comm",
     "lshape_map",
     "padded_size",
+    "ring_overlap",
+    "ring_steps",
     "sanitize_comm",
     "use_comm",
 ]
@@ -91,6 +105,53 @@ def counts_displs(n: int, size: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     return counts, displs
 
 
+def ring_overlap() -> bool:
+    """Whether the rings (CholeskyQR2's Gram ring, the ring distances) issue
+    each hop before its tile's product and skip the dead last hop
+    (``HEAT_TPU_RING_OVERLAP``, default on; ``0``, ``false``, ``off`` or
+    ``no`` turn it off). The tiles are the same either way."""
+    return os.environ.get("HEAT_TPU_RING_OVERLAP", "1").strip().lower() not in (
+        "0", "false", "off", "no")
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nest of tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, value) for value in tree)
+    return tree
+
+
+def ring_steps(comm: "TorchCommunication", circulating, visit, *, shift: int = 1,
+               overlap: bool = False, home: bool = False) -> None:
+    """The hop loop of every ring (``ring_pipeline``, ring attention, the
+    ring distances, CholeskyQR2's Gram ring): ``visit(t, origin, block)`` at
+    each step ``t`` of ``p``, where ``block`` is the circulating block that
+    started on rank ``origin = (rank - t * shift) mod p``. Between two steps
+    every block moves one hop along ``+shift`` (``ring_permute``;
+    ``circulating`` may be a nest of tensors). ``overlap=True`` issues each
+    hop before the visit of the block it moves, so the transfer runs under
+    the visit; it takes one tensor and records no gradient. The hop after
+    the last step only brings every block home, and is made only with
+    ``home=True`` (the JAX package's serial schedule)."""
+    p = comm.size
+    for t in range(p):
+        origin = (comm.rank - t * shift) % p
+        hop = t < p - 1 or home
+        if overlap and hop:
+            pending = comm.ring_permute(circulating, shift, async_op=True)
+            visit(t, origin, circulating)
+            circulating = pending.wait()
+            continue
+        visit(t, origin, circulating)
+        if hop:
+            circulating = _tree_map(lambda x: comm.ring_permute(x.contiguous(), shift),
+                                    circulating)
+
+
 # the signed type of the same width, which carries an unsigned type's bits
 # through a collective
 _BITS_AS = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
@@ -131,6 +192,63 @@ class PendingPermute:
             w.wait()
         self._works, self._sent = [], None
         return self._out.view(self._dtype)
+
+
+class PendingAllreduce:
+    """An :meth:`TorchCommunication.allreduce_flat` in flight: :meth:`wait`
+    completes it and returns the reduced tensors."""
+
+    def __init__(self, flat: torch.Tensor, work, like: Sequence[torch.Tensor], divisor):
+        self._flat, self._work, self._like, self._divisor = flat, work, list(like), divisor
+
+    def wait(self) -> List[torch.Tensor]:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._divisor is not None:
+            self._flat.div_(self._divisor)
+            self._divisor = None
+        out, offset = [], 0
+        for t in self._like:
+            n = t.numel()
+            out.append(self._flat.narrow(0, offset, n).view(t.shape))
+            offset += n
+        return out
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute`` under autograd: the backward sends the gradient along
+    the inverse permutation (a rank that received nothing gets no gradient
+    back; one that sent nothing gets zeros)."""
+
+    @staticmethod
+    def forward(ctx, tensor, comm, perm):
+        ctx.comm, ctx.perm = comm, perm
+        return comm.ppermute(tensor, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return ctx.comm.ppermute(grad.contiguous(), inverse), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` under autograd: it moves every element once, so its
+    backward is the inverse exchange (the axes and lengths swapped)."""
+
+    @staticmethod
+    def forward(ctx, local, comm, split_axis, concat_axis, n_split, n_concat):
+        ctx.comm, ctx.args = comm, (concat_axis, split_axis, n_concat, n_split)
+        return comm.all_to_all(local, split_axis, concat_axis, n_split, n_concat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.comm.all_to_all(grad.contiguous(), *ctx.args),
+                None, None, None, None, None)
+
+
+def _records_grad(tensor: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and tensor.requires_grad
 
 
 class TorchCommunication:
@@ -178,6 +296,51 @@ class TorchCommunication:
         if self.size > 1:
             dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
         return tensor
+
+    def allreduce_flat(self, tensors: Sequence[torch.Tensor], average: bool = False,
+                       async_op: bool = False):
+        """Sum (or, with ``average``, average) a list of tensors of one type
+        over the ranks as ONE collective on a flat buffer that holds them
+        all (DataParallel's gradient bucket: one all-reduce a step). Returns
+        the reduced tensors as views of that buffer; the inputs are not
+        changed. With ``async_op=True`` it returns a
+        :class:`PendingAllreduce` at once."""
+        tensors = list(tensors)
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        work = None
+        if self.size > 1:
+            work = dist.all_reduce(flat, group=self.group, async_op=async_op)
+            if not async_op:
+                work = None
+        divisor = self.size if average and self.size > 1 else None
+        pending = PendingAllreduce(flat, work, tensors, divisor)
+        return pending if async_op else pending.wait()
+
+    def bcast(self, tensor: torch.Tensor, root: int = 0) -> torch.Tensor:
+        """In-place broadcast of rank ``root``'s ``tensor``; returns it."""
+        if self.size > 1:
+            dist.broadcast(tensor, self._global_rank(root), group=self.group)
+        return tensor
+
+    def node_local(self, n_nodes: int) -> Tuple["TorchCommunication", "TorchCommunication"]:
+        """Split this world into ``n_nodes`` nodes of ``size / n_nodes``
+        consecutive ranks: returns ``(node, local)``, where ``local`` is the
+        group of this rank's node and ``node`` the group of the ranks with
+        this rank's place in every node (the slow and the fast axis of the
+        JAX package's ``("node", "local")`` mesh, device ``i`` at
+        ``(i // n_local, i % n_local)``). Every rank must call it, with the
+        same ``n_nodes``."""
+        if n_nodes <= 0 or self.size % n_nodes:
+            raise ValueError(f"world size {self.size} not divisible by n_nodes {n_nodes}")
+        n_local = self.size // n_nodes
+        if self.size == 1:
+            return TorchCommunication(self.group), TorchCommunication(self.group)
+        glob = [self._global_rank(r) for r in range(self.size)]
+        locals_ = [[glob[n * n_local + i] for i in range(n_local)] for n in range(n_nodes)]
+        nodes = [[glob[n * n_local + i] for n in range(n_nodes)] for i in range(n_local)]
+        local_group, _ = dist.new_subgroups_by_enumeration(locals_)
+        node_group, _ = dist.new_subgroups_by_enumeration(nodes)
+        return TorchCommunication(node_group), TorchCommunication(local_group)
 
     def allgather(self, local: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         """Concatenate every rank's chunk of a dimension of global length
@@ -228,8 +391,13 @@ class TorchCommunication:
         found from every rank's length when not given) and spans all of
         ``split_axis``. Each rank sends rank ``q`` only the block ``q`` will
         own; no rank holds the whole array. Blocks are padded to the chunk
-        sizes of both axes for the call."""
+        sizes of both axes for the call. Differentiable: under autograd the
+        gradient takes the inverse exchange back."""
         _exact_wire(precision)
+        if _records_grad(local) and self.size > 1:
+            if n_concat is None:
+                n_concat = sum(self.allgather_object(int(local.shape[concat_axis])))
+            return _AllToAll.apply(local, self, split_axis, concat_axis, n_split, n_concat)
         if split_axis == concat_axis:
             raise ValueError("all_to_all: split_axis and concat_axis must differ")
         if local.shape[split_axis] != n_split:
@@ -265,8 +433,13 @@ class TorchCommunication:
         destination. Every rank's tensor has the same shape and type. Built
         on ``batch_isend_irecv``: with ``async_op=True`` it returns a
         :class:`PendingPermute` at once, so that work can run while the
-        tensors travel."""
+        tensors travel. Differentiable (synchronously): under autograd the
+        gradient goes back along the inverse permutation."""
         _exact_wire(precision)
+        if _records_grad(tensor):
+            if async_op:
+                raise ValueError("ppermute: async_op=True cannot record a gradient")
+            return _PPermute.apply(tensor, self, [tuple(pair) for pair in perm])
         dtype = tensor.dtype
         tensor = tensor.view(_BITS_AS.get(dtype, dtype)).contiguous()
         dst = [d for s, d in perm if s == self.rank]

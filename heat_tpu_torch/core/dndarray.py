@@ -408,12 +408,10 @@ class DNDarray:
         if self.__split is None or self.__comm.size == 1:
             self.__halo_prev = self.__halo_next = None
             return
-        s, p = self.__split, self.__comm.size
-        n_local = self.__array.shape[s]
-        last = self.__array.narrow(s, n_local - halo_size, halo_size).contiguous()
-        first = self.__array.narrow(s, 0, halo_size).contiguous()
-        self.__halo_prev = self.__comm.ppermute(last, [(i, i + 1) for i in range(p - 1)])
-        self.__halo_next = self.__comm.ppermute(first, [(i + 1, i) for i in range(p - 1)])
+        from ..parallel.halo import _halo_parts
+
+        self.__halo_prev, self.__halo_next = _halo_parts(
+            self.__array, halo_size, self.__split, self.__comm, wrap=False)
 
     @property
     def halo_prev(self) -> Optional[torch.Tensor]:

@@ -30,26 +30,17 @@ The matrix is never gathered whole on a distributed path.
 from __future__ import annotations
 
 import collections
-import os
 
 import torch
 
 from .. import types
-from ..communication import _padded
+from ..communication import _padded, ring_overlap, ring_steps
 from ..dndarray import DNDarray
 from .basics import _from_global, _replicated, matmul
 
 __all__ = ["qr"]
 
 QR = collections.namedtuple("QR", "Q, R")
-
-
-def ring_overlap() -> bool:
-    """Whether the Gram ring issues each hop before its tile product
-    (``HEAT_TPU_RING_OVERLAP``, default on; ``0``, ``false``, ``off`` or
-    ``no`` turn it off)."""
-    return os.environ.get("HEAT_TPU_RING_OVERLAP", "1").strip().lower() not in (
-        "0", "false", "off", "no")
 
 
 def _gram_ring(loc: torch.Tensor, comm, n: int) -> torch.Tensor:
@@ -61,21 +52,11 @@ def _gram_ring(loc: torch.Tensor, comm, n: int) -> torch.Tensor:
     xt = _padded(loc, 1, c).t().contiguous()  # (c, m)
     acc = xt.new_zeros((c, c * p))
 
-    def tile_into(t, circ):
-        origin = (comm.rank - t) % p
+    def tile_into(t, origin, circ):
         acc[:, origin * c:(origin + 1) * c] = xt @ circ.t()
 
-    circ = xt
-    if ring_overlap() and p > 1:
-        for t in range(p - 1):
-            hop = comm.ring_permute(circ, async_op=True)
-            tile_into(t, circ)
-            circ = hop.wait()
-        tile_into(p - 1, circ)
-    else:
-        for t in range(p):
-            tile_into(t, circ)
-            circ = comm.ring_permute(circ)
+    overlap = ring_overlap()
+    ring_steps(comm, xt, tile_into, overlap=overlap, home=not overlap)
     return comm.allgather(acc[:loc.shape[1]], 0, n)[:, :n]
 
 

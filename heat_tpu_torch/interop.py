@@ -9,7 +9,11 @@ Flax layouts and their torch counterparts: a ``Dense`` kernel is
 or value kernel is ``(D, H, D_head)`` and the out kernel ``(H, D_head, D)``,
 flattened to ``(D, H * D_head)`` and ``(H * D_head, D)`` and transposed;
 LayerNorm ``scale``/``bias`` and the ``embed``/``pos`` ``embedding`` tables
-carry as they are.
+carry as they are. A ``MoEMLP``'s ``w_in``/``w_out`` ``(E, in, out)`` carry as
+they are, this rank's experts only. A plain parameter pytree (a dict of
+numpy arrays, as the JAX package's DataParallel and DASO train) carries by
+name into a module whose parameters have those names and shapes; DASO's
+stacked pytree (a leading replica axis) carries one replica.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ import torch
 from .cluster.kmeans import KMeans
 from .core import factories
 from .core.dndarray import DNDarray
-from .nn import LayerNorm, MultiHeadAttention, QuantDense, TransformerBlock, TransformerLM
+from .nn import (LayerNorm, MoEMLP, MultiHeadAttention, QuantDense, TransformerBlock,
+                 TransformerLM)
 
 __all__ = [
     "KMeans",
     "array_from_numpy",
     "load_flax_params",
+    "load_params",
+    "moe_mlp_from_flax",
     "quant_dense_from_flax",
     "transformer_lm_from_flax",
 ]
@@ -77,6 +84,11 @@ def _load(module: torch.nn.Module, p: Mapping) -> None:
             _load(block, p[f"block{i}"])
         _load(module.ln_f, p["ln_f"])
         _dense(module.lm_head, p["lm_head"]["kernel"])
+    elif isinstance(module, MoEMLP):
+        _dense(module.gate, p["gate"]["kernel"])
+        lo, hi = module.expert_range()
+        _set(module.w_in, np.asarray(p["w_in"])[lo:hi])
+        _set(module.w_out, np.asarray(p["w_out"])[lo:hi])
     elif isinstance(module, QuantDense):
         _dense(module.weight, p["kernel"])
         if module.bias is not None:
@@ -89,7 +101,7 @@ def load_flax_params(module: torch.nn.Module, variables: Mapping) -> torch.nn.Mo
     """Copy a flax variable tree (nested dicts of numpy arrays, with or
     without the top-level ``"params"``) into ``module`` (a
     :class:`TransformerLM`, :class:`TransformerBlock`,
-    :class:`MultiHeadAttention`, :class:`LayerNorm` or
+    :class:`MultiHeadAttention`, :class:`LayerNorm`, :class:`MoEMLP` or
     :class:`QuantDense`); returns the module."""
     _load(module, variables.get("params", variables))
     return module
@@ -107,3 +119,24 @@ def quant_dense_from_flax(variables: Mapping, features: int, **config) -> QuantD
     p = variables.get("params", variables)
     in_features = np.asarray(p["kernel"]).shape[0]
     return load_flax_params(QuantDense(features, in_features=in_features, **config), variables)
+
+
+def moe_mlp_from_flax(variables: Mapping, **config) -> MoEMLP:
+    """A :class:`MoEMLP` built from ``config`` (the flax module's arguments,
+    plus ``comm`` and ``device``) holding the flax layer's weights, this
+    rank's experts of them; ``d_model`` is read from the gate kernel."""
+    p = variables.get("params", variables)
+    d_model = np.asarray(p["gate"]["kernel"]).shape[0]
+    return load_flax_params(MoEMLP(d_model=d_model, **config), variables)
+
+
+def load_params(module: torch.nn.Module, params: Mapping,
+                replica: Optional[int] = None) -> torch.nn.Module:
+    """Copy a plain parameter pytree (parameter name -> numpy array, the
+    layout of ``module``'s parameters) into ``module``; with ``replica``,
+    ``params`` is DASO's stacked form and that replica's slice is taken.
+    Returns the module."""
+    for name, param in module.named_parameters():
+        value = np.asarray(params[name])
+        _set(param, value[replica] if replica is not None else value)
+    return module

@@ -10,10 +10,16 @@
 The constructors take the flax modules' arguments. Torch needs the widths
 before the first call, so ``d_model`` (and nothing else) is added where
 flax infers it from the input. ``attn_impl`` selects the core:
-``"local"`` (plain blockwise, :func:`heat_tpu_torch.parallel.local_attention`)
-or ``"flash"`` (the flash kernel,
-:func:`heat_tpu_torch.parallel.flash_attention`); ``"ring"`` and
-``"ulysses"`` need collectives the port does not have yet and raise.
+``"local"`` (plain blockwise, :func:`heat_tpu_torch.parallel.local_attention`),
+``"flash"`` (the flash kernel,
+:func:`heat_tpu_torch.parallel.flash_attention`), or the sequence-parallel
+``"ring"`` and ``"ulysses"`` over ``comm`` (a
+:class:`heat_tpu_torch.TorchCommunication`;
+:func:`heat_tpu_torch.parallel.ring_attention`, ``ulysses_attention``).
+With those two each rank passes its chunk of the sequence, the same length
+on every rank: the tokens ``(B, T / p)`` of :class:`TransformerLM` (whose
+position rows start at ``rank * T / p``), or ``(B, T / p, D)`` of a block;
+everything but the attention core is per token.
 
 Numerics follow the flax model: parameters are f32 and each forward casts
 them to ``dtype`` (flax's ``param_dtype``/``dtype`` split), so no bf16 copy
@@ -92,16 +98,20 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
-def _attend(q, k, v, *, impl, causal, block_size, flash_bwd_impl):
+def _attend(q, k, v, *, impl, causal, comm, block_size, flash_bwd_impl):
     if impl == "flash":
         if block_size is None:  # the kernel's default tiles
             return flash_attention(q, k, v, causal=causal, bwd_impl=flash_bwd_impl)
         return flash_attention(q, k, v, causal=causal, block_q=block_size, block_k=block_size,
                                bwd_impl=flash_bwd_impl)
+    if impl in ("ring", "ulysses") and comm is None:
+        raise ValueError(f"attn_impl={impl!r} needs comm=, the world the sequence is split over")
     if impl == "ring":
-        return ring_attention(q, k, v)
+        # the ring processes one rank's chunk a hop; there is no block knob
+        return ring_attention(q, k, v, comm=comm, causal=causal)
     if impl == "ulysses":
-        return ulysses_attention(q, k, v)
+        return ulysses_attention(q, k, v, comm=comm, causal=causal,
+                                 block_size=512 if block_size is None else block_size)
     return local_attention(q, k, v, causal=causal,
                            block_size=512 if block_size is None else block_size)
 
@@ -137,7 +147,7 @@ class MultiHeadAttention(nn.Module):
         heads = (b, t, self.num_heads, self.d_head)
         q, k, v = (F.linear(x, w.to(self.dtype)).view(heads)
                    for w in (self.query, self.key, self.value))
-        o = _attend(q, k, v, impl=self.attn_impl, causal=self.causal,
+        o = _attend(q, k, v, impl=self.attn_impl, causal=self.causal, comm=self.comm,
                     block_size=self.block_size, flash_bwd_impl=self.flash_bwd_impl)
         return F.linear(o.reshape(b, t, -1), self.out.to(self.dtype))
 
@@ -198,6 +208,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         dev, gen = _setup(device, generator)
         self.vocab_size, self.d_model, self.max_len = vocab_size, d_model, max_len
+        self.comm = comm if attn_impl in ("ring", "ulysses") else None
         self.remat, self.remat_policy, self.dtype = remat, remat_policy, dtype
         std = 1.0 / math.sqrt(d_model)
         self.embed = nn.Parameter(
@@ -212,10 +223,14 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[-1]
-        if t > self.max_len:
-            raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
+        # a sequence-split model holds this rank's chunk: its positions start
+        # at rank * t
+        start = 0 if self.comm is None else self.comm.rank * t
+        total = t if self.comm is None else t * self.comm.size
+        if total > self.max_len:
+            raise ValueError(f"sequence length {total} exceeds max_len {self.max_len}")
         x = F.embedding(tokens, self.embed).to(self.dtype)
-        x = x + self.pos[:t].to(self.dtype)[None]
+        x = x + self.pos[start:start + t].to(self.dtype)[None]
         remat = self.remat and torch.is_grad_enabled()
         kwargs = {}
         if remat and self.remat_policy == "dots":

@@ -1,0 +1,418 @@
+"""Distributed optimizers: DataParallelOptimizer and DASO (counterpart of
+``heat_tpu/optim/dp_optimizer.py``; reference heat/optim/dp_optimizer.py).
+
+:class:`DataParallelOptimizer` wraps a ``torch.optim.Optimizer`` for
+:class:`heat_tpu_torch.nn.DataParallel`, whose step has already averaged
+the gradients. :class:`DASO` is the hierarchical asynchronous schedule, one
+process a rank as in the reference Heat: the world is split into
+``n_nodes`` nodes of ``n_local`` consecutive ranks
+(``TorchCommunication.node_local``), every rank keeps its own replica of
+the module, gradients are averaged inside a node on the batches the local
+skip does not skip, and every ``global_skip`` batches the node means of the
+parameters are summed across nodes in ``downcast_type`` (bf16) and merged
+``batches_to_wait`` batches later with the reference's staleness weights
+(``new = numer/denom · local + sent/denom``, ``numer = 2·batches_waited``,
+``denom = n_nodes + numer``). The cross-node sum is issued as an
+asynchronous all-reduce and waited for when merged. The decision order,
+the plateau-driven skip decay and the hold at the maximum skip are the
+JAX package's, line for line.
+
+As in :mod:`heat_tpu_torch.nn.data_parallel`, ``params`` is the module (this
+rank's replica) and ``opt_state`` the torch optimizer; ``loss_fn(module,
+*batch)``. A ``scheduler`` multiplies each group's learning rate by
+``scheduler(count)`` before the ``count``-th update (optax's
+``scale_by_schedule`` after the optimizer, the same update for optimizers
+whose update is linear in the learning rate: SGD, Adam, AdamW, ...).
+
+Not carried here: the compressed parameter wires (``collective_precision``
+other than ``"off"``; ROADMAP §1 item 12) and the checkpoints
+(``checkpoint_every``, ``save_checkpoint``, ``load_checkpoint``; item 13);
+each raises.
+"""
+
+from __future__ import annotations
+
+import socket
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
+from ..nn.data_parallel import (_apply, _check_module, _loss_and_grads, _mean_over,
+                                _module_device, _shard_batch, _trainable)
+from .utils import DetectMetricPlateau
+
+__all__ = ["DataParallelOptimizer", "DASO"]
+
+
+class DataParallelOptimizer:
+    """A ``torch.optim.Optimizer`` for :class:`heat_tpu_torch.nn.DataParallel`
+    (reference dp_optimizer.py:834-877): the gradients it applies were
+    averaged by the train step already."""
+
+    def __init__(self, optimizer, blocking: bool = False):
+        if not isinstance(optimizer, torch.optim.Optimizer):
+            raise TypeError(f"optimizer must be a torch.optim.Optimizer, got {type(optimizer)}")
+        self.torch_optimizer = optimizer
+        self.optimizer = optimizer
+        self.blocking = blocking
+
+    def init(self, params) -> "DataParallelOptimizer":
+        """The optimizer state of ``params``: this object (torch keeps the
+        state in the optimizer)."""
+        return self
+
+    def step(self, params=None, opt_state=None, grads: Optional[Dict[str, torch.Tensor]] = None):
+        """One update. With ``grads`` (parameter name -> gradient of the
+        module ``params``) they are applied and ``(params, opt_state)``
+        returned, as the JAX package's ``step(params, opt_state, grads)``;
+        without, the parameters' own ``.grad`` are (reference
+        ``DataParallelOptimizer.step()``)."""
+        if grads is None:
+            self.torch_optimizer.step()
+            return params, opt_state
+        named = _trainable(_check_module(params))
+        _apply([p for _, p in named], [grads[name] for name, _ in named], self.torch_optimizer)
+        return params, opt_state
+
+    def zero_grad(self) -> None:
+        """Clear the parameters' gradients (reference :871)."""
+        self.torch_optimizer.zero_grad(set_to_none=True)
+
+
+def _detect_nodes(comm: TorchCommunication) -> int:
+    """The JAX package's node count without the ``HEAT_TPU_TOPOLOGY`` knob
+    (``core/topology.py:156-172`` there, with DASO's fallback): one node a
+    host when the ranks span several hosts, else two nodes on an even
+    world, else a node a rank."""
+    p = comm.size
+    hosts = len(set(comm.allgather_object(socket.gethostname())))
+    if hosts > 1 and p % hosts == 0:
+        return hosts
+    if p > 1 and p % 2 == 0:
+        return 2
+    return p
+
+
+class DASO:
+    """Distributed Asynchronous and Selective Optimization (reference
+    dp_optimizer.py:46-831) over a two-level split of the ranks.
+
+    Parameters
+    ----------
+    local_optimizer : torch.optim.Optimizer
+        This rank's optimizer, over its replica's parameters.
+    total_epochs : int
+        Training length; bounds the warmup and cooldown phases.
+    comm : TorchCommunication, optional
+        The world split into nodes.
+    n_nodes : int, optional
+        Number of nodes (the slow level). By default one a host when the
+        ranks span several, else 2 on an even world, else one a rank.
+    scheduler, scheduler_base_lr :
+        A scale-factor schedule (``step -> scale``), or with
+        ``scheduler_base_lr`` an absolute-lr schedule (the
+        :mod:`heat_tpu_torch.optim.lr_scheduler` factories) divided by that
+        base lr, so the lr is applied once.
+    warmup_epochs, cooldown_epochs, stability_level, max_global_skips,
+    skip_reduction_factor, local_skip_factor, verbose :
+        Schedule knobs, the reference's defaults (:136-156).
+    downcast_type : torch.dtype
+        Type of the cross-node parameter sum (bf16).
+    """
+
+    def __init__(
+        self,
+        local_optimizer,
+        total_epochs: int,
+        comm: Optional[TorchCommunication] = None,
+        n_nodes: Optional[int] = None,
+        warmup_epochs: int = 4,
+        cooldown_epochs: int = 4,
+        scheduler=None,
+        scheduler_base_lr: Optional[float] = None,
+        stability_level: float = 0.05,
+        max_global_skips: int = 8,
+        downcast_type: torch.dtype = torch.bfloat16,
+        skip_reduction_factor: int = 2,
+        local_skip_factor: int = 4,
+        verbose: bool = False,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
+        collective_precision: Optional[str] = None,
+    ):
+        if not isinstance(local_optimizer, torch.optim.Optimizer):
+            raise TypeError(
+                f"local_optimizer must be a torch.optim.Optimizer, got {type(local_optimizer)}")
+        if checkpoint_every is not None or checkpoint_path is not None:
+            raise NotImplementedError(
+                "DASO checkpoint_every/checkpoint_path: the checkpoints come with resilience "
+                "(ROADMAP §1 item 13)")
+        _exact_wire(collective_precision)
+        if scheduler is None and scheduler_base_lr is not None:
+            raise ValueError("scheduler_base_lr given without a scheduler — pass the "
+                             "absolute-lr schedule it belongs to")
+        if scheduler is not None:
+            if not callable(scheduler):
+                raise TypeError(f"scheduler must be a schedule (step -> scale), got "
+                                f"{type(scheduler)}")
+            if scheduler_base_lr is not None:
+                if scheduler_base_lr <= 0:
+                    raise ValueError(
+                        f"scheduler_base_lr must be positive, got {scheduler_base_lr}")
+                base_sched, base_lr = scheduler, float(scheduler_base_lr)
+                scheduler = lambda step: base_sched(step) / base_lr  # noqa: E731
+        self.local_optimizer = local_optimizer
+        self._base_lrs = [group["lr"] for group in local_optimizer.param_groups]
+        self._updates = 0
+        self.comm = sanitize_comm(comm)
+        p = self.comm.size
+        if n_nodes is None:
+            n_nodes = _detect_nodes(self.comm)
+        if n_nodes <= 0 or p % n_nodes != 0:
+            raise ValueError(f"device count {p} not divisible by n_nodes {n_nodes}")
+        self.n_nodes = n_nodes
+        self.n_local = p // n_nodes
+        self.node_comm, self.local_comm = self.comm.node_local(n_nodes)
+        self.cast_dtype = downcast_type
+        self.scheduler = scheduler
+        self.verbose = verbose
+        self.total_epochs = total_epochs
+        self.warmup_epochs = warmup_epochs
+        self.cooldown_epochs = cooldown_epochs
+        self.max_gs = max_global_skips
+        self.skip_reduction_factor = skip_reduction_factor
+        self.local_skip_factor = local_skip_factor
+
+        self.module = None
+        self.loss_fn: Optional[Callable] = None
+        self.current_batch, self.last_batch = 0, None
+        self.epoch = 0
+        self.global_skip = 0
+        self.local_skip = 0
+        self.batches_to_wait = 0
+        self._prev_params = []  # [(pending payload, target batch, batches waited)]
+        self.stability = DetectMetricPlateau(patience=2, threshold=stability_level)
+        self._gs8_waits = 3
+        self._gs8_waited = 0
+        self.amp = False
+
+    # -- model binding & parameter layout ------------------------------------
+
+    def set_model(self, model) -> None:
+        """Bind the model (reference :708)."""
+        self.module = model
+
+    def set_loss(self, loss_fn: Callable) -> None:
+        """Bind ``loss_fn(module, *batch) -> scalar`` used by :meth:`step`."""
+        self.loss_fn = loss_fn
+
+    def stack_params(self, params) -> nn.Module:
+        """This rank's replica: the bound module holding ``params`` (a module,
+        returned as it is, or parameter name -> array, copied into the
+        module bound by :meth:`set_model`)."""
+        if isinstance(params, nn.Module):
+            return params
+        if self.module is None:
+            raise ValueError("call set_model(module) before stack_params(parameter dict)")
+        with torch.no_grad():
+            for name, p in self.module.named_parameters():
+                p.copy_(torch.as_tensor(np.asarray(params[name])).to(p.device, p.dtype))
+        return self.module
+
+    def unstack_params(self, params) -> Dict[str, torch.Tensor]:
+        """The mean of every rank's replica, parameter name -> tensor (one
+        all-reduce): the synchronized model."""
+        named = list(_check_module(params).named_parameters())
+        means = self.comm.allreduce_flat([p.detach() for _, p in named], average=True)
+        return {name: m.clone() for (name, _), m in zip(named, means)}
+
+    def init(self, stacked_params) -> torch.optim.Optimizer:
+        """The optimizer state of this replica: the local optimizer (torch
+        keeps the state in it)."""
+        return self.local_optimizer
+
+    # -- the steps -------------------------------------------------------------
+
+    def _local_step(self, module: nn.Module, opt_state, batch, local_sync: bool,
+                    full_sync: bool) -> torch.Tensor:
+        if self.loss_fn is None:
+            raise ValueError("call set_loss(loss_fn) before step()")
+        opt = getattr(opt_state, "torch_optimizer", opt_state)
+        batch = _shard_batch(self.comm, batch, _module_device(module))
+        loss, grads = _loss_and_grads(module, self.loss_fn, batch)
+        if full_sync:
+            grads, loss = _mean_over(self.comm, grads, loss)
+        else:
+            if local_sync:
+                grads, _ = _mean_over(self.local_comm, grads, None)
+            loss = self.comm.allreduce_flat([loss], average=True)[0]
+        if self.scheduler is not None:
+            scale = float(self.scheduler(self._updates))
+            for group, base in zip(opt.param_groups, self._base_lrs):
+                group["lr"] = base * scale
+        self._updates += 1
+        _apply([p for _, p in _trainable(module)], grads, opt)
+        return loss
+
+    def _global_send(self, module: nn.Module):
+        """Launch the cross-node sum of the node means of the parameters in
+        ``downcast_type``; returns the pending all-reduce."""
+        params = [p.detach() for p in module.parameters()]
+        rep = self.local_comm.allreduce_flat(params, average=True)
+        return self.node_comm.allreduce_flat([r.to(self.cast_dtype) for r in rep], async_op=True)
+
+    def _merge(self, module: nn.Module, payload, numer: float) -> None:
+        """``local · numer/denom + sent/denom`` with ``denom = numer +
+        n_nodes``, in f32 as the JAX package's merge."""
+        numer = np.float32(numer)
+        denom = numer + np.float32(self.n_nodes)
+        ratio = float(numer / denom)
+        with torch.no_grad():
+            for p, sent in zip(module.parameters(), payload.wait()):
+                p.copy_(p * ratio + sent.to(p.dtype) / float(denom))
+
+    def step(self, params, opt_state, batch) -> Tuple[Any, Any, torch.Tensor]:
+        """One DASO step: this replica's update and the sync state machine
+        (reference :730-814, the JAX package's decision order). ``batch`` is
+        a tuple of arrays, taken as :meth:`DataParallel.shard_batch` takes
+        them. Returns ``(params, opt_state, loss)``, the loss averaged over
+        every rank."""
+        if self.last_batch is None:
+            raise ValueError(
+                "self.last_batch must be set to the index of the final batch of an epoch "
+                "(len(dataloader) - 1)")
+        module = _check_module(getattr(params, "module", params))
+        batch_idx = self.current_batch
+        gs, ls = self.global_skip, self.local_skip
+        gmod = batch_idx % gs if gs > 0 else 0
+        btw = min(self.batches_to_wait, max(self.last_batch - batch_idx, 0))
+
+        full_sync_now = batch_idx == self.last_batch or gmod == 0
+        local_sync_now = ls <= 1 or (batch_idx % ls == 0)
+
+        if full_sync_now and gs == 0 and btw == 0:
+            # warmup/cooldown: plain blocking hierarchical DP
+            loss = self._local_step(module, opt_state, batch, local_sync=True, full_sync=True)
+            self._advance(batch_idx)
+            return params, opt_state, loss
+
+        loss = self._local_step(module, opt_state, batch, local_sync=local_sync_now,
+                                full_sync=False)
+        if full_sync_now:
+            # drain the pending payloads first, so the queue cannot grow
+            while self._prev_params:
+                payload, _target, waited = self._prev_params.pop(0)
+                self._merge(module, payload, waited * 2.0 if waited > 0 else 1.0)
+            payload = self._global_send(module)
+            if btw == 0:
+                self._merge(module, payload, 1.0)
+            else:
+                self._prev_params.append((payload, batch_idx + btw, btw))
+        elif self._prev_params and batch_idx >= self._prev_params[0][1]:
+            payload, _target, waited = self._prev_params.pop(0)
+            self._merge(module, payload, float(waited) * 2.0 if waited > 0 else 1.0)
+
+        self._advance(batch_idx)
+        return params, opt_state, loss
+
+    def _advance(self, batch_idx: int) -> None:
+        if batch_idx == self.last_batch:
+            self.current_batch = 0
+            self.epoch += 1
+        else:
+            self.current_batch += 1
+
+    # -- schedule --------------------------------------------------------------
+
+    def print0(self, *args, **kwargs) -> None:
+        """Print on rank 0 when verbose (reference :687)."""
+        if self.verbose and self.comm.rank == 0:
+            print(*args, **kwargs)
+
+    def reset(self) -> None:
+        """Reset the schedule to blocking sync (reference :694)."""
+        self.global_skip = 0
+        self.local_skip = 0
+        self.batches_to_wait = 0
+        self._prev_params = []
+        self.stability.reset()
+
+    def add_scaler(self, scaler) -> None:
+        """AMP hook (reference :238): the scaler is recorded; no loss scaling
+        is applied (bf16 needs none)."""
+        self.scaler = scaler
+        self.amp = True
+
+    def zero_grad(self) -> None:
+        """Clear the replica's gradients (reference :825)."""
+        self.local_optimizer.zero_grad(set_to_none=True)
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DASO.save_checkpoint: the checkpoints come with resilience (ROADMAP §1 item 13)")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DASO.load_checkpoint: the checkpoints come with resilience (ROADMAP §1 item 13)")
+
+    def epoch_loss_logic(self, loss: Union[float, torch.Tensor],
+                         loss_globally_averaged: bool = False) -> None:
+        """End-of-epoch schedule update (reference :336-430, the JAX
+        package's phases): warmup → blocking; post-warmup → gs=4/ls=1/btw=1;
+        cooldown → blocking; otherwise plateau-driven decay, cycling back up
+        to ``max_global_skips`` when fully decayed and stable. Unless
+        ``loss_globally_averaged``, the loss is first averaged over the
+        ranks."""
+        avg_loss = float(loss)
+        if not loss_globally_averaged and self.comm.size > 1:
+            # on the parameters' device: NCCL reduces no host tensor
+            device = self.local_optimizer.param_groups[0]["params"][0].device
+            t = torch.tensor([avg_loss / self.comm.size], dtype=torch.float64, device=device)
+            avg_loss = float(self.comm.allreduce(t)[0])
+
+        if self.epoch < self.warmup_epochs:
+            self.global_skip = self.local_skip = self.batches_to_wait = 0
+            self.print0("Warmup phase: blocking sync")
+            return
+        if self.warmup_epochs == self.epoch:
+            self.global_skip, self.local_skip, self.batches_to_wait = 4, 1, 1
+            self.print0("End of warmup: gs=4 ls=1 btw=1")
+        if self.epoch >= self.total_epochs - self.cooldown_epochs:
+            self.global_skip = self.local_skip = self.batches_to_wait = 0
+            self.print0("Cooldown phase: blocking sync")
+            return
+
+        # hold at the maximum global skip for `_gs8_waits` epochs before the
+        # plateau tests act; the detector still sees every epoch's loss
+        held = False
+        if self.global_skip == self.max_gs and self.max_gs > 4:
+            self._gs8_waited += 1
+            held = self._gs8_waited < self._gs8_waits
+
+        stable = self.stability.test_if_improving(avg_loss)
+        if held:
+            if stable:
+                # a trigger consumed during the hold re-arms the detector, so
+                # one more bad epoch triggers it once the hold expires
+                self.stability.num_bad_epochs = self.stability.patience
+            self.print0(f"holding at gs={self.global_skip} "
+                        f"({self._gs8_waited}/{self._gs8_waits} epochs)")
+            return
+        if stable and self.global_skip > 1:
+            self.global_skip //= self.skip_reduction_factor
+            self.local_skip //= self.skip_reduction_factor
+            self.batches_to_wait -= 1
+            if self.global_skip > 0:
+                self.batches_to_wait = max(self.batches_to_wait, 1)
+                self.local_skip = max(self.local_skip, 1)
+            self._gs8_waited = 0
+            self.print0(f"dropping skips -> gs={self.global_skip}")
+        elif self.global_skip == 1 and stable:
+            self.global_skip = self.max_gs
+            self.local_skip = self.max_gs // self.local_skip_factor
+            self.batches_to_wait = self.max_gs // self.local_skip_factor
+            self._gs8_waited = 0
+            self.print0(f"resetting skips -> gs={self.global_skip}")

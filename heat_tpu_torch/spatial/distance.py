@@ -9,17 +9,28 @@ rank computes its row slab with the cdist kernel, whose epilogue gives
 distances or, for ``rbf``, the Gaussian kernel directly (``:317-344``
 there). Otherwise the GEMM form or the broadcast form runs in plain torch;
 ``manhattan`` is always the broadcast form, as in the JAX package. A kernel
-failure raises; nothing falls back. The ring schedule (``_ring_dist`` :101,
-``ring=True``) is not ported yet (ROADMAP item 2).
+failure raises; nothing falls back.
+
+``ring=True`` with both operands split along their rows over more than one
+rank runs the ring schedule (``_ring_dist`` :101): each rank keeps its rows
+of x and the row blocks of y circulate (``ring_permute``), so no rank holds
+all of y. By default the next hop is issued before the tile's product and
+the last hop, which would only bring every block home, is not made (``p - 1``
+hops); ``HEAT_TPU_RING_OVERLAP=0`` (or ``false``, ``off``, ``no``) takes the
+serial schedule of ``p`` hops. The tiles are the same either way. A tile is
+the JAX package's block function in plain torch (the GEMM form or the
+broadcast form), as the JAX package's ring runs no Pallas kernel. Off that
+gate ``ring=True`` takes the ordinary path.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..core import types
+from ..core.communication import ring_overlap, ring_steps
 from ..core.dndarray import DNDarray
 
 __all__ = ["cdist", "manhattan", "rbf"]
@@ -42,8 +53,28 @@ def _blocked(x: torch.Tensor, y: torch.Tensor, manhattan: bool = False) -> torch
     return out
 
 
+def _ring_dist(xb: torch.Tensor, yb: torch.Tensor, n: int, comm,
+               tile_fn: Callable) -> torch.Tensor:
+    """This rank's rows of the (m, n) distance matrix of row-split x and y:
+    the y blocks (each padded to the chunk length ``c``) circulate around
+    the ring, and after ``t`` hops this rank holds the block of rank
+    ``rank - t``, whose tile fills columns ``[origin * c, origin * c + c)``."""
+    p, c = comm.size, comm.chunk_size(n)
+    if yb.shape[0] < c:
+        yb = torch.cat([yb, yb.new_zeros((c - yb.shape[0], yb.shape[1]))])
+    out = xb.new_empty((xb.shape[0], c * p))
+
+    def tile_into(t, origin, yblk):
+        out[:, origin * c:origin * c + c] = tile_fn(xb, yblk)
+
+    overlap = ring_overlap()
+    ring_steps(comm, yb, tile_into, overlap=overlap, home=not overlap)
+    return out[:, :n]
+
+
 def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
-          rbf_gamma: Optional[float] = None, manhattan: bool = False) -> DNDarray:
+          rbf_gamma: Optional[float] = None, manhattan: bool = False,
+          ring: bool = False) -> DNDarray:
     from .cuda_cdist import euclid, euclid_plain, pallas_cdist_applicable
 
     if not isinstance(x, DNDarray):
@@ -67,8 +98,17 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
     tdt = promoted.torch_type()
     out_split = 0 if x.split == 0 else None
     m, n = x.shape[0], y.shape[0]
-    yb = (y.resplit(None).larray if y.split is not None else y.larray).to(tdt)
     xb = x.larray.to(tdt)
+    if ring and x.split == 0 and y.split == 0 and x.comm.size > 1:
+        if quadratic:
+            tile = lambda a, b: euclid_plain(a, b, epilogue="dist", precision="HIGHEST")  # noqa: E731
+        else:
+            tile = lambda a, b: _blocked(a, b, manhattan)  # noqa: E731
+        out = _ring_dist(xb, y.larray.to(tdt), n, x.comm, tile)
+        if rbf_gamma is not None:
+            out = torch.exp(-rbf_gamma * out * out)
+        return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
+    yb = (y.resplit(None).larray if y.split is not None else y.larray).to(tdt)
 
     if quadratic:
         # the kernel where the JAX package takes its Pallas kernel (one rank
@@ -84,28 +124,36 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
     return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
 
 
-def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
+def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False,
+          ring: bool = False, audit: bool = False) -> DNDarray:
     """Euclidean distance matrix (reference distance.py:136).
     ``quadratic_expansion`` selects the GEMM form, which the cdist kernel
-    computes on the card."""
-    return _dist(X, Y, quadratic_expansion)
+    computes on the card; ``ring=True`` takes the ring schedule when both
+    operands are split along their rows over several ranks."""
+    _no_audit(audit)
+    return _dist(X, Y, quadratic_expansion, ring=ring)
 
 
 def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
-        quadratic_expansion: bool = False) -> DNDarray:
+        quadratic_expansion: bool = False, ring: bool = False, audit: bool = False) -> DNDarray:
     """Gaussian kernel matrix exp(-|x-y|^2 / 2 sigma^2) (reference
     distance.py:159). With the GEMM form on the card the exp is the
-    kernel's epilogue."""
+    kernel's epilogue; after the ring it is one pass over the result."""
+    _no_audit(audit)
     gamma = 1.0 / (2.0 * sigma * sigma)
-    return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma)
+    return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma, ring=ring)
 
 
 def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False,
-              ring: bool = False) -> DNDarray:
+              ring: bool = False, audit: bool = False) -> DNDarray:
     """City-block distance matrix (reference distance.py:363), in the
     broadcast form. ``expand`` is accepted for parity and changes nothing,
-    as in the JAX package; ``ring=True`` is not ported yet."""
-    if ring:
+    as in the JAX package; ``ring=True`` as for :func:`cdist`."""
+    _no_audit(audit)
+    return _dist(X, Y, False, manhattan=True, ring=ring)
+
+
+def _no_audit(audit: bool) -> None:
+    if audit:
         raise NotImplementedError(
-            "manhattan(ring=True): the ring schedule comes with ROADMAP item 2")
-    return _dist(X, Y, False, manhattan=True)
+            "audit=True: the collective audit comes with telemetry (ROADMAP §1 item 13)")

@@ -140,14 +140,25 @@ def test_bwd_impl_is_validated_as_in_jax():
 
 
 def test_sequence_parallel_variants_name_the_missing_collectives():
-    # the collectives exist (ROADMAP item 2 ports the attention over them)
+    # the collectives and, since ROADMAP item 2, the attention over them: on a
+    # world of one both variants give the JAX package's result on one device
+    import jax
+
+    from heat_tpu.core.communication import MeshCommunication
+
     assert callable(htt.get_comm().ppermute) and callable(htt.get_comm().all_to_all)
-    with pytest.raises(NotImplementedError, match=r"ppermute\) is not ported yet .*item 2"):
-        htt.parallel.ring_attention(None, None, None)
-    with pytest.raises(NotImplementedError, match=r"all_to_all\) is not ported yet .*item 2"):
-        htt.parallel.ulysses_attention(None, None, None)
-
-
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((1, 12, 2, 8)).astype(np.float32) for _ in range(3))
+    jcomm = MeshCommunication(devices=jax.devices()[:1])
+    for got_fn, want_fn in ((htt.parallel.ring_attention, jpar.ring_attention),
+                            (htt.parallel.ulysses_attention, jpar.ulysses_attention)):
+        got = got_fn(*(torch.from_numpy(a) for a in (q, k, v)), comm=htt.get_comm(),
+                     causal=True, seq_len=9)
+        want = want_fn(*(jnp.asarray(a) for a in (q, k, v)), comm=jcomm, causal=True,
+                       seq_len=9)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+        with pytest.raises(TypeError):
+            got_fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
 # ------------------------------------------------- the kernels' shape rules
 
 def _bthd(b=2, t=32, h=4, d=64, dtype=torch.bfloat16):

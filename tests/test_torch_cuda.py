@@ -1356,3 +1356,249 @@ def _hold_sparse_ranks(ranks, want, world):
         assert bool(r["laplacian_sparse"]) and bool(want["laplacian_sparse"])
         pairs = set(zip(r["spectral_labels"].tolist(), want["spectral_labels"].tolist()))
         assert len(pairs) == len(set(want["spectral_labels"].tolist()))
+
+
+_PARALLEL_DATA = """
+import os
+import numpy as np
+import torch
+
+def _chunk(a, comm, axis):
+    c = a.shape[axis] // comm.size
+    return a.narrow(axis, comm.rank * c, c)
+
+def _err(got, ref):
+    g, r = got.double(), ref.double()
+    return np.array([((g - r).pow(2).sum() / r.pow(2).sum()).sqrt().item(),
+                     ((g - r).abs().max() / r.abs().max()).item()])
+
+def _attention(ht, device, comm, res):
+    # (1, 4 x 8192, 16, 64) bf16 causal; each rank its chunk of 8192 positions,
+    # against one card's flash_attention of the whole sequence (on this card)
+    t, h, d = (4 * 8192, 16, 64) if device.type == "cuda" else (4 * 32, 16, 16)
+    g = torch.Generator().manual_seed(21)
+    q, k, v, w = (torch.randn((1, t, h, d), generator=g).to(torch.bfloat16).to(device)
+                  for _ in range(4))
+    def run(fn, inputs, weight):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        o = fn(*xs)
+        o.backward(weight)
+        return [o.detach()] + [x.grad for x in xs]
+    ref = run(lambda *a: ht.parallel.flash_attention(*a, causal=True), (q, k, v), w)
+    ref = [_chunk(x, comm, 1) for x in ref]
+    vmax = v.float().abs().max().item()
+    for name, fn in (("ring", ht.parallel.ring_attention),
+                     ("ulysses", lambda *a, **kw: ht.parallel.ulysses_attention(
+                         *a, use_pallas=True, **kw))):
+        ht.reset_launch_counts()
+        got = run(lambda *a: fn(*a, comm=comm, causal=True),
+                  [_chunk(x, comm, 1) for x in (q, k, v)], _chunk(w, comm, 1))
+        res[f"{name}_launches"] = np.array([ht.launch_counts()[n] for n in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")])
+        res[f"{name}_o_err_over_vmax"] = np.array(
+            (got[0].float() - ref[0].float()).abs().max().item() / vmax)
+        for gname, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+            res[f"{name}_{gname}_err"] = _err(a, b)
+
+def run(ht, device):
+    comm = ht.get_comm()
+    res = {}
+    if comm.size > 1:
+        _attention(ht, device, comm, res)
+
+    # DataParallel in both modes: a small f32 flash TransformerLM and AdamW,
+    # 3 steps on one global batch of 8 x 128 tokens
+    import torch.nn.functional as F
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (8, 128))).to(device)
+    def lm_loss(model, tok):
+        return F.cross_entropy(model(tok)[:, :-1].reshape(-1, 256), tok[:, 1:].reshape(-1))
+    for blocking in (True, False):
+        lm = ht.nn.TransformerLM(256, 128, 4, 2, max_len=128, attn_impl="flash", device=device,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+        if blocking:
+            res["lm_init"] = np.concatenate([p.detach().reshape(-1).cpu().numpy()
+                                             for p in lm.parameters()])
+        opt = torch.optim.AdamW(lm.parameters(), lr=1e-3, weight_decay=1e-4)
+        dp = ht.nn.DataParallel(lm, optimizer=opt, blocking_parameter_updates=blocking)
+        step = dp.make_train_step(lm_loss)
+        pending = dp.init_pending(lm)
+        for _ in range(3):
+            if blocking:
+                _, _, loss = step(lm, opt, *dp.shard_batch(tokens))
+            else:
+                _, _, pending, loss = step(lm, opt, pending, *dp.shard_batch(tokens))
+        res[f"dp_{blocking}"] = np.concatenate([p.detach().reshape(-1).cpu().numpy()
+                                                for p in lm.parameters()])
+        res[f"dp_{blocking}_loss"] = np.array(float(loss))
+
+    # DASO: an MLP classifier through warmup (1 epoch), cycling and cooldown (1)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((256, 16)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 4, 256)).to(device)
+    mlp = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.ReLU(), torch.nn.Linear(32, 4))
+    torch.manual_seed(0)
+    for p in mlp.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    mlp = mlp.to(device)
+    daso = ht.optim.DASO(torch.optim.Adam(mlp.parameters(), lr=5e-3), total_epochs=6,
+                         warmup_epochs=1, cooldown_epochs=1, max_global_skips=4)
+    daso.set_loss(lambda m, xb, yb: F.cross_entropy(m(xb), yb))
+    daso.last_batch = 7
+    params, state = daso.stack_params(mlp), daso.init(mlp)
+    states = []
+    for epoch in range(6):
+        total = 0.0
+        for b in range(8):
+            params, state, loss = daso.step(params, state, (x[b * 32:(b + 1) * 32],
+                                                            y[b * 32:(b + 1) * 32]))
+            total += float(loss)
+        daso.epoch_loss_logic(total / 8)
+        states.append([daso.epoch, daso.global_skip, daso.local_skip, daso.batches_to_wait])
+        res[f"daso_e{epoch}"] = np.concatenate([p.detach().reshape(-1).cpu().numpy()
+                                                for p in mlp.parameters()])
+    res["daso_states"] = np.array(states)
+    res["daso_layout"] = np.array([daso.n_nodes, daso.n_local])
+
+    # the ring distances: the whole matrix's rows of this rank
+    g = torch.Generator().manual_seed(6)
+    xc, yc = torch.rand((4099, 64), generator=g), torch.rand((3001, 64), generator=g)
+    xd, yd = ht.array(xc.to(device), split=0), ht.array(yc.to(device), split=0)
+    os.environ["HEAT_TPU_CDIST_PREC"] = "highest"  # the non-ring GEMM form in exact f32
+    try:
+        for ring in (True, False):
+            res[f"cdist_{ring}"] = ht.spatial.cdist(xd, yd, ring=ring).larray.cpu().numpy()
+            res[f"cdist_q_{ring}"] = ht.spatial.cdist(xd, yd, quadratic_expansion=True,
+                                                      ring=ring).larray.cpu().numpy()
+            res[f"rbf_{ring}"] = ht.spatial.rbf(xd, yd, sigma=2.0, quadratic_expansion=True,
+                                                ring=ring).larray.cpu().numpy()
+            res[f"manhattan_{ring}"] = ht.spatial.manhattan(xd, yd, ring=ring).larray.cpu().numpy()
+    finally:
+        del os.environ["HEAT_TPU_CDIST_PREC"]
+
+    # ring_pipeline (A B^T by circulating B) and the halos, against numpy
+    a = torch.from_numpy(np.random.default_rng(7).standard_normal((4096, 64)).astype(np.float32))
+    c = a.shape[0] // comm.size
+    def tile(t_, origin, stat, circ, acc):
+        acc[:, origin * c:(origin + 1) * c] = stat @ circ.T
+        return acc
+    ac = _chunk(a, comm, 0).to(device)
+    res["pipeline"] = ht.parallel.ring_pipeline(
+        tile, ac, ac.clone(), torch.zeros((c, a.shape[0]), device=device), comm=comm).cpu().numpy()
+    hx = ht.array(torch.arange(40 * 3, dtype=torch.float32).reshape(40, 3).to(device), split=0)
+    res["halo_zero"] = ht.parallel.halo_exchange(hx, 2).cpu().numpy()
+    res["halo_wrap"] = ht.parallel.halo_exchange(hx, 2, wrap=True).cpu().numpy()
+    res["stencil"] = ht.parallel.halo_stencil(hx, 1, lambda blk: blk[2:] - blk[:-2],
+                                              wrap=True).cpu().numpy()
+
+    # MoEMLP: 8 experts over the ranks against all 8 on this rank
+    xm = torch.from_numpy(np.random.default_rng(8).standard_normal((4, 256, 64))
+                          .astype(np.float32)).to(device)
+    outs = []
+    for moe_comm in (comm, None):
+        layer = ht.nn.MoEMLP(8, 128, comm=moe_comm, d_model=64, device=device,
+                             generator=torch.Generator(device=device).manual_seed(9))
+        y_m = layer(xm)
+        (y_m * xm).sum().backward()
+        outs.append((y_m.detach(), layer.gate.grad, layer.w_in.grad, layer.expert_range()))
+    lo, hi = outs[0][3]
+    res["moe_out_err"] = np.array((outs[0][0] - outs[1][0]).abs().max().item())
+    res["moe_gate_grad_err"] = np.array((outs[0][1] - outs[1][1]).abs().max().item())
+    res["moe_w_in_grad_err"] = np.array((outs[0][2] - outs[1][2][lo:hi]).abs().max().item())
+    res["moe_scale"] = np.array(outs[1][0].abs().max().item())
+    return res
+"""
+
+
+def _hold_parallel_ranks(ranks, want, world):
+    """The world of ``world`` ranks against the world of one (``want``) and
+    numpy. Tolerances: ring and Ulysses against one card's flash_attention
+    (bf16), O and the gradients each by its own scale on this rank's chunk (a
+    late chunk's |O| is far below max|v|): relative RMS 2e-3 and largest
+    error 2^-6 of the largest for Ulysses (the flash kernels on each head
+    group), 1e-2 and 2^-5 for the ring (its plain block rounds P to bf16
+    against each block's own maximum, and its autograd backward rounds
+    at other points), and O within 2^-7 max|v|; DataParallel's updates within 1e-3 relative RMS of the
+    world of one's (the mean of the ranks' mean gradients sums in another
+    order); the ring distances 1e-5 relative of their scale (the GEMM form
+    1e-4: its cancellation), manhattan 1e-6 (the same 64 terms, summed by a
+    reduction whose split may follow the block's shape); ring_pipeline 1e-4 of
+    the product's scale; halos bit for bit; MoEMLP 1e-5 of the output's
+    scale."""
+    a = np.random.default_rng(7).standard_normal((4096, 64)).astype(np.float32)
+    prod = a @ a.T
+    h = np.arange(40 * 3, dtype=np.float32).reshape(40, 3)
+    _, displs = communication.counts_displs(40, world)
+    c = 40 // world
+    init = want["lm_init"]
+    for rank, r in enumerate(ranks):
+        for name, (rms_tol, max_tol) in (("ulysses", (2e-3, 2.0 ** -6)),
+                                         ("ring", (1e-2, 2.0 ** -5))):
+            assert float(r[f"{name}_o_err_over_vmax"]) <= 2.0 ** -7, name
+            for gname in ("o", "dq", "dk", "dv"):
+                rms, mx = r[f"{name}_{gname}_err"]
+                assert rms <= rms_tol and mx <= max_tol, (name, gname, rms, mx)
+        if r["ulysses_launches"].size and torch.cuda.is_available():
+            np.testing.assert_array_equal(r["ulysses_launches"], [1, 1, 1])
+            np.testing.assert_array_equal(r["ring_launches"], [0, 0, 0])
+        for blocking in (True, False):
+            du = r[f"dp_{blocking}"].astype(np.float64) - want[f"dp_{blocking}"]
+            ref = want[f"dp_{blocking}"].astype(np.float64) - init
+            assert np.sqrt((du ** 2).sum() / (ref ** 2).sum()) <= 1e-3, blocking
+            np.testing.assert_allclose(r[f"dp_{blocking}_loss"], want[f"dp_{blocking}_loss"],
+                                       rtol=1e-4)
+        np.testing.assert_array_equal(r["daso_layout"], [2, world // 2])
+        np.testing.assert_array_equal(r["daso_states"], ranks[0]["daso_states"])
+        skips = [s[1] for s in r["daso_states"].tolist()]
+        assert 4 in skips and skips[-1] == 0, skips  # cycling, then cooldown
+        node0 = ranks[(rank // (world // 2)) * (world // 2)]
+        # within a node every epoch; the whole world during warmup (past it each
+        # node merges the cross-node sum with its own weight)
+        for e in range(6):
+            np.testing.assert_array_equal(r[f"daso_e{e}"], node0[f"daso_e{e}"])
+        np.testing.assert_array_equal(r["daso_e0"], ranks[0]["daso_e0"])
+        rows = slice(*communication.chunk((4099, 3001), 0, rank, world)[2][0].indices(4099)[:2])
+        for name, tol in (("cdist", 1e-5), ("cdist_q", 1e-4), ("rbf", 1e-4)):
+            np.testing.assert_allclose(r[f"{name}_True"], want[f"{name}_False"][rows], rtol=0,
+                                       atol=tol * float(np.abs(want[f"{name}_False"]).max()),
+                                       err_msg=name)
+        np.testing.assert_allclose(r["manhattan_True"], want["manhattan_False"][rows], rtol=0,
+                                   atol=1e-6 * float(np.abs(want["manhattan_False"]).max()))
+        np.testing.assert_allclose(r["pipeline"], prod[rank * 4096 // world:
+                                                       (rank + 1) * 4096 // world],
+                                   rtol=0, atol=1e-4 * float(np.abs(prod).max()))
+        lo = displs[rank]
+        blk = h[lo:lo + c]
+        prev = h[lo - 2:lo] if rank > 0 else np.zeros((2, 3), np.float32)
+        nxt = h[lo + c:lo + c + 2] if rank < world - 1 else np.zeros((2, 3), np.float32)
+        np.testing.assert_array_equal(r["halo_zero"], np.concatenate([prev, blk, nxt]))
+        wprev = h[(np.arange(lo - 2, lo)) % 40]
+        wnxt = h[(np.arange(lo + c, lo + c + 2)) % 40]
+        np.testing.assert_array_equal(r["halo_wrap"], np.concatenate([wprev, blk, wnxt]))
+        ext = h[np.arange(lo - 1, lo + c + 1) % 40]
+        np.testing.assert_array_equal(r["stencil"], ext[2:] - ext[:-2])
+        scale = float(r["moe_scale"])
+        for name in ("moe_out_err", "moe_gate_grad_err", "moe_w_in_grad_err"):
+            assert float(r[name]) <= 1e-5 * max(scale, 1.0), (name, float(r[name]))
+
+
+def test_nccl_parallel_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: ring_attention and
+    ulysses_attention(use_pallas=True) at (1, 4 x 8192, 16, 64) bf16 causal,
+    forward and gradients, against one card's flash_attention of the whole
+    sequence; DataParallel in both modes against the world of one on the
+    same global batch; DASO on 2 x 2 through its schedule, its replicas
+    equal within a node every epoch and across the world during warmup; the ring
+    cdist/rbf/manhattan against the world of one's ordinary path;
+    ring_pipeline and the halos against numpy; MoEMLP with comm against
+    comm=None (tolerances in ``_hold_parallel_ranks``)."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _PARALLEL_DATA)
+    ns = {}
+    exec(_PARALLEL_DATA, ns)
+    htt.use_device(None)
+    want = ns["run"](htt, dev)
+    _hold_parallel_ranks(ranks, want, world)
+    print("parallel ranks' errors:", [{key: r[key].tolist() for key in r if key.endswith(
+        ("_err", "_err_over_vmax"))} for r in ranks])

@@ -154,9 +154,20 @@ def test_sequence_past_max_len_raises_like_flax():
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_impls_raise(impl):
+    # without comm= there is no world to split the sequence over; with a
+    # world of one the block is the local core's (the spawned worlds are in
+    # tests/test_torch_parallel.py)
     mod = htt.nn.MultiHeadAttention(HEADS, attn_impl=impl, d_model=D_MODEL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs comm="):
         mod(torch.zeros((1, 8, D_MODEL)))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8, D_MODEL))
+                         .astype(np.float32))
+    seq = htt.nn.MultiHeadAttention(HEADS, attn_impl=impl, comm=htt.get_comm(),
+                                    d_model=D_MODEL)
+    local = htt.nn.MultiHeadAttention(HEADS, attn_impl="local", d_model=D_MODEL)
+    local.load_state_dict(seq.state_dict())
+    np.testing.assert_allclose(seq(x).detach().numpy(), local(x).detach().numpy(),
+                               rtol=0, atol=2e-5)
 
 
 def test_weights_come_from_the_generator():
