@@ -86,7 +86,18 @@ Phases, each printing JSON lines:
      graph's, the Lanczos basis); connected components of that adjacency
      against scipy; KMedians, KMedoids, GaussianNB and KNN on 1,000,000 x
      64 in 8 blobs, each checked in float64;
-  8. the training path: the same model trains as bench.py's lm_step does
+  7c. out-of-core streaming: bench.py's moments array (8,000,000 x 64 f32,
+     ht.random seed 0) written as four .npy shards and streamed by
+     ChunkStream under HEAT_TPU_HBM_BUDGET=1G (8 chunks of at most
+     1,048,576 rows); StreamingMoments (K2 once a chunk) against float64,
+     its rows/s, load and fit time a chunk, K2's time a chunk, pageable and
+     pinned host-to-device copies and its peak device memory against the
+     files' bytes; MiniBatchKMeans(64, inner_iter=3) on K4 against the plain
+     Lloyd pass on the card chunk by chunk; both resumed after chunk 4 bit
+     for bit; KMeans(checkpoint_every=6) and a killed-then-resumed fit
+     against the uninterrupted fit, bit for bit; save_csv/load_csv of
+     1,000,000 x 16 through the native parser against np.loadtxt;
+ 8. the training path: the same model trains as bench.py's lm_step does
      (remat, bf16, the flash core with its two-pass backward, AdamW), one
      warm-up step and 8 steps on one batch, the loss falling and the
      kernels' launches counted per step; one step's gradients against the
@@ -1869,6 +1880,324 @@ def daso_phase(ht, dev, sizes=DASO_EXAMPLE):
     check("DASO: eval accuracy reaches the example's 0.95", acc >= 0.95, accuracy=acc)
 
 
+# the streaming path: bench.py:246's moments array as four .npy shards,
+# streamed under HEAT_TPU_HBM_BUDGET=1G (rows, columns, shards), the
+# MiniBatchKMeans on it (clusters, Lloyd window a chunk), the KMeans
+# checkpoint fit (rows, iterations, window) and the CSV round trip (rows,
+# columns)
+STREAM = (8_000_000, 64, 4)
+STREAM_BUDGET = "1G"
+STREAM_KMEANS = (64, 3)
+STREAM_CHECKPOINT_FIT = (1_000_000, 20, 6)
+STREAM_CSV = (1_000_000, 16)
+
+
+def _stream_carry(est):
+    """An estimator's carry as host arrays, to compare bit for bit."""
+    if hasattr(est, "_m2"):
+        return [est._mean.copy(), est._m2.copy(), est.n_seen]
+    return [est._centers_np.copy(), est._counts_np.copy(), est._shift]
+
+
+def _carries_equal(a, b):
+    import numpy as np
+
+    return all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+               for x, y in zip(a, b))
+
+
+def streaming_path(ht, dev, smi, time_ms):
+    """The out-of-core path through the user entry points: bench.py:246's
+    moments array (8,000,000 x 64 f32, ht.random seed 0) written as four
+    .npy shards of 2,000,000 rows, streamed by ChunkStream under
+    HEAT_TPU_HBM_BUDGET=1G (temp_budget 256 MiB: chunks of 1,048,576 rows,
+    the chunking restarting at each file, 8 chunks); StreamingMoments over
+    the stream (K2 once a chunk) against float64 numpy of the whole array,
+    its peak device memory against the file set's bytes; MiniBatchKMeans(64,
+    inner_iter=3, random_state=0) over the stream (K4 in each window) against
+    the same estimator on the plain Lloyd pass on the card, from the same
+    carry at every chunk; both resumed from a checkpoint after chunk 4 and
+    continued through ChunkStream(skip_rows=...), bit for bit; a
+    KMeans(checkpoint_every=6) fit of the first 1,000,000 rows against the
+    uninterrupted fit and against a fit killed after 12 iterations and
+    resumed, bit for bit; save_csv/load_csv of 1,000,000 x 16 f32 through the
+    native parser against np.loadtxt, and save_npy/load_npy of a split
+    array. Each stream's launches are counted around it. Returns them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch import native
+    from heat_tpu_torch.cluster.cuda_lloyd import lloyd_update_plain
+    from heat_tpu_torch.core.cuda_moments import column_moments
+
+    rows, d, shards = STREAM
+    per_file = rows // shards
+    tmp = tempfile.mkdtemp(prefix="heat_stream_")
+    old_budget = os.environ.get("HEAT_TPU_HBM_BUDGET")
+    os.environ["HEAT_TPU_HBM_BUDGET"] = STREAM_BUDGET
+    try:
+        # the data: drawn on the card, written shard by shard; float64 sums
+        # on the host for the reference
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ht.random.seed(0)
+        x = ht.random.randn(rows, d, dtype=ht.float32, split=0)
+        paths, host = [], []
+        for s in range(shards):
+            part = x.larray[s * per_file:(s + 1) * per_file].cpu().numpy()
+            path = os.path.join(tmp, f"shard{s}.npy")
+            np.save(path, part)
+            paths.append(path)
+            host.append(part)
+        del x, part
+        write_s = time.perf_counter() - t
+        sum64 = sum(p.sum(0, dtype=np.float64) for p in host)
+        mean64 = sum64 / rows
+        var64 = sum(((p - mean64) ** 2).sum(0) for p in host) / rows
+        torch.cuda.empty_cache()
+
+        stream = ht.streaming.ChunkStream(paths)
+        budget = ht.resilience.memory_guard.budget_bytes()
+        temp = ht.resilience.memory_guard.temp_budget()
+        chunk_rows = [min(stream.chunk_rows, per_file - lo)
+                      for _ in paths for lo in range(0, per_file, stream.chunk_rows)]
+        emit({"phase": "streaming data", "shape": [rows, d], "shards": shards,
+              "write_s": write_s, "budget_bytes": budget, "temp_budget_bytes": temp,
+              "chunk_rows": stream.chunk_rows, "chunks": len(stream),
+              "load_all_bytes": stream.load_all_bytes()})
+        check("stream: 1,048,576-row chunks, 8 chunks, restarting at each file",
+              temp == 256 << 20 and stream.chunk_rows == 1_048_576 and len(stream) == 8
+              and len(chunk_rows) == 8, chunk_rows=chunk_rows)
+
+        def run_stream(est, stream, save_after=None, path=None):
+            """Feed the stream to ``est``: (load seconds, fit seconds, carries
+            after each chunk); saves ``est`` after chunk ``save_after`` (its
+            seconds in ``save_s``)."""
+            load_s, fit_s, carries = [], [], []
+            it = iter(stream)
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    chunk = next(it)
+                except StopIteration:
+                    break
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                est.partial_fit(chunk)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                load_s.append(t1 - t0)
+                fit_s.append(t2 - t1)
+                carries.append(_stream_carry(est))
+                if save_after == len(carries):
+                    t3 = time.perf_counter()
+                    est.save(path)
+                    save_s.append(time.perf_counter() - t3)
+                del chunk
+            return load_s, fit_s, carries
+
+        save_s = []
+
+        # ------------------------------------------- StreamingMoments, main path
+        ckpt_m = os.path.join(tmp, "moments_ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        ht.reset_launch_counts()
+        t = time.perf_counter()
+        moments = ht.streaming.StreamingMoments()
+        load_s, fit_s, m_carries = run_stream(moments, ht.streaming.ChunkStream(paths), 4, ckpt_m)
+        wall_s = time.perf_counter() - t
+        moments_launches = ht.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        spread = np.abs(mean64) + np.sqrt(var64)
+        err_mean = float((np.abs(moments.mean - mean64) / spread).max())
+        err_var = float((np.abs(moments.var() - var64) / var64).max())
+        # K2 alone on one chunk of the stream, by CUDA events
+        first = ht.load_npy(paths[0], split=0, chunks=(0, stream.chunk_rows))
+        k2_ms = time_ms(lambda: column_moments(first.larray), 20)
+        k2_bound = first.larray.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        # where a chunk's load goes: the read out of the memory map (the
+        # files are in the page cache: they were just written) and the
+        # host-to-device copy, pageable and pinned
+        mm = np.load(paths[0], mmap_mode="r")
+        t0 = time.perf_counter()
+        block = np.array(mm[stream.chunk_rows:2 * stream.chunk_rows])
+        read_ms = (time.perf_counter() - t0) * 1e3
+        src = torch.from_numpy(block)
+        h2d_ms = time_ms(lambda: src.to(dev), 5)
+        t0 = time.perf_counter()
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pin_alloc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pinned.copy_(src)
+        pin_copy_ms = (time.perf_counter() - t0) * 1e3
+        h2d_pinned_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), 5)
+        del first, mm, block, src, pinned
+        moments_fields = {
+            "rows": rows, "chunks": len(fit_s), "wall_s": wall_s, "rows_per_s": rows / wall_s,
+            "chunk_wall_ms": [1e3 * (a + b) for a, b in zip(load_s, fit_s)],
+            "chunk_load_ms": [1e3 * a for a in load_s], "chunk_fit_ms": [1e3 * b for b in fit_s],
+            "host_share": sum(load_s) / wall_s, "checkpoint_save_s": save_s[0],
+            "other_s": wall_s - sum(load_s) - sum(fit_s) - save_s[0], "k2_ms_a_chunk": k2_ms,
+            "k2_bound_ms_a_chunk": k2_bound, "chunk_read_ms": read_ms,
+            "chunk_h2d_pageable_ms": h2d_ms, "chunk_h2d_pinned_ms": h2d_pinned_ms,
+            "pin_alloc_ms": pin_alloc_ms, "pin_copy_ms": pin_copy_ms,
+            "peak_allocated_bytes": peak, "allocated_before_bytes": base_mem,
+            "load_all_bytes": stream.load_all_bytes(), "launches": moments_launches,
+            "mean_err_over_spread": err_mean, "var_rel_err": err_var,
+            "tolerance": {"mean_over_spread": 1e-5, "var_rel": 1e-4}, "nvidia_smi": smi}
+        emit({"phase": "streaming moments", **moments_fields})
+        check("StreamingMoments vs float64 numpy of the whole array",
+              err_mean <= 1e-5 and err_var <= 1e-4, mean_err_over_spread=err_mean,
+              var_rel_err=err_var)
+        check("StreamingMoments launched K2 once a chunk (8)", moments_launches["moments"] == 8,
+              launches=moments_launches)
+        check("StreamingMoments peak device memory below the file set's bytes",
+              peak < stream.load_all_bytes(), peak=peak, load_all=stream.load_all_bytes())
+
+        # ----------------------------------------- MiniBatchKMeans, main path
+        k, inner = STREAM_KMEANS
+        ckpt_k = os.path.join(tmp, "minibatch_ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ht.reset_launch_counts()
+        t = time.perf_counter()
+        mbk = ht.streaming.MiniBatchKMeans(n_clusters=k, inner_iter=inner, random_state=0)
+        k_load, k_fit, k_carries = run_stream(mbk, ht.streaming.ChunkStream(paths), 4, ckpt_k)
+        k_wall = time.perf_counter() - t
+        mbk_launches = ht.launch_counts()
+        k_peak = torch.cuda.max_memory_allocated()
+
+        # the same estimator on the plain Lloyd pass, on the card: from the
+        # kernel estimator's carry before each chunk (one chunk's window and
+        # blend), and along its own trajectory from the same first centers
+        ref = ht.streaming.MiniBatchKMeans(n_clusters=k, inner_iter=inner, random_state=0)
+        ref._update = lloyd_update_plain
+        traj = ht.streaming.MiniBatchKMeans(n_clusters=k, inner_iter=inner, random_state=0)
+        traj._update = lloyd_update_plain
+        per_chunk = []
+        for i, chunk in enumerate(ht.streaming.ChunkStream(paths)):
+            if i:
+                ref._centers_np, ref._counts_np, ref._shift = (
+                    k_carries[i - 1][0].copy(), k_carries[i - 1][1].copy(), k_carries[i - 1][2])
+            ref.partial_fit(chunk)
+            traj.partial_fit(chunk)
+            c_k, cnt_k = k_carries[i][0], k_carries[i][1]
+            scale = float(np.abs(ref._centers_np).max())
+            per_chunk.append({
+                "center_max_abs_err": float(np.abs(c_k - ref._centers_np).max()),
+                "center_rel_rms": float(np.linalg.norm(c_k - ref._centers_np)
+                                        / np.linalg.norm(ref._centers_np)),
+                "counts_max_abs_diff": float(np.abs(cnt_k - ref._counts_np).max()),
+                "counts_sum": float(cnt_k.sum()), "center_scale": scale})
+            del chunk
+        worst = max(max(p["center_max_abs_err"] / (1e-2 * p["center_scale"]),
+                        p["center_rel_rms"] / 1e-3) for p in per_chunk)
+        rows_ok = all(p["counts_sum"] == sum(chunk_rows[:i + 1])
+                      for i, p in enumerate(per_chunk))
+        traj_err = float(np.abs(mbk._centers_np - traj._centers_np).max())
+        emit({"phase": "streaming minibatch kmeans", "n_clusters": k, "inner_iter": inner,
+              "wall_s": k_wall, "rows_per_s": rows / k_wall, "checkpoint_save_s": save_s[1],
+              "chunk_fit_ms": [1e3 * b for b in k_fit], "chunk_load_ms": [1e3 * a for a in k_load],
+              "peak_allocated_bytes": k_peak, "launches": mbk_launches,
+              "inertia_last_chunk": mbk.inertia_, "plain_inertia_last_chunk": ref.inertia_,
+              "per_chunk_vs_plain_from_the_same_carry": per_chunk,
+              "trajectory_vs_plain_center_max_abs_err": traj_err,
+              "trajectory_plain_inertia_last_chunk": traj.inertia_,
+              "tolerance": "from the same carry, centers relative RMS <= 1e-3 and largest "
+                           "error <= 1e-2 max|c| against the plain pass's; counts add up to "
+                           "the rows seen", "nvidia_smi": smi})
+        check("MiniBatchKMeans vs its plain version on the card, chunk by chunk",
+              worst <= 1.0 and rows_ok, worst_err_over_tol=worst)
+        check("MiniBatchKMeans launched K4 within its window's bound (8 x 3) and seeded on "
+              "the random kernel",
+              0 < mbk_launches["lloyd"] <= 8 * inner and mbk_launches["random"] > 0,
+              launches=mbk_launches)
+
+        # ------------------------------------------------ resume bit for bit
+        skip = sum(chunk_rows[:4])
+        resumed_m = ht.streaming.StreamingMoments.restore(ckpt_m)
+        resumed_k = ht.streaming.MiniBatchKMeans.restore(ckpt_k)
+        for chunk in ht.streaming.ChunkStream(paths, skip_rows=skip):
+            resumed_m.partial_fit(chunk)
+            resumed_k.partial_fit(chunk)
+            del chunk
+        same_m = _carries_equal(_stream_carry(resumed_m), m_carries[-1])
+        same_k = _carries_equal(_stream_carry(resumed_k), k_carries[-1])
+        check("StreamingMoments resumed after chunk 4: bit for bit", same_m, skip_rows=skip,
+              chunks_after_resume=resumed_m.chunks_seen)
+        check("MiniBatchKMeans resumed after chunk 4: bit for bit", same_k, skip_rows=skip,
+              chunks_after_resume=resumed_k.chunks_seen)
+
+        # --------------------------------------- KMeans(checkpoint_every=...)
+        n_fit, iters, every = STREAM_CHECKPOINT_FIT
+        xf = ht.load_npy(paths[0], split=0, chunks=(0, n_fit))
+        kw = dict(n_clusters=k, init="random", max_iter=iters, tol=0.0, random_state=0)
+        plain_fit, plain_ms = _timed(lambda: ht.cluster.KMeans(**kw).fit(xf))
+        ck_path = os.path.join(tmp, "kmeans_ckpt")
+        ck_fit, ck_ms = _timed(lambda: ht.cluster.KMeans(
+            **kw, checkpoint_every=every, checkpoint_path=ck_path).fit(xf))
+        shutil.rmtree(ck_path)
+        ht.cluster.KMeans(**dict(kw, max_iter=2 * every), checkpoint_every=every,
+                          checkpoint_path=ck_path).fit(xf)
+        resumed_fit = ht.cluster.KMeans(**kw, checkpoint_every=every, checkpoint_path=ck_path,
+                                        resume=True).fit(xf)
+
+        def same_fit(a, b):
+            return (a.n_iter_ == b.n_iter_ and a.inertia_ == b.inertia_
+                    and torch.equal(a.cluster_centers_.larray, b.cluster_centers_.larray)
+                    and torch.equal(a.labels_.larray, b.labels_.larray))
+
+        check("KMeans(checkpoint_every=6) equals the uninterrupted fit bit for bit",
+              same_fit(plain_fit, ck_fit), n_iter=ck_fit.n_iter_, fit_ms=plain_ms,
+              checkpointed_fit_ms=ck_ms)
+        check("KMeans killed after 12 iterations and resumed equals the uninterrupted fit",
+              same_fit(plain_fit, resumed_fit), n_iter=resumed_fit.n_iter_)
+        del xf, plain_fit, ck_fit, resumed_fit
+
+        # --------------------------------------------------- CSV and npy I/O
+        csv_rows, csv_cols = STREAM_CSV
+        ht.random.seed(1)
+        xc = ht.random.rand(csv_rows, csv_cols, dtype=ht.float32, split=0)
+        csv_path = os.path.join(tmp, "x.csv")
+        before = native.native_calls()
+        _, save_ms = _timed(lambda: ht.save_csv(xc, csv_path))
+        loaded, load_ms = _timed(lambda: ht.load_csv(csv_path, split=0))
+        calls = {key: native.native_calls()[key] - before[key] for key in before}
+        t0 = time.perf_counter()
+        want = np.loadtxt(csv_path, delimiter=",", dtype=np.float64)
+        loadtxt_ms = (time.perf_counter() - t0) * 1e3
+        got = loaded.numpy()
+        csv_ok = (np.array_equal(got, want.astype(np.float32))
+                  and np.array_equal(got, xc.numpy()))
+        emit({"phase": "streaming csv", "shape": [csv_rows, csv_cols],
+              "file_bytes": os.path.getsize(csv_path), "save_csv_ms": save_ms,
+              "load_csv_ms": load_ms, "np_loadtxt_ms": loadtxt_ms,
+              "native_library": str(native.library_path()),
+              "native_available": native.native_available(), "native_calls": calls})
+        check("CSV: save_csv/load_csv through the native parser equal np.loadtxt",
+              csv_ok and calls["parse"] >= 1 and calls["write"] >= 1, native_calls=calls)
+        npy_path = os.path.join(tmp, "x.npy")
+        ht.save_npy(xc, npy_path)
+        back = ht.load_npy(npy_path, split=0)
+        check("npy: save_npy/load_npy of a split array", back.split == 0
+              and torch.equal(back.larray, xc.larray))
+        del xc, loaded, back, got, want
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if old_budget is None:
+            os.environ.pop("HEAT_TPU_HBM_BUDGET", None)
+        else:
+            os.environ["HEAT_TPU_HBM_BUDGET"] = old_budget
+    return {"moments": moments_launches, "minibatch": mbk_launches,
+            "k2_ms_a_chunk": k2_ms, "k2_bound_ms_a_chunk": k2_bound}
+
+
 def main():
     import torch
 
@@ -2942,6 +3271,9 @@ def main():
     del adjacency
     estimators_path(ht, dev, smi)
 
+    # --------------------------------------------------- out-of-core streaming
+    stream_report = streaming_path(ht, dev, smi, time_ms)
+
     # ------------------------------------------------------------ LM path
     # bench.py's lm_step model at full width, served: three requests of
     # 8 x 1024 tokens drawn from a numpy seed, random weights from a seeded
@@ -3250,6 +3582,13 @@ def main():
         if name in parallel_kernels:  # the launches of this slice's paths
             row["data_parallel_path_launches"] = dp_launches[name]
             row["ulysses_launches"] = sp_launches[name]
+        if name == "moments":  # the streaming path: one launch a chunk
+            row["streaming_path_launches"] = stream_report["moments"]["moments"]
+            row["streaming_chunk"] = {"shape": "(1,048,576, 64) f32",
+                                      "ms": stream_report["k2_ms_a_chunk"],
+                                      "bound_ms": stream_report["k2_bound_ms_a_chunk"]}
+        if name == "lloyd":  # the streaming path: MiniBatchKMeans's windows
+            row["streaming_path_launches"] = stream_report["minibatch"]["lloyd"]
         if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
             row["spectral_path"] = spectral_rows[name]
             row["sparse_spectral_path"] = sparse_spectral_rows[name]

@@ -64,11 +64,22 @@ package has a Pallas kernel:
     ``nn.functional``, ``nn.DataParallel`` (one flat all-reduce a step,
     blocking or double-buffered), ``nn.DataParallelMultiGPU``, ``nn.MoEMLP``
     (experts split over the ranks), and ``optim`` (``DataParallelOptimizer``,
-    ``DASO``, ``DetectMetricPlateau``, the ``lr_scheduler`` factories).
+    ``DASO``, ``DetectMetricPlateau``, the ``lr_scheduler`` factories);
+  - out-of-core streaming: ``io`` (npy, CSV through the native parser,
+    HDF5, NetCDF; ``load``/``save`` and the rest at the root, each rank
+    reading its own slab), ``streaming.ChunkStream`` (row blocks sized from
+    ``HEAT_TPU_HBM_BUDGET``), ``streaming.StreamingMoments`` (the moments
+    kernel a chunk), ``streaming.MiniBatchKMeans`` (the Lloyd window on the
+    Lloyd kernel), ``KMeans(checkpoint_every=...)``, and the substrate they
+    stand on: ``resilience`` (checkpoints in the JAX package's format, the
+    memory budget), ``telemetry`` and the knob registry ``_knobs``.
 """
 
+from . import telemetry
+from . import resilience
 from .core import *
 from . import core
+from .core import io
 from .core import random
 from .core.ragged import Ragged, ragged
 from . import sparse
@@ -82,6 +93,7 @@ from . import parallel
 from . import nn
 from . import optim
 from . import interop
+from . import streaming
 from ._build import launch_counts, reset_launch_counts
 from .core.version import version as __version__
 

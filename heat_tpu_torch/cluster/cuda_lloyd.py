@@ -25,7 +25,9 @@ CUDA tensor it launches the kernel or raises.
 its sharded twin (:206-279): one accumulation pass per iteration, one
 allreduce of the sums and counts when the rows are split over ranks, and
 the host reads the squared center shift every iteration to test it
-against ``tol``, as the reference Heat does.
+against ``tol``, as the reference Heat does. :func:`lloyd_window` is the
+same loop with the shift carried in and out, which the checkpointed
+``KMeans`` fit and ``streaming.MiniBatchKMeans`` run.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["lloyd_fit", "lloyd_update", "lloyd_update_plain", "pallas_lloyd_applicable"]
+__all__ = ["lloyd_fit", "lloyd_update", "lloyd_update_plain", "lloyd_window",
+           "pallas_lloyd_applicable"]
 
 _MAX_D = 512
 _MAX_K = 1024
@@ -115,20 +118,26 @@ def lloyd_update(x: torch.Tensor, centers: torch.Tensor, lim: Optional[int] = No
     return sums, counts
 
 
-def lloyd_fit(x: torch.Tensor, centers0: torch.Tensor, max_iter: int, tol: float,
-              comm=None, update=lloyd_update) -> Tuple[torch.Tensor, int]:
-    """Lloyd iterations from ``centers0`` until the squared center shift is
-    no longer above ``tol`` or ``max_iter`` is reached; returns the centers
-    and the number of iterations. ``comm`` (when its size is above 1) sums
-    the passes of all ranks, whose rows together form the data. ``update``
-    is the accumulation pass: :func:`lloyd_update` inside the kernel's gate,
-    :func:`lloyd_update_plain` outside it."""
+def lloyd_window(x: torch.Tensor, centers0: torch.Tensor, shift0: float, max_iter: int,
+                 tol: float, comm=None, update=lloyd_update,
+                 lim: Optional[int] = None) -> Tuple[torch.Tensor, int, float]:
+    """A resumable window of Lloyd iterations (the JAX package's
+    ``_lloyd_window``, ``kmeans.py:47-65`` there): from ``centers0`` with
+    the squared center shift ``shift0`` carried in, iterate while fewer
+    than ``max_iter`` iterations ran and the shift is above ``tol``;
+    returns the centers, the iterations run and the shift carried out.
+    Windows chained through their shift apply the same updates as one
+    uninterrupted loop. ``comm`` (when its size is above 1) sums the passes
+    of all ranks, whose rows together form the data; ``lim`` counts only
+    this rank's first ``lim`` rows. ``update`` is the accumulation pass:
+    :func:`lloyd_update` inside the kernel's gate, :func:`lloyd_update_plain`
+    outside it."""
     tol32 = float(torch.tensor(tol, dtype=centers0.dtype))
     c = centers0.clone()
     it = 0
-    shift = float("inf")
+    shift = float(shift0)
     while it < max_iter and shift > tol32:
-        sums, counts = update(x, c)
+        sums, counts = update(x, c) if lim is None else update(x, c, lim)
         if comm is not None and comm.size > 1:
             comm.allreduce(sums)
             comm.allreduce(counts)
@@ -137,6 +146,16 @@ def lloyd_fit(x: torch.Tensor, centers0: torch.Tensor, max_iter: int, tol: float
         shift = float(((new_c - c) ** 2).sum())
         c = new_c
         it += 1
+    return c, it, shift
+
+
+def lloyd_fit(x: torch.Tensor, centers0: torch.Tensor, max_iter: int, tol: float,
+              comm=None, update=lloyd_update) -> Tuple[torch.Tensor, int]:
+    """Lloyd iterations from ``centers0`` until the squared center shift is
+    no longer above ``tol`` or ``max_iter`` is reached; returns the centers
+    and the number of iterations: :func:`lloyd_window` from an infinite
+    shift."""
+    c, it, _ = lloyd_window(x, centers0, float("inf"), max_iter, tol, comm, update)
     return c, it
 
 

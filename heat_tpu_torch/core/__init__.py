@@ -1,10 +1,10 @@
 """The core of heat_tpu_torch: devices, types, communication, the DNDarray,
 factories, the elementwise (arithmetic, exponential, trigonometric,
 complex, rounding, relational and logical) operations, indexing, the
-manipulations, printing, the statistics, ``random``, ``linalg``, the
+manipulations, printing, the statistics, ``random``, ``linalg``, I/O, the
 estimator bases and the validation helpers."""
 
-from . import constants, linalg, random, tiling, version
+from . import constants, io, linalg, random, tiling, version
 from .arithmetics import *
 from .communication import TorchCommunication, get_comm, sanitize_comm, use_comm
 from .complex_math import *
@@ -14,6 +14,7 @@ from .dndarray import DNDarray
 from .exponential import *
 from .factories import *
 from .indexing import *
+from .io import *
 from .linalg import *
 from .logical import *
 from .manipulations import *

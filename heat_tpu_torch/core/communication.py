@@ -31,12 +31,13 @@ runs.
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import _knobs as knobs
 
 __all__ = [
     "PendingAllreduce",
@@ -110,8 +111,7 @@ def ring_overlap() -> bool:
     each hop before its tile's product and skip the dead last hop
     (``HEAT_TPU_RING_OVERLAP``, default on; ``0``, ``false``, ``off`` or
     ``no`` turn it off). The tiles are the same either way."""
-    return os.environ.get("HEAT_TPU_RING_OVERLAP", "1").strip().lower() not in (
-        "0", "false", "off", "no")
+    return bool(knobs.get("HEAT_TPU_RING_OVERLAP"))
 
 
 def _tree_map(fn, tree):
@@ -487,6 +487,11 @@ class TorchCommunication:
         counterpart of ``ring_permute`` :454)."""
         perm = [(i, (i + shift) % self.size) for i in range(self.size)]
         return self.ppermute(tensor, perm, precision, async_op)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the world has reached this call."""
+        if self.size > 1:
+            dist.barrier(group=self.group)
 
     def allgather_object(self, obj) -> list:
         if self.size == 1:

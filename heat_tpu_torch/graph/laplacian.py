@@ -26,11 +26,11 @@ package gathers ``A``, :291 there).
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional
 
 import torch
 
+from .. import _knobs as knobs
 from ..core import types
 from ..core.dndarray import DNDarray
 
@@ -188,7 +188,7 @@ class Laplacian:
         n = X.shape[0]
         rows, cols, vals, dt = self._sparse_adjacency(X)
         A = _pack_rows(rows, cols, vals, (n, n), X.comm, X.device, dt)
-        limit = float(os.environ.get("HEAT_TPU_SPARSE_DENSE_THRESHOLD") or 0.25)
+        limit = float(knobs.get("HEAT_TPU_SPARSE_DENSE_THRESHOLD"))
         if self.sparse is None and A.density > limit:
             return None
         ones = factories.ones(n, dtype=dt, device=X.device, comm=X.comm)

@@ -35,12 +35,12 @@ collective audits are item 13), as do the telemetry counters and events
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import _knobs as knobs
 from ..core import types
 from ..core._operations import _SIGNED, _sign_bit
 from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
@@ -76,7 +76,7 @@ def spmv_wire(dtype, precision: Optional[str] = None) -> str:
     ``HEAT_TPU_SPARSE_SPMV_PREC`` (default ``off``); a non-float payload
     always moves exact (``off``)."""
     if precision is None:
-        precision = os.environ.get("HEAT_TPU_SPARSE_SPMV_PREC") or "off"
+        precision = knobs.raw("HEAT_TPU_SPARSE_SPMV_PREC") or "off"
     p = str(precision).strip().lower()
     if p not in ("off", "bf16"):
         raise ValueError(f"sparse wire precision must be 'off' or 'bf16', got {precision!r}")

@@ -38,13 +38,13 @@ cleared); on a card it is the kernels' oracle and nothing else.
 from __future__ import annotations
 
 import ctypes
-import os
 import warnings
 from typing import Optional
 
 import torch
 
 from .. import _build
+from .. import _knobs as knobs
 
 __all__ = ["cdist_precision", "euclid", "euclid_plain", "last_variant", "pallas_cdist_applicable"]
 
@@ -81,7 +81,7 @@ def cdist_precision() -> str:
     names one of ``bf16x3`` / ``default`` / ``high`` / ``highest`` (then
     ``"DEFAULT"``, ``"HIGH"`` or ``"HIGHEST"``). Read at call time; an
     unknown value warns and keeps ``"bf16x3"``."""
-    v = (os.environ.get(_PREC_ENV, "") or "").strip().lower()
+    v = (knobs.raw(_PREC_ENV, "") or "").strip().lower()
     if not v or v == "bf16x3":
         return "bf16x3"
     if v in _PREC_VALUES:

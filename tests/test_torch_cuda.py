@@ -1602,3 +1602,154 @@ def test_nccl_parallel_ranks_match_world_of_one(dev, tmp_path):
     _hold_parallel_ranks(ranks, want, world)
     print("parallel ranks' errors:", [{key: r[key].tolist() for key in r if key.endswith(
         ("_err", "_err_over_vmax"))} for r in ranks])
+
+
+# -- out-of-core streaming ---------------------------------------------------------
+
+_STREAM_DATA = """
+import os
+import numpy as np
+import torch
+
+def protos():
+    return (np.random.default_rng(0).standard_normal((12, 64)) * 8).astype(np.float32)
+
+def make_files(where):
+    '''Two .npy files of 12 well separated blobs in 64 columns (the
+    chunking restarts at each file: chunks of 65,536 rows end short).'''
+    rng = np.random.default_rng(1)
+    centers = protos()
+    paths = []
+    for i, n in enumerate((300_001, 170_003)):
+        path = os.path.join(where, f"part{i}.npy")
+        if not os.path.exists(path):
+            x = centers[rng.integers(0, 12, n)] + rng.standard_normal((n, 64)).astype(np.float32)
+            np.save(path + ".tmp.npy", x.astype(np.float32))
+            os.replace(path + ".tmp.npy", path)
+        paths.append(path)
+    return paths
+
+def run(ht, device):
+    ckpt = os.path.join(out, "ckpt_" + device.type)
+    paths = [os.path.join(out, f"part{i}.npy") for i in range(2)]
+    stream = ht.streaming.ChunkStream(paths, chunk_rows=65_536)
+    res = {"chunks": np.array(len(stream))}
+    # the initial centers near the blobs' own: no row is a near tie of two centers
+    c0 = ht.array(protos() + 0.5)
+    ht.reset_launch_counts()
+    moments = ht.streaming.StreamingMoments()
+    mbk = ht.streaming.MiniBatchKMeans(n_clusters=12, init=c0, inner_iter=3)
+    for i, chunk in enumerate(stream):
+        assert chunk.larray.device.type == device.type
+        moments.partial_fit(chunk)
+        mbk.partial_fit(chunk)
+        if i == 4:  # the end of the first file
+            moments.save(ckpt + "_m")
+            mbk.save(ckpt + "_k")
+            skip = int(moments.n_seen)
+    counts = ht.launch_counts()
+    res["launches"] = np.array([counts["moments"], counts["lloyd"]])
+    res["mean"], res["var"], res["n"] = moments.mean, moments.var(), np.array(moments.n_seen)
+    res["centers"], res["counts"] = mbk._centers_np, mbk._counts_np
+    res["inertia"] = np.array(mbk.inertia_)
+    rm = ht.streaming.StreamingMoments.restore(ckpt + "_m")
+    rk = ht.streaming.MiniBatchKMeans.restore(ckpt + "_k")
+    for chunk in ht.streaming.ChunkStream(paths, chunk_rows=65_536, skip_rows=skip):
+        rm.partial_fit(chunk)
+        rk.partial_fit(chunk)
+    res["resumed_bitwise"] = np.array(
+        np.array_equal(rm._mean, moments._mean) and np.array_equal(rm._m2, moments._m2)
+        and np.array_equal(rk._centers_np, mbk._centers_np)
+        and np.array_equal(rk._counts_np, mbk._counts_np) and rk._shift == mbk._shift)
+    x = ht.load_npy(paths[1], split=0)
+    kw = dict(n_clusters=12, init=c0, max_iter=12, tol=0.0)
+    plain = ht.cluster.KMeans(**kw).fit(x)
+    ck = ht.cluster.KMeans(**kw, checkpoint_every=5, checkpoint_path=ckpt + "_km").fit(x)
+    res["kmeans_checkpointed_bitwise"] = np.array(
+        torch.equal(plain.cluster_centers_.larray, ck.cluster_centers_.larray)
+        and torch.equal(plain.labels_.larray, ck.labels_.larray) and plain.n_iter_ == ck.n_iter_)
+    res["kmeans_centers"] = plain.cluster_centers_.numpy()
+    ht.save_npy(x, ckpt + "_x.npy")
+    back = ht.load_npy(ckpt + "_x.npy", split=0)
+    res["npy_roundtrip"] = np.array(torch.equal(back.larray, x.larray))
+    return res
+"""
+
+
+def test_streaming_estimators_launch_k2_and_k4_and_match_plain(dev, tmp_path):
+    """StreamingMoments launches K2 once a chunk and MiniBatchKMeans K4 at
+    most inner_iter times a chunk; the moments within 1e-5 of the column's
+    spread (M2 1e-4 relative) of the CPU port's plain version, the centers
+    within 1e-5 of the largest |center| of the same estimator on the plain
+    Lloyd pass on the card and of the CPU's (separated blobs: the same
+    labels, sums in another order), counts exactly; the resumes and the
+    checkpointed KMeans bit for bit."""
+    ns = {"out": str(tmp_path)}
+    exec(_STREAM_DATA, ns)
+    ns["make_files"](str(tmp_path))
+    htt.use_device(None)
+    got = ns["run"](htt, dev)
+    chunks = int(got["chunks"])
+    assert chunks == 8 and int(got["launches"][0]) == chunks
+    assert 0 < int(got["launches"][1]) <= 3 * chunks
+    assert bool(got["resumed_bitwise"]) and bool(got["kmeans_checkpointed_bitwise"])
+    assert bool(got["npy_roundtrip"])
+    htt.use_device("cpu")
+    try:
+        want = ns["run"](htt, torch.device("cpu"))
+    finally:
+        htt.use_device(None)
+    spread = np.abs(want["mean"]) + np.sqrt(want["var"])
+    assert (np.abs(got["mean"] - want["mean"]) <= 1e-5 * spread).all()
+    np.testing.assert_allclose(got["var"], want["var"], rtol=1e-4)
+    ref = htt.streaming.MiniBatchKMeans(n_clusters=12, init=htt.array(ns["protos"]() + 0.5),
+                                        inner_iter=3)
+    ref._update = cuda_lloyd.lloyd_update_plain
+    for chunk in htt.streaming.ChunkStream([str(tmp_path / f"part{i}.npy") for i in range(2)],
+                                           chunk_rows=65_536):
+        ref.partial_fit(chunk)
+    atol = 1e-5 * float(np.abs(ref._centers_np).max())
+    np.testing.assert_allclose(got["centers"], ref._centers_np, rtol=0, atol=atol)
+    np.testing.assert_array_equal(got["counts"], ref._counts_np)
+    np.testing.assert_allclose(got["centers"], want["centers"], rtol=0, atol=atol)
+    np.testing.assert_array_equal(got["counts"], want["counts"])
+
+
+def _hold_stream_ranks(ranks, want):
+    """Each rank's streamed estimates against the world of one's: the row
+    count exactly, the moments within 1e-5 of the column's spread (M2 1e-4
+    relative: the ranks' moments merge in closed form), the centers within
+    1e-5 of the largest |center| (their sums add the ranks' partial sums, in
+    another order, over 12 iterations) and the counts exactly (separated
+    blobs), the resumes and the checkpointed KMeans bit for bit on every
+    rank."""
+    spread = np.abs(want["mean"]) + np.sqrt(want["var"])
+    for r in ranks:
+        assert int(r["chunks"]) == int(want["chunks"])
+        assert int(r["launches"][0]) == int(want["launches"][0])
+        assert float(r["n"]) == float(want["n"])
+        assert (np.abs(r["mean"] - want["mean"]) <= 1e-5 * spread).all()
+        np.testing.assert_allclose(r["var"], want["var"], rtol=1e-4)
+        for name in ("centers", "kmeans_centers"):
+            np.testing.assert_allclose(r[name], want[name], rtol=0,
+                                       atol=1e-5 * float(np.abs(want[name]).max()))
+        np.testing.assert_array_equal(r["counts"], want["counts"])
+        for name in ("resumed_bitwise", "kmeans_checkpointed_bitwise", "npy_roundtrip"):
+            assert bool(r[name]), name
+
+
+def test_nccl_stream_ranks_match_world_of_one(dev, tmp_path):
+    """Every card one rank over NCCL: the ranks stream the same two files,
+    each reading its slab of every chunk; StreamingMoments, MiniBatchKMeans,
+    their checkpoints (rank 0 writes) and resumes, the checkpointed KMeans
+    and a split save_npy/load_npy against the world of one."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ns = {"out": str(tmp_path)}
+    exec(_STREAM_DATA, ns)
+    ns["make_files"](str(tmp_path))
+    ranks = _spmd_ranks(tmp_path, world, "nccl", _STREAM_DATA)
+    htt.use_device(None)
+    want = ns["run"](htt, dev)
+    _hold_stream_ranks(ranks, want)
