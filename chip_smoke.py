@@ -115,7 +115,21 @@ Phases, each printing JSON lines:
      backward, against flash_attention and the kernels' plain versions,
      Ulysses launching K6, K7a and K7b; times and the ring's peak memory;
  11. DASO: examples/nn/daso_training.py's classifier through warmup,
-     cycling and cooldown, the schedule state and accuracy per epoch.
+     cycling and cooldown, the schedule state and accuracy per epoch;
+ 12. serving (bench.py:309-339 at its full size): KMeans(16) fitted on
+     randn(200_000, 64) (K4 and the threefry kernel launch), served by
+     Server(max_batch=64) through the program registry (a CUDA graph a
+     bucket, captured at the warm-up): 1024 requests of 16 x 64 at once,
+     three times, with no build after the warm-up, each answer equal to its
+     solo dispatch bit for bit and to float64 labels apart from near ties;
+     requests/s, latency, batches, occupancy, a batch's device time by CUDA
+     events against its wall, the busy share under the profiler; every
+     endpoint kind in exact and fast mode at modest sizes (batched against
+     solo, against float64, save/restore, an injected fault retried, a
+     shed); two replica processes on this card behind a Router (256
+     requests bit for bit, both serving, nothing built after warm-up, no
+     kernel compiled) and a rolling update onto a published version 2
+     under traffic with no failed request.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -127,6 +141,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM data-sheet peaks (dense, at the full 700 W power limit): HBM
@@ -2198,6 +2213,550 @@ def streaming_path(ht, dev, smi, time_ms):
             "k2_ms_a_chunk": k2_ms, "k2_bound_ms_a_chunk": k2_bound}
 
 
+# bench.py:317-333's serving row at its full size: (data rows, features,
+# centers, requests, rows a request), served with max_batch=64
+SERVING = (200_000, 64, 16, 1024, 16)
+# every endpoint kind at modest sizes: training and reference rows,
+# features, classes, reference rows of cdist/rbf, dense (d_in, d_out),
+# sparse (features, out, density), requests a kind, the ladder top
+SERVING_KINDS = {"train": 20_000, "features": 64, "classes": 10, "reference": 4096,
+                 "dense": (1024, 256), "sparse": (1024, 64, 0.02), "requests": 32,
+                 "max_batch": 16}
+UNIT_ROUNDOFF = 2.0 ** -24  # f32
+# KNN at bench.py's serving training size (200,000 x 64, 51 MB)
+SERVING_KNN_FULL = {"train": 200_000, "features": 64, "classes": 16, "k": 5, "requests": 16,
+                    "max_batch": 64}
+
+
+def _program_bytes(server, name, ep):
+    """After the warm-up: each bucket's graph pool bytes as
+    memory_guard.program_bytes reads them (the largest of a sparse bucket's
+    nnz lattice), the bytes of the parameter set, and how many parameter
+    sets the endpoint's programs hold (one: the buckets share it)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.resilience import memory_guard
+
+    pools, sets, params = {}, set(), 0
+    for b in server.ladder:
+        for cap in (ep.nnz_ladder(b) if ep.is_sparse else (None,)):
+            prog = server._program(name, ep, b, cap)
+            if ep.is_sparse:
+                args = (torch.zeros(b + 1, dtype=torch.int32), torch.zeros(cap, dtype=torch.int32),
+                        torch.from_numpy(np.zeros(cap, ep.dtype)))
+            else:
+                args = (torch.from_numpy(np.zeros((b, ep.features), ep.dtype)),)
+            args += tuple(ep.params)
+            pools[b] = max(pools.get(b, 0), memory_guard.program_bytes(prog, args))
+            sets.add(id(prog.__wrapped__.shared))
+            params = prog.__wrapped__.param_bytes()
+    want = sum(p.numel() * p.element_size() for p in ep.params)
+    check(f"serving kinds: {name}'s buckets share one parameter set of its parameters' bytes",
+          len(sets) == 1 and params == want, param_sets=len(sets), param_bytes=params,
+          want=want)
+    return {"pool_bytes": pools, "param_bytes": params, "param_sets": len(sets)}
+
+
+def _serving_knn_full(ht, dev):
+    """knn_classify over SERVING_KNN_FULL's training set (separated blobs,
+    16 classes 8 apart), Server(max_batch=64) warmed: each bucket's pool
+    bytes, the largest below one copy of its untiled (bucket, N, F)
+    broadcast; one parameter set for the seven buckets; requests batched
+    against solo bit for bit; labels against float64 (the squared
+    distances by the float64 expansion); no build after warm-up; one
+    64-row batch's device time by CUDA events against its wall."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch import serve, telemetry
+
+    cfg = SERVING_KNN_FULL
+    n, f, ncls = cfg["train"], cfg["features"], cfg["classes"]
+    rng = np.random.default_rng(3)
+    protos = (rng.standard_normal((ncls, f)) * 8).astype(np.float32)
+    ids = rng.integers(0, ncls, n)
+    xt = (protos[ids] + rng.standard_normal((n, f))).astype(np.float32)
+    knn = ht.classification.KNeighborsClassifier(cfg["k"]).fit(
+        ht.array(xt, split=0), ht.array(ids.astype(np.int64), split=0))
+    ep = serve.knn_classify(knn)
+    server = serve.Server(max_batch=cfg["max_batch"], max_wait_ms=20.0)
+    server.register("knn_full", ep)
+    warm = server.warmup()
+    sizes = _program_bytes(server, "knn_full", ep)
+    top = max(server.ladder)
+    untiled = top * n * f * 4
+    check("serving kinds: knn over 200,000 x 64, the largest bucket's pool below one copy of "
+          "its untiled broadcast", 0 < sizes["pool_bytes"][top] < untiled,
+          pool_bytes=sizes["pool_bytes"][top], untiled_broadcast_bytes=untiled)
+    qs = [(protos[rng.integers(0, ncls, r)] + rng.standard_normal((r, f))).astype(np.float32)
+          for r in rng.integers(1, 10, cfg["requests"])]
+    qs.append((protos[rng.integers(0, ncls, top)] + rng.standard_normal((top, f)))
+              .astype(np.float32))
+    with telemetry.CompileWatcher() as cw:
+        solo = [server.predict("knn_full", q) for q in qs]
+        batched = [fut.result(120) for fut in [server.submit("knn_full", q) for q in qs]]
+    bitwise = all(a.tobytes() == b.tobytes() for a, b in zip(solo, batched))
+    x64 = ep.params[0].double()
+    x2 = (x64 * x64).sum(1)
+    wrong = 0
+    for q, got in zip(qs, batched):
+        q64 = torch.from_numpy(q).to(dev).double()
+        d2 = (q64 * q64).sum(1, keepdim=True) + x2[None] - 2.0 * (q64 @ x64.T)
+        idx = torch.sort(d2, dim=1, stable=True).indices[:, :ep.config["k"]]
+        votes = (ep.params[1][idx][:, :, None] == ep.params[2][None, None]).sum(1)
+        want = ep.params[2][votes.argmax(1)]
+        wrong += int((torch.from_numpy(np.asarray(got)).to(dev) != want).sum())
+    check("serving kinds: knn over 200,000 x 64 batched equals solo bit for bit", bitwise)
+    check("serving kinds: knn over 200,000 x 64 labels equal float64's, no build after warm-up",
+          wrong == 0 and cw.backend_compiles == 0, label_mismatches=wrong,
+          builds=cw.backend_compiles)
+    prog = server._program("knn_full", ep, top)
+    batch = torch.from_numpy(qs[-1])
+    prog(batch, *ep.params)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reps = 10
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        out = prog(batch, *ep.params)
+    end.record()
+    out.cpu()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    server.close()
+    return {"sizes": cfg, "warmup": warm, **sizes, "untiled_broadcast_bytes": untiled,
+            "bitwise_batched_vs_solo": bitwise, "label_mismatches": wrong,
+            "batch64_device_ms": start.elapsed_time(end) / reps, "batch64_wall_ms": wall}
+
+
+def _serving_kinds(ht, dev, smi):
+    """Every endpoint kind on the card at SERVING_KINDS' sizes, in exact and
+    in fast mode: each request batched (coalesced into a padded bucket)
+    against solo; against the plain PyTorch form in float64 (labels equal on
+    separated blobs; floats within the f32 bound of their form: 16 u times
+    the sum of the magnitudes of the terms for the exact halving trees, n u
+    for the fast GEMM forms, on the squared distances 32 u (|x|^2 + |y|^2)
+    for the fast expansion); each endpoint's pool bytes a bucket and its one
+    parameter set (_program_bytes); then save -> restore bit for bit (and no
+    build), an injected transient fault retried with the same bits, a shed
+    under HEAT_TPU_SERVE_QUEUE_MAX=4, and KNN at bench.py's serving training
+    size (_serving_knn_full). Returns the phase's report."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch import resilience, serve, telemetry
+    from heat_tpu_torch.serve import ServerOverloadedError
+
+    cfg = SERVING_KINDS
+    n, f, ncls, nref = cfg["train"], cfg["features"], cfg["classes"], cfg["reference"]
+    (d_in, d_out), (s_in, s_out, density) = cfg["dense"], cfg["sparse"]
+    rng = np.random.default_rng(1)
+    protos = (rng.standard_normal((ncls, f)) * 8).astype(np.float32)
+    ids = rng.integers(0, ncls, n)
+    xt = (protos[ids] + rng.standard_normal((n, f))).astype(np.float32)
+    beta = rng.standard_normal(f).astype(np.float32)
+    x_dev = ht.array(xt, split=0)
+    y_dev = ht.array(ids.astype(np.int64), split=0)
+    knn = ht.classification.KNeighborsClassifier(5).fit(x_dev, y_dev)
+    gnb = ht.naive_bayes.GaussianNB().fit(x_dev, y_dev)
+    lasso = ht.regression.Lasso(lam=0.01, max_iter=20).fit(
+        x_dev, ht.array(xt @ beta + 0.5, split=0))
+    w_dense = (rng.standard_normal((d_in, d_out)) / 32).astype(np.float32)
+    b_dense = rng.standard_normal(d_out).astype(np.float32)
+    w_sparse = rng.standard_normal((s_in, s_out)).astype(np.float32)
+    b_sparse = rng.standard_normal(s_out).astype(np.float32)
+    ref_rows = xt[:nref]
+    gamma = 1.0 / (2.0 * 8.0 * 8.0)
+
+    def endpoints():
+        return {
+            "kmeans": serve.Endpoint("kmeans_predict", [protos], features=f, dtype=np.float32),
+            "knn": serve.knn_classify(knn),
+            "gnb": serve.gaussian_nb_predict(gnb),
+            "lasso": serve.lasso_predict(lasso),
+            "cdist": serve.cdist_query(ref_rows),
+            "rbf": serve.rbf_query(ref_rows, sigma=8.0),
+            "dense": serve.dense_forward(w_dense, b_dense, activation="relu"),
+            "sparse": serve.sparse_query(w_sparse, b_sparse, activation="relu"),
+        }
+
+    def payload(name):
+        r = int(rng.integers(1, 10))
+        if name == "dense":
+            return rng.standard_normal((r, d_in)).astype(np.float32)
+        if name == "sparse":
+            q = rng.standard_normal((r, s_in)).astype(np.float32)
+            q[rng.random(q.shape) >= density] = 0
+            return q
+        q = protos[rng.integers(0, ncls, r)] + rng.standard_normal((r, f))
+        return q.astype(np.float64 if name == "gnb" else np.float32)
+
+    payloads = {name: [payload(name) for _ in range(cfg["requests"])] for name in endpoints()}
+
+    def reference(name, ep, q, exact):
+        """(the float64 answer, its tolerance or None for labels)."""
+        q64 = torch.from_numpy(q).to(dev).double()
+        p64 = [p.double() for p in ep.params]
+        u = UNIT_ROUNDOFF
+        if name in ("kmeans", "knn", "cdist", "rbf"):
+            ref = p64[0]
+            d2 = ((q64[:, None, :] - ref[None]) ** 2).sum(-1)
+            scale = (q64 ** 2).sum(1, keepdim=True) + (ref ** 2).sum(1)[None]
+            if name == "kmeans":
+                return d2.argmin(1), None
+            if name == "knn":
+                idx = torch.sort(d2, dim=1, stable=True).indices[:, :ep.config["k"]]
+                votes = (ep.params[1][idx][:, :, None] == ep.params[2][None, None]).sum(1)
+                return ep.params[2][votes.argmax(1)], None
+            if name == "cdist":
+                if exact:
+                    return d2.sqrt(), 16 * u * d2.sqrt() + 1e-7
+                return d2, 32 * u * scale  # held on the squared distances
+            tol = (16 * u * (gamma * d2 + 1) if exact else gamma * 32 * u * scale + 16 * u)
+            return torch.exp(-gamma * d2), tol * torch.exp(-gamma * d2) + 1e-30
+        if name == "gnb":
+            theta, var, prior, classes = p64[0], p64[1], p64[2], ep.params[3]
+            jll = (prior.log()[None] - 0.5 * torch.log(2 * np.pi * var).sum(1)[None]
+                   - 0.5 * ((q64[:, None] - theta[None]) ** 2 / var[None]).sum(2))
+            return classes[jll.argmax(1)], None
+        w = p64[0] if name != "lasso" else p64[0][:, None]
+        b = p64[1] if len(p64) > 1 else None
+        y = q64 @ w + (b if b is not None else 0)
+        mag = q64.abs() @ w.abs() + (b.abs() if b is not None else 0)
+        terms = q64.shape[1]
+        tol = (16 if exact else terms) * u * mag + 1e-30
+        if name == "lasso":
+            return y[:, 0], tol[:, 0]
+        return torch.clamp(y, min=0), tol
+
+    def serve_all(exact):
+        eps = endpoints()
+        server = serve.Server(max_batch=cfg["max_batch"], max_wait_ms=20.0)
+        for name, ep in eps.items():
+            server.register(name, ep)
+        warm = server.warmup()
+        rows = {}
+        sizes = {name: _program_bytes(server, name, ep) for name, ep in eps.items()}
+        with telemetry.CompileWatcher() as cw:
+            for name, ep in eps.items():
+                qs = payloads[name]
+                solo = [server.predict(name, q) for q in qs]
+                batched = [fut.result(120) for fut in [server.submit(name, q) for q in qs]]
+                bitwise = all(s.tobytes() == b.tobytes() for s, b in zip(solo, batched))
+                worst, wrong = 0.0, 0
+                for q, got in zip(qs, batched):
+                    want, tol = reference(name, ep, q, exact)
+                    got_t = torch.from_numpy(np.asarray(got)).to(dev)
+                    if tol is None:
+                        wrong += int((got_t.reshape(want.shape) != want).sum())
+                        continue
+                    if name == "cdist" and not exact:
+                        got_t = got_t.double() ** 2
+                    err = (got_t.double().reshape(want.shape) - want).abs()
+                    worst = max(worst, float((err / tol).max()))
+                rows[name] = {"bitwise_batched_vs_solo": bitwise, "label_mismatches": wrong,
+                              "worst_error_over_tolerance": worst,
+                              "batches": server.stats()["endpoints"][name]["batches"],
+                              **sizes[name]}
+                label = "exact" if exact else "fast"
+                if exact:
+                    check(f"serving kinds ({label}): {name} batched equals solo bit for bit",
+                          bitwise)
+                check(f"serving kinds ({label}): {name} against float64 within its f32 "
+                      "tolerance", wrong == 0 and worst <= 1.0, **rows[name])
+        check(f"serving kinds ({'exact' if exact else 'fast'}): no build after warm-up",
+              cw.backend_compiles == 0, builds=cw.backend_compiles)
+        return server, eps, warm, rows
+
+    report = {}
+    server, eps, warm, report["exact"] = serve_all(True)
+    report["warmup"] = warm
+    # save -> restore on the card, bit for bit, without a build
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kinds_") as tmp:
+        path = os.path.join(tmp, "ckpt")
+        server.save(path)
+        restored = serve.Server.restore(path, max_batch=cfg["max_batch"], device="cuda")
+        with telemetry.CompileWatcher() as cw:
+            rewarm = restored.warmup()
+            same = all(restored.predict(name, q).tobytes() == server.predict(name, q).tobytes()
+                       for name in eps for q in payloads[name][:4])
+        restored.close()
+    check("serving kinds: save -> restore answers bit for bit and builds nothing",
+          same and cw.backend_compiles == 0, rewarm=rewarm)
+    # an injected transient fault: the batch is retried, same bits, no build
+    os.environ["HEAT_TPU_RETRIES"] = "2"
+    os.environ["HEAT_TPU_RETRY_BASE"] = "0.001"
+    resilience.refresh()
+    retried = {}
+    try:
+        for name in eps:
+            q = payloads[name][0]
+            clean = server.predict(name, q)
+            rule = resilience.inject(f"serve.{name}", kind="reset", calls=[1])
+            with telemetry.CompileWatcher() as cw:
+                again = server.predict(name, q)
+            retried[name] = bool(rule.fired == 1 and again.tobytes() == clean.tobytes()
+                                 and cw.backend_compiles == 0)
+            resilience.clear_faults()
+    finally:
+        resilience.clear_faults()
+        del os.environ["HEAT_TPU_RETRIES"], os.environ["HEAT_TPU_RETRY_BASE"]
+        resilience.refresh()
+    check("serving kinds: an injected transient fault is retried with the same bits",
+          all(retried.values()), retried=retried)
+    # a shed: queue bound 4, the first batch held 50 ms by an injected latency
+    os.environ["HEAT_TPU_SERVE_QUEUE_MAX"] = "4"
+    try:
+        shedder = serve.Server(max_batch=cfg["max_batch"])
+        shedder.register("shed", eps["kmeans"])
+        shedder.warmup()
+        resilience.inject("serve.shed", kind="latency", delay=0.05, calls=[1])
+        q = payloads["kmeans"][0][:1]
+        want = server.predict("kmeans", q)
+        futs, sheds = [], 0
+        for _ in range(64):
+            try:
+                futs.append(shedder.submit("shed", q))
+            except ServerOverloadedError as e:
+                sheds += e.reason == "queue_full"
+        answered = all(fut.result(60).tobytes() == want.tobytes() for fut in futs)
+        shedder.close()
+    finally:
+        resilience.clear_faults()
+        del os.environ["HEAT_TPU_SERVE_QUEUE_MAX"]
+    check("serving kinds: HEAT_TPU_SERVE_QUEUE_MAX=4 sheds 503 and answers the admitted",
+          sheds > 0 and answered, sheds=sheds, admitted=len(futs))
+    server.close()
+    # fast mode: the GEMM forms, TF32 off inside, the caller's flag kept
+    os.environ["HEAT_TPU_SERVE_EXACT"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fast_server, _, _, report["fast"] = serve_all(False)
+        fast_server.close()
+        flag_kept = torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del os.environ["HEAT_TPU_SERVE_EXACT"]
+    check("serving kinds (fast): the caller's TF32 flag is kept", flag_kept)
+    report["knn_full"] = _serving_knn_full(ht, dev)
+    report.update(retried=retried, sheds=sheds, sizes=cfg)
+    emit({"phase": "serving kinds", **report, "nvidia_smi": smi})
+    return report
+
+
+def serving_path(ht, dev, smi):
+    """The serving path (bench.py:309-339 at its full size): KMeans(16,
+    max_iter=10, random_state=0) fitted on ht.random.randn(200_000, 64)
+    (seed 0; K4 and the threefry kernel launch in the fit), mounted on
+    Server(max_batch=64) and warmed (a CUDA graph a bucket); 1024 requests
+    of 16 x 64 f32 (default_rng(0)) submitted at once, three times, under a
+    CompileWatcher that must see no build; every answer against its solo
+    dispatch bit for bit and against float64 nearest-centre labels apart
+    from near ties (the two best squared distances within 16 u of their
+    sum, u = 2^-24); requests/s, latency percentiles, batches, occupancy,
+    device time of one 64-row batch by CUDA events against its wall time,
+    and the busy share of one burst under torch.profiler. Then every
+    endpoint kind (_serving_kinds), and two replica processes on this card
+    from the server's checkpoint behind a Router: 256 requests bit for bit,
+    both replicas serving, no build after warm-up in either, no kernel
+    compiled by either; then rolling_update onto the checkpoint of a
+    publish of the fit with random_state=1 (version 2) under traffic: no
+    request fails, the drains exit 0, the versions advance. Returns the
+    fit's launches and the report."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat_tpu_torch import serve, streaming, telemetry
+    from heat_tpu_torch.serve.net import ReplicaPool, Router
+
+    rows, d, k, n_req, req_rows = SERVING
+    ht.random.seed(0)
+    data = ht.random.randn(rows, d, dtype=ht.float32, split=0)
+    torch.cuda.synchronize()
+    ht.reset_launch_counts()
+    t0 = time.perf_counter()
+    km = ht.cluster.KMeans(n_clusters=k, max_iter=10, random_state=0).fit(data)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    fit_launches = {name: ht.launch_counts()[name] for name in ("lloyd", "random")}
+    check("serving: the KMeans fit launched K4 and the threefry kernel",
+          fit_launches["lloyd"] > 0 and fit_launches["random"] > 0, launches=fit_launches)
+
+    server = serve.Server(max_batch=64)
+    ep = serve.kmeans_predict(km)
+    server.register("kmeans", ep)
+    with telemetry.CompileWatcher() as cw:
+        warm = server.warmup()
+    check("serving: warm-up captured one CUDA graph a bucket",
+          warm["backend_compiles"] == len(server.ladder) == cw.backend_compiles, warmup=warm)
+    rng = np.random.default_rng(0)
+    payloads = [rng.standard_normal((req_rows, d)).astype(np.float32) for _ in range(n_req)]
+
+    def burst():
+        t = time.perf_counter()
+        futs = [server.submit("kmeans", p) for p in payloads]
+        res = [fut.result(120) for fut in futs]
+        return res, time.perf_counter() - t
+
+    runs = []
+    with telemetry.CompileWatcher() as steady:
+        for _ in range(3):
+            before = server.stats()["endpoints"]["kmeans"]["batches"]
+            answers, wall = burst()
+            batches = server.stats()["endpoints"]["kmeans"]["batches"] - before
+            runs.append({"wall_s": wall, "requests_per_s": n_req / wall, "batches": batches,
+                         "wall_ms_per_batch": wall * 1e3 / batches})
+        solo = [server.predict("kmeans", p) for p in payloads]
+    st = server.stats()["endpoints"]["kmeans"]
+    check("serving: no build after warm-up (CompileWatcher over 3 bursts and the solo pass)",
+          steady.backend_compiles == 0, builds=steady.backend_compiles)
+    check("serving: every batched answer equals its solo dispatch bit for bit",
+          all(a.tobytes() == s.tobytes() for a, s in zip(answers, solo)))
+    q64 = torch.from_numpy(np.concatenate(payloads)).to(dev).double()
+    c64 = ep.params[0].double()
+    d2 = ((q64[:, None, :] - c64[None]) ** 2).sum(-1)
+    two = torch.topk(d2, 2, dim=1, largest=False)
+    near = (two.values[:, 1] - two.values[:, 0]) <= 16 * UNIT_ROUNDOFF * two.values.sum(1)
+    got = torch.from_numpy(np.concatenate(answers)).to(dev)
+    wrong = got != two.indices[:, 0]
+    check("serving: labels equal the float64 nearest centres apart from near ties",
+          not bool((wrong & ~near).any()), near_ties=int(near.sum()),
+          near_ties_differing=int((wrong & near).sum()), rows=int(got.numel()))
+
+    # one 64-row batch through the bucket's program: device time by CUDA
+    # events (the host-to-device copy, the replay, the clone) against the
+    # wall time of the call and the copy back
+    prog = server._program("kmeans", ep, 64)
+    xb = torch.from_numpy(np.concatenate(payloads[:4]))
+    for _ in range(5):
+        prog(xb, *ep.params).cpu()
+    torch.cuda.synchronize()
+    pairs, walls = [], []
+    for _ in range(200):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = prog(xb, *ep.params)
+        e1.record()
+        out.cpu()
+        walls.append(time.perf_counter() - t)
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    device_ms = float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+    wall_ms = float(np.mean(walls)) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = burst()
+    on_device = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    report = {"fit_ms": fit_ms, "fit_launches": fit_launches, "warmup": warm, "runs": runs,
+              "latency": st["latency"], "mean_batch_rows": st.get("mean_batch_rows"),
+              "occupancy": st.get("occupancy"), "batch_device_ms": device_ms,
+              "batch_wall_ms": wall_ms,
+              "profiled_burst": {"wall_ms": prof_wall * 1e3, "device_ms": on_device,
+                                 "device_busy_share": on_device / (prof_wall * 1e3)},
+              "near_ties": int(near.sum())}
+    emit({"phase": "serving path", **report, "nvidia_smi": smi})
+
+    report["kinds"] = _serving_kinds(ht, dev, smi)
+
+    # two replica processes on this card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    pool, router = None, None
+    try:
+        v1, v2 = os.path.join(tmp, "v1"), os.path.join(tmp, "v2")
+        server.save(v1)
+        pool = ReplicaPool(v1, 2, device="cuda", ready_timeout=300.0,
+                           env={"HEAT_TPU_SERVE_MAX_BATCH": "64"},
+                           log_dir=os.path.join(tmp, "logs"))
+        t = time.perf_counter()
+        pool.start()  # a replica that fails to start raises here
+        start_s = time.perf_counter() - t
+        replicas = [{"index": h.index, "ready_s": h.ready_s, "start_s": h.ready["start_s"],
+                     "restore_s": h.ready["restore_s"],
+                     "warmup_s": h.ready["warmup"]["seconds"],
+                     "kernel_builds": h.ready["kernel_builds"]} for h in pool.replicas]
+        check("serving replicas: neither replica compiled a kernel (the build directory is "
+              "shared)", all(r["kernel_builds"] == 0 for r in replicas), replicas=replicas)
+        router = Router(pool, retries=2, poll_ms=25.0, workers=8, request_timeout=60.0)
+        t = time.perf_counter()
+        routed = [fut.result(120) for fut in [router.submit("kmeans", p) for p in payloads[:256]]]
+        routed_s = time.perf_counter() - t
+        check("serving replicas: 256 routed answers equal the in-process server bit for bit",
+              all(np.asarray(a).tobytes() == b.tobytes() for a, b in zip(routed, answers)))
+        nets = [pool.stats(h.index)["net"] for h in pool.replicas]
+        check("serving replicas: both replicas served requests",
+              all(n["http_requests"] > 0 for n in nets), http=[n["http_requests"] for n in nets])
+        check("serving replicas: no build after warm-up in either replica",
+              all(n["steady_backend_compiles"] == 0 for n in nets),
+              steady=[n["steady_backend_compiles"] for n in nets])
+        km1 = ht.cluster.KMeans(n_clusters=k, max_iter=10, random_state=1).fit(data)
+        published = server.publish("kmeans", serve.kmeans_predict(km1))
+        check("serving: a same-shape publish builds nothing",
+              published["backend_compiles"] == 0 and published["version"] == 2,
+              publish=published)
+        want_v2 = [server.predict("kmeans", p) for p in payloads[:8]]
+        server.save(v2)
+        seen, errors, stop = [], [], threading.Event()
+
+        def traffic(i):
+            while not stop.is_set():
+                p = payloads[i % 8]
+                try:
+                    seen.append((i % 8, np.asarray(router.predict("kmeans", p, timeout=60))))
+                except Exception as e:  # noqa: BLE001 - counted and checked below
+                    errors.append(repr(e))
+                i += 1
+
+        threads = [threading.Thread(target=traffic, args=(j,), daemon=True) for j in range(4)]
+        for th in threads:
+            th.start()
+        rolled = streaming.rolling_update(pool, router, v2, drain_timeout=60.0)
+        stop.set()
+        for th in threads:
+            th.join(120.0)
+        valid = all(a.tobytes() in (answers[i].tobytes(), want_v2[i].tobytes())
+                    for i, a in seen)
+        check("serving replicas: no request failed during the roll, each answered by one "
+              "version or the other bit for bit",
+              not errors and valid and not any(th.is_alive() for th in threads),
+              errors=errors[:3], requests=len(seen))
+        check("serving replicas: the roll's drains exit 0 and the versions advance to 2",
+              [s["drain_rc"] for s in rolled["steps"]] == [0, 0]
+              and len(rolled["versions"]) == 2
+              and all(v == {"kmeans": 2} for v in rolled["versions"].values()),
+              roll=rolled)
+        after = [np.asarray(router.predict("kmeans", p, timeout=60)) for p in payloads[:8]]
+        nets = [pool.stats(h.index)["net"] for h in pool.replicas
+                if h.state == "up" and h.alive()]
+        check("serving replicas: after the roll, answers equal version 2 bit for bit and the "
+              "new replicas built nothing after warm-up",
+              all(a.tobytes() == b.tobytes() for a, b in zip(after, want_v2))
+              and all(n["steady_backend_compiles"] == 0 and n["kernel_builds"] == 0
+                      for n in nets))
+        replacements = [{"index": h.index, "ready_s": h.ready_s, "start_s": h.ready["start_s"],
+                         "warmup_s": h.ready["warmup"]["seconds"]}
+                        for h in pool.replicas if h.index >= 2]
+        report["replicas"] = {"start_s": start_s, "replicas": replicas,
+                              "routed_256_s": routed_s, "roll_s": rolled["seconds"],
+                              "roll_steps": rolled["steps"], "roll_requests": len(seen),
+                              "replacements": replacements}
+        emit({"phase": "serving replicas", **report["replicas"], "nvidia_smi": smi})
+    finally:
+        if router is not None:
+            router.close()
+        if pool is not None:
+            pool.close()
+        server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
 def main():
     import torch
 
@@ -3523,6 +4082,7 @@ def main():
     dp_launches = data_parallel_path(ht, dev, cfg)
     sp_launches = sequence_parallel_phase(ht, dev, time_ms)
     daso_phase(ht, dev)
+    serving = serving_path(ht, dev, smi)
     parallel_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     check("DataParallel and Ulysses launched K6, K7a and K7b",
           all(dp_launches[name] > 0 and sp_launches[name] > 0 for name in parallel_kernels),
@@ -3589,6 +4149,8 @@ def main():
                                       "bound_ms": stream_report["k2_bound_ms_a_chunk"]}
         if name == "lloyd":  # the streaming path: MiniBatchKMeans's windows
             row["streaming_path_launches"] = stream_report["minibatch"]["lloyd"]
+        if name in ("lloyd", "random"):  # the serving path's fit
+            row["serving_path_launches"] = serving["fit_launches"][name]
         if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
             row["spectral_path"] = spectral_rows[name]
             row["sparse_spectral_path"] = sparse_spectral_rows[name]

@@ -72,7 +72,17 @@ package has a Pallas kernel:
     kernel a chunk), ``streaming.MiniBatchKMeans`` (the Lloyd window on the
     Lloyd kernel), ``KMeans(checkpoint_every=...)``, and the substrate they
     stand on: ``resilience`` (checkpoints in the JAX package's format, the
-    memory budget), ``telemetry`` and the knob registry ``_knobs``.
+    memory budget), ``telemetry`` and the knob registry ``_knobs``;
+  - serving: ``serve.Server`` (the micro-batcher, the bucket ladder,
+    admission, ``publish``, ``save``/``restore``) over the eight endpoint
+    kinds, dispatched through ``core.program_cache``, a registry of CUDA
+    graphs (one captured per bucket at the warm-up, replayed after; an
+    endpoint's buckets share one set of parameter buffers), with
+    the fault injector and the guarded retries of ``resilience``
+    (``faults``, ``guard``, ``wrap_program``, ``memory_guard.preflight``)
+    and ``telemetry.CompileWatcher``; and the replica tier ``serve.net``
+    (the wire, ``HttpFront``, the replica process, ``ReplicaPool``,
+    ``Router``), which ``streaming.rolling_update`` rolls.
 """
 
 from . import telemetry
@@ -94,6 +104,7 @@ from . import nn
 from . import optim
 from . import interop
 from . import streaming
+from . import serve
 from ._build import launch_counts, reset_launch_counts
 from .core.version import version as __version__
 

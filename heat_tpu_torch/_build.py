@@ -33,6 +33,7 @@ __all__ = [
     "SOURCES",
     "build",
     "check",
+    "compiled_count",
     "count_launch",
     "launch_counts",
     "library",
@@ -53,6 +54,7 @@ NVCC_FLAGS = (
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_COMPILED = [0]  # sources this process compiled (0 when it found them built)
 
 
 class KernelBuildError(RuntimeError):
@@ -104,9 +106,15 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, targets[name])
+        _COMPILED[0] += 1
     if failed:
         raise KernelBuildError("CUDA build failed:\n" + "\n".join(failed))
     return targets
+
+
+def compiled_count() -> int:
+    """How many sources this process compiled with ``nvcc``."""
+    return _COMPILED[0]
 
 
 def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:

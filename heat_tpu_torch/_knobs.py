@@ -103,6 +103,90 @@ _register(
     "its backlog before the roll fails loudly.",
 )
 
+# -- the program cache and the guarded dispatch --------------------------------
+
+_register(
+    "HEAT_TPU_PROGRAM_CACHE", "int", 512,
+    "Max entries of the program registry (core/program_cache.py); the least "
+    "recently used entry, with its CUDA graphs, is evicted beyond it.",
+)
+_register(
+    "HEAT_TPU_RETRIES", "int", 0,
+    "Retry budget of a guarded dispatch for transient faults "
+    "(resilience/guard.py); 0 = retries off.",
+)
+_register(
+    "HEAT_TPU_RETRY_BASE", "float", 0.05,
+    "First retry backoff in seconds (doubles per attempt, jittered).",
+)
+_register(
+    "HEAT_TPU_RETRY_CAP", "float", 2.0,
+    "Retry backoff ceiling in seconds.",
+)
+_register(
+    "HEAT_TPU_FAULTS", "spec", None,
+    "Deterministic fault-injection spec installed at `import heat_tpu_torch` "
+    "(resilience/faults.py), e.g. `serve.*:kind=reset:calls=1`.",
+)
+
+# -- serving (serve/, serve/net/) ------------------------------------------------
+
+_register(
+    "HEAT_TPU_SERVE_MAX_BATCH", "int", 64,
+    "Top bucket of the serving micro-batch ladder (serve/server.py).",
+)
+_register(
+    "HEAT_TPU_SERVE_LADDER", "str", None,
+    "Explicit comma-separated bucket ladder; unset derives powers of two up "
+    "to the max batch.",
+)
+_register(
+    "HEAT_TPU_SERVE_MAX_WAIT_MS", "float", 2.0,
+    "Micro-batch gather window in milliseconds.",
+)
+_register(
+    "HEAT_TPU_SERVE_QUEUE_MAX", "int", 1024,
+    "Admission bound on pending serving requests (503-style shed beyond it).",
+)
+_register(
+    "HEAT_TPU_SERVE_EXACT", "bool", True,
+    "Batch-shape-stable serving forms (batched == solo bit for bit); `0` "
+    "selects the GEMM forms (TF32 off).",
+)
+_register(
+    "HEAT_TPU_SERVE_NET_PORT", "int", 0,
+    "HTTP listen port of a serving replica; 0 binds an ephemeral port, "
+    "printed in the replica's ready line.",
+)
+_register(
+    "HEAT_TPU_SERVE_NET_REPLICAS", "int", 2,
+    "Default replica-process count of serve.net.ReplicaPool.",
+)
+_register(
+    "HEAT_TPU_SERVE_NET_POLL_MS", "float", 25.0,
+    "Router /stats poll interval in milliseconds (least-loaded scores, "
+    "health probes of evicted replicas).",
+)
+_register(
+    "HEAT_TPU_SERVE_NET_RETRIES", "int", 2,
+    "Router sibling-retry cap after a 503 shed or a refused connection.",
+)
+_register(
+    "HEAT_TPU_AUTOSCALE_SPAWN_RETRIES", "int", 2,
+    "Extra attempts of ReplicaPool.spawn() after a replica dies during "
+    "warm-up (each failure reaped, with exponential backoff).",
+)
+_register(
+    "HEAT_TPU_TRACE_REQUESTS", "bool", True,
+    "Record request traces (serve/tracing.py) while telemetry records; "
+    "answers are the same bits either way.",
+)
+_register(
+    "HEAT_TPU_TRACE_SAMPLE", "float", 1.0,
+    "Ingress trace-sampling rate in [0, 1], decided once where the id is "
+    "minted.",
+)
+
 
 def raw(name: str, default: Optional[str] = None) -> Optional[str]:
     """The raw environment string of a registered knob (``default`` when

@@ -12,13 +12,22 @@ Live bytes are ``torch.cuda.memory_allocated()`` of the current card. On
 the CPU the port does not account its allocations, so live bytes are 0
 there.
 
-Not ported yet (ROADMAP §1 item 13): ``preflight`` and ``program_bytes``,
-which read XLA's compiled memory analysis, and the degradation ladder
-around them.
+:func:`program_bytes` and :func:`preflight` (:123-224 there) budget one
+dispatch of a program of the registry
+(:mod:`heat_tpu_torch.core.program_cache`) before it runs: live bytes plus
+the program's bytes against the budget. Where the JAX package reads XLA's
+memory analysis of the compiled executable, the port reads what the
+program's warm build took: on the card, the bytes its CUDA graph's private
+pool reserved, measured around the capture; on the CPU, the analytic
+``cost_bytes`` its caller registered (the serving endpoints' estimate).
+0 means unknown, and the budget then holds live bytes alone. The JAX
+package's first rung of degradation, the fusion window, has no counterpart
+yet (item 13's fusion); the port collects garbage and measures again.
 """
 
 from __future__ import annotations
 
+import gc
 import re
 from typing import Optional, Tuple
 
@@ -30,6 +39,8 @@ __all__ = [
     "budget_bytes",
     "headroom",
     "live_bytes",
+    "preflight",
+    "program_bytes",
     "temp_budget",
 ]
 
@@ -37,8 +48,8 @@ __all__ = [
 class HeatTpuRuntimeError(RuntimeError):
     """A dispatch failed for good. Carries the ``site`` that failed, the
     ``attempts`` made and ``hints`` for the remedy (also in the message);
-    the JAX package's ``resilience.guard`` error, which that module's port
-    will raise."""
+    the JAX package's ``resilience.guard`` error, which
+    :func:`heat_tpu_torch.resilience.guard.guarded_call` raises."""
 
     def __init__(self, message: str, *, site: Optional[str] = None,
                  attempts: Optional[list] = None, hints: Optional[list] = None):
@@ -100,3 +111,46 @@ def temp_budget(default: int = 1 << 28) -> int:
     if b is None:
         return default
     return max(1 << 20, min(default, b // 4))
+
+
+def program_bytes(fn, args: tuple) -> int:
+    """Bytes of one dispatch of the registry program ``fn`` (the wrapped
+    callable, or the program itself) on ``args``: what its warm build of
+    this signature reserved on the card, or its registered analytic bytes
+    on the CPU; 0 when unknown (not built yet, or not a registry program)."""
+    program = getattr(fn, "__wrapped__", fn)
+    measure = getattr(program, "program_bytes", None)
+    return int(measure(args)) if measure is not None else 0
+
+
+def preflight(site: str, fn, args: tuple) -> None:
+    """The budget check before one guarded dispatch: a no-op without a
+    budget; when live bytes plus the program's bytes exceed it, collect
+    garbage and measure again, then raise :class:`HeatTpuMemoryError`."""
+    budget = budget_bytes()
+    if budget is None:
+        return
+    need = program_bytes(fn, args)
+    live = live_bytes()
+    if live + need <= budget:
+        return
+    from .. import telemetry
+
+    if telemetry.enabled():
+        reg = telemetry.get_registry()
+        reg.add("resilience.memory_pressure", 1)
+        reg.emit("resilience", site, event="memory_pressure", live_bytes=live,
+                 program_bytes=need, budget=budget)
+    gc.collect()  # drop dead references that pin device memory
+    live = live_bytes()
+    if live + need <= budget:
+        return
+    if telemetry.enabled():
+        telemetry.flush("memory_escalation")
+    raise HeatTpuMemoryError(
+        f"pre-flight memory budget exceeded at site {site!r}: live {live:,} B + program "
+        f"{need:,} B > HEAT_TPU_HBM_BUDGET {budget:,} B (after gc)",
+        site=site,
+        hints=["raise HEAT_TPU_HBM_BUDGET or unset it to disable pre-flight budgeting",
+               "shard the operand over more devices (resplit) so the live bytes a card drop",
+               "chunk the workload along the batch axis"])

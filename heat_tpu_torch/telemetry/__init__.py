@@ -11,10 +11,17 @@ its outputs, so it times device work and not the enqueue.
 Disabled (the default), every hook is one module-flag check: ``span()``
 returns a shared no-op object and the call sites build no fields.
 
-Not ported yet (ROADMAP §1 item 13): ``CompileWatcher``, ``measure_compile``,
-``op_cost`` and the JAX monitoring listener, which have no torch
-counterpart so far, and the submodules (``collectives``, ``hlo``,
-``memory``, ``report``, ``trace``, ``cluster``).
+:class:`CompileWatcher` and :func:`measure_compile` (:476-546 there)
+count and time the builds of the port's program registry
+(:mod:`heat_tpu_torch.core.program_cache`) under the JAX package's field
+names: a build is the capture of a CUDA graph on the card and the first
+call of an input signature on the CPU, each reported by the registry
+through :func:`record_build` as one ``backend_compile_duration`` event.
+There is no JAX monitoring listener to install.
+
+Not ported yet (ROADMAP §1 item 13): ``op_cost`` and the submodules
+(``collectives``, ``hlo``, ``memory``, ``report``, ``trace``,
+``cluster``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import IO, Any, Dict, Iterable, List, Optional, Union
 from .. import _knobs as knobs
 
 __all__ = [
+    "CompileWatcher",
     "Span",
     "Telemetry",
     "disable",
@@ -36,6 +44,8 @@ __all__ = [
     "enabled",
     "flush",
     "get_registry",
+    "measure_compile",
+    "record_build",
     "span",
     "trace_event",
 ]
@@ -310,6 +320,91 @@ def trace_event(name: str, **fields: Any) -> None:
     reg = get_registry()
     reg.add(f"traced.{name}", 1)
     reg.emit("collective_trace", name, **fields)
+
+
+# -- builds of the program registry ------------------------------------------
+
+# the stage name of one build, the JAX package's backend-compile event
+BUILD_STAGE = "backend_compile_duration"
+_ACTIVE_WATCHERS: List["CompileWatcher"] = []
+_WATCHERS_LOCK = threading.Lock()
+
+
+def record_build(site: str, seconds: float) -> None:
+    """Report one build of a registry program (a graph capture on the
+    card, a first call of a signature on the CPU) to every open
+    :class:`CompileWatcher`, and as a ``compile`` event while enabled."""
+    with _WATCHERS_LOCK:
+        watchers = list(_ACTIVE_WATCHERS)
+    for w in watchers:
+        w._record(BUILD_STAGE, seconds)
+    if _ENABLED:
+        reg = get_registry()
+        reg.add(f"compile.{BUILD_STAGE}", seconds)
+        reg.emit("compile", "backend_compile", seconds=seconds, site=site)
+
+
+class CompileWatcher:
+    """Count and time the builds of the program registry made, on any
+    thread, while the context is open (whether or not telemetry records).
+    ``backend_compiles`` is the number of builds: 0 over a steady state
+    that only replays warm programs."""
+
+    def __init__(self):
+        self.stages: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.events = 0
+        self._lock = threading.Lock()
+
+    @property
+    def seconds(self) -> float:
+        """Build seconds observed (all stages)."""
+        return sum(self.stages.values())
+
+    @property
+    def backend_seconds(self) -> float:
+        return self.stages.get(BUILD_STAGE, 0.0)
+
+    @property
+    def backend_compiles(self) -> int:
+        """Builds in the window."""
+        return self.counts.get(BUILD_STAGE, 0)
+
+    def _record(self, stage: str, secs: float) -> None:
+        with self._lock:
+            self.stages[stage] += secs
+            self.counts[stage] += 1
+            self.events += 1
+
+    def __enter__(self) -> "CompileWatcher":
+        with _WATCHERS_LOCK:
+            _ACTIVE_WATCHERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        with _WATCHERS_LOCK:
+            if self in _ACTIVE_WATCHERS:
+                _ACTIVE_WATCHERS.remove(self)
+        return False
+
+
+def measure_compile(fn, *args, **kwargs):
+    """Build ``fn`` for ``args`` and time it: ``(seconds, program)``, where
+    ``program`` is a :class:`heat_tpu_torch.core.program_cache.Program`
+    outside the registry and the seconds cover the first call of this
+    signature, its build (on the card the capture, which runs the program
+    as a CUDA graph's capture must; on the CPU the call itself)."""
+    from ..core.program_cache import Program
+
+    program = fn if isinstance(fn, Program) else Program(getattr(fn, "__name__", "measure"), fn)
+    if kwargs:
+        raise TypeError("measure_compile: a registry program takes positional tensors only")
+    t0 = time.perf_counter()
+    program(*args)
+    dt = time.perf_counter() - t0
+    if _ENABLED:
+        get_registry().emit("compile", program.site, seconds=dt, mode="aot")
+    return dt, program
 
 
 if knobs.get("HEAT_TPU_TELEMETRY"):

@@ -1753,3 +1753,142 @@ def test_nccl_stream_ranks_match_world_of_one(dev, tmp_path):
     htt.use_device(None)
     want = ns["run"](htt, dev)
     _hold_stream_ranks(ranks, want)
+
+
+# -- the program registry's CUDA graphs and the serving forms (card only) ---------------
+
+
+def test_program_cache_captures_replays_and_copies_only_what_changed(dev):
+    """A registry program on card tensors: the first call of a signature
+    captures a CUDA graph (one build), later calls replay it (none); a
+    card tensor passed again unchanged is not copied, one changed in place
+    (its version counter moves) or replaced is, a host tensor is copied on
+    every call; each result is a clone that
+    the next replay leaves alone; ``program_bytes`` reads the graph's pool;
+    a program that synchronises cannot be captured and raises naming its
+    site."""
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.core import program_cache as pc
+    from heat_tpu_torch.resilience import memory_guard
+
+    pc.reset()
+    w = torch.randn(64, 32, device=dev)
+    prog = pc.cached_program("t.graph", 0, lambda: lambda x, w: torch.relu(x @ w) + 1.0)
+    x1 = torch.randn(16, 64)  # a host batch: copied into the graph's input
+    with telemetry.CompileWatcher() as cw:
+        out1 = prog(x1, w)
+    assert cw.backend_compiles == 1
+    assert memory_guard.program_bytes(prog, (x1, w)) > 0
+    graph = next(iter(prog.__wrapped__._graphs.values()))
+    x2 = torch.randn(16, 64)
+    with telemetry.CompileWatcher() as cw:
+        out2 = prog(x2, w)
+    assert cw.backend_compiles == 0
+    assert graph.last[1][0] is w and graph.last[0] is None  # the host batch: always copied
+    torch.testing.assert_close(out1, torch.relu(x1.to(dev) @ w) + 1.0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out2, torch.relu(x2.to(dev) @ w) + 1.0, rtol=0, atol=1e-5)
+    assert not torch.equal(out1, out2)  # the second replay left the first clone alone
+    w.mul_(2.0)
+    torch.testing.assert_close(prog(x2, w), torch.relu(x2.to(dev) @ w) + 1.0, rtol=0, atol=1e-5)
+    w2 = torch.randn(64, 32, device=dev)
+    torch.testing.assert_close(prog(x2, w2), torch.relu(x2.to(dev) @ w2) + 1.0, rtol=0,
+                               atol=1e-5)
+    bad = pc.cached_program("t.sync", 0, lambda: lambda x: x * x.sum().item())
+    with pytest.raises(RuntimeError, match="t.sync"):
+        bad(torch.ones(4, device=dev))
+    pc.reset()
+
+
+def test_program_cache_shares_parameters_and_recopies_host_tensors(dev):
+    """The programs of one parameter set (``params_from``, ``params_key``)
+    read one set of static parameter buffers on the card, copied into once
+    a change; a host tensor refilled through numpy (its version counter
+    does not move) gives the new answer; ``tf32=False`` captures the
+    product with TF32 off (within f32 rounding of float64) and restores
+    the caller's flag."""
+    from heat_tpu_torch.core import program_cache as pc
+
+    pc.reset()
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)).to(dev)
+
+    def make():
+        return lambda x, w: x @ w
+
+    progs = {b: pc.cached_program("t.shared", b, make, params_from=1, params_key="w", tf32=False)
+             for b in (4, 16)}
+    stage = torch.from_numpy(np.zeros((4, 256), np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for b, prog in progs.items():
+            prog(torch.zeros(b, 256), w)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    p4, p16 = progs[4].__wrapped__, progs[16].__wrapped__
+    assert p4.shared is p16.shared and p4.param_bytes() == w.numel() * 4
+    assert p4.shared.static[0].data_ptr() == p16.shared.static[0].data_ptr()
+    for fill in (1.0, 2.0, 3.0):
+        stage.numpy()[:] = rng.standard_normal((4, 256)).astype(np.float32) * fill
+        got = progs[4](stage, w).double()
+        want = stage.double().to(dev) @ w.double()
+        bound = 256 * 2.0 ** -24 * (stage.double().abs().to(dev) @ w.double().abs())
+        assert bool(((got - want).abs() <= bound).all()), "stale batch or a TF32 product"
+    w2 = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)).to(dev)
+    x16 = torch.from_numpy(rng.standard_normal((16, 256)).astype(np.float32))
+    torch.testing.assert_close(progs[16](x16, w2), x16.to(dev) @ w2, rtol=1e-5, atol=1e-4)
+    assert p4.shared.last[0][0] is w2
+    torch.testing.assert_close(progs[4](stage, w), stage.to(dev) @ w, rtol=1e-5, atol=1e-4)
+    pc.reset()
+
+
+def test_serve_exact_forms_batched_equal_solo_on_card(dev):
+    """Every endpoint kind on the card in exact mode: a request inside a
+    padded coalesced bucket is the same bits as alone (the halving-tree
+    sums), and the answers agree with the same endpoints on the CPU within
+    f32 rounding (labels on separated blobs exactly)."""
+    from heat_tpu_torch import serve
+
+    rng = np.random.default_rng(0)
+    protos = rng.standard_normal((4, 32)) * 8
+    xt = (protos[rng.integers(0, 4, 400)] + rng.standard_normal((400, 32))).astype(np.float32)
+    labels = rng.integers(0, 4, 400)
+    w = rng.standard_normal((32, 8)).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    eps = {
+        "km": lambda d: serve.Endpoint("kmeans_predict", [protos.astype(np.float32)],
+                                       features=32, dtype=np.float32, device=d),
+        "knn": lambda d: serve.Endpoint("knn_classify", [xt, labels, np.arange(4)], {"k": 5},
+                                        features=32, dtype=np.float32, device=d),
+        "gnb": lambda d: serve.Endpoint("gaussian_nb_predict",
+                                        [protos, np.ones((4, 32)), np.full(4, 0.25),
+                                         np.arange(4)], features=32, dtype=np.float64, device=d),
+        "lasso": lambda d: serve.Endpoint("lasso_predict", [w[:, 0], np.float32(0.5)],
+                                          features=32, dtype=np.float32, device=d),
+        "cdist": lambda d: serve.cdist_query(xt[:64], device=d),
+        "rbf": lambda d: serve.rbf_query(xt[:64], sigma=4.0, device=d),
+        "dense": lambda d: serve.dense_forward(w, b, activation="tanh", device=d),
+        "sparse": lambda d: serve.sparse_query(w, b, activation="relu", device=d),
+    }
+    for name, make in eps.items():
+        dtype = np.float64 if name == "gnb" else np.float32
+        payloads = []
+        for r in (1, 3, 2, 7, 1, 5):
+            q = (protos[rng.integers(0, 4, r)] + rng.standard_normal((r, 32))).astype(dtype)
+            if name == "sparse":
+                q[rng.random(q.shape) < 0.7] = 0
+            payloads.append(q)
+        with serve.Server(max_batch=16, max_wait_ms=20.0) as card, \
+                serve.Server(max_batch=16) as cpu:
+            card.register("e", make("cuda"))
+            cpu.register("e", make("cpu"))
+            card.warmup()
+            solo = [card.predict("e", q) for q in payloads]
+            batched = [f.result(60) for f in [card.submit("e", q) for q in payloads]]
+            for s, bt, q in zip(solo, batched, payloads):
+                assert s.tobytes() == bt.tobytes(), name
+                ref = cpu.predict("e", q)
+                if name in ("km", "knn", "gnb"):
+                    np.testing.assert_array_equal(s, ref)
+                else:
+                    np.testing.assert_allclose(s, ref, rtol=1e-5, atol=1e-5)
