@@ -130,6 +130,27 @@ Phases, each printing JSON lines:
      requests bit for bit, both serving, nothing built after warm-up, no
      kernel compiled) and a rolling update onto a published version 2
      under traffic with no failed request.
+ 13. data and observability: the array path (3) again under
+     telemetry.enable(sink), a span a stage: the Chrome trace exported and
+     checked, report.summarize's phases live and replayed from the sink,
+     memory.watermark()'s peak against torch.cuda.max_memory_allocated, the
+     results bit for bit those of an unrecorded run, and the path's wall
+     with telemetry on and off in turns (the cost of recording); bench.py's
+     kmeans_1b row (2^24 x 64 f32, k = 64, 10 passes: the fit's wall, K4's
+     time a pass against a one-read bound, the centers against a float64
+     Lloyd from the same start); after serving, the data path: the bundled
+     iris through KMeans(3) (K4) and GaussianNB against the CPU, the Parter
+     matrix's singular values at pi, the LM at full width under
+     nn.DataParallel fed by DataLoader over a (512, 1024) token Dataset (two
+     epochs of four steps, ishuffle off and on: the second epoch's order the
+     threefry permutation, launches a step, each step's wall), and a
+     4,000,000 x 64 f32 file streamed by PartialDataLoaderIter in batches of
+     65,536 (PartialH5Dataset where h5py is installed, else PartialDataset
+     over a .npy memory map: rows/s, the loader thread's reading, the
+     consumer's waiting and the card's time, column sums against numpy in
+     float64); on four or more cards the collective audit (ring cdist, qr,
+     resplit on four NCCL ranks, each DriftReport), else a line saying why
+     it did not run.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -2757,6 +2778,439 @@ def serving_path(ht, dev, smi):
     return report
 
 
+# ------------------------------------------------------------------ data and observability
+
+OBS_TURNS = 3  # telemetry on and off, in turns, this many times each
+KMEANS_1B = (1 << 24, 64, 64, 10)  # bench.py:423-437: rows, features, k, iterations
+TOKENS = (512, 1024)  # the token dataset of the data path (rows of tokens)
+DATA_STEPS = (2, 4)  # epochs, steps an epoch
+STREAM_ROWS = (4_000_000, 64, 65_536, 500_000)  # rows, columns, batch, window
+
+
+def observability_path(ht, dev, xm_t, xc_t, xk_t):
+    """The array path at bench.py's sizes under ``telemetry.enable(sink)``:
+    a span a stage (the cdist kernel's own ``pallas_cdist`` span inside
+    its stage), the registry's events exported as a Chrome trace and checked
+    (every slice with ``ph``, ``ts``, ``dur``, ``pid`` and ``tid``,
+    timestamps not decreasing), ``report.summarize``'s phases, and
+    ``memory.watermark()``'s peak against ``torch.cuda.max_memory_allocated``.
+    Then the same path's wall with telemetry on and off in turns, as the
+    cost of recording; the results with it on equal those with it off, bit
+    for bit. Returns the kernels' launches of one recorded run."""
+    import torch
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.telemetry import memory, report as treport
+
+    def run():
+        with telemetry.span("moments", gshape=list(xm_t.shape)) as sp:
+            y = ht.array(xm_t, split=0) * 2 + 1
+            mom = (ht.mean(y, axis=0), ht.var(y, axis=0), ht.std(y, axis=0))
+            sp.output([m.larray for m in mom])
+        with telemetry.span("cdist", gshape=[xc_t.shape[0], xc_t.shape[0]]) as sp:
+            xc = ht.array(xc_t, split=0)
+            dist = sp.output(ht.spatial.cdist(xc, xc, quadratic_expansion=True))
+        with telemetry.span("kmeans", gshape=list(xk_t.shape), k=64) as sp:
+            km = ht.cluster.KMeans(n_clusters=64, init="random", max_iter=50, tol=0.0,
+                                   random_state=1).fit(ht.array(xk_t, split=0))
+            sp.output(km.cluster_centers_)
+        torch.cuda.synchronize()
+        return mom, dist, km
+
+    tmp = tempfile.mkdtemp(prefix="heat_tpu_torch_obs_")
+    sink = os.path.join(tmp, "events.jsonl")
+    reg = telemetry.get_registry()
+    reg.clear()
+    run()  # warm, not recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    ht.reset_launch_counts()
+    telemetry.enable(sink)
+    t = time.perf_counter()
+    mom_on, dist_on, km_on = run()
+    first_wall = (time.perf_counter() - t) * 1e3
+    launches = dict(ht.launch_counts())
+    t = time.perf_counter()
+    snap = memory.watermark("array path")
+    watermark_ms = (time.perf_counter() - t) * 1e3
+    peak_alloc = torch.cuda.max_memory_allocated(dev)
+    telemetry.disable()
+    trace_path = telemetry.export_trace(os.path.join(tmp, "trace.json"))
+    summary = treport.summarize()
+    replay = treport.summarize(treport.load_events(sink), dict(reg.watermarks))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    rows = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    complete = all({"ph", "ts", "pid", "tid"} <= set(e) and (e["ph"] != "X" or "dur" in e)
+                   for e in doc["traceEvents"])
+    ts = [e["ts"] for e in rows]
+    spans = {e["name"] for e in rows if e["ph"] == "X"}
+    mom_off, dist_off, km_off = run()
+    same = (all(torch.equal(a.larray, b.larray) for a, b in zip(mom_on, mom_off))
+            and torch.equal(dist_on.larray, dist_off.larray)
+            and torch.equal(km_on.cluster_centers_.larray, km_off.cluster_centers_.larray))
+    del mom_on, dist_on, km_on, mom_off, dist_off, km_off
+    walls = {"on": [], "off": []}
+    for _ in range(OBS_TURNS):
+        for mode in ("on", "off"):
+            if mode == "on":
+                reg.clear()
+                telemetry.enable()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run()
+            walls[mode].append((time.perf_counter() - t) * 1e3)
+            telemetry.disable()
+            del out
+    reg.clear()
+    on, off = sorted(walls["on"])[OBS_TURNS // 2], sorted(walls["off"])[OBS_TURNS // 2]
+    stats = snap.get("device_stats", {}).get("cuda:0", {})
+    emit({"phase": "observability path", "first_recorded_wall_ms": first_wall,
+          "launches": launches, "phases": summary["phases"], "events": summary["events"],
+          "trace_slices": len(rows), "span_names": sorted(spans),
+          "watermark": {"live_bytes_total": snap["total"], "arrays": snap["arrays"],
+                        "peak_bytes_in_use": stats.get("peak_bytes_in_use"),
+                        "torch_max_memory_allocated": peak_alloc, "probe_ms": watermark_ms},
+          "wall_ms": walls, "median_wall_ms": {"on": on, "off": off},
+          "recording_overhead": (on - off) / off})
+    check("observability: the trace is well formed",
+          complete and ts == sorted(ts) and ts and ts[0] >= 0
+          and {"moments", "cdist", "kmeans", "pallas_cdist"} <= spans,
+          slices=len(rows), spans=sorted(spans))
+    check("observability: the summary has the path's phases, live and replayed",
+          set(summary["phases"]) == {"moments", "cdist", "kmeans"}
+          and summary["phases"] == replay["phases"], phases=summary["phases"])
+    check("observability: the watermark's peak is the allocator's",
+          stats.get("peak_bytes_in_use") == peak_alloc and snap["total"] > 0,
+          peak_bytes_in_use=stats.get("peak_bytes_in_use"), max_memory_allocated=peak_alloc)
+    check("observability: recorded results equal unrecorded, bit for bit", same)
+    check("observability: the recorded path launched K2, K3, K4 and threefry",
+          all(launches[k] > 0 for k in ARRAY_PATH), launches=launches)
+    return {k: launches[k] for k in ARRAY_PATH}
+
+
+def kmeans_1b_row(ht, dev, time_ms):
+    """bench.py's kmeans_1b row (bench.py:423-437), never run on the card
+    before: 2^24 x 64 f32 (4.3 GB) from ht.random, KMeans(64, init="random",
+    max_iter=10, tol=0, random_state=1). The fit's wall, K4's time a pass
+    against its bound (one read of the data), the launches; the centers
+    after the fit against a float64 Lloyd on the card from the same initial
+    centers over the same data."""
+    import torch
+    from heat_tpu_torch.cluster.cuda_lloyd import lloyd_update, lloyd_update_plain
+
+    n, d, k, iters = KMEANS_1B
+    ht.random.seed(0)
+    x = ht.random.randn(n, d, split=0)
+    torch.cuda.synchronize()
+    est = ht.cluster.KMeans(n_clusters=k, init="random", max_iter=iters, tol=0.0, random_state=1)
+    c0 = est._initialize_cluster_centers(x).clone()
+    ht.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    km = ht.cluster.KMeans(n_clusters=k, init="random", max_iter=iters, tol=0.0,
+                           random_state=1).fit(x)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = {name: ht.launch_counts()[name] for name in ("lloyd", "random")}
+    xt = x.larray
+    pass_ms = time_ms(lambda: lloyd_update(xt, c0), 5)
+    s_k, n_k = lloyd_update(xt, c0)
+    s_p, n_p = lloyd_update_plain(xt, c0)
+    max_abs = (s_k - s_p).abs().max().item()
+    bound_ms, bound_by = bound(n * d * 4 + 2 * k * d * 4 + k * 4, 3 * 2 * n * k * d,
+                               TF32_FLOPS_PER_S)
+    # the float64 Lloyd from the same centers, in row blocks of 2^22
+    c = c0.double()
+    for _ in range(iters):
+        sums = torch.zeros((k, d), dtype=torch.float64, device=dev)
+        counts = torch.zeros(k, dtype=torch.float64, device=dev)
+        for lo in range(0, n, 1 << 22):
+            xb = xt[lo:lo + (1 << 22)].double()
+            lab = ((c * c).sum(1)[None, :] - 2.0 * (xb @ c.T)).argmin(1)
+            sums.index_add_(0, lab, xb)
+            counts += torch.bincount(lab, minlength=k).double()
+            del xb, lab
+        c = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1)[:, None], c)
+    got = km.cluster_centers_.larray.double()
+    err = (got - c).abs().max().item()
+    scale = c.abs().max().item()
+    emit({"phase": "kmeans_1b", "shape": [n, d], "k": k, "iterations": km.n_iter_,
+          "fit_wall_s": fit_s, "launches": launches, "k4_pass_ms": pass_ms,
+          "k4_pass_bound_ms": bound_ms, "k4_pass_bound_by": bound_by,
+          "k4_share_of_bound": bound_ms / pass_ms, "k4_vs_plain_max_abs_err": max_abs,
+          "k4_vs_plain_count_diff": int((n_k - n_p).abs().sum().item()),
+          "centers_max_abs_err_vs_float64": err, "centers_max_abs": scale})
+    # near-tie rows (two centers within the f32 error of a score) may take
+    # either label in f32 and float64 and move a center by |x| / count
+    # (~1e-5 at 262,144 rows a center); 1e-3 of the centers' scale covers a
+    # hundred such moves a center over the ten passes
+    check("kmeans_1b: centers vs a float64 Lloyd from the same start",
+          km.n_iter_ == iters and err <= 1e-3 * scale,
+          max_abs_err=err, centers_scale=scale, tolerance="1e-3 of max |center|")
+    check("kmeans_1b: K4 launched once a pass", launches["lloyd"] == iters, launches=launches)
+    del x, xt, km, est, c0, s_k, n_k, s_p, n_p
+    return {"launches": launches, "kernel_ms": pass_ms, "bound_ms": bound_ms, "fit_s": fit_s}
+
+
+def data_path(ht, dev, cfg):
+    """The data modules on the card: the bundled iris through KMeans(3) (K4)
+    and GaussianNB, each equal to the same calls on the CPU; the Parter
+    matrix's singular values at pi; bench.py's LM at full width trained
+    through nn.DataParallel on batches of a token Dataset from DataLoader
+    (two epochs of four steps, ishuffle off and on: the second epoch's order
+    the threefry permutation, K6/K7a/K7b launches a step against the layer
+    count, each step's wall); a 4,000,000 x 64 f32 file streamed by
+    PartialDataset batches of 65,536 rows (rows/s, the loader thread's
+    reading and waiting against the card's time, column sums against numpy
+    in float64). Returns the kernels' launches of the path."""
+    import numpy as np
+    import torch
+    from heat_tpu_torch.core import _threefry
+
+    total = {}
+
+    def add(counts):
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+
+    # ------------------------------------------------------------ iris
+    ht.reset_launch_counts()
+    X, y = ht.datasets.load_iris()
+    Xc, yc = ht.datasets.load_iris(device="cpu")
+    init = X.numpy()[[0, 50, 100]]
+    km = ht.cluster.KMeans(n_clusters=3, init=ht.array(init), max_iter=50).fit(X)
+    kmc = ht.cluster.KMeans(n_clusters=3, init=ht.array(init, device="cpu"), max_iter=50).fit(Xc)
+    Xtr, Xte, ytr, yte = ht.datasets.load_iris_split()
+    acc = float((ht.naive_bayes.GaussianNB().fit(Xtr, ytr).predict(Xte).numpy()
+                 == yte.numpy()).mean())
+    Ctr, Cte, ctr, cte = ht.datasets.load_iris_split(device="cpu")
+    acc_cpu = float((ht.naive_bayes.GaussianNB().fit(Ctr, ctr).predict(Cte).numpy()
+                     == cte.numpy()).mean())
+    iris_launches = dict(ht.launch_counts())
+    add(iris_launches)
+    same_labels = np.array_equal(km.labels_.numpy(), kmc.labels_.numpy())
+    c_err = float(np.abs(km.cluster_centers_.numpy() - kmc.cluster_centers_.numpy()).max())
+    emit({"phase": "data path: iris", "card": X.larray.is_cuda, "kmeans_n_iter": km.n_iter_,
+          "centers_max_abs_err_vs_cpu": c_err, "gaussian_nb_accuracy": acc,
+          "gaussian_nb_accuracy_cpu": acc_cpu, "launches": iris_launches})
+    check("data path: iris KMeans on the card equals the CPU's", X.larray.is_cuda and same_labels
+          and c_err <= 1e-5 and iris_launches["lloyd"] > 0, centers_max_abs_err=c_err,
+          tolerance=1e-5)
+    check("data path: iris GaussianNB accuracy equals the CPU's", acc == acc_cpu and acc > 0.9,
+          accuracy=acc, cpu=acc_cpu)
+
+    # ---------------------------------------------------------- Parter
+    t = time.perf_counter()
+    P = ht.utils.data.matrixgallery.parter(4096)
+    s = ht.linalg.svd(P, compute_uv=False)
+    sv = s.larray.double()
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t
+    sv64 = torch.linalg.svdvals(P.larray.double())
+    near = int(((sv - np.pi).abs() < 1e-2).sum())
+    rel = ((sv.sort(descending=True).values - sv64) / sv64).abs().max().item()
+    emit({"phase": "data path: parter", "n": 4096, "svd_s": svd_s, "near_pi": near,
+          "largest": sv.max().item(), "rel_err_vs_float64": rel})
+    check("data path: Parter's singular values cluster at pi", near >= 4000 and rel <= 1e-4,
+          near_pi=near, rel_err=rel, tolerance={"near": "|s - pi| < 1e-2 for >= 4000 of 4096",
+                                                "rel": 1e-4})
+    del P, s, sv, sv64
+
+    # ------------------------------------------------ the LM through DataLoader
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    tokens = np.random.default_rng(3).integers(0, vocab, TOKENS).astype(np.int64)
+    perm = _threefry.permutation(_threefry.split(_threefry.prng_key(0))[1], TOKENS[0]).numpy()
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    lm_loss = _lm_loss(vocab)
+    epochs, steps = DATA_STEPS
+    runs = {}
+    for ishuffle in (False, True):
+        model = ht.nn.TransformerLM(**dict(cfg, attn_impl="flash", dtype=torch.bfloat16,
+                                           remat=True, flash_bwd_impl="two_pass"),
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+        dp = ht.nn.DataParallel(model, optimizer=opt, blocking_parameter_updates=True)
+        step = dp.make_train_step(lm_loss)
+        data = ht.utils.data.Dataset(ht.array(tokens, split=0), ishuffle=ishuffle)
+        loader = ht.utils.data.DataLoader(data, batch_size=8, shuffle=True)
+        walls, losses, counts, order = [], [], [], []
+        for epoch in range(epochs):
+            for i, (xb,) in enumerate(loader):
+                if i == steps:
+                    break
+                (tb,) = dp.shard_batch(xb)
+                order.append(tb[:, :4].cpu().numpy())
+                ht.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, _, loss = step(model, opt, tb)
+                losses.append(loss.item())
+                walls.append((time.perf_counter() - t) * 1e3)
+                c = {name: ht.launch_counts()[name] for name in per_step}
+                counts.append(c)
+                add(c)
+        rows = np.concatenate(order)
+        want = np.concatenate([tokens[:8 * steps, :4], tokens[perm[:8 * steps], :4]])
+        runs["ishuffle" if ishuffle else "blocking"] = {
+            "step_wall_ms": walls, "losses": losses, "launches_per_step": counts,
+            "order_is_threefry": bool(np.array_equal(rows, want))}
+        del model, opt, dp, step, data, loader
+    emit({"phase": "data path: LM through DataLoader", "tokens": list(TOKENS), "batch": 8,
+          "epochs": epochs, "steps_an_epoch": steps, "runs": runs})
+    for name, r in runs.items():
+        check(f"data path: LM {name}: the second epoch's order is the threefry permutation",
+              r["order_is_threefry"])
+        check(f"data path: LM {name}: launches a step match the layer count",
+              all(c == per_step for c in r["launches_per_step"]) and
+              all(np.isfinite(r["losses"])), launches=r["launches_per_step"], want=per_step)
+
+    # ------------------------------------------------------ the stream
+    rows_n, cols, bs, win = STREAM_ROWS
+    tmp = tempfile.mkdtemp(prefix="heat_tpu_torch_stream_")
+    rng = np.random.default_rng(4)
+    try:
+        import h5py  # noqa: F401
+        have_h5 = True
+    except ImportError:
+        have_h5 = False
+    t = time.perf_counter()
+    if have_h5:
+        import h5py
+
+        path = os.path.join(tmp, "data.h5")
+        with h5py.File(path, "w") as f:
+            dset = f.create_dataset("data", (rows_n, cols), dtype="f4")
+            for lo in range(0, rows_n, 1_000_000):
+                dset[lo:lo + 1_000_000] = rng.standard_normal((1_000_000, cols), np.float32)
+        ds = ht.utils.data.PartialH5Dataset(path, initial_load=win, load_length=win)
+    else:
+        path = os.path.join(tmp, "data.npy")
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(rows_n, cols))
+        for lo in range(0, rows_n, 1_000_000):
+            mm[lo:lo + 1_000_000] = rng.standard_normal((1_000_000, cols), np.float32)
+        mm.flush()
+        del mm
+        ds = ht.utils.data.PartialDataset({"data": np.load(path, mmap_mode="r")},
+                                          initial_load=win, load_length=win)
+    write_s = time.perf_counter() - t
+    sums = torch.zeros(cols, dtype=torch.float64, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    card_ms, n_batches = 0.0, 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for (b,) in ht.utils.data.PartialDataLoaderIter(ds, bs, shuffle=False):
+        start.record()
+        sums += b.larray.double().sum(0)
+        end.record()
+        end.synchronize()
+        card_ms += start.elapsed_time(end)
+        n_batches += 1
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    covered = n_batches * bs
+    src = np.load(path, mmap_mode="r") if not have_h5 else None
+    if have_h5:
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            want = sum(f["data"][lo:min(lo + 1_000_000, covered)].astype(np.float64).sum(0)
+                       for lo in range(0, covered, 1_000_000))
+    else:
+        want = sum(np.asarray(src[lo:min(lo + 1_000_000, covered)], np.float64).sum(0)
+                   for lo in range(0, covered, 1_000_000))
+    got = sums.cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if have_h5:
+        ds.close()
+    del src
+    stats = dict(ds.stats)
+    emit({"phase": "data path: partial dataset", "format": "hdf5" if have_h5 else "npy memmap",
+          "note": None if have_h5 else "h5py is not installed here: PartialDataset over a "
+                                       ".npy memory map (PartialH5Dataset opens the file with "
+                                       "h5py and streams the same way)",
+          "rows": rows_n, "columns": cols, "batch": bs, "window": win, "write_s": write_s,
+          "batches": n_batches, "wall_s": wall_s, "rows_per_s": covered / wall_s,
+          "loader_read_s": stats["read_seconds"], "consumer_wait_s": stats["wait_seconds"],
+          "card_ms": card_ms, "colsum_rel_err_vs_numpy_f64": rel})
+    check("data path: stream column sums vs numpy in float64",
+          n_batches == rows_n // bs and rel <= 1e-5, rel_err=rel, tolerance=1e-5)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+_AUDIT_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+import heat_tpu_torch as ht
+from heat_tpu_torch.telemetry import hlo
+ht.use_device("gpu")
+rng = np.random.default_rng(0)
+x = rng.standard_normal((16384, 128)).astype(np.float32)
+t = rng.standard_normal((1_000_000, 256)).astype(np.float32)
+out = {}
+for name, call in (
+        ("ring_cdist", lambda: ht.spatial.cdist(ht.array(x, split=0), ht.array(x, split=0),
+                                                ring=True, audit=True)),
+        ("tsqr", lambda: ht.linalg.qr(ht.array(t, split=0), audit=True)),
+        ("cholqr_gram_ring", lambda: ht.linalg.qr(ht.array(t[:65536], split=1), audit=True)),
+        ("resplit", lambda: ht.resplit(ht.array(t, split=0), 1, audit=True))):
+    hlo.clear()
+    call()
+    torch.cuda.synchronize()
+    out[name] = [r.report.summary() for r in hlo.recent()]
+print("AUDIT " + json.dumps({"rank": rank, "reports": out}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def collective_audit_phase():
+    """On four or more cards: the ring cdist, qr (TSQR and CholeskyQR2) and
+    resplit with ``audit=True`` on four NCCL ranks (one process a card),
+    each DriftReport printed. With fewer cards the phase says so."""
+    import socket
+    import torch
+
+    world = torch.cuda.device_count()
+    if world < 4:
+        emit({"phase": "collective audit", "run": False,
+              "why": f"needs four cards, this machine has {world}"})
+        return
+    world = 4
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, "-c", _AUDIT_WORKER, str(r), str(world),
+                               str(port)], cwd=here, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    reports, ok = [], True
+    for p in procs:
+        try:
+            log = p.communicate(timeout=600)[0]
+        finally:
+            p.kill()
+        ok = ok and p.returncode == 0
+        lines = [ln for ln in log.splitlines() if ln.startswith("AUDIT ")]
+        if lines:
+            reports.append(json.loads(lines[-1][6:]))
+        else:
+            emit({"phase": "collective audit", "rank_log_tail": log[-2000:]})
+    for r in reports:
+        emit({"phase": "collective audit", "world": world, **r})
+    drift = [(r["rank"], site, rep["drifts"]) for r in reports for site, reps in r["reports"].items()
+             for rep in reps if not rep["ok"]]
+    check("collective audit: four NCCL ranks, no drift", ok and len(reports) == world
+          and not drift, drift=drift)
+
+
 def main():
     import torch
 
@@ -3731,7 +4185,12 @@ def main():
     same = bool(torch.equal(km.cluster_centers_.larray, km2.cluster_centers_.larray)
                 and torch.equal(km.labels_.larray, km2.labels_.larray))
     check("kmeans fit twice: bit-identical centers and labels", same, n_iter=km2.n_iter_)
-    del km, km2, xm_t, xc_t, xk_t
+    del km, km2
+    # ----------------------------------------- the array path under telemetry
+    obs_launches = observability_path(ht, dev, xm_t, xc_t, xk_t)
+    del xm_t, xc_t, xk_t
+    # ------------------------------------------------- bench.py's kmeans_1b row
+    kmeans_1b = kmeans_1b_row(ht, dev, time_ms)
 
 
     # ----------------------------------------------------------- W8A8 path
@@ -4083,6 +4542,9 @@ def main():
     sp_launches = sequence_parallel_phase(ht, dev, time_ms)
     daso_phase(ht, dev)
     serving = serving_path(ht, dev, smi)
+    # ------------------------------------------------- data and observability
+    data_launches = data_path(ht, dev, cfg)
+    collective_audit_phase()
     parallel_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     check("DataParallel and Ulysses launched K6, K7a and K7b",
           all(dp_launches[name] > 0 and sp_launches[name] > 0 for name in parallel_kernels),
@@ -4151,6 +4613,16 @@ def main():
             row["streaming_path_launches"] = stream_report["minibatch"]["lloyd"]
         if name in ("lloyd", "random"):  # the serving path's fit
             row["serving_path_launches"] = serving["fit_launches"][name]
+        if name in ARRAY_PATH:  # the array path recorded by telemetry
+            row["observability_path_launches"] = obs_launches[name]
+        if name in data_launches:
+            row["data_path_launches"] = data_launches[name]
+        if name in ("lloyd", "random"):  # bench.py's kmeans_1b row
+            row["kmeans_1b_launches"] = kmeans_1b["launches"][name]
+        if name == "lloyd":
+            row["kmeans_1b"] = {"shape": "(16,777,216, 64), k = 64", "ms": kmeans_1b["kernel_ms"],
+                                "bound_ms": kmeans_1b["bound_ms"],
+                                "fit_wall_s": kmeans_1b["fit_s"]}
         if name in spectral_rows:  # K3 and K4 at the spectral path's shapes, its launches
             row["spectral_path"] = spectral_rows[name]
             row["sparse_spectral_path"] = sparse_spectral_rows[name]

@@ -82,7 +82,14 @@ package has a Pallas kernel:
     (``faults``, ``guard``, ``wrap_program``, ``memory_guard.preflight``)
     and ``telemetry.CompileWatcher``; and the replica tier ``serve.net``
     (the wire, ``HttpFront``, the replica process, ``ReplicaPool``,
-    ``Router``), which ``streaming.rolling_update`` rolls.
+    ``Router``), which ``streaming.rolling_update`` rolls;
+  - data and observability: ``utils.data`` (``Dataset``/``DataLoader`` with
+    the JAX package's threefry shuffle, ``PartialDataset``/
+    ``PartialH5Dataset`` with a loader thread, the matrix gallery, the
+    TFRecord tooling), ``datasets`` (iris, diabetes), and ``telemetry``'s
+    cost model, collective audit, memory watermarks, Chrome-trace export,
+    summaries and the fleet view (``python -m
+    heat_tpu_torch.telemetry.audit``).
 """
 
 from . import telemetry
@@ -105,6 +112,8 @@ from . import optim
 from . import interop
 from . import streaming
 from . import serve
+from . import utils
+from . import datasets
 from ._build import launch_counts, reset_launch_counts
 from .core.version import version as __version__
 

@@ -63,6 +63,33 @@ _register(
     "JSONL file that telemetry events stream to; unset records in memory only.",
 )
 _register(
+    "HEAT_TPU_HLO_AUDIT", "bool", False,
+    "Audit every instrumented collective site (telemetry/hlo.py): record the "
+    "collectives each call issues and compare their wire bytes with the "
+    "analytic cost model, as `audit=True` does for one call.",
+)
+_register(
+    "HEAT_TPU_HLO_TOLERANCE", "float", 0.1,
+    "Relative wire-byte drift the collective audit tolerates before it "
+    "flags a site.",
+)
+_register(
+    "HEAT_TPU_DCN_PREMIUM", "float", 8.0,
+    "Relative cost of one cross-node wire byte against one in-node byte in "
+    "the analytic cost model (telemetry/collectives.weighted_wire).",
+)
+_register(
+    "HEAT_TPU_SLO_WINDOW_S", "float", 60.0,
+    "Rolling window in seconds over which Router.cluster_summary() computes "
+    "SLO burn rates (deltas of the cumulative per-replica scrapes; the first "
+    "call covers each replica's lifetime).",
+)
+_register(
+    "HEAT_TPU_SLO_BURN_THRESHOLD", "float", 1.0,
+    "Burn rate above which Router.check_slos() emits a `slo_burn` event "
+    "(1.0 = spending the error budget exactly on schedule).",
+)
+_register(
     "HEAT_TPU_RING_OVERLAP", "bool", True,
     "The rings (CholeskyQR2's Gram ring, the ring distances) issue each hop "
     "before its tile's product and skip the dead last hop; `0` restores the "

@@ -4,18 +4,28 @@ complex, rounding, relational and logical) operations, indexing, the
 manipulations, printing, the statistics, ``random``, ``linalg``, I/O, the
 estimator bases and the validation helpers."""
 
-from . import constants, io, linalg, random, tiling, version
+from . import constants, io, linalg, program_cache, random, tiling, version
+from ._operations import binary_op, cum_op, local_op, reduce_op
 from .arithmetics import *
-from .communication import TorchCommunication, get_comm, sanitize_comm, use_comm
+from .communication import (
+    Communication,
+    CommunicationError,
+    TorchCommunication,
+    get_comm,
+    init_distributed,
+    sanitize_comm,
+    use_comm,
+)
 from .complex_math import *
 from .constants import *
 from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
-from .dndarray import DNDarray
+from .dndarray import DNDarray, perf_stats, reset_perf_stats
 from .exponential import *
 from .factories import *
 from .indexing import *
 from .io import *
 from .linalg import *
+from .linalg import basics, quant, solver
 from .logical import *
 from .manipulations import *
 from .memory import *

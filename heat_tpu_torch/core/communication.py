@@ -27,6 +27,17 @@ averages over, and ``allreduce_flat`` reduces a list of tensors as one
 flat buffer (one collective a training step, as the JAX package's one
 ``psum``). ``ring_steps`` is the hop loop that every ring of the package
 runs.
+
+Every collective a world of several ranks issues reports itself to
+:func:`heat_tpu_torch.telemetry.trace_event` (its op, this rank's bytes in
+and out, the group size): counted always, recorded while telemetry records,
+and held against the cost model by the collective audit
+(:mod:`heat_tpu_torch.telemetry.hlo`).
+
+``Communication`` is the abstract base the JAX package exports,
+``CommunicationError`` its error, and :func:`init_distributed` starts the
+process group (NCCL on the card, gloo on the CPU) and rebuilds the default
+communicator.
 """
 
 from __future__ import annotations
@@ -38,8 +49,11 @@ import torch
 import torch.distributed as dist
 
 from .. import _knobs as knobs
+from .. import telemetry
 
 __all__ = [
+    "Communication",
+    "CommunicationError",
     "PendingAllreduce",
     "PendingPermute",
     "TorchCommunication",
@@ -47,6 +61,7 @@ __all__ = [
     "chunk_size",
     "counts_displs",
     "get_comm",
+    "init_distributed",
     "lshape_map",
     "padded_size",
     "ring_overlap",
@@ -251,7 +266,39 @@ def _records_grad(tensor: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and tensor.requires_grad
 
 
-class TorchCommunication:
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _issued(name: str, op: str, sent: torch.Tensor, size: int, out_shape=None,
+            **extra) -> None:
+    """Report one collective to telemetry (module docstring): ``sent`` is
+    this rank's operand, ``out_shape`` its result's shape (the operand's
+    when None)."""
+    shape = tuple(sent.shape) if out_shape is None else tuple(out_shape)
+    out_bytes = sent.element_size() * int(np.prod(shape, dtype=np.int64))
+    telemetry.trace_event(name, op=op, in_bytes=_nbytes(sent), out_bytes=out_bytes,
+                          group_size=size, dtype=str(sent.dtype).replace("torch.", ""),
+                          shape=list(shape), **extra)
+
+
+class CommunicationError(RuntimeError):
+    """A failure of the communication layer (the JAX package's name)."""
+
+
+class Communication:
+    """The abstract communicator (reference communication.py:88-117), the
+    base of :class:`TorchCommunication`."""
+
+    @staticmethod
+    def is_distributed() -> bool:
+        raise NotImplementedError()
+
+    def chunk(self, shape, split, rank=None):
+        raise NotImplementedError()
+
+
+class TorchCommunication(Communication):
     """The world of ranks of one ``torch.distributed`` process group (the
     default group when ``group`` is None). Without an initialised process
     group it is a world of size 1 and every collective is the identity."""
@@ -295,6 +342,7 @@ class TorchCommunication:
         ``psum`` :336, and of ``pmax``/``pmin``); returns ``tensor``."""
         if self.size > 1:
             dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
+            _issued("allreduce", "all-reduce", tensor, self.size)
         return tensor
 
     def allreduce_flat(self, tensors: Sequence[torch.Tensor], average: bool = False,
@@ -310,6 +358,7 @@ class TorchCommunication:
         work = None
         if self.size > 1:
             work = dist.all_reduce(flat, group=self.group, async_op=async_op)
+            _issued("allreduce_flat", "all-reduce", flat, self.size)
             if not async_op:
                 work = None
         divisor = self.size if average and self.size > 1 else None
@@ -320,6 +369,7 @@ class TorchCommunication:
         """In-place broadcast of rank ``root``'s ``tensor``; returns it."""
         if self.size > 1:
             dist.broadcast(tensor, self._global_rank(root), group=self.group)
+            _issued("bcast", "broadcast", tensor, self.size)
         return tensor
 
     def node_local(self, n_nodes: int) -> Tuple["TorchCommunication", "TorchCommunication"]:
@@ -355,6 +405,7 @@ class TorchCommunication:
         buf = _padded(local, dim, self.chunk_size(n)).contiguous()
         parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(self.size)]
         dist.all_gather(parts, buf, group=self.group)
+        _issued("all_gather", "all-gather", buf, self.size, (self.size,) + tuple(buf.shape))
         return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(parts, counts)], dim=dim)
 
     def reduce_scatter(self, tensor: torch.Tensor, dim: int, n: int, op: str = "sum",
@@ -380,6 +431,7 @@ class TorchCommunication:
         buf = _padded(tensor.movedim(dim, 0), 0, c * self.size).contiguous()
         out = buf.new_empty((c,) + tuple(buf.shape[1:]))
         dist.reduce_scatter_tensor(out, buf, op=_REDUCE_OPS[op], group=self.group)
+        _issued("reduce_scatter", "reduce-scatter", buf, self.size, out.shape)
         return out.narrow(0, 0, counts[self.rank]).movedim(0, dim)
 
     def all_to_all(self, local: torch.Tensor, split_axis: int, concat_axis: int, n_split: int,
@@ -420,6 +472,7 @@ class TorchCommunication:
         send = buf.reshape(shape).movedim(split_axis, 0).contiguous()
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=self.group)
+        _issued("all_to_all", "all-to-all", send, self.size)
         # recv[r] is rank r's chunk of concat_axis; this rank's part of split_axis
         parts = [recv[r].narrow(split_axis, 0, counts_split[self.rank])
                  .narrow(concat_axis, 0, counts_concat[r]) for r in range(self.size)]
@@ -457,6 +510,9 @@ class TorchCommunication:
                 ops.append(dist.P2POp(dist.irecv, out, self._global_rank(src[0]), self.group))
             if ops:
                 works = dist.batch_isend_irecv(ops)
+        if self.size > 1:
+            _issued("ppermute", "collective-permute", tensor, self.size,
+                    pairs=[tuple(pair) for pair in perm])
         pending = PendingPermute(out, works, dtype, tensor)
         return pending if async_op else pending.wait()
 
@@ -476,6 +532,9 @@ class TorchCommunication:
         recv = send.new_empty((sum(recv_counts),) + tuple(send.shape[1:]))
         dist.all_to_all_single(recv, send, output_split_sizes=list(recv_counts),
                                input_split_sizes=list(send_counts), group=self.group)
+        row = _nbytes(send) // max(1, send.shape[0])
+        _issued("alltoallv", "all-to-all", send, self.size, recv.shape,
+                sent_bytes=(sum(send_counts) - send_counts[self.rank]) * row)
         return recv.view(dtype)
 
     def _global_rank(self, rank: int) -> int:
@@ -498,10 +557,51 @@ class TorchCommunication:
             return [obj]
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self.group)
+        telemetry.trace_event("allgather_object", group_size=self.size)
         return out
 
 
 _default_comm: Optional[TorchCommunication] = None
+
+
+def init_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids=None,
+    backend: Optional[str] = None,
+) -> TorchCommunication:
+    """Start the process group of this SPMD program and rebuild the default
+    communicator over it (the JAX package's ``init_distributed``, which
+    starts ``jax.distributed``). Call once in every process, before any
+    array is built: ``coordinator_address`` is rank 0's ``host:port`` (or a
+    full ``tcp://`` / ``env://`` init method; None reads ``MASTER_ADDR`` and
+    ``MASTER_PORT``), ``num_processes`` the world size and ``process_id``
+    this process's rank. ``backend`` defaults to NCCL when a card is
+    present, else gloo; with ``local_device_ids`` the process takes the
+    first of them as its card. Returns the new default communicator."""
+    if dist.is_initialized():
+        raise CommunicationError("the process group is already initialised")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if local_device_ids is not None and torch.cuda.is_available():
+        ids = [local_device_ids] if isinstance(local_device_ids, int) else list(local_device_ids)
+        torch.cuda.set_device(int(ids[0]))
+    if coordinator_address is None:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    kwargs = {}
+    if num_processes is not None:
+        kwargs["world_size"] = int(num_processes)
+    if process_id is not None:
+        kwargs["rank"] = int(process_id)
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    comm = TorchCommunication()
+    use_comm(comm)
+    return comm
 
 
 def get_comm() -> TorchCommunication:

@@ -26,7 +26,27 @@ from .communication import TorchCommunication
 from .devices import Device
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "perf_stats", "reset_perf_stats"]
+
+# Relayout counters (diagnostic): every resplit that changes the split axis
+# is one of ``local_slices`` (replicated to split: each rank slices its
+# chunk), ``gathers`` (split to replicated) or ``all_to_alls`` (between two
+# split axes), and ``relayouts`` counts them all; a world of one rank moves
+# nothing but still counts. The JAX package's counters (``logical_slices``,
+# ``repads``, ``device_puts``) count the tail pad it stores and its
+# resharding ``device_put``s; the port stores no pad, so it counts its own
+# relayouts under its own names.
+_PERF_STATS = {"relayouts": 0, "local_slices": 0, "gathers": 0, "all_to_alls": 0}
+
+
+def perf_stats() -> dict:
+    """A snapshot of the relayout counters (module comment)."""
+    return dict(_PERF_STATS)
+
+
+def reset_perf_stats() -> None:
+    for k in _PERF_STATS:
+        _PERF_STATS[k] = 0
 
 
 class LocalIndex:
@@ -305,17 +325,60 @@ class DNDarray:
         self.__dtype = dtype
         return self
 
-    def resplit(self, axis: Optional[int] = None) -> "DNDarray":
+    def resplit(self, axis: Optional[int] = None, audit: bool = False) -> "DNDarray":
         """A copy distributed along ``axis`` (reference dndarray.py:1213).
         Between two split axes it is one ``all_to_all``: each rank sends
         every other rank the block that rank will own, and no rank holds
         the whole array. ``None`` replicates: every rank gathers the whole
         array (``cdist`` uses this to replicate ``y``). Any split axis from
-        a replicated array slices this rank's chunk."""
+        a replicated array slices this rank's chunk.
+
+        While telemetry records it is a ``resplit`` span with the analytic
+        collective kind and wire bytes (``telemetry.collectives.
+        relayout_cost``); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) also
+        records the collectives it issues and compares them with the cost
+        of the chunks as padded for the collective (``telemetry.hlo``)."""
+        from .. import telemetry
+
         axis = sanitize_axis(self.__gshape, axis)
+        comm = self.__comm
+        cost, fields, do_audit = telemetry.op_cost(
+            telemetry.collectives.relayout_cost, self.__gshape, self.__dtype.byte_size(),
+            self.__split, axis, comm.size, audit=audit)
+        if cost is None:
+            return self.__relayout(axis)
+        with telemetry.span("resplit", old_split=self.__split, new_split=axis,
+                            gshape=list(self.__gshape), **fields) as sp:
+            if do_audit and comm.size > 1 and axis != self.__split:
+                # the collectives move the chunks padded to ceil(n/p) along
+                # both split axes: predict on those shapes, as the JAX
+                # package predicts on its padded physical buffer
+                phys = list(self.__gshape)
+                for ax in (self.__split, axis):
+                    if ax is not None:
+                        phys[ax] = comm.padded_size(phys[ax])
+                predicted = telemetry.collectives.relayout_cost(
+                    phys, self.__dtype.byte_size(), self.__split, axis, comm.size)
+                out, _ = telemetry.hlo.audit_call(
+                    "resplit", lambda: self.__relayout(axis), predicted=predicted,
+                    fields={"old_split": self.__split, "new_split": axis,
+                            "gshape": list(self.__gshape)})
+            else:
+                out = self.__relayout(axis)
+            sp.output(out.larray)
+        return out
+
+    def __relayout(self, axis: Optional[int]) -> "DNDarray":
         if axis == self.__split:
             return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis,
                             self.__device, self.__comm, True)
+        _PERF_STATS["relayouts"] += 1
+        if self.__split is None:
+            _PERF_STATS["local_slices"] += 1
+        elif axis is None:
+            _PERF_STATS["gathers"] += 1
+        else:
+            _PERF_STATS["all_to_alls"] += 1
         if axis is not None and self.__split is not None and self.__comm.size > 1:
             moved = self.__comm.all_to_all(self.__array, axis, self.__split, self.__gshape[axis],
                                            self.__gshape[self.__split])

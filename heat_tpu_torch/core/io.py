@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import types
-from .communication import sanitize_comm
+from .communication import CommunicationError, sanitize_comm  # noqa: F401 (exported as there)
 from .devices import sanitize_device
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
@@ -563,6 +563,54 @@ def save_netcdf(data: DNDarray, path: str, variable: str, mode: str = "w", **kwa
         _one_writer(data, lambda: write_to(path))
 
 
+def save_netcdf_local(data: DNDarray, path: str, variable: str, mode: str = "w", **kwargs):
+    """Single-writer NetCDF save (the JAX package's local body of
+    :func:`save_netcdf`): the whole array is gathered (every rank calls
+    this) and rank 0 writes it in one go. A fresh file (``mode="w"``) is
+    written to a temporary name and renamed into place; other modes edit
+    in place."""
+    _need_netcdf()
+
+    def write_to(target, m):
+        host = _host(data)
+        with _NcWrite(target, m) as handle:
+            var = handle.create(variable, host.dtype, host.shape)
+            var[:] = host
+
+    if mode == "w":
+        _one_writer(data, lambda: _atomic_write(path, lambda tmp: write_to(tmp, "w")))
+    else:
+        _one_writer(data, lambda: write_to(path, mode))
+
+
+def supports_checkpoint() -> bool:
+    """Whether checkpointing is available: always, through
+    :mod:`heat_tpu_torch.resilience.checkpoint` (the JAX package probes for
+    orbax here)."""
+    return True
+
+
+def save_checkpoint(state, path: str) -> None:
+    """Checkpoint a pytree of DNDarrays, tensors, arrays and scalars
+    (:func:`heat_tpu_torch.resilience.checkpoint.save_checkpoint`: every
+    rank writes its own chunk of a split array, CRC-checked blobs and one
+    manifest, committed atomically). The JAX package's ``io`` forms write
+    orbax; the port's write the format of ``heat_tpu.resilience``."""
+    from ..resilience import checkpoint
+
+    checkpoint.save_checkpoint(state, path)
+
+
+def load_checkpoint(path: str, like=None, comm=None, device=None):
+    """Restore a pytree saved by :func:`save_checkpoint`: ``like`` gives the
+    structure (a flat leaf list without it); DNDarrays come back split over
+    ``comm`` (:func:`heat_tpu_torch.resilience.checkpoint.load_checkpoint`)."""
+    from ..resilience import checkpoint
+
+    return checkpoint.load_checkpoint(path, like=like, comm=comm, device=device)
+
+
+__all__ += ["load_checkpoint", "save_checkpoint", "supports_checkpoint"]
 if _HAS_H5:
     __all__ += ["load_hdf5", "save_hdf5"]
 if supports_netcdf():

@@ -25,6 +25,12 @@
 * **general** (one rank, or a replicated input): one ``torch.linalg.qr``.
 
 The matrix is never gathered whole on a distributed path.
+
+Telemetry: TSQR is a ``tsqr`` span and each Gram ring a
+``cholqr_gram_ring`` span, with the analytic wire bytes of
+``telemetry.collectives.tsqr_cost`` and ``gram_ring_cost`` (with the hops
+the ring makes); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) records their
+collectives and compares them with those costs (``telemetry.hlo``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import collections
 
 import torch
 
+from ... import telemetry
 from .. import types
 from ..communication import _padded, ring_overlap, ring_steps
 from ..dndarray import DNDarray
@@ -60,7 +67,7 @@ def _gram_ring(loc: torch.Tensor, comm, n: int) -> torch.Tensor:
     return comm.allgather(acc[:loc.shape[1]], 0, n)[:, :n]
 
 
-def _cholqr_split1(a: DNDarray, dt, calc_q: bool) -> QR:
+def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
     """CholeskyQR2 with the shifted-Cholesky fallback (module docstring)."""
     comm = a.comm
     m, n = a.shape
@@ -71,8 +78,20 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool) -> QR:
     eps = torch.finfo(q_loc.dtype).eps
     r_factors = []
     passes_left, shifted = 2, False
+    gram_hops = comm.size - 1 if ring_overlap() else comm.size
     while passes_left > 0:
-        g = _gram_ring(q_loc, comm, n)
+        cost, fields, do_audit = telemetry.op_cost(
+            telemetry.collectives.gram_ring_cost, m, n, dt.byte_size(), comm.size, gram_hops,
+            audit=audit)
+        with telemetry.span("cholqr_gram_ring", gshape=[m, n], overlap=gram_hops < comm.size,
+                            **fields) as sp:
+            if do_audit:
+                g, _ = telemetry.hlo.audit_call(
+                    "cholqr_gram_ring", lambda: _gram_ring(q_loc, comm, n), predicted=cost,
+                    fields={"gshape": [m, n], "mesh": comm.size})
+            else:
+                g = _gram_ring(q_loc, comm, n)
+            sp.output(g)
         ell, info = torch.linalg.cholesky_ex(g)
         # breakdown on this pass: a failed factorization, NaNs or a collapsed
         # diagonal mean G is (numerically) singular
@@ -136,8 +155,24 @@ def _local_tsqr(x: torch.Tensor, tiles: int):
     return q, r
 
 
-def _tsqr(a: DNDarray, dt, tiles_per_proc: int, calc_q: bool) -> QR:
+def _tsqr(a: DNDarray, dt, tiles_per_proc: int, calc_q: bool, audit: bool = False) -> QR:
     """TSQR of a tall row-split matrix (module docstring)."""
+    comm = a.comm
+    m, n = a.shape
+    cost, fields, do_audit = telemetry.op_cost(
+        telemetry.collectives.tsqr_cost, m, n, dt.byte_size(), comm.size, audit=audit)
+    with telemetry.span("tsqr", gshape=[m, n], mesh=comm.size, **fields) as sp:
+        if do_audit:
+            out, _ = telemetry.hlo.audit_call(
+                "tsqr", lambda: _tsqr_body(a, dt, tiles_per_proc, calc_q), predicted=cost,
+                fields={"gshape": [m, n], "mesh": comm.size})
+        else:
+            out = _tsqr_body(a, dt, tiles_per_proc, calc_q)
+        sp.output(out.R.larray)
+    return out
+
+
+def _tsqr_body(a: DNDarray, dt, tiles_per_proc: int, calc_q: bool) -> QR:
     comm = a.comm
     m, n = a.shape
     buf = a.larray.to(dt.torch_type())
@@ -179,25 +214,22 @@ def qr(
 
     Column signs of Q and R are not unique: compare ``Q @ R`` and
     ``Q.T @ Q``. ``overwrite_a`` is accepted as the JAX package accepts it
-    (``a`` is never written). ``audit=True`` raises: the HLO audit and the
-    telemetry spans come with the runtime substrate (ROADMAP §1 item 13)."""
+    (``a`` is never written). ``audit=True`` audits the collectives of TSQR
+    and of the Gram rings (module docstring); the other paths are not
+    audited, as in the JAX package."""
     if not isinstance(a, DNDarray):
         raise TypeError(f"'a' must be a DNDarray, but was {type(a)}")
     if a.ndim != 2:
         raise ValueError(f"'a' must be 2-dimensional, but has {a.ndim} dimensions")
     if not isinstance(tiles_per_proc, int):
         raise TypeError(f"tiles_per_proc must be an int, but was {type(tiles_per_proc)}")
-    if audit:
-        raise NotImplementedError(
-            "qr(audit=True): the collective audit and telemetry come with the runtime "
-            "substrate (ROADMAP §1 item 13)")
 
     m, n = a.shape
     comm = a.comm
     dt = types.promote_types(a.dtype, types.float32)
     if comm.size > 1 and a.split == 0:
         if m >= n:
-            return _tsqr(a, dt, tiles_per_proc, calc_q)
+            return _tsqr(a, dt, tiles_per_proc, calc_q, audit)
         # wide: Q of the leading m × m block, then R = QᵀA, a contraction over
         # the split rows (reduce_scatter in matmul, split 0)
         lead = comm.allgather(a.larray[:, :m].to(dt.torch_type()), 0, m)
@@ -208,7 +240,7 @@ def qr(
         return QR(_from_global(q_log, 0, a, dt), r_ht)
     if comm.size > 1 and a.split == 1:
         if m >= n:
-            return _cholqr_split1(a, dt, calc_q)
+            return _cholqr_split1(a, dt, calc_q, audit)
         return _wide_split1(a, dt, calc_q)
 
     q_log, r_log = torch.linalg.qr(a.larray.to(dt.torch_type()))

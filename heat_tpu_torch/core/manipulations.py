@@ -132,12 +132,11 @@ def balance(array: DNDarray, copy: bool = False) -> DNDarray:
 def resplit(arr: DNDarray, axis: Optional[int] = None, *, audit: bool = False,
             precision: Optional[str] = None) -> DNDarray:
     """Out-of-place redistribution to a new split axis (reference
-    manipulations.py:536): one ``all_to_all`` between two split axes."""
+    manipulations.py:536): one ``all_to_all`` between two split axes. A
+    ``resplit`` telemetry span; ``audit=True`` audits its collectives
+    (:meth:`DNDarray.resplit`)."""
     _exact_wire(precision)
-    if audit:
-        raise NotImplementedError("resplit(audit=True) comes with the telemetry port "
-                                  "(ROADMAP §1 item 13)")
-    return arr.resplit(axis)
+    return arr.resplit(axis, audit=audit)
 
 
 def redistribute(arr: DNDarray, lshape_map=None, target_map=None) -> DNDarray:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import builtins
 import time
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -170,7 +170,8 @@ def uniform(low=0.0, high=1.0, size=None, dtype=types.float32, split=None, devic
     return _generate(shape, split, device, comm, dtype, make)
 
 
-def rand(*d, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def rand(*d, dtype: Type[types.datatype] = types.float32, split=None, device=None,
+         comm=None) -> DNDarray:
     """Uniform samples in [0, 1) of the shape ``d``."""
     shape = sanitize_shape(d) if d else ()
     dtype = _float_type(dtype)
@@ -207,7 +208,8 @@ def randint(low, high=None, size=None, dtype=types.int32, split=None, device=Non
 random_integer = randint
 
 
-def randn(*d, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def randn(*d, dtype: Type[types.datatype] = types.float32, split=None, device=None,
+          comm=None) -> DNDarray:
     """Standard normal samples of the shape ``d``."""
     return normal(0.0, 1.0, d if d else (), dtype=dtype, split=split, device=device, comm=comm)
 

@@ -85,6 +85,11 @@ class datatype:
             raise TypeError(f"abstract type {cls.__name__} has no torch equivalent")
         return cls._torch
 
+    @classmethod
+    def byte_size(cls) -> builtins.int:
+        """Bytes of one element."""
+        return cls.torch_type().itemsize
+
 
 class bool(datatype):
     _torch = torch.bool

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import types
 from ..core.dndarray import DNDarray
 
@@ -45,15 +46,23 @@ def connected_components(A, *, assume_symmetric: bool = False,
     At = None if assume_symmetric else A.transpose()
     labels = factories.array(np.arange(n, dtype=np.int64), device=A.device, comm=A.comm).larray
     limit = n if max_iter is None else int(max_iter)
-    for _ in range(max(1, limit)):
-        cur = DNDarray(labels, (n,), types.int64, None, A.device, A.comm, True)
-        new = torch.minimum(labels, htsparse.spmv(A, cur, reduce="min", pattern=True,
-                                                  out_split=None).larray)
-        if At is not None:
-            new = torch.minimum(new, htsparse.spmv(At, cur, reduce="min", pattern=True,
-                                                   out_split=None).larray)
-        done = torch.equal(new, labels)
-        labels = new
-        if done:
-            break
+    rounds = 0
+    with telemetry.span("sparse.components", gshape=[n, n], nnz=A.nnz):
+        for _ in range(max(1, limit)):
+            rounds += 1
+            cur = DNDarray(labels, (n,), types.int64, None, A.device, A.comm, True)
+            new = torch.minimum(labels, htsparse.spmv(A, cur, reduce="min", pattern=True,
+                                                      out_split=None).larray)
+            if At is not None:
+                new = torch.minimum(new, htsparse.spmv(At, cur, reduce="min", pattern=True,
+                                                       out_split=None).larray)
+            done = torch.equal(new, labels)
+            labels = new
+            if done:
+                break
+    if telemetry.enabled():
+        reg = telemetry.get_registry()
+        reg.add("sparse.components", 1)
+        reg.emit("sparse", "components", event="components", rows=n, rounds=rounds,
+                 n_components=int(torch.unique(labels).shape[0]))
     return DNDarray(labels, (n,), types.int64, None, A.device, A.comm, True)

@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import _knobs as knobs
+from .. import telemetry
 from ..core import types
 from ..core.dndarray import DNDarray
 
@@ -190,10 +191,21 @@ class Laplacian:
         A = _pack_rows(rows, cols, vals, (n, n), X.comm, X.device, dt)
         limit = float(knobs.get("HEAT_TPU_SPARSE_DENSE_THRESHOLD"))
         if self.sparse is None and A.density > limit:
+            if telemetry.enabled():
+                reg = telemetry.get_registry()
+                reg.add("sparse.dense_fallback", 1)
+                reg.emit("sparse", "laplacian", event="dense_fallback", density=A.density,
+                         limit=limit, rows=n)
             return None
         ones = factories.ones(n, dtype=dt, device=X.device, comm=X.comm)
         d = htsparse.spmv(A, ones, out_split=None)
-        return self._sparse_laplacian_values(A, d, dt)
+        L = self._sparse_laplacian_values(A, d, dt)
+        if telemetry.enabled():
+            reg = telemetry.get_registry()
+            reg.add("sparse.laplacian", 1)
+            reg.emit("sparse", "laplacian", event="laplacian", rows=n, nnz=L.nnz,
+                     density=A.density)
+        return L
 
     def construct(self, X: DNDarray):
         """Similarity → adjacency → Laplacian, split as ``X``'s rows: a

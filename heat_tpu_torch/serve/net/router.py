@@ -33,10 +33,12 @@ raises ``NotImplementedError`` when a priority or a hedge is asked for.
 
 The client surface is the in-process server's: ``submit()`` returns a
 future, ``predict()`` blocks, ``stats()["endpoints"]`` carries the same
-per-endpoint aggregates. The fleet views of the JAX package
-(``cluster_summary``, ``check_slos``, ``prometheus_text``,
-``export_cluster_trace``) need ``telemetry.cluster`` and raise
-``NotImplementedError`` until it is ported (ROADMAP §1 item 13).
+per-endpoint aggregates. The fleet views are the JAX package's, over
+:mod:`heat_tpu_torch.telemetry.cluster`: ``cluster_summary`` (fleet QPS,
+exactly merged latency quantiles, per-replica rows, the SLO burn rates of
+the declared ``slos``), ``check_slos`` (an ``slo_burn`` event a breach),
+``prometheus_text`` and ``export_cluster_trace`` (one Perfetto trace of the
+router and every replica, clock offsets corrected).
 """
 
 from __future__ import annotations
@@ -64,8 +66,6 @@ from .events import emit as _emit
 __all__ = ["Router", "ReplicaDownError"]
 
 _POLL_TIMEOUT = 2.0  # seconds per /stats / /healthz probe
-_CLUSTER_TODO = ("Router.{} needs telemetry.cluster, not ported yet "
-                 "(ROADMAP §1 item 13); scrape_metrics() gives the raw per-replica payloads")
 _LATER_TODO = ("the router's {} is not ported yet: priority classes and hedged retries "
                "come with the autoscaling controller (ROADMAP §1 item 14)")
 # the JAX router's keywords of those two features
@@ -202,9 +202,10 @@ class Router:
         self._stats_lock = threading.Lock()
         self._queue: _queue_mod.Queue = _queue_mod.Queue()
         self._closed = False
-        # declared SLOs, kept for stats() (their burn-rate accounting
-        # needs telemetry.cluster)
+        # declared SLOs (telemetry.cluster.SLO), scored by cluster_summary()
         self.slos = list(slos) if slos else []
+        self._slo_snaps: List[tuple] = []  # (mono, scrape state)
+        self._slo_lock = threading.Lock()
         self.window_start = time.monotonic()
         self._counts = {"requests": 0, "retries": 0, "evictions": 0,
                         "readds": 0, "failed": 0, "shed": 0}
@@ -478,22 +479,58 @@ class Router:
         return out
 
     def cluster_summary(self) -> dict:
-        """The fleet-merged report of the JAX package
-        (``telemetry.cluster.summarize_cluster``): not ported yet."""
-        raise NotImplementedError(_CLUSTER_TODO.format("cluster_summary"))
+        """Scrape every replica and return the fleet-merged report
+        (:func:`heat_tpu_torch.telemetry.cluster.summarize_cluster`): fleet
+        QPS and exactly merged p50/p95/p99 per endpoint, per-replica rows
+        and, when this router declares SLOs, the ``slo`` burn-rate block.
+        Burn windows roll over ``HEAT_TPU_SLO_WINDOW_S``: each call diffs
+        against the scrape taken about one window ago (the first call
+        covers each replica's lifetime)."""
+        from ...telemetry import cluster as _cluster
+
+        scrapes = self.scrape_metrics()
+        now = time.monotonic()
+        window_s = float(knobs.get("HEAT_TPU_SLO_WINDOW_S"))
+        with self._slo_lock:
+            cutoff = now - max(0.001, window_s)
+            # keep the newest snapshot at or before the cutoff as the
+            # window's far edge; anything older is garbage
+            while len(self._slo_snaps) >= 2 and self._slo_snaps[1][0] <= cutoff:
+                self._slo_snaps.pop(0)
+            prev = self._slo_snaps[0][1] if self._slo_snaps else None
+        summary = _cluster.summarize_cluster(scrapes, slos=self.slos, prev_state=prev,
+                                             router_stats=self.stats())
+        with self._slo_lock:
+            self._slo_snaps.append((now, summary["state"]))
+        return summary
 
     def check_slos(self) -> List[dict]:
-        """One SLO burn-rate pass over :meth:`cluster_summary`: not ported
-        yet."""
-        raise NotImplementedError(_CLUSTER_TODO.format("check_slos"))
+        """One SLO accounting pass: :meth:`cluster_summary`'s ``slo`` block,
+        with an ``slo_burn`` telemetry event for every breach (burn rate
+        above ``HEAT_TPU_SLO_BURN_THRESHOLD``)."""
+        rows = self.cluster_summary().get("slo", [])
+        for row in rows:
+            if row.get("breach"):
+                _emit("slo", "slo_burn", endpoint=row["endpoint"], burn_rate=row["burn_rate"],
+                      threshold=row["threshold"], window_requests=row["window_requests"],
+                      window_seconds=row["window_seconds"])
+        return rows
 
     def prometheus_text(self) -> str:
-        """The merged fleet view in Prometheus text format: not ported yet."""
-        raise NotImplementedError(_CLUSTER_TODO.format("prometheus_text"))
+        """The merged fleet view in Prometheus text exposition format
+        (scrape the router once instead of N replicas)."""
+        from ...telemetry import cluster as _cluster
+
+        return _cluster.prometheus_text(self.cluster_summary())
 
     def export_cluster_trace(self, path: str) -> str:
-        """One merged Perfetto trace of the fleet: not ported yet."""
-        raise NotImplementedError(_CLUSTER_TODO.format("export_cluster_trace"))
+        """Export ONE merged Perfetto trace: this router's events plus every
+        replica's (``GET /trace``), clock offsets corrected by the
+        ``/healthz`` calibration, one pid a replica, one fleet-wide t=0
+        (:func:`heat_tpu_torch.telemetry.cluster.export_merged_trace`)."""
+        from ...telemetry import cluster as _cluster
+
+        return _cluster.export_merged_trace(self, path)
 
     def close(self) -> None:
         """Stop workers + poll thread; fail queued requests with

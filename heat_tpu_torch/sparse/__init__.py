@@ -27,8 +27,8 @@ __all__ = [
     "EVENT_COUNTER",
 ]
 
-# the JAX package's sparse event names and their counters; the telemetry
-# that records them comes with ROADMAP §1 item 13
+# the JAX package's sparse event names and their counters (ops._record,
+# graph.laplacian, graph.components)
 EVENT_COUNTER = {
     name: f"sparse.{name}"
     for name in (

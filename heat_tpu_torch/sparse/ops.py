@@ -27,9 +27,20 @@ of the thresholded chunk) and gathers only the element counts;
 to its row's rank, host triplets with a ``lexsort``.
 
 Every wire is exact: ``HEAT_TPU_SPARSE_SPMV_PREC=bf16`` raises (the
-compressed wires are ROADMAP §1 item 12), and ``audit=True`` raises (the
-collective audits are item 13), as do the telemetry counters and events
-(``EVENT_COUNTER`` in ``__init__`` keeps their names).
+compressed wires are ROADMAP §1 item 12).
+
+Telemetry, as in the JAX package: every operation adds one to its
+``sparse.<op>`` counter and emits one ``sparse`` event while telemetry
+records (``EVENT_COUNTER`` in ``__init__`` keeps the names); ``spmv``/
+``spmm`` and ``transpose`` are spans with the analytic wire bytes
+(``telemetry.collectives.spmv_cost``/``spmm_cost``/
+``sparse_transpose_cost``), and ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``)
+records their collectives against those costs (``telemetry.hlo``). The
+products' audit holds exactly when the row count divides by the world
+size. The transpose's cannot: the JAX package exchanges worst-case slabs of
+``slab`` slots a rank, which its cost counts, while the port's
+``alltoallv`` moves only the stored elements (and the counts, and gathers
+the new row counts), so its audit reports that difference as drift.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import _knobs as knobs
+from .. import telemetry
 from ..core import types
 from ..core._operations import _SIGNED, _sign_bit
 from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
@@ -64,11 +76,14 @@ _REDUCES = ("sum", "min", "max")
 _CSR_TYPES = (torch.float32, torch.float64)
 
 
-def _no_audit(audit: bool) -> None:
-    if audit:
-        raise NotImplementedError(
-            "audit=True: the collective byte audits come with the telemetry layer "
-            "(ROADMAP §1 item 13)")
+def _record(op: str, **fields) -> None:
+    """One ``sparse.<op>`` counter and one ``sparse`` event a sparse
+    operation, while telemetry records (the live and the offline summaries
+    agree)."""
+    if telemetry.enabled():
+        reg = telemetry.get_registry()
+        reg.add(f"sparse.{op}", 1)
+        reg.emit("sparse", op, event=op, **fields)
 
 
 def spmv_wire(dtype, precision: Optional[str] = None) -> str:
@@ -183,17 +198,36 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
         raise ValueError(f"reduce must be one of {_REDUCES}, got {reduce!r}")
     if not _same_comm(x.comm, A.comm):
         raise ValueError(f"{op}: operands live on different communicators")
-    _no_audit(audit)
     dt = x.dtype if pattern else types.promote_types(A.dtype, x.dtype)
     # extremes and structure-only relays always move exact
     if reduce == "sum" and not pattern:
         _exact_wire(spmv_wire(dt, precision))
     tdt = dt.torch_type()
-    xg = (x._global() if x.split == 0 else x.larray).to(tdt)
-    y = _finish(A, _contract(A, xg, tdt, reduce, pattern), tdt, reduce, out_split is None)
-    m = A.shape[0]
-    gshape = (m,) if op == "spmv" else (m, x.shape[1])
-    return DNDarray(y, gshape, dt, out_split, A.device, A.comm, True)
+    comm = A.comm
+    m, n = A.shape
+    k = 1 if op == "spmv" else x.shape[1]
+    cost_fn, cost_args = ((telemetry.collectives.spmv_cost, (m, n)) if op == "spmv"
+                          else (telemetry.collectives.spmm_cost, (m, n, k)))
+    cost, fields, do_audit = telemetry.op_cost(cost_fn, *cost_args, dt.byte_size(), comm.size,
+                                               x.split, out_split, "off", audit=audit)
+
+    def run():
+        xg = (x._global() if x.split == 0 else x.larray).to(tdt)
+        return _finish(A, _contract(A, xg, tdt, reduce, pattern), tdt, reduce,
+                       out_split is None)
+
+    with telemetry.span(f"sparse.{op}", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
+                        **fields) as sp:
+        if do_audit:
+            y, _ = telemetry.hlo.audit_call(f"sparse.{op}", run, predicted=cost,
+                                            fields={"mesh": comm.size, "nnz": A.nnz})
+        else:
+            y = run()
+        sp.output(y)
+    _record(op, nnz=A.nnz, rows=m, cols=n, out_split=out_split, wire="off",
+            **({"bytes": cost.bytes} if cost is not None else {}))
+    gshape = (m,) if op == "spmv" else (m, k)
+    return DNDarray(y, gshape, dt, out_split, A.device, comm, True)
 
 
 def _same_comm(a: TorchCommunication, b: TorchCommunication) -> bool:
@@ -249,6 +283,7 @@ def to_dense(A: SparseDNDarray) -> DNDarray:
     vals = _bits(A.values[:c])
     dense = vals.new_zeros((A.lrows, n))
     dense.index_put_((A._slot_rows(), A.indices[:c].to(torch.int64)), vals, accumulate=True)
+    _record("to_dense", nnz=A.nnz, rows=m, cols=n)
     return DNDarray(_unbits(dense, A.values.dtype), (m, n), A.dtype, 0, A.device, A.comm, True)
 
 
@@ -289,16 +324,42 @@ def transpose(A: SparseDNDarray, *, audit: bool = False, slab: Optional[int] = N
     packed keys and one of values a stage; without ``slab`` one stage). The
     result's counts, capacity and order within a row (by column, then
     source row) are the JAX package's, and a staged transpose is bit for
-    bit the one-stage one."""
+    bit the one-stage one. A ``sparse.transpose`` span; ``audit=True``
+    records the exchange against ``sparse_transpose_cost`` (module
+    docstring)."""
     if not isinstance(A, SparseDNDarray):
         raise TypeError(f"expected a SparseDNDarray, got {type(A)}")
-    _no_audit(audit)
+    comm = A.comm
+    m, n = A.shape
+    cap = A.capacity
+    slab = cap if slab is None else max(1, min(int(slab), cap))
+    n_stages = max(1, math.ceil(cap / slab))
+    item = A.dtype.byte_size()
+    cost, fields, do_audit = telemetry.op_cost(
+        telemetry.collectives.sparse_transpose_cost, slab, item, comm.size, n_stages,
+        audit=audit)
+    with telemetry.span("sparse.transpose", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
+                        stages=n_stages, slab=slab, **fields) as sp:
+        if do_audit:
+            # the whole plan's bytes: one stage's cost times the stages
+            plan = telemetry.collectives.CollectiveCost(cost.kind, cost.bytes * cost.steps)
+            out, _ = telemetry.hlo.audit_call(
+                "sparse.transpose_a2a", lambda: _transpose(A, slab), predicted=plan,
+                fields={"mesh": comm.size, "stages": n_stages})
+        else:
+            out = _transpose(A, slab)
+        sp.output(out.values)
+    _record("transpose", nnz=A.nnz, rows=m, cols=n, stages=n_stages, slab=slab,
+            **({"bytes": cost.bytes * cost.steps} if cost is not None else {}))
+    return out
+
+
+def _transpose(A: SparseDNDarray, slab: int) -> SparseDNDarray:
     comm = A.comm
     m, n = A.shape
     cap = A.capacity
     R = comm.padded_size(m)  # the packed key's row base
     r_new = comm.chunk_size(n)
-    slab = cap if slab is None else max(1, min(int(slab), cap))
     c = A.lnnz
     cols = A.indices[:c].to(torch.int64)
     keys = cols * R + (A._slot_rows() + comm.rank * A.row_chunk)
@@ -425,7 +486,9 @@ def csr_from_dense(x, *, threshold: float = 0.0, keep: str = "nonzero",
         raise ValueError("include_diagonal requires a square matrix")
     offset = comm.chunk(shape, 0)[0]
     rows, cols, vals = _compact(block, offset, threshold, keep, include_diagonal)
-    return _pack_rows(rows, cols, vals, shape, comm, device, dtype)
+    out = _pack_rows(rows, cols, vals, shape, comm, device, dtype)
+    _record("from_dense", nnz=out.nnz, rows=shape[0], cols=shape[1], keep=keep)
+    return out
 
 
 _COO_ORDER = ("COO triplets must be sorted by (row, col) and free of duplicate coordinates")
@@ -516,10 +579,15 @@ def csr_from_coo(rows, cols, values, shape: Tuple[int, int], *, comm=None,
         if not (rows.shape == cols.shape == values.shape) or rows.ndim != 1:
             raise ValueError(f"csr_from_coo: triplets must be matching 1-D vectors, got "
                              f"{rows.shape}/{cols.shape}/{values.shape}")
-        return _from_dnd_coo(rows, cols, values, (m, n), comm, device)
-    rh = np.asarray(rows, dtype=np.int64)
-    ch = np.asarray(cols, dtype=np.int64)
-    vh = np.asarray(values)
-    order = np.lexsort((ch, rh))
-    return _from_host_coo(rh[order], ch[order], vh[order], (m, n), sanitize_comm(comm),
-                          sanitize_device(device))
+        out = _from_dnd_coo(rows, cols, values, (m, n), comm, device)
+        sorted_via = "distributed-sort"
+    else:
+        rh = np.asarray(rows, dtype=np.int64)
+        ch = np.asarray(cols, dtype=np.int64)
+        vh = np.asarray(values)
+        order = np.lexsort((ch, rh))
+        out = _from_host_coo(rh[order], ch[order], vh[order], (m, n), sanitize_comm(comm),
+                             sanitize_device(device))
+        sorted_via = "lexsort"
+    _record("from_coo", nnz=out.nnz, rows=m, cols=n, sorted_via=sorted_via)
+    return out

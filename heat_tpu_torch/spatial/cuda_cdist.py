@@ -45,6 +45,7 @@ import torch
 
 from .. import _build
 from .. import _knobs as knobs
+from .. import telemetry
 
 __all__ = ["cdist_precision", "euclid", "euclid_plain", "last_variant", "pallas_cdist_applicable"]
 
@@ -170,7 +171,12 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
     between the rows of (m, k) ``x`` and (n, k) ``y``. A kernel on the card
     (``precision``: a value of :func:`cdist_precision`, which ``None``
     reads), the exact plain version on the CPU. ``_old_kernel=True`` runs
-    the f32 FMA kernel whatever the strategy, for comparisons."""
+    the f32 FMA kernel whatever the strategy, for comparisons.
+
+    While telemetry records, a call on the card is a ``pallas_cdist`` span
+    (the JAX package's name) whose ``bytes`` is the kernel's one obligatory
+    write of the output; a call being captured into a CUDA graph is not
+    instrumented, as the JAX package skips calls inside a trace."""
     _check_epilogue(epilogue)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"euclid needs (m, k) and (n, k) tensors, got {tuple(x.shape)}, {tuple(y.shape)}")
@@ -180,6 +186,16 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
         return euclid_plain(x, y, gamma, epilogue)
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError("cdist kernel needs float32 tensors")
+    if telemetry.enabled() and not torch.cuda.is_current_stream_capturing():
+        m, n = x.shape[0], y.shape[0]
+        with telemetry.span("pallas_cdist", bytes=m * n * 4, gshape=[m, n], epilogue=epilogue,
+                            hbm_write=True) as sp:
+            return sp.output(_euclid_card(x, y, gamma, epilogue, precision, _old_kernel))
+    return _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
+
+
+def _euclid_card(x: torch.Tensor, y: torch.Tensor, gamma: float, epilogue: str,
+                 precision: Optional[str], _old_kernel: bool) -> torch.Tensor:
     tier = "f32" if _old_kernel else _tier(precision)
     same = x is y or (x.data_ptr() == y.data_ptr() and x.shape == y.shape
                       and x.stride() == y.stride())

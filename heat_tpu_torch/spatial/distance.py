@@ -21,6 +21,12 @@ serial schedule of ``p`` hops. The tiles are the same either way. A tile is
 the JAX package's block function in plain torch (the GEMM form or the
 broadcast form), as the JAX package's ring runs no Pallas kernel. Off that
 gate ``ring=True`` takes the ordinary path.
+
+The ring is a ``ring_cdist`` telemetry span with the analytic wire bytes
+(``telemetry.collectives.ring_cdist_cost`` with the hops it makes, ``p - 1``
+or ``p``); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) records its hops and
+compares them with that cost (``telemetry.hlo``). The other paths issue at
+most the gather of y and are not audited, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import telemetry
 from ..core import types
 from ..core.communication import ring_overlap, ring_steps
 from ..core.dndarray import DNDarray
@@ -74,7 +81,7 @@ def _ring_dist(xb: torch.Tensor, yb: torch.Tensor, n: int, comm,
 
 def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
           rbf_gamma: Optional[float] = None, manhattan: bool = False,
-          ring: bool = False) -> DNDarray:
+          ring: bool = False, audit: bool = False) -> DNDarray:
     from .cuda_cdist import euclid, euclid_plain, pallas_cdist_applicable
 
     if not isinstance(x, DNDarray):
@@ -104,7 +111,20 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
             tile = lambda a, b: euclid_plain(a, b, epilogue="dist", precision="HIGHEST")  # noqa: E731
         else:
             tile = lambda a, b: _blocked(a, b, manhattan)  # noqa: E731
-        out = _ring_dist(xb, y.larray.to(tdt), n, x.comm, tile)
+        p = x.comm.size
+        hops = p - 1 if ring_overlap() else p
+        cost, fields, do_audit = telemetry.op_cost(
+            telemetry.collectives.ring_cdist_cost, n, x.shape[1], promoted.byte_size(), p,
+            hops, audit=audit)
+        with telemetry.span("ring_cdist", gshape=[m, n], mesh=p, overlap=hops < p,
+                            **fields) as sp:
+            run = lambda: _ring_dist(xb, y.larray.to(tdt), n, x.comm, tile)  # noqa: E731
+            if do_audit:
+                out, _ = telemetry.hlo.audit_call("ring_cdist", run, predicted=cost,
+                                                  fields={"mesh": p})
+            else:
+                out = run()
+            sp.output(out)
         if rbf_gamma is not None:
             out = torch.exp(-rbf_gamma * out * out)
         return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
@@ -129,9 +149,9 @@ def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool =
     """Euclidean distance matrix (reference distance.py:136).
     ``quadratic_expansion`` selects the GEMM form, which the cdist kernel
     computes on the card; ``ring=True`` takes the ring schedule when both
-    operands are split along their rows over several ranks."""
-    _no_audit(audit)
-    return _dist(X, Y, quadratic_expansion, ring=ring)
+    operands are split along their rows over several ranks, and
+    ``audit=True`` audits the ring's collectives (module docstring)."""
+    return _dist(X, Y, quadratic_expansion, ring=ring, audit=audit)
 
 
 def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
@@ -139,21 +159,13 @@ def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
     """Gaussian kernel matrix exp(-|x-y|^2 / 2 sigma^2) (reference
     distance.py:159). With the GEMM form on the card the exp is the
     kernel's epilogue; after the ring it is one pass over the result."""
-    _no_audit(audit)
     gamma = 1.0 / (2.0 * sigma * sigma)
-    return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma, ring=ring)
+    return _dist(X, Y, quadratic_expansion, rbf_gamma=gamma, ring=ring, audit=audit)
 
 
 def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False,
               ring: bool = False, audit: bool = False) -> DNDarray:
     """City-block distance matrix (reference distance.py:363), in the
     broadcast form. ``expand`` is accepted for parity and changes nothing,
-    as in the JAX package; ``ring=True`` as for :func:`cdist`."""
-    _no_audit(audit)
-    return _dist(X, Y, False, manhattan=True, ring=ring)
-
-
-def _no_audit(audit: bool) -> None:
-    if audit:
-        raise NotImplementedError(
-            "audit=True: the collective audit comes with telemetry (ROADMAP §1 item 13)")
+    as in the JAX package; ``ring=True`` and ``audit`` as for :func:`cdist`."""
+    return _dist(X, Y, False, manhattan=True, ring=ring, audit=audit)

@@ -9,10 +9,10 @@ Counterpart of ``heat_tpu/streaming``:
   Lloyd window on the Lloyd kernel, with a decayed-count blend); both
   checkpoint and resume their carries bit for bit through
   ``resilience.checkpoint``, in the JAX package's format;
-- :func:`rolling_update` rolls a new checkpoint through a replica pool.
-
-``Server.publish`` and the replica pool it needs come with the serving tier
-(ROADMAP §1 item 14).
+- :func:`rolling_update` rolls a new checkpoint through a replica pool
+  (:class:`~heat_tpu_torch.serve.net.ReplicaPool` under a
+  :class:`~heat_tpu_torch.serve.net.Router`); ``Server.publish`` swaps a
+  new version into a running in-process server.
 """
 
 from __future__ import annotations

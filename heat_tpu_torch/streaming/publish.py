@@ -8,8 +8,9 @@ remove one old replica. Capacity never drops below the starting count.
 
 :func:`rolling_update` is duck-typed over ``pool`` (``set_checkpoint``,
 ``replicas`` with ``index``/``state``/``alive()``, ``spawn``, ``remove``,
-``handle``, ``stats``) and ``router`` (``add_target``); the port's
-``ReplicaPool`` and router come with the serving tier (ROADMAP §1 item 14).
+``handle``, ``stats``) and ``router`` (``add_target``): the port's
+:class:`~heat_tpu_torch.serve.net.ReplicaPool` and
+:class:`~heat_tpu_torch.serve.net.Router` are such objects.
 """
 
 from __future__ import annotations

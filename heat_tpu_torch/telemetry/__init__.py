@@ -9,7 +9,36 @@ tensor through :meth:`Span.output`, as the JAX package's span blocks on
 its outputs, so it times device work and not the enqueue.
 
 Disabled (the default), every hook is one module-flag check: ``span()``
-returns a shared no-op object and the call sites build no fields.
+returns a shared no-op object and :func:`op_cost` computes no cost, so
+the call sites build no fields.
+
+The submodules are the JAX package's (:87-447 there):
+
+* :mod:`.collectives`, the analytic cost model (bytes on the wire of a
+  relayout, a ring, TSQR, a sparse product, ...), function for function;
+* :mod:`.hlo`, the collective audit. The JAX package parses the collectives
+  XLA emitted; the port issues every collective itself, so the audit
+  records the collectives :class:`~heat_tpu_torch.core.communication.
+  TorchCommunication` issued while the audited call ran and compares their
+  wire bytes with the cost model (``audit=True`` at the instrumented sites,
+  or ``HEAT_TPU_HLO_AUDIT=1``);
+* :mod:`.memory` (live bytes of the DNDarrays, the caching allocator's
+  statistics on the card), :mod:`.report` (the per-phase summary),
+  :mod:`.trace` (a Chrome/Perfetto trace, :func:`export_trace`) and
+  :mod:`.cluster` (the fleet view of a router and its replicas);
+* ``python -m heat_tpu_torch.telemetry.audit "<expr>"`` (:mod:`.audit`).
+
+**Collectives.** Every collective that ``TorchCommunication`` issues
+calls :func:`trace_event` once, with its op, the bytes in and out on this
+rank and the group size: an always-on count a name
+(:func:`collective_counts`), an observation for any open audit, and, while
+telemetry records, a ``traced.<name>`` counter and one
+``collective_trace`` event. The JAX package fires this event when a
+program is traced, so a cached program records nothing; the port issues
+its collectives eagerly and records every call. The port's counterpart of
+a trace is the capture of a CUDA graph (:mod:`heat_tpu_torch.core.
+program_cache`): a collective inside a captured program fires its event
+once, at the capture; a replay issues no Python call and fires nothing.
 
 :class:`CompileWatcher` and :func:`measure_compile` (:476-546 there)
 count and time the builds of the port's program registry
@@ -19,9 +48,6 @@ call of an input signature on the CPU, each reported by the registry
 through :func:`record_build` as one ``backend_compile_duration`` event.
 There is no JAX monitoring listener to install.
 
-Not ported yet (ROADMAP §1 item 13): ``op_cost`` and the submodules
-(``collectives``, ``hlo``, ``memory``, ``report``, ``trace``,
-``cluster``).
 """
 
 from __future__ import annotations
@@ -34,19 +60,32 @@ from collections import defaultdict
 from typing import IO, Any, Dict, Iterable, List, Optional, Union
 
 from .. import _knobs as knobs
+from . import collectives
 
 __all__ = [
     "CompileWatcher",
+    "SLO",
     "Span",
     "Telemetry",
+    "cluster",
+    "collective_counts",
+    "collectives",
     "disable",
     "enable",
     "enabled",
+    "export_trace",
     "flush",
     "get_registry",
+    "hlo",
     "measure_compile",
+    "memory",
+    "op_cost",
     "record_build",
+    "report",
+    "reset_collective_counts",
     "span",
+    "summarize_cluster",
+    "trace",
     "trace_event",
 ]
 
@@ -242,7 +281,9 @@ _NOOP_SPAN = _NoopSpan()
 
 
 def _wait_for(values) -> None:
-    """Wait for the cards that hold any CUDA tensor of ``values``."""
+    """Wait for the cards that hold any CUDA tensor of ``values`` (not while
+    a CUDA graph is being captured, where waiting is illegal: a span there
+    times the capture, as a JAX span inside a trace times the trace)."""
     import torch
 
     devices = set()
@@ -252,6 +293,8 @@ def _wait_for(values) -> None:
             t = getattr(t, "larray", t)
             if isinstance(t, torch.Tensor) and t.is_cuda:
                 devices.add(t.device)
+    if devices and torch.cuda.is_current_stream_capturing():
+        return
     for d in devices:
         torch.cuda.synchronize(d)
 
@@ -313,13 +356,55 @@ def span(name: str, **fields: Any):
     return Span(name, fields)
 
 
+def op_cost(cost_fn, *cost_args, audit: bool = False, use_global: bool = True):
+    """The shared preamble of the instrumented sites: ``(cost, fields,
+    do_audit)``.
+
+    * ``cost``: the analytic :class:`~.collectives.CollectiveCost`, computed
+      only when recording or auditing will read it (None otherwise, so a
+      disabled site costs one flag check);
+    * ``fields``: the span fields (``cost.as_fields()`` while recording,
+      ``{}`` otherwise);
+    * ``do_audit``: whether the call runs under :func:`.hlo.audit_call`:
+      ``audit=True``, or the global ``HEAT_TPU_HLO_AUDIT`` unless
+      ``use_global=False``.
+    """
+    do_audit = audit or (use_global and hlo.audit_enabled())
+    cost = cost_fn(*cost_args) if (_ENABLED or do_audit) else None
+    fields = cost.as_fields() if (_ENABLED and cost is not None) else {}
+    return cost, fields, do_audit
+
+
+# collectives issued by this process, by name, whether or not telemetry records
+_ISSUED: Dict[str, int] = defaultdict(int)
+_ISSUED_LOCK = threading.Lock()
+
+
 def trace_event(name: str, **fields: Any) -> None:
-    """Count and record one ``collective_trace`` event; no-op when disabled."""
+    """One collective issued by the communication layer (module docstring):
+    counted always, observed by the open audits, and a ``traced.<name>``
+    counter with one ``collective_trace`` event while telemetry records."""
+    with _ISSUED_LOCK:
+        _ISSUED[name] += 1
+    if hlo._RECORDING:
+        hlo._observe(name, fields)
     if not _ENABLED:
         return
     reg = get_registry()
     reg.add(f"traced.{name}", 1)
     reg.emit("collective_trace", name, **fields)
+
+
+def collective_counts() -> Dict[str, int]:
+    """The collectives this process issued since the last reset, by name
+    (``allreduce``, ``all_gather``, ``ppermute``, ...)."""
+    with _ISSUED_LOCK:
+        return dict(_ISSUED)
+
+
+def reset_collective_counts() -> None:
+    with _ISSUED_LOCK:
+        _ISSUED.clear()
 
 
 # -- builds of the program registry ------------------------------------------
@@ -406,6 +491,17 @@ def measure_compile(fn, *args, **kwargs):
         get_registry().emit("compile", program.site, seconds=dt, mode="aot")
     return dt, program
 
+
+# the submodules read the registry machinery above, so they load last
+from . import hlo  # noqa: E402
+from . import memory  # noqa: E402
+from . import report  # noqa: E402
+from . import trace  # noqa: E402
+from . import cluster  # noqa: E402
+
+export_trace = trace.export_trace
+SLO = cluster.SLO
+summarize_cluster = cluster.summarize_cluster
 
 if knobs.get("HEAT_TPU_TELEMETRY"):
     enable()

@@ -1,0 +1,934 @@
+"""Analytic collective cost model: bytes on the wire per relayout and kernel.
+
+The port's own copy of ``heat_tpu/telemetry/collectives.py``, function for
+function and field for field (the port imports nothing of the JAX
+package). Given a logical global shape, an element size, the old and new
+split axes and the world size, each rule names the collective a layout
+change needs and counts its wire bytes; :mod:`.hlo` holds the collectives
+that :class:`~heat_tpu_torch.core.communication.TorchCommunication` really
+issued against these predictions.
+
+Conventions
+-----------
+* Volumes are **total bytes crossing links, summed over all ranks**.
+* Volumes are computed on the **logical** element count; the ceil-rule
+  chunks are padded to ``ceil(n/p)`` for a collective, so the bytes moved
+  are within one chunk row of these figures (exact when the split
+  dimension divides by the world size).
+* A replicated-to-split relayout is a local slice (each rank already holds
+  every element), hence zero wire bytes.
+* The kinds keep the JAX package's names (``all-gather``, ``all-to-all``,
+  ``ppermute-ring``, ``all-reduce``, ``reduce-scatter``), and the functions
+  of layouts the port does not run yet (the hierarchical, FSDP, pipeline
+  and compressed-wire rules) are kept for the items that will.
+
+A leaf module (stdlib only): instrumentation sites import it without the
+array machinery.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+__all__ = [
+    "CollectiveCost",
+    "DEFAULT_WIRE_BLOCK",
+    "DEFAULT_DCN_PREMIUM",
+    "compression_factor",
+    "weighted_wire",
+    "relayout_cost",
+    "relayout_chunk_cost",
+    "a2a_kernel_cost",
+    "ring_cdist_cost",
+    "tsqr_cost",
+    "gram_ring_cost",
+    "fusion_reduce_cost",
+    "allreduce_cost",
+    "reduce_scatter_cost",
+    "hierarchical_allreduce_cost",
+    "hierarchical_reduce_scatter_cost",
+    "hierarchical_allgather_cost",
+    "hierarchical_a2a_cost",
+    "fsdp_gather_cost",
+    "fsdp_scatter_cost",
+    "ring_attention_cost",
+    "ulysses_attention_cost",
+    "pipeline_cost",
+    "pipeline_hop_cost",
+    "spmv_cost",
+    "spmm_cost",
+    "sparse_transpose_cost",
+]
+
+# Blockwise collective-compression scale granularity: one f32
+# scale per this many payload elements. Kept here (the import-light leaf
+# module) so the cost model and heat_tpu.core.collective_prec share one
+# default without a dependency cycle.
+DEFAULT_WIRE_BLOCK = 128
+
+
+# Default ICI-vs-DCN byte premium. The registered knob HEAT_TPU_DCN_PREMIUM
+# carries the same value; kept here too so this module stays usable as the
+# import-light leaf it is documented to be.
+DEFAULT_DCN_PREMIUM = 8.0
+
+
+@dataclass(frozen=True)
+class CollectiveCost:
+    """One collective's analytic cost.
+
+    kind : the collective XLA/shard_map emits ("all-gather", "all-to-all",
+        "ppermute-ring", "local-slice", "none", or a "+"-joined compound).
+    bytes : total wire bytes summed over devices (see module conventions).
+    steps : number of sequential communication rounds (1 for one-shot
+        collectives, p for a p-hop ring).
+    dcn_bytes : the portion of ``bytes`` that rides the slow cross-node
+        (DCN) tier of a 2-level topology. The tier assignment
+        follows the emitted replica-group structure: an op whose groups
+        stay inside one node is ICI; an op whose groups span nodes is
+        DCN. Flat lowerings on a non-trivial topology are therefore
+        all-DCN (their single group spans every node); tiered lowerings
+        charge only the cross-node stage here. 0 on 1-level meshes.
+    """
+
+    kind: str
+    bytes: int
+    steps: int = 1
+    dcn_bytes: int = 0
+
+    def as_fields(self) -> Dict[str, object]:
+        """Span/event field dict (`collective=`, `bytes=`, `steps=`)."""
+        out = {"collective": self.kind, "bytes": self.bytes, "steps": self.steps}
+        if self.dcn_bytes:
+            out["dcn_bytes"] = self.dcn_bytes
+        return out
+
+
+def weighted_wire(cost: "CollectiveCost", premium: Optional[float] = None) -> float:
+    """Topology-priced wire figure: ICI bytes at 1x plus DCN bytes at the
+    ``premium`` multiplier (default: the ``HEAT_TPU_DCN_PREMIUM`` knob).
+    This is the scalar the relayout planner and the autotuner's analytic
+    stage compare when picking tiered vs flat per program signature — on
+    a 1-level mesh (``dcn_bytes == 0``) it degenerates to plain bytes."""
+    if premium is None:
+        try:
+            from heat_tpu_torch import _knobs as _k
+
+            premium = _k.get("HEAT_TPU_DCN_PREMIUM")
+        except Exception:  # registry unavailable: price flat
+            premium = DEFAULT_DCN_PREMIUM
+        if premium is None:
+            premium = DEFAULT_DCN_PREMIUM
+    local_bytes = int(cost.bytes) - int(cost.dcn_bytes)
+    return float(local_bytes) + float(premium) * float(cost.dcn_bytes)
+
+
+def _numel(gshape: Sequence[int]) -> int:
+    n = 1
+    for s in gshape:
+        n *= int(s)
+    return n
+
+
+def compression_factor(
+    itemsize: int, precision: str, block: int = DEFAULT_WIRE_BLOCK
+) -> float:
+    """Bytes-on-wire per logical byte for one compressed payload
+    (``HEAT_TPU_COLLECTIVE_PREC``): ``off`` 1.0; ``bf16`` a
+    2-byte wire element; ``int8`` a 1-byte wire element; ``blockwise``
+    int8 plus one bf16 scale per ``block`` elements. Never above 1.0 —
+    a payload narrower than the wire dtype moves as-is."""
+    itemsize = int(itemsize)
+    if precision == "bf16":
+        return min(1.0, 2.0 / itemsize)
+    if precision == "int8":
+        return min(1.0, 1.0 / itemsize)
+    if precision == "blockwise":
+        return min(1.0, (1.0 + 2.0 / int(block)) / itemsize)
+    return 1.0
+
+
+# The scalar max all-reduce a per-tensor GSPMD quantization pays to learn
+# the global max-abs: one f32 scalar, ring all-reduce model.
+def _amax_allreduce_bytes(nproc: int) -> int:
+    return 2 * 4 * (nproc - 1)
+
+
+def _gspmd_blockwise(gshape: Sequence[int], old_split, block: int):
+    """Mirror of collective_prec's GSPMD blockwise applicability + segment
+    rule: blocks along the last axis (must exist and be unsharded), even
+    ``block``-sized segments only when they divide the axis, else one
+    whole-row segment. Returns (applicable, n_scale_elements)."""
+    ndim = len(gshape)
+    if ndim < 2 or old_split == ndim - 1 or int(gshape[-1]) <= 0:
+        return False, 0
+    last = int(gshape[-1])
+    nb = last // block if (last >= block and last % block == 0) else 1
+    return True, (_numel(gshape) // last) * nb
+
+
+def relayout_cost(
+    gshape: Sequence[int],
+    itemsize: int,
+    old_split: Optional[int],
+    new_split: Optional[int],
+    nproc: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of the canonical relayout (`DNDarray._relayout` /
+    `manipulations.resplit`) from ``old_split`` to ``new_split``.
+
+    * split → same split, or any relayout on a 1-position mesh: no comm;
+    * split s → replicated: **all-gather** — every device receives the
+      (p-1)/p of the array it does not own: ``(p-1) · B`` total;
+    * replicated → split s: **local slice** — zero wire bytes;
+    * split s → split t (s ≠ t): **all-to-all** — each device keeps the
+      1/p of its shard destined for itself and sends the rest:
+      ``B · (p-1)/p`` total (the analytic all-to-all volume).
+
+    ``precision`` (``HEAT_TPU_COLLECTIVE_PREC``) prices the
+    compressed-wire program instead: the payload moves at the compressed
+    dtype, and the scale machinery's own (small) collectives are named in
+    the compound ``kind`` — ``+all-reduce`` for the per-tensor max-abs
+    scalar (``int8``, and ``blockwise`` degraded on shapes whose block
+    axis is the sharded one), ``+all-gather`` for the replicated
+    blockwise scales. Mirrors ``collective_prec.gspmd_reshard`` exactly
+    so the HLO audit of a compressed relayout stays zero-drift.
+    """
+    b = _numel(gshape) * int(itemsize)
+    if nproc <= 1 or old_split == new_split:
+        return CollectiveCost("none", 0)
+    if old_split is None:
+        return CollectiveCost("local-slice", 0)
+    kind = "all-gather" if new_split is None else "all-to-all"
+
+    def payload(nbytes: int) -> int:
+        if kind == "all-gather":
+            return nbytes * (nproc - 1)
+        return (nbytes * (nproc - 1)) // nproc
+
+    if precision == "off" or int(itemsize) <= 1:
+        return CollectiveCost(kind, payload(b))
+    if precision == "bf16":
+        wire = min(int(itemsize), 2)
+        return CollectiveCost(kind, payload(_numel(gshape) * wire))
+    if precision == "blockwise":
+        ok, n_scales = _gspmd_blockwise(gshape, old_split, block)
+        if ok:
+            # blockwise scales are shard-local, replicated by one small
+            # all-gather (same op as the payload when the payload gathers)
+            scale_bytes = n_scales * 2 * (nproc - 1)
+            pk = kind if kind == "all-gather" else kind + "+all-gather"
+            return CollectiveCost(pk, payload(_numel(gshape)) + scale_bytes)
+        precision = "int8"  # degraded: per-tensor scale
+    # int8 per-tensor: scalar max all-reduce for the global scale
+    return CollectiveCost(
+        kind + "+all-reduce",
+        payload(_numel(gshape)) + _amax_allreduce_bytes(nproc),
+    )
+
+
+def relayout_chunk_cost(
+    gshape: Sequence[int],
+    itemsize: int,
+    src_split: int,
+    dst_split: int,
+    width: int,
+    nproc: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of ONE stage of the planner's chunked relayout
+    (:mod:`heat_tpu.core.relayout_planner`): a destination-shard-aligned
+    block of ``width`` columns along ``dst_split`` lands whole on one
+    destination shard, so XLA emits one **all-gather** of the block —
+    every device receives the whole chunk and the owner keeps its part:
+    ``chunk_phys · (p-1)`` wire bytes, where ``chunk_phys`` counts the
+    source buffer's tail pad along ``src_split`` (the bytes the program
+    actually moves). Summed over a plan's stages this is ``~B·(p-1)`` —
+    the wire premium the bounded-memory decomposition pays vs the
+    monolithic all-to-all's ``B·(p-1)/p``.
+
+    ``precision``: chunk stages always use per-chunk
+    (per-tensor) scales — a narrow chunk's last axis would make blockwise
+    scale overhead comparable to the payload — so ``int8`` and
+    ``blockwise`` price identically: int8 payload plus the scalar max
+    all-reduce."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    other = 1
+    for d, s in enumerate(gshape):
+        if d == dst_split:
+            continue
+        s = int(s)
+        if d == src_split:
+            s = math.ceil(s / nproc) * nproc
+        other *= s
+    elems = other * int(width)
+    if precision == "bf16" and int(itemsize) > 2:
+        return CollectiveCost("all-gather", elems * 2 * (nproc - 1))
+    if precision in ("int8", "blockwise") and int(itemsize) > 1:
+        return CollectiveCost(
+            "all-gather+all-reduce",
+            elems * (nproc - 1) + _amax_allreduce_bytes(nproc),
+        )
+    return CollectiveCost("all-gather", elems * int(itemsize) * (nproc - 1))
+
+
+def a2a_kernel_cost(
+    phys_gshape: Sequence[int],
+    itemsize: int,
+    nproc: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of the explicit shard_map all-to-all kernel
+    (core/relayout_planner ``alltoall`` plans, via the
+    ``MeshCommunication.all_to_all`` wrapper) on the PHYSICAL
+    (pad-inclusive) shape. Uncompressed it is the plain all-to-all
+    volume; compressed, each of the ``p`` outgoing slabs per device
+    (``m = numel/p²`` elements) is quantized independently — per-slab
+    scale for ``int8``, flat blocks of ``min(block, m)`` elements
+    zero-padded to whole blocks for ``blockwise`` — and the bf16 scales
+    ride their own (tiny) all-to-all. Mirrors
+    ``collective_prec.all_to_all`` byte-for-byte."""
+    numel = _numel(phys_gshape)
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    if precision == "off" or int(itemsize) <= 1:
+        return CollectiveCost(
+            "all-to-all", (numel * int(itemsize) * (nproc - 1)) // nproc
+        )
+    if precision == "bf16":
+        wire = min(int(itemsize), 2)
+        return CollectiveCost(
+            "all-to-all", (numel * wire * (nproc - 1)) // nproc
+        )
+    m = numel // (nproc * nproc)
+    if precision == "int8":
+        nb, seg = 1, m
+    else:
+        seg = max(1, min(int(block), m))
+        nb = max(1, -(-m // seg))
+    per_dev = nproc * (nb * seg + nb * 2)  # padded int8 slabs + bf16 scales
+    return CollectiveCost("all-to-all", per_dev * (nproc - 1))
+
+
+def ring_cdist_cost(
+    n: int, k: int, itemsize: int, nproc: int, hops: Optional[int] = None,
+    precision: str = "off", block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of the ppermute ring distance kernel
+    (:func:`heat_tpu.spatial.distance._ring_dist`): the row-split ``y``
+    block circulates one hop per step, every device sending its
+    ``ceil(n/p)·k`` block each hop. Only ``y`` moves — the stationary x
+    rows never touch the wire, so the volume is independent of the x-row
+    count. ``hops`` defaults to ``p`` (the serial kernel's `fori_loop`
+    permutes on every iteration, including the final hop that returns
+    each block home); the double-buffered overlap kernel skips that dead
+    hop and passes ``hops = p - 1``.
+
+    ``precision``: the circulating y-block is re-quantized
+    every hop, so each hop's permute moves the compressed payload plus
+    its scales — per-tensor (one f32 scalar, ``int8``) or flat blocks of
+    ``block`` elements zero-padded to a whole number of blocks
+    (``blockwise``). Both permutes are collective-permute instructions,
+    so the kind is unchanged."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    hops = nproc if hops is None else int(hops)
+    elems = math.ceil(n / nproc) * int(k)
+    per_hop = elems * int(itemsize)
+    if precision == "bf16" and int(itemsize) > 2:
+        per_hop = elems * 2
+    elif precision == "int8" and int(itemsize) > 1:
+        per_hop = elems + 2  # int8 payload + one bf16 scale per hop
+    elif precision == "blockwise" and int(itemsize) > 1:
+        seg = max(1, min(int(block), elems))  # implementation clamps too
+        nb = max(1, -(-elems // seg))
+        per_hop = nb * seg + nb * 2  # padded int8 blocks + bf16 scales
+    return CollectiveCost("ppermute-ring", nproc * hops * per_hop, steps=hops)
+
+
+def tsqr_cost(m: int, n: int, itemsize: int, nproc: int) -> CollectiveCost:
+    """Cost of the TSQR kernel (:func:`heat_tpu.core.linalg.qr.qr`, row-split
+    path): one in-kernel all-gather of the per-shard ``(min(chunk, n), n)``
+    R factors — every device receives the ``p-1`` blocks it did not
+    compute. The two GEMM stages are local."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    chunk = math.ceil(m / nproc)
+    k1 = min(chunk, int(n))
+    return CollectiveCost(
+        "all-gather", nproc * (nproc - 1) * k1 * int(n) * int(itemsize)
+    )
+
+
+def gram_ring_cost(
+    m: int, n: int, itemsize: int, nproc: int, hops: Optional[int] = None
+) -> CollectiveCost:
+    """Cost of the CholeskyQR2 ring Gram kernel
+    (:func:`heat_tpu.core.linalg.qr._gram_ring`): ``hops`` ring hops of
+    the stationary-transpose schedule (each device circulates its
+    ``(ceil(n/p), m)`` block every hop — ``p`` hops for the serial
+    kernel, ``p - 1`` for the double-buffered overlap kernel, which
+    skips the final hop that only returns each block home) plus the
+    final tiled all-gather of the ``(ceil(n/p), n_phys)`` row blocks of
+    G."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    hops = nproc if hops is None else int(hops)
+    c = math.ceil(n / nproc)
+    n_phys = c * nproc
+    ring = nproc * hops * c * int(m) * int(itemsize)
+    gather = nproc * (nproc - 1) * c * n_phys * int(itemsize)
+    return CollectiveCost("ppermute-ring+all-gather", ring + gather, steps=hops)
+
+
+def fusion_reduce_cost(
+    out_gshape: Sequence[int], itemsize: int, nproc: int
+) -> CollectiveCost:
+    """Cost of the collective tail of a fused chain+reduction program
+    (core/fusion.py ``absorb_reduce``, site ``fusion_reduce``): a
+    reduction crossing the split axis leaves each device holding a full
+    partial result of the OUTPUT shape, combined by one all-reduce —
+    ``2·B·(p-1)`` wire bytes for the reduce-scatter+broadcast lowering,
+    where ``B`` is the replicated result's byte size. Reductions that keep
+    the split (and 1-position meshes) move nothing."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    return CollectiveCost(
+        "all-reduce", 2 * _numel(out_gshape) * int(itemsize) * (nproc - 1)
+    )
+
+
+def allreduce_cost(
+    numel: int,
+    itemsize: int,
+    nproc: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one all-reduce of a ``numel``-element payload under
+    ``HEAT_TPU_COLLECTIVE_PREC`` — the DP gradient / DASO
+    node-sync primitive:
+
+    * ``off`` — XLA ring all-reduce, ``2·B·(p-1)``;
+    * ``bf16`` — the same all-reduce on a bf16 payload;
+    * ``int8``/``blockwise`` — the EQuARX two-phase form
+      (``collective_prec.psum``): an all-to-all of each device's
+      quantized partial (zero-padded to ``p`` chunks, blockwise also to
+      whole blocks) plus an all-gather of the requantized reduced
+      chunks, scales riding each phase. Mirrors the implementation
+      byte-for-byte so the HLO audit stays zero-drift.
+    """
+    numel, itemsize = int(numel), int(itemsize)
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    if precision == "off" or itemsize <= 1 or (
+        precision == "bf16" and itemsize <= 2
+    ):
+        return CollectiveCost(
+            "all-reduce", 2 * numel * itemsize * (nproc - 1)
+        )
+    if precision == "bf16":
+        return CollectiveCost("all-reduce", 2 * numel * 2 * (nproc - 1))
+    chunk = -(-numel // nproc)
+    if precision == "blockwise":
+        blk = max(1, min(int(block), chunk))  # implementation clamps too
+        chunk = -(-chunk // blk) * blk
+        nb = chunk // blk
+    else:
+        nb = 1
+    numel_p = chunk * nproc
+    payload = 2 * numel_p * (nproc - 1)          # a2a phase + gather phase
+    scales = 2 * 2 * nproc * nb * (nproc - 1)    # bf16 scales, both phases
+    return CollectiveCost("all-to-all+all-gather", payload + scales)
+
+
+def reduce_scatter_cost(
+    numel: int,
+    itemsize: int,
+    nproc: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one flat ``MeshCommunication.reduce_scatter`` of a
+    ``numel``-element payload (the payload is flattened and zero-padded to
+    ``p`` equal chunks in flight — the physical figure counted here):
+
+    * ``off``/narrow — ring reduce-scatter, ``B_pad · (p-1)``
+      (per-participant operand ``B_pad``, the hlo.py wire model);
+    * ``bf16`` — the same reduce-scatter on a bf16 payload;
+    * ``int8``/``blockwise`` — the EQuARX first phase standing alone
+      (``collective_prec.reduce_scatter``): an all-to-all of each
+      device's quantized per-destination sub-chunks plus their scales,
+      dequantize + accumulate on the receiver. Mirrors the
+      implementation byte-for-byte.
+    """
+    numel, itemsize = int(numel), int(itemsize)
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    chunk = -(-numel // nproc)
+    if precision == "off" or itemsize <= 1 or (
+        precision == "bf16" and itemsize <= 2
+    ):
+        return CollectiveCost(
+            "reduce-scatter", chunk * nproc * itemsize * (nproc - 1)
+        )
+    if precision == "bf16":
+        return CollectiveCost(
+            "reduce-scatter", chunk * nproc * 2 * (nproc - 1)
+        )
+    if precision == "blockwise":
+        blk = max(1, min(int(block), chunk))
+        chunk = -(-chunk // blk) * blk
+        nb = chunk // blk
+    else:
+        nb = 1
+    payload = chunk * nproc * (nproc - 1)            # int8 a2a phase
+    scales = 2 * nproc * nb * (nproc - 1)            # bf16 scales alongside
+    return CollectiveCost("all-to-all", payload + scales)
+
+
+# -- hierarchy-aware tiered lowerings (core/topology.py) ------------
+# Per-tier conventions: the in-node (ICI) tier always moves exact payloads;
+# ``cross_precision`` is the wire mode of the cross-node (DCN) tier only.
+# ``dcn_bytes`` carries the cross-node stage's volume so weighted_wire can
+# price the DCN premium. Each function mirrors the topology.py lowering
+# byte-for-byte so the HLO audit of a tiered program stays zero-drift.
+
+
+def _hier_chunk(numel: int, local: int) -> int:
+    """Per-device shard length of the in-node reduce-scatter: the flat
+    payload zero-padded to ``local`` equal chunks."""
+    return -(-int(numel) // int(local))
+
+
+def hierarchical_allreduce_cost(
+    numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    cross_precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one tiered all-reduce (``MeshCommunication.psum`` under
+    ``HEAT_TPU_HIERARCHICAL=1`` on a ``node x local`` topology):
+
+    1. **in-node reduce-scatter** (ICI, exact) of the padded flat payload
+       — ``B_pad · (local-1) · node`` wire bytes, node groups;
+    2. **cross-node all-reduce** (DCN) of the ``1/local``-sized shard —
+       each device's cross payload is ``B_pad/local``, exactly the shard
+       factor the acceptance oracle pins; ``local`` cross groups of
+       ``node`` participants. ``cross_precision`` compresses THIS stage
+       only (bf16 payload, or the EQuARX two-phase form per group);
+    3. **in-node all-gather** (ICI, exact) of the reduced shard —
+       ``B_pad · (local-1) · node``.
+
+    Degenerate topologies (``node == 1`` or ``local == 1``) lower flat
+    (:func:`allreduce_cost`) — a 1-level hierarchy IS the flat ring.
+    """
+    numel, itemsize = int(numel), int(itemsize)
+    node, local = int(node), int(local)
+    p = node * local
+    if p <= 1:
+        return CollectiveCost("none", 0)
+    if node == 1 or local == 1:
+        return allreduce_cost(numel, itemsize, p, cross_precision, block)
+    chunk = _hier_chunk(numel, local)
+    n_pad = chunk * local
+    tier_ici = n_pad * itemsize * (local - 1) * node  # rs == ag volume
+    if cross_precision in ("int8", "blockwise") and itemsize > 1:
+        per_group = allreduce_cost(
+            chunk, itemsize, node, cross_precision, block
+        )
+        cross = per_group.bytes * local
+        kind = "reduce-scatter+all-to-all+all-gather"
+    else:
+        wire = itemsize
+        if cross_precision == "bf16" and itemsize > 2:
+            wire = 2
+        cross = 2 * chunk * wire * (node - 1) * local
+        kind = "reduce-scatter+all-reduce+all-gather"
+    return CollectiveCost(
+        kind, tier_ici * 2 + cross, dcn_bytes=cross
+    )
+
+
+def hierarchical_reduce_scatter_cost(
+    numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    cross_precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one tiered reduce-scatter: in-node reduce-scatter (ICI,
+    exact) to the ``1/local`` shard, then a cross-node reduce-scatter of
+    that shard (DCN, ``cross_precision``-priced) down to the global
+    ``1/p`` chunk. Degenerates to :func:`reduce_scatter_cost` on 1-level
+    topologies."""
+    numel, itemsize = int(numel), int(itemsize)
+    node, local = int(node), int(local)
+    p = node * local
+    if p <= 1:
+        return CollectiveCost("none", 0)
+    if node == 1 or local == 1:
+        return reduce_scatter_cost(numel, itemsize, p, cross_precision, block)
+    # stage 1 pads to p (not just local) chunks so stage 2 scatters evenly
+    chunk_p = -(-numel // p)
+    n_pad = chunk_p * p
+    chunk = n_pad // local
+    tier_ici = n_pad * itemsize * (local - 1) * node
+    per_group = reduce_scatter_cost(
+        chunk, itemsize, node, cross_precision, block
+    )
+    cross = per_group.bytes * local
+    kind = "reduce-scatter" if per_group.kind == "reduce-scatter" else (
+        "reduce-scatter+" + per_group.kind
+    )
+    return CollectiveCost(kind, tier_ici + cross, dcn_bytes=cross)
+
+
+def hierarchical_allgather_cost(
+    shard_numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    cross_precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one tiered all-gather of a per-device ``shard_numel``
+    payload: cross-node gather first (DCN — each device receives its
+    ``node-1`` peer shards), then the in-node gather of the stacked
+    blocks (ICI). Compressed modes quantize ONCE at the source and move
+    the compressed payload through both stages (the scales ride both
+    gathers), so the error bound is one quantization step — identical to
+    the flat compressed gather. Exact total equals the flat
+    ``p·s·(p-1)`` volume; only the tier split changes."""
+    s, itemsize = int(shard_numel), int(itemsize)
+    node, local = int(node), int(local)
+    p = node * local
+    if p <= 1:
+        return CollectiveCost("none", 0)
+    wire = itemsize
+    scale_elems = 0
+    if itemsize > 1 and cross_precision == "bf16":
+        wire = min(itemsize, 2)
+    elif itemsize > 1 and cross_precision == "int8":
+        wire, scale_elems = 1, 1
+    elif itemsize > 1 and cross_precision == "blockwise":
+        seg = max(1, min(int(block), s))
+        nb = max(1, -(-s // seg))
+        s_padded = nb * seg
+        wire, scale_elems, s = 1, nb, s_padded
+    if node == 1 or local == 1:
+        return CollectiveCost(
+            "all-gather",
+            p * (p - 1) * (s * wire + scale_elems * 2),
+        )
+    cross = (s * wire + scale_elems * 2) * (node - 1) * p
+    ici = node * (s * wire + scale_elems * 2) * (local - 1) * p
+    return CollectiveCost("all-gather", cross + ici, dcn_bytes=cross)
+
+
+def hierarchical_a2a_cost(
+    phys_numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    cross_precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one tiered all-to-all on the PHYSICAL (pad-inclusive)
+    global element count: stage A exchanges destination-local slabs
+    inside each node (ICI), stage B exchanges destination-node bundles
+    across nodes (DCN). Total volume is ``B·((local-1)/local +
+    (node-1)/node)`` — slightly above the flat ``B·(p-1)/p`` — but the
+    DCN tier carries only the ``(node-1)/node`` share as ``local``-way
+    aggregated transfers, which is what the premium pricing rewards.
+    Compressed modes quantize per final-destination slab at the source
+    (the :func:`a2a_kernel_cost` slab scheme) and move payload + scales
+    through both stages."""
+    numel, itemsize = int(phys_numel), int(itemsize)
+    node, local = int(node), int(local)
+    p = node * local
+    if p <= 1:
+        return CollectiveCost("none", 0)
+    if node == 1 or local == 1:
+        return a2a_kernel_cost((numel,), itemsize, p, cross_precision, block)
+    if cross_precision == "off" or itemsize <= 1:
+        total_payload = numel * itemsize
+    elif cross_precision == "bf16":
+        total_payload = numel * min(itemsize, 2)
+    else:
+        m = numel // (p * p)
+        if cross_precision == "int8":
+            nb, seg = 1, m
+        else:
+            seg = max(1, min(int(block), m))
+            nb = max(1, -(-m // seg))
+        total_payload = p * p * (nb * seg + nb * 2)
+    ici = total_payload * (local - 1) // local
+    cross = total_payload * (node - 1) // node
+    return CollectiveCost("all-to-all", ici + cross, dcn_bytes=cross)
+
+
+# -- FSDP weight-stream collectives (parallel/fsdp.py) --------------
+# The FSDP forward all-gathers each leaf's flat 1/p chunk just-in-time and
+# the backward re-scatters the weight cotangent through the gather's
+# transpose. Both ride the MeshCommunication wrappers, so the tiered
+# lowering (and its DCN split) and the compressed wire apply
+# unchanged — these entries just price the FSDP payload convention (the
+# pre-padded ``p x chunk`` flat layout of ``fsdp.flat_chunk``) so the
+# per-layer HLO audit diffs against exactly the program dispatched.
+
+
+def fsdp_gather_cost(
+    chunk_numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of one just-in-time FSDP weight gather: every device
+    contributes its ``chunk_numel``-element flat shard and receives the
+    full ``p x chunk`` leaf. Flat meshes (``node == 1`` or ``local ==
+    1``) emit one all-gather of ``p·s·(p-1)`` wire bytes (compressed
+    modes move payload + scales, the ``collective_prec.all_gather``
+    convention); 2-level topologies split the identical total across the
+    DCN/ICI tiers (:func:`hierarchical_allgather_cost`), with
+    ``precision`` compressing the wire payload quantized once at the
+    source. ``dcn_bytes`` carries the cross-node stage for
+    :func:`weighted_wire` premium pricing."""
+    return hierarchical_allgather_cost(
+        chunk_numel, itemsize, node, local, precision, block
+    )
+
+
+def fsdp_scatter_cost(
+    padded_numel: int,
+    itemsize: int,
+    node: int,
+    local: int,
+    precision: str = "off",
+    block: int = DEFAULT_WIRE_BLOCK,
+) -> CollectiveCost:
+    """Cost of the FSDP gather's transpose — the backward reduce-scatter
+    of one leaf's weight cotangent: each device holds the full
+    ``padded_numel``-element cotangent (the pre-padded ``p·chunk`` flat
+    layout) and keeps the summed 1/p chunk it owns. Flat meshes price
+    the ring reduce-scatter (quantized modes: the EQuARX first phase as
+    an all-to-all, :func:`reduce_scatter_cost`); 2-level topologies the
+    tiered in-node-exact / cross-node-``precision`` split
+    (:func:`hierarchical_reduce_scatter_cost`)."""
+    return hierarchical_reduce_scatter_cost(
+        padded_numel, itemsize, node, local, precision, block
+    )
+
+
+# -- attention / pipeline kernels (the last unpriced collectives) -------------
+
+
+def ring_attention_cost(
+    b: int, t: int, h: int, d: int, itemsize: int, nproc: int
+) -> CollectiveCost:
+    """Cost of :func:`heat_tpu.parallel.ring_attention`: the K and V
+    blocks — each ``(b, t/p, h, d)`` — circulate one ring hop per step
+    for ``p`` steps (the serial fori_loop permutes on every iteration,
+    including the final home hop), two collective-permutes per step.
+    The stationary Q never touches the wire."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    per_hop = 2 * int(b) * (int(t) // nproc) * int(h) * int(d) * int(itemsize)
+    return CollectiveCost(
+        "ppermute-ring", nproc * nproc * per_hop, steps=nproc
+    )
+
+
+def ulysses_attention_cost(
+    b: int, t: int, h: int, d: int, itemsize: int, nproc: int
+) -> CollectiveCost:
+    """Cost of :func:`heat_tpu.parallel.ulysses_attention`: three
+    all-to-alls reshard Q/K/V sequence->heads and one reshards the
+    output back — four exchanges of the full ``(b, t, h, d)`` tensor at
+    the analytic all-to-all volume ``B·(p-1)/p`` each."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    full = int(b) * int(t) * int(h) * int(d) * int(itemsize)
+    return CollectiveCost("all-to-all", 4 * (full * (nproc - 1)) // nproc)
+
+
+def pipeline_cost(
+    batch: int,
+    feat_numel: int,
+    itemsize: int,
+    nproc: int,
+    n_microbatches: int,
+) -> CollectiveCost:
+    """Cost of :func:`heat_tpu.parallel.pipeline_apply` (GPipe schedule):
+    every one of the ``p + m - 1`` ticks permutes each stage's activation
+    — a ``(batch/m, feat)`` microbatch on all ``p`` positions — one hop
+    forward, then one final all-reduce both collects and replicates the
+    ``(batch, feat)`` output buffer (only the last stage ever wrote it)."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    m = int(n_microbatches)
+    mb_bytes = (int(batch) // m) * int(feat_numel) * int(itemsize)
+    ticks = nproc + m - 1
+    ring = ticks * nproc * mb_bytes
+    out_bytes = int(batch) * int(feat_numel) * int(itemsize)
+    # the out accumulator carries the microbatch-major (m, b/m, feat)
+    # buffer on every position: a full-batch payload per participant
+    allreduce = 2 * out_bytes * (nproc - 1)
+    return CollectiveCost(
+        "ppermute-ring+all-reduce", ring + allreduce, steps=ticks
+    )
+
+
+def pipeline_hop_cost(
+    mb_batch: int,
+    feat_numel: int,
+    itemsize: int,
+    nproc: int,
+    stride: int = 1,
+    local: Optional[int] = None,
+) -> CollectiveCost:
+    """Cost of ONE inter-stage pipeline hop (
+    ``heat_tpu/parallel/pipeline.py`` site ``pipeline.step``): every mesh
+    position ships its ``(mb_batch, feat)`` microbatch activation along
+    one ``collective-permute`` pair ``i -> (i + stride) % p`` — ``p``
+    pairs total, wraparound included, mirroring the emitted
+    ``source_target_pairs`` byte-for-byte (the HLO auditor's
+    collective-permute model is ``in_bytes x |pairs|``).
+
+    ``stride`` is the stage-mapping hop (the in-stage group size —
+    ``p/S``; the backward cotangent hop is the same permutation
+    reversed, so one figure prices both directions). ``local`` is the
+    MESH topology's in-node group size: pairs whose endpoints lie in
+    different node groups ride the DCN tier and land in ``dcn_bytes``,
+    priced at ``HEAT_TPU_DCN_PREMIUM`` by :func:`weighted_wire`. With
+    the auto stage placement (stages == node groups, ``stride ==
+    local``) every pair crosses — the full hop is DCN; ``local=None``
+    (1-level mesh) prices zero DCN bytes. A schedule's total is
+    ``n_hops x`` this figure (one fwd + one bwd permute per tick on a
+    training table), which the zero-drift audit re-derives from the
+    compiled program's pair lists."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    mb_bytes = int(mb_batch) * int(feat_numel) * int(itemsize)
+    stride = int(stride) % int(nproc)
+    cross = 0
+    if local is not None and 0 < int(local) < int(nproc):
+        local = int(local)
+        cross = sum(
+            1
+            for i in range(int(nproc))
+            if (i // local) != (((i + stride) % int(nproc)) // local)
+        )
+    return CollectiveCost(
+        "ppermute-ring",
+        int(nproc) * mb_bytes,
+        steps=1,
+        dcn_bytes=cross * mb_bytes,
+    )
+
+
+def spmm_cost(
+    m: int,
+    n: int,
+    k: int,
+    itemsize: int,
+    nproc: int,
+    x_split: Optional[int] = None,
+    out_split: Optional[int] = 0,
+    precision: str = "off",
+) -> CollectiveCost:
+    """Cost of one cached sparse × dense ``shard_map`` program
+    (:func:`heat_tpu.sparse.spmm`, site ``sparse.spmm``; ``spmv`` is the
+    ``k = 1`` special case). The CSR operand is row-split with
+    shard-local ``indptr``/``indices``/``values`` — **index/ptr payloads
+    never touch the wire** — so the only collectives are the float tails:
+
+    * **operand gather** (``x_split == 0``): the dense ``(n, k)`` operand
+      is row-split, so each shard all-gathers the other shards' physical
+      chunks before the local contraction — ``p·(p−1)·ceil(n/p)·k``
+      elements total (tail-pad inclusive, like :func:`tsqr_cost`).
+      ``precision='bf16'`` moves the uint16 bit pattern (2-byte wire
+      element, the bitcast pair).
+    * **result all-reduce** (``out_split is None``): each shard scatters
+      its local rows into a zero global ``(m_pad·k)`` partial and one
+      ``psum`` combines them — :func:`allreduce_cost` of the *physical*
+      (pad-inclusive) result under the same wire mode. A row-split
+      result (``out_split == 0``) stays shard-local: zero wire bytes.
+
+    Mirrors ``heat_tpu/sparse/ops.py`` byte-for-byte so the HLO audit of
+    a sparse program stays zero-drift."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    itemsize = int(itemsize)
+    wire_item = min(itemsize, 2) if precision == "bf16" else itemsize
+    kinds = []
+    total = 0
+    if x_split == 0:
+        chunk = math.ceil(n / nproc)
+        kinds.append("all-gather")
+        total += nproc * (nproc - 1) * chunk * int(k) * wire_item
+    if out_split is None:
+        m_pad = math.ceil(m / nproc) * nproc
+        tail = allreduce_cost(m_pad * int(k), itemsize, nproc, precision)
+        kinds.append(tail.kind)
+        total += tail.bytes
+    if not kinds:
+        return CollectiveCost("none", 0)
+    return CollectiveCost("+".join(kinds), total)
+
+
+def spmv_cost(
+    m: int,
+    n: int,
+    itemsize: int,
+    nproc: int,
+    x_split: Optional[int] = None,
+    out_split: Optional[int] = 0,
+    precision: str = "off",
+) -> CollectiveCost:
+    """Cost of one sparse matrix-vector product (site ``sparse.spmv``) —
+    :func:`spmm_cost` with a single dense column. See there for the
+    component rules (operand gather / result all-reduce)."""
+    return spmm_cost(
+        m, n, 1, itemsize, nproc,
+        x_split=x_split, out_split=out_split, precision=precision,
+    )
+
+
+def sparse_transpose_cost(
+    slab: int,
+    itemsize: int,
+    nproc: int,
+    stages: int = 1,
+) -> CollectiveCost:
+    """Cost of ONE stage of the sparse CSR transpose
+    (:func:`heat_tpu.sparse.transpose`, site ``sparse.transpose_a2a``):
+    every shard routes its local elements to the shard owning their
+    destination row through a static ``(p, slab)`` slab exchange — one
+    **all-to-all** for the packed int64 ``(row, col)`` sort keys and one
+    for the values, both pinned exact (the key payload IS index data).
+    Slabs are worst-case sized (every element of a stage could target
+    one destination), so each device ships ``(p−1)`` slabs of ``slab``
+    elements per payload regardless of occupancy:
+    ``p·(p−1)·slab·(8 + itemsize)`` wire bytes per stage. ``stages`` is
+    the bounded-memory decomposition count the planner picked against
+    ``HEAT_TPU_HBM_BUDGET`` (each stage is its own cached program, the
+    arXiv:2112.01075 discipline dense relayout already uses); the figure
+    here prices one stage — a plan's total is ``stages ×`` this, which
+    the ``steps`` field records."""
+    if nproc <= 1:
+        return CollectiveCost("none", 0)
+    per_stage = nproc * (nproc - 1) * int(slab) * (8 + int(itemsize))
+    return CollectiveCost("all-to-all", per_stage, steps=int(stages))

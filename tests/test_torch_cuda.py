@@ -1892,3 +1892,89 @@ def test_serve_exact_forms_batched_equal_solo_on_card(dev):
                     np.testing.assert_array_equal(s, ref)
                 else:
                     np.testing.assert_allclose(s, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- data and observability (utils.data, telemetry.memory) ---------------------------------------
+
+
+def test_data_device_memory_stats_on_card(dev):
+    """The caching allocator's counters under the JAX package's names:
+    ``peak_bytes_in_use`` is ``torch.cuda.max_memory_allocated``."""
+    from heat_tpu_torch.telemetry import memory
+
+    x = torch.empty((1 << 20,), device=dev)
+    stats = memory.device_memory_stats()
+    s = stats["cuda:0"]
+    assert s["bytes_in_use"] == torch.cuda.memory_allocated(0) >= x.numel() * 4
+    assert s["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(0)
+    assert s["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    a = htt.array(np.zeros((256, 16), np.float32), split=0, device="gpu")
+    snap = memory.watermark()
+    assert snap["per_device"]["cuda:0"] >= 256 * 16 * 4 and "cuda:0" in snap["device_stats"]
+    del x, a
+
+
+def test_data_loader_batches_land_on_card_from_pinned_memory(dev):
+    """A host dataset's batches go to cuda:0 through pinned memory; a card
+    dataset's batches stay on it. Both give the host loader's rows."""
+    htt.use_device("cpu")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((100, 8)).astype(np.float32)
+    y = np.arange(100, dtype=np.int64)
+    host = htt.utils.data.Dataset(htt.array(x, split=0), targets=htt.array(y, split=0))
+    want = [(b[0].numpy(), b[1].numpy()) for b in htt.utils.data.DataLoader(host, batch_size=16)]
+    host = htt.utils.data.Dataset(htt.array(x, split=0), targets=htt.array(y, split=0))
+    loader = htt.utils.data.DataLoader(host, batch_size=16, device="gpu")
+    got = list(loader)
+    assert len(got) == len(want) == 7
+    for (xb, yb), (wx, wy) in zip(got, want):
+        assert xb.larray.device == dev and yb.larray.device == dev
+        assert np.array_equal(xb.numpy(), wx) and np.array_equal(yb.numpy(), wy)
+    htt.use_device("gpu")
+    card = htt.utils.data.Dataset(htt.array(x, split=0), targets=htt.array(y, split=0))
+    for (xb, yb), (wx, wy) in zip(htt.utils.data.DataLoader(card, batch_size=16), want):
+        assert xb.larray.device == dev and np.array_equal(yb.numpy(), wy)
+    htt.use_device(None)
+
+
+def test_data_partial_h5_dataset_on_card(dev, tmp_path):
+    """Batches of an HDF5 file on the card through the pinned staging
+    buffers: the host iterator's rows, bit for bit."""
+    h5py = pytest.importorskip("h5py")
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((5000, 16)).astype(np.float32)
+    path = str(tmp_path / "d.h5")
+    with h5py.File(path, "w") as f:
+        f["data"] = data
+    host = htt.utils.data.PartialH5Dataset(path, initial_load=1000, load_length=700,
+                                           device="cpu")
+    card = htt.utils.data.PartialH5Dataset(path, initial_load=1000, load_length=700,
+                                           device="gpu")
+    try:
+        want = [b[0].numpy() for b in htt.utils.data.PartialDataLoaderIter(host, 256, seed=1)]
+        got = list(htt.utils.data.PartialDataLoaderIter(card, 256, seed=1))
+        assert len(got) == len(want) == 19
+        for (b,), w in zip(got, want):
+            assert b.larray.device == dev and np.array_equal(b.numpy(), w)
+    finally:
+        host.close()
+        card.close()
+
+
+def test_data_partial_memmap_dataset_on_card(dev, tmp_path):
+    """PartialDataset over a .npy memory map on the card (the HDF5 class
+    without h5py): the host iterator's rows, bit for bit, shuffled."""
+    rng = np.random.default_rng(6)
+    data = rng.standard_normal((5000, 16)).astype(np.float32)
+    np.save(tmp_path / "d.npy", data)
+    mm = np.load(tmp_path / "d.npy", mmap_mode="r")
+    host = htt.utils.data.PartialDataset({"x": mm}, initial_load=1000, load_length=700,
+                                         device="cpu")
+    card = htt.utils.data.PartialDataset({"x": mm}, initial_load=1000, load_length=700,
+                                         device="gpu")
+    want = [b[0].numpy() for b in htt.utils.data.PartialDataLoaderIter(host, 256, seed=1)]
+    got = list(htt.utils.data.PartialDataLoaderIter(card, 256, seed=1))
+    assert len(got) == len(want) == 19
+    for (b,), w in zip(got, want):
+        assert b.larray.device == dev and np.array_equal(b.numpy(), w)
+    assert card.stats["rows"] == 5000 and card.stats["read_seconds"] > 0

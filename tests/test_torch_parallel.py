@@ -488,9 +488,12 @@ def test_halo_refuses_a_halo_longer_than_a_block():
 
 @pytest.mark.parametrize("fn", ["cdist", "rbf", "manhattan"])
 def test_ring_distance_audit_raises_until_telemetry(fn):
-    x = htt.array(np.zeros((4, 3), np.float32), split=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(htt.spatial, fn)(x, ring=True, audit=True)
+    """Telemetry is ported: ``audit=True`` runs (a world of one takes the
+    ordinary path) and gives the unaudited result."""
+    x = htt.array(np.arange(12, dtype=np.float32).reshape(4, 3), split=0, device="cpu")
+    got = getattr(htt.spatial, fn)(x, ring=True, audit=True)
+    want = getattr(htt.spatial, fn)(x, ring=True)
+    assert torch.equal(got.larray, want.larray)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -416,12 +416,15 @@ def test_kmeans_checkpointed_equals_uninterrupted(tmp_path, split):
 
 def test_kmeans_killed_run_resumes_identically(tmp_path):
     path = str(tmp_path / "km")
+    # a fixed seed: the draw must not depend on the tests that ran before
+    htt.random.seed(13)
     x = htt.random.randn(120, 6, split=0)
     base = htt.cluster.KMeans(n_clusters=3, max_iter=30, tol=0.0, random_state=2).fit(x)
-    # "killed" after 8 iterations: a budget-truncated first run
+    # "killed" after 8 iterations: a budget-truncated first run, which stops
+    # earlier when the uninterrupted fit converges in fewer
     htt.cluster.KMeans(n_clusters=3, max_iter=8, tol=0.0, random_state=2, checkpoint_every=4,
                        checkpoint_path=path).fit(x)
-    assert checkpoint.load_checkpoint(path, with_extra=True)[1]["n_iter"] == 8
+    assert checkpoint.load_checkpoint(path, with_extra=True)[1]["n_iter"] == min(8, base.n_iter_)
     resumed = htt.cluster.KMeans(n_clusters=3, max_iter=30, tol=0.0, random_state=2,
                                  checkpoint_every=4, checkpoint_path=path, resume=True).fit(x)
     _same_fit(base, resumed)

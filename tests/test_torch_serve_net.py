@@ -493,14 +493,22 @@ def test_router_does_not_retry_a_4xx_and_dedupes_targets():
         router.submit("e", X)
 
 
-def test_fleet_views_raise_naming_the_roadmap_item():
+def test_fleet_views_raise_naming_the_roadmap_item(tmp_path):
+    """The fleet views answer (they raised until telemetry.cluster was
+    ported): over a replica with no endpoints, a summary with its row, no
+    SLO rows, the Prometheus headers and a merged trace of the router."""
     fake = _FakeReplica(_ok_body)
     router = _router([fake.url])
     try:
-        for call in (router.cluster_summary, router.check_slos, router.prometheus_text,
-                     lambda: router.export_cluster_trace("x.json")):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                call()
+        summary = router.cluster_summary()
+        assert list(summary["replicas"]) == [fake.url]
+        assert summary["endpoints"] == {} and summary["scrape_failures"] == []
+        assert router.check_slos() == []
+        assert "# TYPE heat_tpu_requests_total counter" in router.prometheus_text()
+        path = router.export_cluster_trace(str(tmp_path / "x.json"))
+        trace = json.loads(open(path).read())
+        assert any(e["ph"] == "M" and e["args"].get("name") == "router"
+                   for e in trace["traceEvents"])
         assert list(router.scrape_metrics()) == [fake.url]
     finally:
         router.close()

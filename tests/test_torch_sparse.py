@@ -445,11 +445,13 @@ def test_wire_and_audit_raise_naming_their_items(monkeypatch):
     assert htt.sparse.spmv(A, labels, reduce="min", pattern=True).dtype is htt.int64
     assert htt.sparse.spmv(A, x, reduce="max").shape == (4,)
     monkeypatch.delenv("HEAT_TPU_SPARSE_SPMV_PREC")
-    for call in (lambda: htt.sparse.spmv(A, x, audit=True),
-                 lambda: htt.sparse.spmm(A, htt.ones((4, 2)), audit=True),
-                 lambda: htt.sparse.transpose(A, audit=True)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    # the audits run now (they raised until the telemetry port) and change
+    # no result
+    assert torch.equal(htt.sparse.spmv(A, x, audit=True).larray, htt.sparse.spmv(A, x).larray)
+    assert torch.equal(htt.sparse.spmm(A, htt.ones((4, 2)), audit=True).larray,
+                       htt.sparse.spmm(A, htt.ones((4, 2))).larray)
+    assert torch.equal(htt.sparse.transpose(A, audit=True).values,
+                       htt.sparse.transpose(A).values)
     assert set(htt.sparse.EVENT_COUNTER) == set(ht_tpu.sparse.EVENT_COUNTER)
 
 
