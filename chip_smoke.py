@@ -130,6 +130,23 @@ Phases, each printing JSON lines:
      requests bit for bit, both serving, nothing built after warm-up, no
      kernel compiled) and a rolling update onto a published version 2
      under traffic with no failed request.
+ 11b. scale-out training (after DASO): the serving model trains 3 steps
+     each under nn.DataParallel (the reference), nn.FSDP over
+     TransformerLM.stages() at prefetch 0 and 1, optim.ZeroOptimizer, and
+     nn.Pipeline over the 12 blocks with 8 microbatches, gpipe and 1f1b
+     (against DataParallel and the sequential application over the same
+     blocks, embedding and head frozen): each step's wall, device time
+     (CUDA events), flash launches and peak memory, the parameter and
+     optimizer bytes a card, every run's updates against its reference's,
+     prefetch 0 and 1 and 1f1b and gpipe bit for bit; DASO killed after a
+     checkpoint and resumed, and cg on 4096^2 in windows of 16 iterations
+     killed and resumed, each bit for bit its uninterrupted run; on four
+     or more cards (after the collective audit) the same LM under FSDP and
+     ZeroOptimizer on four NCCL ranks, the pipeline at S = 4 and at S = 2 x
+     local 2 (HEAT_TPU_TOPOLOGY=2x2 HEAT_TPU_HIERARCHICAL=1), a flat and a
+     tiered all-reduce of 4,194,304 f32 under every wire, each audited
+     against the cost model and held against a world of one, else a line
+     saying why it did not run;
  13. data and observability: the array path (3) again under
      telemetry.enable(sink), a span a stage: the Chrome trace exported and
      checked, report.summarize's phases live and replayed from the sink,
@@ -1916,6 +1933,440 @@ def daso_phase(ht, dev, sizes=DASO_EXAMPLE):
     check("DASO: eval accuracy reaches the example's 0.95", acc >= 0.95, accuracy=acc)
 
 
+# the scale-out training path: steps a run, microbatches of the pipeline;
+# DASO's resume (epochs, the epoch after which the first run is killed) and
+# cg's window (iterations)
+SCALE_OUT_STEPS = 3
+SCALE_OUT_MICROBATCHES = 8
+DASO_RESUME = (6, 3)
+CG_WINDOW = 16
+
+
+def _step_rows(ht, dev, one, n):
+    """``n`` calls of ``one()`` (a training step returning its loss), each
+    with its wall (host clock to a synchronize), the span of the stream
+    between CUDA events recorded around it, its flash launches, the device
+    memory resident before it and its peak above that; then one more call
+    under the profiler: its wall, the device's busy time (the CUDA
+    kernels' self time) and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = dev.type == "cuda"
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+    rows = []
+    for _ in range(n):
+        ht.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t = time.perf_counter()
+        loss = float(one())
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+        row = {"loss": loss, "wall_ms": (time.perf_counter() - t) * 1e3,
+               "launches": {k: ht.launch_counts()[k] for k in names}}
+        if cuda:
+            row["stream_span_ms"] = start.elapsed_time(end)
+            row["resident_gib"] = resident / 2 ** 30
+            row["step_peak_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        rows.append(row)
+    if cuda:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            loss = float(one())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        rows.append({"profiled": True, "loss": loss, "wall_ms": wall, "device_ms": busy,
+                     "busy_share": busy / wall, "launches": {k: 0 for k in names}})
+    return rows
+
+
+def _opt_bytes(opt):
+    import torch
+
+    return sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+               if torch.is_tensor(v))
+
+
+def scale_out_path(ht, dev, cfg, steps=SCALE_OUT_STEPS, batch=(8, 1024),
+                   microbatches=SCALE_OUT_MICROBATCHES):
+    """The scale-out training path on one card: bench.py's lm_step model
+    (``cfg``: full width, bf16, flash with the two-pass backward) and AdamW
+    at optax.adamw's defaults, ``steps`` steps each on one batch:
+
+    * the reference, ``nn.DataParallel`` (remat on);
+    * ``nn.FSDP`` over ``TransformerLM.stages()`` (embedding, the blocks,
+      head), ``HEAT_TPU_FSDP=1``, prefetch 0 and 1;
+    * ``optim.ZeroOptimizer`` over the same AdamW;
+    * ``nn.Pipeline`` with the blocks as its layers, ``microbatches``
+      microbatches, gpipe and 1f1b, against ``nn.DataParallel`` over the
+      same blocks (the embedding and the head frozen: the pipeline's loss).
+
+    Each step's wall, device time, flash launches and peak memory; the
+    parameter and optimizer bytes a card; every run's updates against its
+    reference's. Then DASO killed after a checkpoint and resumed, and cg on
+    4096^2 run in windows, killed and resumed, each against its
+    uninterrupted run bit for bit. Returns the flash launches of the runs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    vocab = cfg["vocab_size"]
+    train_cfg = dict(cfg, attn_impl="flash", dtype=torch.bfloat16, flash_bwd_impl="two_pass")
+    lm_loss = _lm_loss(vocab)
+
+    def ce(logits, tokens):
+        return F.cross_entropy(logits[:, :-1].float().reshape(-1, vocab),
+                               tokens[:, 1:].reshape(-1))
+
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, vocab, batch)).to(dev)
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    def fresh(remat):
+        return ht.nn.TransformerLM(**train_cfg, remat=remat,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+
+    def lm_params(model):
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def stage_params(logical):
+        """FSDP's logical stages under the LM's names."""
+        out = {}
+        for k, stage in enumerate(logical):
+            prefix = f"blocks.{k - 1}." if 0 < k < len(logical) - 1 else ""
+            out.update({prefix + n: torch.as_tensor(v).to(dev) for n, v in stage.items()})
+        return out
+
+    report, runs, total = {}, {}, {}
+
+    def record(name, rows, params=None, params_bytes=None, opt_bytes=None):
+        runs[name] = {"steps": rows, "param_bytes_per_card": params_bytes,
+                      "optimizer_bytes_per_card": opt_bytes}
+        for row in rows:
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+        if params is not None:
+            report[name] = params
+
+    # the reference: DataParallel, remat on
+    model = fresh(True)
+    init = lm_params(model)
+    opt = adamw(model.parameters())
+    dp = ht.nn.DataParallel(model, optimizer=opt, blocking_parameter_updates=True)
+    step = dp.make_train_step(lm_loss)
+    rows = _step_rows(ht, dev, lambda: step(model, opt, *dp.shard_batch(tokens))[2], steps)
+    record("data_parallel", rows, lm_params(model),
+           sum(p.numel() * p.element_size() for p in model.parameters()), _opt_bytes(opt))
+    del model, opt, dp, step
+
+    # FSDP over the LM's stages, prefetch 0 and 1
+    saved = os.environ.get("HEAT_TPU_FSDP")
+    os.environ["HEAT_TPU_FSDP"] = "1"
+    try:
+        for prefetch in (0, 1):
+            model = fresh(False)
+            fsdp = ht.nn.FSDP(model.stages(), optimizer=adamw, prefetch=prefetch)
+            params = fsdp.shard_params(fsdp.init())
+            state = fsdp.init_opt_state(params)
+            fstep = fsdp.make_train_step(ce)
+            (xb,) = fsdp.shard_batch(tokens)
+            box = [params, state]
+
+            def one():
+                box[0], box[1], loss = fstep(box[0], box[1], xb, xb)
+                return loss
+
+            rows = _step_rows(ht, dev, one, steps)
+            record(f"fsdp_prefetch{prefetch}", rows,
+                   stage_params(fsdp.unshard_params(box[0])),
+                   fsdp.param_bytes_per_device(box[0]), _opt_bytes(box[1]))
+            del model, fsdp, params, state, box
+    finally:
+        if saved is None:
+            os.environ.pop("HEAT_TPU_FSDP", None)
+        else:
+            os.environ["HEAT_TPU_FSDP"] = saved
+
+    # ZeRO over the same AdamW
+    model = fresh(True)
+    zero = ht.optim.ZeroOptimizer(adamw)
+    state = zero.init(model)
+    zstep = zero.make_train_step(lm_loss)
+    rows = _step_rows(ht, dev, lambda: zstep(model, state, *zero.shard_batch(tokens))[2], steps)
+    record("zero", rows, lm_params(model),
+           sum(p.numel() * p.element_size() for p in model.parameters()),
+           zero.state_bytes_per_device())
+    del model, zero, state, zstep
+
+    # the pipeline over the blocks, against DataParallel over the same blocks
+    base = fresh(False)
+    embed, head = base.stages()[0], base.stages()[-1]
+    for p in list(embed.parameters()) + list(head.parameters()):
+        p.requires_grad_(False)
+    with torch.no_grad():
+        x = embed(tokens)
+
+    def pipe_loss(h, t):
+        return ce(head(h), t)
+
+    layers = [{n: p.detach().clone() for n, p in block.named_parameters()}
+              for block in base.blocks]
+
+    class Blocks(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.blocks = torch.nn.ModuleList(
+                ht.nn.TransformerBlock(cfg["num_heads"], cfg["mlp_ratio"], "flash",
+                                       dtype=torch.bfloat16, flash_bwd_impl="two_pass",
+                                       d_model=cfg["d_model"], device=dev)
+                for _ in layers)
+            for block, layer in zip(self.blocks, layers):
+                block.load_state_dict(layer)
+
+        def forward(self, h):
+            for block in self.blocks:
+                h = block(h)
+            return h
+
+    def block_params(blocks):
+        return {f"{j}.{n}": p.detach().clone() for j, b in enumerate(blocks.blocks)
+                for n, p in b.named_parameters()}
+
+    blocks = Blocks()
+    bopt = adamw(blocks.parameters())
+    bdp = ht.nn.DataParallel(blocks, optimizer=bopt, blocking_parameter_updates=True)
+    bstep = bdp.make_train_step(lambda m, h, t: pipe_loss(m(h), t))
+    rows = _step_rows(ht, dev, lambda: bstep(blocks, bopt, x, tokens)[2], steps)
+    record("blocks_data_parallel", rows, block_params(blocks))
+    # the sequential application of the stages (the CPU tests' reference):
+    # the same microbatches, loss / M each, gradients summed in their order
+    blocks = Blocks()
+    bopt = adamw(blocks.parameters())
+
+    def sequential():
+        bopt.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=dev)
+        for m in range(microbatches):
+            rows_m = slice(m * batch[0] // microbatches, (m + 1) * batch[0] // microbatches)
+            loss = pipe_loss(blocks(x[rows_m]), tokens[rows_m]) / microbatches
+            loss.backward()
+            total = total + loss.detach()
+        bopt.step()
+        return total
+
+    rows = _step_rows(ht, dev, sequential, steps)
+    record("blocks_sequential", rows, block_params(blocks))
+    del blocks, bopt, bdp, bstep
+    table = {}
+    for schedule in ("gpipe", "1f1b"):
+        template = ht.nn.TransformerBlock(cfg["num_heads"], cfg["mlp_ratio"], "flash",
+                                          dtype=torch.bfloat16, flash_bwd_impl="two_pass",
+                                          d_model=cfg["d_model"], device=dev)
+        pipe = ht.nn.Pipeline(template, len(layers), optimizer=adamw, loss_fn=pipe_loss,
+                              n_microbatches=microbatches, schedule=schedule, prefetch=0)
+        params = pipe.shard_params(layers)
+        state = pipe.init_opt_state(params)
+        pstep = pipe.make_train_step()
+        box = [params, state]
+
+        def one():
+            box[0], box[1], loss = pstep(box[0], box[1], x, tokens)
+            return loss
+
+        rows = _step_rows(ht, dev, one, steps)
+        t = pipe._table(True)
+        table[schedule] = {"ticks": t.n_ticks, "bubble_cells": t.bubble_cells(),
+                           "steady_bubble_ticks": t.steady_bubble_ticks(),
+                           "stash_depth": t.stash_depth()}
+        record(f"pipeline_{schedule}", rows,
+               {f"{j}.{n}": torch.as_tensor(v).to(dev)
+                for j, layer in enumerate(pipe.unshard_params(box[0])) for n, v in layer.items()},
+               pipe.param_bytes_per_device(), _opt_bytes(box[1]))
+        del template, pipe, params, state, box
+    del base, embed, head, x
+
+    def held(name, ref, start):
+        rel, worst, worst_name, bitwise = _update_error(report[name], report[ref], start)
+        return {"update_rel_rms": rel, "worst_tensor_rel_rms": worst, "worst_tensor": worst_name,
+                "bit_identical": bitwise}
+
+    block_init = {f"{j}.{n}": v.to(dev) for j, layer in enumerate(layers) for n, v in layer.items()}
+    against = {name: held(name, "data_parallel", init)
+               for name in ("fsdp_prefetch0", "fsdp_prefetch1", "zero")}
+    against.update({name: held(name, "blocks_data_parallel", block_init)
+                    for name in ("pipeline_gpipe", "pipeline_1f1b")})
+    against.update({f"{name} vs sequential": held(name, "blocks_sequential", block_init)
+                    for name in ("pipeline_gpipe", "pipeline_1f1b")})
+    against["blocks_sequential"] = held("blocks_sequential", "blocks_data_parallel", block_init)
+    same_prefetch = all(torch.equal(report["fsdp_prefetch0"][n], report["fsdp_prefetch1"][n])
+                        for n in report["fsdp_prefetch0"])
+    same_schedule = all(torch.equal(report["pipeline_gpipe"][n], report["pipeline_1f1b"][n])
+                        for n in report["pipeline_gpipe"])
+    emit({"phase": "scale-out training path", "world": 1, "steps": steps,
+          "batch": list(batch), "microbatches": microbatches, "runs": runs,
+          "against_reference": against, "pipeline_tables": table,
+          "fsdp_prefetch_bit_identical": same_prefetch,
+          "pipeline_1f1b_bit_identical_to_gpipe": same_schedule})
+    for name, run in runs.items():
+        check(f"scale-out: {name} losses finite",
+              all(np.isfinite(r["loss"]) for r in run["steps"]))
+        if dev.type == "cuda":
+            check(f"scale-out: {name}'s profiled step saw device time",
+                  run["steps"][-1]["device_ms"] > 0, device_ms=run["steps"][-1]["device_ms"])
+    # tolerances: FSDP, ZeRO and the pipeline against the sequential
+    # application as the data-parallel path's (the same kernels on the same
+    # bf16 activations): 1e-2 of the update's RMS, 5e-2 per tensor. A batch
+    # in microbatches rounds each microbatch's bf16 weight gradient on its
+    # own (8 roundings of 2^-8 where one batch rounds once) and Adam's first
+    # steps divide each gradient by its own size, so the pipeline and the
+    # sequential reference stand 1e-1 (global) and 2e-1 (per tensor) from
+    # one batch's DataParallel step
+    for name, e in against.items():
+        loose = name in ("pipeline_gpipe", "pipeline_1f1b", "blocks_sequential")
+        tol = (1e-1, 2e-1) if loose else (1e-2, 5e-2)
+        check(f"scale-out: {name} updates equal its reference's",
+              e["update_rel_rms"] <= tol[0] and e["worst_tensor_rel_rms"] <= tol[1], **e,
+              tolerance={"global": tol[0], "per_tensor": tol[1]})
+    check("scale-out: FSDP prefetch 0 and 1 bit for bit", same_prefetch)
+    check("scale-out: pipeline 1f1b bit for bit gpipe", same_schedule)
+    per_step = {"flash_fwd": 2 * cfg["num_layers"], "flash_bwd_dq": cfg["num_layers"],
+                "flash_bwd_dkv": cfg["num_layers"], "flash_bwd_fused": 0}
+    for name in ("fsdp_prefetch0", "fsdp_prefetch1", "zero"):
+        check(f"scale-out: {name} launches K6/K7a/K7b a step as the layer count",
+              all(r["launches"] == per_step for r in runs[name]["steps"]
+                  if not r.get("profiled")),
+              launches=[r["launches"] for r in runs[name]["steps"]], want=per_step)
+    for name in ("pipeline_gpipe", "pipeline_1f1b"):
+        check(f"scale-out: {name} launched K6, K7a and K7b every step",
+              all(r["launches"][k] > 0 for r in runs[name]["steps"] if not r.get("profiled")
+                  for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
+    if dev.type == "cuda":
+        peak = {s: max(r["step_peak_gib"] for r in runs[f"pipeline_{s}"]["steps"]
+                       if "step_peak_gib" in r) for s in ("gpipe", "1f1b")}
+        check("scale-out: 1f1b's step peak at or below gpipe's (a stash of one microbatch "
+              "against eight)", peak["1f1b"] <= peak["gpipe"], step_peak_gib=peak)
+    check("scale-out: 1f1b's steady window has fewer bubble ticks than gpipe's",
+          table["1f1b"]["steady_bubble_ticks"] <= table["gpipe"]["steady_bubble_ticks"]
+          and table["1f1b"]["stash_depth"] < table["gpipe"]["stash_depth"], tables=table)
+    daso_resume_phase(ht, dev)
+    cg_resume_phase(ht, dev)
+    return total
+
+
+def daso_resume_phase(ht, dev, sizes=DASO_EXAMPLE, resume=DASO_RESUME):
+    """DASO on examples/nn/daso_training.py's classifier (one card), killed
+    after epoch ``resume[1]``'s checkpoint and resumed by a fresh DASO: the
+    replica after ``resume[0]`` epochs equal to the uninterrupted run's bit
+    for bit."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    n_classes, d_in, d_hidden, _, per_epoch, bs, _ = sizes
+    epochs, kill = resume
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((per_epoch * bs, d_in)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, n_classes, per_epoch * bs)).to(dev)
+
+    def fresh(**kw):
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(d_in, d_hidden), torch.nn.ReLU(),
+                                    torch.nn.Linear(d_hidden, n_classes)).to(dev)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
+        daso = ht.optim.DASO(torch.optim.Adam(model.parameters(), lr=2e-3), total_epochs=epochs,
+                             warmup_epochs=1, cooldown_epochs=1, max_global_skips=4, **kw)
+        daso.set_loss(lambda m, a, b: F.cross_entropy(m(a), b))
+        daso.last_batch = per_epoch - 1
+        return model, daso
+
+    def run(model, daso, state, first, last):
+        for _ in range(first, last):
+            total = 0.0
+            for i in range(per_epoch):
+                lo = i * bs
+                model, state, loss = daso.step(model, state, (x[lo:lo + bs], y[lo:lo + bs]))
+                total += float(loss)
+            daso.epoch_loss_logic(total / per_epoch)
+        return model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daso_")
+    try:
+        model, daso = fresh()
+        whole = run(model, daso, daso.init(model), 0, epochs)
+        model, daso = fresh(checkpoint_every=per_epoch, checkpoint_path=os.path.join(tmp, "ck"))
+        run(model, daso, daso.init(model), 0, kill)
+        model, daso = fresh()
+        state = daso.init(model)
+        model, state = daso.load_checkpoint(os.path.join(tmp, "ck"), model, state)
+        resumed = run(model, daso, state, kill, epochs)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(whole.parameters(), resumed.parameters()))
+    emit({"phase": "DASO resume", "epochs": epochs, "killed_after_epoch": kill,
+          "bit_identical": same})
+    check("DASO: killed after a checkpoint and resumed, bit for bit the uninterrupted run", same)
+
+
+def cg_resume_phase(ht, dev, window=CG_WINDOW):
+    """cg on the solver phase's 4096^2 system run in windows of ``window``
+    iterations, killed after its second checkpoint and resumed: the solution
+    equal to the uninterrupted solve's bit for bit; the windows' time."""
+    import torch
+    from heat_tpu_torch.core.linalg import solver
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m = torch.randn((CG_N, CG_N), generator=gen, device=dev)
+    a = m @ m.T / CG_N + torch.eye(CG_N, device=dev)
+    b = torch.randn((CG_N,), generator=gen, device=dev)
+    A, B, x0 = ht.array(a, split=0), ht.array(b), ht.zeros(CG_N)
+    whole = ht.linalg.cg(A, B, x0).larray
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cg_")
+    path = os.path.join(tmp, "ck")
+    real, saves = solver._save_carry, [0]
+
+    def save(*args, **kwargs):
+        real(*args, **kwargs)
+        saves[0] += 1
+        if saves[0] == 2:
+            raise KeyboardInterrupt("killed after the second window")
+
+    try:
+        solver._save_carry = save
+        try:
+            ht.linalg.cg(A, B, x0, checkpoint_every=window, checkpoint_path=path)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            solver._save_carry = real
+        t = time.perf_counter()
+        resumed = ht.linalg.cg(A, B, x0, checkpoint_every=window, checkpoint_path=path,
+                               resume=True).larray
+        resume_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = bool(torch.equal(whole, resumed))
+    emit({"phase": "cg resume", "n": CG_N, "window": window, "bit_identical": same,
+          "resumed_solve_wall_ms": resume_ms})
+    check("cg: killed after two windows and resumed, bit for bit the uninterrupted solve", same)
+
+
 # the streaming path: bench.py:246's moments array as four .npy shards,
 # streamed under HEAT_TPU_HBM_BUDGET=1G (rows, columns, shards), the
 # MiniBatchKMeans on it (clusters, Lloyd window a chunk), the KMeans
@@ -3209,6 +3660,345 @@ def collective_audit_phase():
              for rep in reps if not rep["ok"]]
     check("collective audit: four NCCL ranks, no drift", ok and len(reports) == world
           and not drift, drift=drift)
+
+
+_SCALE_OUT_WORKER = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+rank, world, port, backend, size = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                                    sys.argv[5])
+if backend == "nccl":
+    torch.cuda.set_device(rank)
+from datetime import timedelta
+# a collective that waits longer than this fails the rank instead of hanging it
+dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                        world_size=world, timeout=timedelta(seconds=300))
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import collective_prec as cp
+from heat_tpu_torch.core.communication import TorchCommunication
+from heat_tpu_torch.telemetry import collectives as costs, hlo
+cuda = backend == "nccl"
+dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+ht.use_device("gpu" if cuda else "cpu")
+if size == "full":
+    cfg = dict(vocab_size=32768, d_model=1024, num_heads=16, num_layers=12, max_len=1024,
+               mlp_ratio=4.0)
+    batch, reduce_n = (8, 1024), 4_194_304
+else:
+    cfg = dict(vocab_size=64, d_model=32, num_heads=4, num_layers=4, max_len=16, mlp_ratio=4.0)
+    batch, reduce_n = (8, 16), 4096
+STEPS, M = 3, 8
+vocab = cfg["vocab_size"]
+train_cfg = dict(cfg, attn_impl="flash", dtype=torch.bfloat16, flash_bwd_impl="two_pass",
+                 device=dev)
+# a world of one on every rank, for the references
+solo = TorchCommunication([dist.new_group([r]) for r in range(world)][rank])
+comm = ht.get_comm()
+tokens = torch.from_numpy(np.random.default_rng(3).integers(0, vocab, batch)).to(dev)
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def ce(logits, t):
+    return F.cross_entropy(logits[:, :-1].float().reshape(-1, vocab), t[:, 1:].reshape(-1))
+
+
+def adamw(params):
+    return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def fresh(remat=False):
+    return ht.nn.TransformerLM(**train_cfg, remat=remat,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def steps(one):
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(STEPS):
+        sync()
+        t = time.perf_counter()
+        loss = float(one())
+        sync()
+        out.append({"loss": loss, "wall_ms": (time.perf_counter() - t) * 1e3})
+    if cuda:  # the run's peak device memory, in the last row
+        out[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def opt_bytes(opt):
+    return sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+               if torch.is_tensor(v))
+
+
+def audit(site, fn, predicted):
+    _, rec = hlo.audit_call(site, fn, predicted=predicted)
+    return rec.report.summary()
+
+
+res = {}
+# the world-of-one DataParallel reference, and its bytes
+model = fresh(True)
+opt = adamw(model.parameters())
+dp = ht.nn.DataParallel(model, comm=solo, optimizer=opt, blocking_parameter_updates=True)
+step = dp.make_train_step(lambda m, t: ce(m(t), t))
+res["one"] = steps(lambda: step(model, opt, tokens)[2])
+res["replicated_bytes"] = [sum(p.numel() * 4 for p in model.parameters()), opt_bytes(opt)]
+del model, opt, dp, step
+
+# FSDP over the stages, p = 4
+os.environ["HEAT_TPU_FSDP"] = "1"
+model = fresh()
+fsdp = ht.nn.FSDP(model.stages(), optimizer=adamw, prefetch=1)
+params = fsdp.shard_params(fsdp.init())
+state = fsdp.init_opt_state(params)
+fstep = fsdp.make_train_step(ce)
+(xb,) = fsdp.shard_batch(tokens)
+gathers = costs.CollectiveCost("all-gather", sum(
+    costs.fsdp_gather_cost(lf.chunk, 4, 1, world).bytes for lf in fsdp._plan.leaves
+    if lf.sharded))
+with torch.no_grad():
+    res["fsdp_forward_audit"] = audit("fsdp.forward", lambda: fsdp(params, tokens), gathers)
+box = [params, state]
+
+
+def fsdp_one():
+    box[0], box[1], loss = fstep(box[0], box[1], xb, xb)
+    return loss
+
+
+res["fsdp"] = steps(fsdp_one)
+res["fsdp_bytes"] = [fsdp.param_bytes_per_device(box[0]), opt_bytes(box[1])]
+os.environ["HEAT_TPU_FSDP"] = "0"
+del model, fsdp, params, state, box
+
+# ZeRO, p = 4
+model = fresh(True)
+zero = ht.optim.ZeroOptimizer(adamw)
+zstate = zero.init(model)
+zstep = zero.make_train_step(lambda m, t: ce(m(t), t))
+(zb,) = zero.shard_batch(tokens)
+res["zero"] = steps(lambda: zstep(model, zstate, zb)[2])
+chunks = [s.numel() for s in zero.shards]
+predicted = costs.CollectiveCost("all-reduce+reduce-scatter+all-gather", 2 * 4 * (world - 1) + sum(
+    costs.reduce_scatter_cost(world * c, 4, world).bytes + world * c * 4 * (world - 1)
+    for c in chunks))
+res["zero_step_audit"] = audit("zero.step", lambda: zstep(model, zstate, zb), predicted)
+res["zero_bytes"] = [sum(p.numel() * 4 for p in model.parameters()), zero.state_bytes_per_device()]
+del model, zero, zstate, zstep
+
+# the pipeline over the blocks: S = 4, then S = 2 x local 2 (tiered)
+base = fresh()
+embed, head = base.stages()[0], base.stages()[-1]
+for p in list(embed.parameters()) + list(head.parameters()):
+    p.requires_grad_(False)
+with torch.no_grad():
+    x = embed(tokens)
+layers = [{n: p.detach().clone() for n, p in b.named_parameters()} for b in base.blocks]
+
+
+def pipe_loss(h, t):
+    return ce(head(h), t)
+
+
+def pipeline(schedule, pcomm, n_stages, name, audit_step=False):
+    def make():
+        template = ht.nn.TransformerBlock(cfg["num_heads"], cfg["mlp_ratio"], "flash",
+                                          dtype=torch.bfloat16, flash_bwd_impl="two_pass",
+                                          d_model=cfg["d_model"], device=dev)
+        pipe = ht.nn.Pipeline(template, len(layers), comm=pcomm, optimizer=adamw,
+                              loss_fn=pipe_loss, n_stages=n_stages, n_microbatches=M,
+                              schedule=schedule, prefetch=1)
+        params = pipe.shard_params(layers)
+        return pipe, [params, pipe.init_opt_state(params)], pipe.make_train_step()
+
+    pipe, box, pstep = make()
+
+    def one():
+        box[0], box[1], loss = pstep(box[0], box[1], x, tokens)
+        return loss
+
+    res[name] = steps(one)
+    table = pipe._table(True)
+    res[name + "_table"] = {"ticks": table.n_ticks, "steady_bubble_ticks":
+                            table.steady_bubble_ticks(), "stash_depth": table.stash_depth()}
+    res[name + "_bytes"] = pipe.param_bytes_per_device()
+    logical = pipe.unshard_params(box[0])
+    if audit_step:  # one more step of a fresh pipeline, recorded
+        _, fresh_box, fresh_step = make()
+        mb = x[: batch[0] // M]
+        predicted = costs.CollectiveCost(
+            "ppermute-ring+all-reduce",
+            2 * (table.n_ticks - 1) * costs.pipeline_hop_cost(
+                1, mb.numel(), mb.element_size(), world, stride=1).bytes + 2 * 4 * (world - 1))
+        res[name + "_audit"] = audit("pipeline.step",
+                                     lambda: fresh_step(fresh_box[0], fresh_box[1], x, tokens),
+                                     predicted)
+    return [v for layer in logical for v in layer.values()]
+
+
+want = pipeline("gpipe", solo, 1, "pipe_one")
+got = {s: pipeline(s, comm, 4, f"pipe4_{s}", audit_step=(s == "gpipe")) for s in
+       ("gpipe", "1f1b")}
+os.environ["HEAT_TPU_TOPOLOGY"], os.environ["HEAT_TPU_HIERARCHICAL"] = "2x2", "1"
+got["tiered"] = pipeline("gpipe", comm, None, "pipe22")
+res["pipe_bit_identical"] = {k: all(np.array_equal(a, b) for a, b in zip(v, want))
+                             for k, v in got.items()}
+res["pipe_1f1b_is_gpipe"] = all(np.array_equal(a, b) for a, b in zip(got["1f1b"], got["gpipe"]))
+res["pipe_max_abs_vs_one"] = {k: max(float(np.abs(a - b).max()) for a, b in zip(v, want))
+                              for k, v in got.items()}
+os.environ["HEAT_TPU_HIERARCHICAL"] = "0"
+del base, embed, head, x
+
+# a flat and a tiered all-reduce of reduce_n f32 under every wire
+payload = torch.randn(reduce_n, generator=torch.Generator(device=dev).manual_seed(rank),
+                      device=dev)
+exact = comm.allreduce(payload.clone())
+amax = float(comm.allreduce(payload.abs().max().reshape(1).clone(), op="max")[0])
+res["allreduce"] = {}
+for tiered in (False, True):
+    os.environ["HEAT_TPU_HIERARCHICAL"] = "1" if tiered else "0"
+    for wire in ("off", "bf16", "int8", "blockwise"):
+        predicted = (costs.hierarchical_allreduce_cost(reduce_n, 4, 2, 2, wire) if tiered
+                     else costs.allreduce_cost(reduce_n, 4, world, wire))
+        report = audit("allreduce", lambda: comm.allreduce(payload.clone(), precision=wire),
+                       predicted)
+        out = comm.allreduce(payload.clone(), precision=wire)
+        for _ in range(2):
+            comm.allreduce(payload.clone(), precision=wire)
+        sync()
+        t = time.perf_counter()
+        for _ in range(10):
+            comm.allreduce(payload.clone(), precision=wire)
+        sync()
+        res["allreduce"][("tiered " if tiered else "flat ") + wire] = {
+            "ms": (time.perf_counter() - t) * 1e2, "audit": report,
+            "max_abs_err": float((out - exact).abs().max()),
+            # the wire's bound at p + 1 hops, plus 4 ulp of the largest sum
+            # for the order the tiers add in
+            "bound": cp.quant_error_bound(amax * world, wire, world + 1)
+            + 4 * 2.0 ** -23 * amax * world}
+os.environ["HEAT_TPU_HIERARCHICAL"] = "0"
+print("SCALE " + json.dumps({"rank": rank, **res}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def scale_out_four_phase(backend="nccl", size="full", timeout=900):
+    """On four or more cards: the scale-out path on four NCCL ranks (one
+    process a card) with ``_SCALE_OUT_WORKER``: the LM under FSDP (p = 4)
+    and ZeroOptimizer, the pipeline over its blocks at S = 4 (gpipe and
+    1f1b) and at S = 2 x local 2 (``HEAT_TPU_TOPOLOGY=2x2
+    HEAT_TPU_HIERARCHICAL=1``), each held against a world of one on the
+    same rank; a flat and a tiered all-reduce of 4,194,304 f32 under every
+    wire; each one's issued collectives audited against the cost model.
+    With fewer cards the phase says so. ``backend="gloo", size="tiny"``
+    rehearses it on the CPU."""
+    import socket
+    import torch
+
+    world = 4
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        emit({"phase": "scale-out on four cards", "run": False,
+              "why": f"needs four cards, this machine has {torch.cuda.device_count()}"})
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    if backend == "nccl":  # the flash kernels once, before the ranks load them
+        sys.path.insert(0, here)
+        from heat_tpu_torch import _build
+
+        _build.build(["flash_fwd", "flash_bwd"])
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               HEAT_TPU_FSDP="0", HEAT_TPU_HIERARCHICAL="0")
+    env.pop("HEAT_TPU_TOPOLOGY", None)
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", _SCALE_OUT_WORKER, str(r), str(world),
+                               str(port), backend, size], cwd=here, env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    # the first rank to fail ends the others (they would wait in a collective)
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in procs) and time.time() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(1.0)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    ranks, ok = [], all(p.returncode == 0 for p in procs)
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith("SCALE ")]
+        if lines:
+            ranks.append(json.loads(lines[-1][6:]))
+        else:
+            emit({"phase": "scale-out on four cards", "rank": r,
+                  "returncode": procs[r].returncode, "rank_log_tail": text[-3000:]})
+    check("scale-out four cards: every rank finished", ok and len(ranks) == world)
+    if len(ranks) != world:
+        return None
+    emit({"phase": "scale-out on four cards", "world": world, "backend": backend,
+          "ranks": ranks})
+    audits = {"fsdp forward": [r["fsdp_forward_audit"] for r in ranks],
+              "zero step": [r["zero_step_audit"] for r in ranks],
+              "pipeline step (S = 4)": [r["pipe4_gpipe_audit"] for r in ranks],
+              **{f"allreduce {k}": [r["allreduce"][k]["audit"] for r in ranks]
+                 for k in ranks[0]["allreduce"]}}
+    check("scale-out four cards: audited bytes equal the cost model's",
+          all(a["ok"] and a["emitted_bytes"] == a["predicted_bytes"]
+              for reports in audits.values() for a in reports),
+          audits={k: [(a["emitted_bytes"], a["predicted_bytes"]) for a in v]
+                  for k, v in audits.items()})
+    r0 = ranks[0]
+    check("scale-out four cards: FSDP and ZeRO bytes a card below the replicated run's",
+          all(r["fsdp_bytes"][0] < r["replicated_bytes"][0]
+              and r["fsdp_bytes"][1] < r["replicated_bytes"][1]
+              and r["zero_bytes"][1] < r["replicated_bytes"][1] for r in ranks),
+          fsdp=r0["fsdp_bytes"], zero=r0["zero_bytes"], replicated=r0["replicated_bytes"])
+    # tolerance: the loss after three steps within 1e-2 of the world of one's
+    # (bf16 activations; the four ranks' gradients are summed in another
+    # order than one card's batch)
+    one = r0["one"][-1]["loss"]
+    losses = {name: [r[name][-1]["loss"] for r in ranks]
+              for name in ("fsdp", "zero", "pipe4_gpipe", "pipe4_1f1b", "pipe22")}
+    pipe_one = r0["pipe_one"][-1]["loss"]
+    check("scale-out four cards: the losses after three steps equal the world of one's",
+          all(abs(v - one) <= 1e-2 * abs(one) for v in losses["fsdp"] + losses["zero"])
+          and all(abs(v - pipe_one) <= 1e-2 * abs(pipe_one) for name in
+                  ("pipe4_gpipe", "pipe4_1f1b", "pipe22") for v in losses[name]),
+          world_of_one=one, pipeline_world_of_one=pipe_one, losses=losses, tolerance=1e-2)
+    if backend == "nccl":  # the gathered weights dropped, only inputs stashed
+        peak = {name: r0[name][-1]["peak_gib"] for name in
+                ("one", "fsdp", "zero", "pipe_one", "pipe4_gpipe", "pipe4_1f1b", "pipe22")}
+        check("scale-out four cards: FSDP's, ZeRO's and the pipeline's peak memory below "
+              "their world of one's", peak["fsdp"] < peak["one"] and peak["zero"] < peak["one"]
+              and max(peak["pipe4_gpipe"], peak["pipe4_1f1b"], peak["pipe22"])
+              < peak["pipe_one"], peak_gib=peak)
+    check("scale-out four cards: 1f1b bit for bit gpipe, fewer steady bubble ticks",
+          all(r["pipe_1f1b_is_gpipe"] for r in ranks)
+          and r0["pipe4_1f1b_table"]["steady_bubble_ticks"]
+          < r0["pipe4_gpipe_table"]["steady_bubble_ticks"],
+          tables={k: r0[k + "_table"] for k in ("pipe4_gpipe", "pipe4_1f1b")})
+    check("scale-out four cards: compressed all-reduces within their bound",
+          all(v["max_abs_err"] <= v["bound"] for r in ranks
+              for v in r["allreduce"].values()),
+          errors={k: (v["max_abs_err"], v["bound"]) for k, v in r0["allreduce"].items()})
+    return ranks
 
 
 def main():
@@ -4541,14 +5331,17 @@ def main():
     dp_launches = data_parallel_path(ht, dev, cfg)
     sp_launches = sequence_parallel_phase(ht, dev, time_ms)
     daso_phase(ht, dev)
+    scale_launches = scale_out_path(ht, dev, cfg)
     serving = serving_path(ht, dev, smi)
     # ------------------------------------------------- data and observability
     data_launches = data_path(ht, dev, cfg)
     collective_audit_phase()
+    scale_out_four_phase()
     parallel_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    check("DataParallel and Ulysses launched K6, K7a and K7b",
-          all(dp_launches[name] > 0 and sp_launches[name] > 0 for name in parallel_kernels),
-          data_parallel=dp_launches, ulysses=sp_launches)
+    check("DataParallel, Ulysses and the scale-out path launched K6, K7a and K7b",
+          all(dp_launches[name] > 0 and sp_launches[name] > 0 and scale_launches[name] > 0
+              for name in parallel_kernels),
+          data_parallel=dp_launches, ulysses=sp_launches, scale_out=scale_launches)
 
     sources = {
         "moments": ("heat_tpu_torch/csrc/moments.cu", "heat_tpu/core/pallas_moments.py:64"),
@@ -4601,9 +5394,10 @@ def main():
         if name in also:
             label, other = also[name]
             row["also"] = {"shape": label, **{key: other[key] for key in timing_keys}}
-        if name in parallel_kernels:  # the launches of this slice's paths
+        if name in parallel_kernels:  # the launches of the parallel paths
             row["data_parallel_path_launches"] = dp_launches[name]
             row["ulysses_launches"] = sp_launches[name]
+            row["scale_out_path_launches"] = scale_launches[name]
         if name == "moments":  # the streaming path: one launch a chunk
             row["streaming_path_launches"] = stream_report["moments"]["moments"]
             row["streaming_chunk"] = {"shape": "(1,048,576, 64) f32",

@@ -89,6 +89,80 @@ _register(
     "Burn rate above which Router.check_slos() emits a `slo_burn` event "
     "(1.0 = spending the error budget exactly on schedule).",
 )
+# -- compressed and tiered collectives (core/collective_prec.py, core/topology.py)
+
+_register(
+    "HEAT_TPU_COLLECTIVE_PREC", "enum", "off",
+    "Wire precision of the payload-moving collectives of the surfaces that "
+    "resolve one (resplit, DataParallel, DASO, ZeroOptimizer, the cross-node "
+    "tier): bf16 cast-move-upcast, int8 / blockwise max-abs quantization "
+    "(core/collective_prec.py). Exact-semantics sites move exact.",
+    choices=("off", "bf16", "int8", "blockwise"),
+)
+_register(
+    "HEAT_TPU_COLLECTIVE_PREC_BLOCK", "int", 128,
+    "Blockwise-quantization scale granularity in elements.",
+)
+_register(
+    "HEAT_TPU_TOPOLOGY", "str", None,
+    "Declared 2-level (node x local) factorization of the ranks, e.g. `2x4` "
+    "(core/topology.py). Unset auto-detects: one node a host when the ranks "
+    "span several hosts, else the emulated 2-node split of an even world. "
+    "Malformed or mismatched values fall back to detection.",
+)
+_register(
+    "HEAT_TPU_HIERARCHICAL", "bool", False,
+    "Tiered lowering of the sum all-reduce, all-gather, reduce-scatter and "
+    "all-to-all of TorchCommunication: in-node reduce-scatter -> cross-node "
+    "collective over the 1/local shard -> in-node all-gather, exact inside "
+    "the node, HEAT_TPU_HIERARCHICAL_PREC across. `0` keeps the flat path.",
+)
+_register(
+    "HEAT_TPU_HIERARCHICAL_PREC", "str", None,
+    "Wire precision of the cross-node tier of a tiered collective: off | bf16 "
+    "| int8 | blockwise. Unset inherits HEAT_TPU_COLLECTIVE_PREC; the in-node "
+    "tier always moves exact.",
+)
+
+# -- FSDP and pipeline training (parallel/fsdp.py, nn/fsdp.py, nn/pipeline.py)
+
+_register(
+    "HEAT_TPU_FSDP", "bool", False,
+    "Full FSDP parameter sharding in nn.FSDP: parameters live as flat 1/p "
+    "shards and each stage's weights are all-gathered just in time. `0` "
+    "keeps the replicated DataParallel step.",
+)
+_register(
+    "HEAT_TPU_FSDP_PREFETCH", "int", 1,
+    "FSDP gather-prefetch depth: stage k's weight all-gather is issued "
+    "(asynchronously) during stage k-d's compute, so at most d+1 stages' "
+    "gathered weights are live. Outputs are bit-identical at every depth.",
+)
+_register(
+    "HEAT_TPU_FSDP_PREC", "str", None,
+    "Wire precision of FSDP weight gathers (and their reduce-scatters) for "
+    "partition rules that pin none: off | bf16 | int8 | blockwise. Unset "
+    "inherits the cross-node chain under HEAT_TPU_HIERARCHICAL=1, else `off`.",
+)
+_register(
+    "HEAT_TPU_PIPELINE_SCHEDULE", "enum", "gpipe",
+    "Pipeline-training schedule of nn.Pipeline (parallel/schedule.py "
+    "tables): `gpipe` (forward wave, flush, backward wave) or `1f1b` (the "
+    "same results bit for bit, a stash of min(S, M) microbatches and fewer "
+    "steady-window bubble ticks).",
+    choices=("gpipe", "1f1b"),
+)
+_register(
+    "HEAT_TPU_PIPELINE_STAGES", "int", 0,
+    "Stage count of the pipeline mapping (parallel/schedule.plan_stages). 0 "
+    "= auto: the node count of an active 2-level topology, else one stage a "
+    "rank. Must divide the world size.",
+)
+_register(
+    "HEAT_TPU_PIPELINE_MICROBATCHES", "int", 0,
+    "Microbatch count M of nn.Pipeline steps. 0 = auto (the stage count). "
+    "Must divide the batch.",
+)
 _register(
     "HEAT_TPU_RING_OVERLAP", "bool", True,
     "The rings (CholeskyQR2's Gram ring, the ring distances) issue each hop "
@@ -116,7 +190,8 @@ _register(
 _register(
     "HEAT_TPU_SPARSE_SPMV_PREC", "enum", "off",
     "Wire precision of the float values in the sparse spmv/spmm "
-    "collectives; only `off` (exact) is ported, `bf16` raises.",
+    "collectives (sparse/ops.py): `off` (exact, the default) or `bf16` (the "
+    "gathered operand moves as its bf16 bits, the all-reduce sums bf16).",
     choices=("off", "bf16"),
 )
 _register(

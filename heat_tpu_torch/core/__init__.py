@@ -4,7 +4,8 @@ complex, rounding, relational and logical) operations, indexing, the
 manipulations, printing, the statistics, ``random``, ``linalg``, I/O, the
 estimator bases and the validation helpers."""
 
-from . import constants, io, linalg, program_cache, random, tiling, version
+from . import (collective_prec, constants, io, linalg, program_cache, random, tiling, topology,
+               version)
 from ._operations import binary_op, cum_op, local_op, reduce_op
 from .arithmetics import *
 from .communication import (

@@ -14,9 +14,22 @@ holds only its own rows, no physical tail padding exists here.
 
 A collective along one dimension pads each chunk to ``c`` for the call and
 drops the pad again; the unsigned types wider than 8 bits travel as the
-signed type of the same width. Every wire is exact: the compressed wires of
-the JAX package (``precision``, ``core/collective_prec.py`` there) are not
-ported, and asking for one raises.
+signed type of the same width.
+
+``precision=`` (``off | bf16 | int8 | blockwise``) compresses the wire of
+``allreduce``/``allreduce_flat``/``allgather``/``reduce_scatter``/
+``all_to_all``/``ppermute`` (:mod:`.collective_prec`); float payloads only,
+integers always move exact. ``None`` is the exact wire here: the JAX
+package's wrappers read ``HEAT_TPU_COLLECTIVE_PREC`` at every call and its
+exactness-critical sites pin ``"off"``, while the port resolves the knob at
+the surfaces that may be lossy (``resplit``, ``DataParallel``, ``DASO``,
+``ZeroOptimizer``, FSDP) and keeps every other site exact. Under
+``HEAT_TPU_HIERARCHICAL=1`` on a nontrivial ``node x local`` topology
+(:mod:`.topology`) the sum all-reduce, the all-gather, the reduce-scatter and
+the all-to-all take the tiered lowerings, in-node exact and the cross-node
+tier at :meth:`TorchCommunication._cross_wire`'s mode; the node and cross
+groups are made once for each communicator (:meth:`TorchCommunication.tiers`),
+by every rank in the same order.
 
 Autograd sees through the hops that sequence parallelism differentiates:
 ``ppermute``/``ring_permute`` (its backward sends the gradient along the
@@ -30,8 +43,9 @@ runs.
 
 Every collective a world of several ranks issues reports itself to
 :func:`heat_tpu_torch.telemetry.trace_event` (its op, this rank's bytes in
-and out, the group size): counted always, recorded while telemetry records,
-and held against the cost model by the collective audit
+and out at the wire's type, the group size and the ranks that issue it
+together): counted always, recorded while telemetry records, and held
+against the cost model by the collective audit
 (:mod:`heat_tpu_torch.telemetry.hlo`).
 
 ``Communication`` is the abstract base the JAX package exports,
@@ -174,14 +188,6 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT, "max": d
                "min": dist.ReduceOp.MIN}
 
 
-def _exact_wire(precision: Optional[str]) -> None:
-    """Only the exact wire is ported; a compressed one raises."""
-    if precision not in (None, "off"):
-        raise NotImplementedError(
-            f"collective precision {precision!r}: the compressed wires come with "
-            f"core/collective_prec (ROADMAP §1 item 12); only the exact wire is ported")
-
-
 def _padded(local: torch.Tensor, dim: int, length: int) -> torch.Tensor:
     """``local`` zero-padded along ``dim`` to ``length`` (no copy when it
     already has that length)."""
@@ -237,14 +243,14 @@ class _PPermute(torch.autograd.Function):
     back; one that sent nothing gets zeros)."""
 
     @staticmethod
-    def forward(ctx, tensor, comm, perm):
+    def forward(ctx, tensor, comm, perm, precision=None):
         ctx.comm, ctx.perm = comm, perm
-        return comm.ppermute(tensor, perm)
+        return comm.ppermute(tensor, perm, precision)
 
     @staticmethod
     def backward(ctx, grad):
         inverse = [(d, s) for s, d in ctx.perm]
-        return ctx.comm.ppermute(grad.contiguous(), inverse), None, None
+        return ctx.comm.ppermute(grad.contiguous(), inverse), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -274,7 +280,8 @@ def _issued(name: str, op: str, sent: torch.Tensor, size: int, out_shape=None,
             **extra) -> None:
     """Report one collective to telemetry (module docstring): ``sent`` is
     this rank's operand, ``out_shape`` its result's shape (the operand's
-    when None)."""
+    when None); ``participants`` (in ``extra``) counts the ranks of every
+    group that issues it together (a tier's groups), ``size`` by default."""
     shape = tuple(sent.shape) if out_shape is None else tuple(out_shape)
     out_bytes = sent.element_size() * int(np.prod(shape, dtype=np.int64))
     telemetry.trace_event(name, op=op, in_bytes=_nbytes(sent), out_bytes=out_bytes,
@@ -303,7 +310,7 @@ class TorchCommunication(Communication):
     default group when ``group`` is None). Without an initialised process
     group it is a world of size 1 and every collective is the identity."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, participants: Optional[int] = None):
         self.group = group
         if dist.is_available() and dist.is_initialized():
             self.size = dist.get_world_size(group)
@@ -311,6 +318,11 @@ class TorchCommunication(Communication):
         else:
             self.size = 1
             self.rank = 0
+        # the ranks of all the groups that issue this communicator's
+        # collectives together (a tier's groups): the audit's participants
+        self.participants = self.size if participants is None else int(participants)
+        self._tiers = {}
+        self._hosts = None
 
     def __repr__(self) -> str:
         return f"TorchCommunication(rank={self.rank}, size={self.size})"
@@ -335,32 +347,150 @@ class TorchCommunication(Communication):
     def counts_displs(self, n: int):
         return counts_displs(n, self.size)
 
+    # -- the 2-level topology (core/topology.py) ---------------------------
+
+    def _hier(self):
+        """The topology to lower tiered against, or None for the flat
+        path (``HEAT_TPU_HIERARCHICAL=1`` and a nontrivial factorization;
+        a tier's own communicator, one of several groups, lowers flat)."""
+        from . import topology as _topo
+
+        if (self.size <= 1 or self.participants != self.size
+                or not _topo.hierarchical_requested()):
+            return None
+        return _topo.active(self.size, self)
+
+    def _cross_wire(self, tensor: torch.Tensor, precision: Optional[str]) -> str:
+        """The cross-node tier's wire for one payload: ``precision``, else
+        ``HEAT_TPU_HIERARCHICAL_PREC``, else ``HEAT_TPU_COLLECTIVE_PREC``;
+        ``off`` for integer payloads."""
+        from . import topology as _topo
+
+        return _topo.cross_mode(tensor.dtype, precision)
+
+    @staticmethod
+    def _wire(tensor: torch.Tensor, precision: Optional[str]) -> str:
+        """The flat wire of one payload: ``precision`` (None is exact here,
+        module docstring), ``off`` for integer payloads."""
+        from . import collective_prec
+
+        return collective_prec.effective(tensor.dtype, "off" if precision is None else precision)
+
+    def tiers(self, topo) -> Tuple["TorchCommunication", "TorchCommunication"]:
+        """``(in_node, cross)`` communicators of ``topo`` over this world:
+        the ``local`` consecutive ranks of this rank's node, and the ranks
+        with this rank's place in every node (the JAX package's
+        ``node_groups``/``cross_groups``). Made once for each topology, by
+        every rank in the same order (every rank must call it)."""
+        key = (topo.node, topo.local)
+        if key not in self._tiers:
+            cross, in_node = self.node_local(topo.node)
+            self._tiers[key] = (in_node, cross)
+        return self._tiers[key]
+
+    # -- equal-size primitives (the compressed and tiered wires' movers) -----
+
+    @staticmethod
+    def _wire_view(tensor: torch.Tensor) -> torch.Tensor:
+        """What moves: the signed bits of a wide unsigned type, any other
+        type as it is (a bf16 payload moves as bf16 on NCCL and gloo, which
+        carry no int16)."""
+        return tensor.view(_BITS_AS.get(tensor.dtype, tensor.dtype)).contiguous()
+
+    def exchange(self, send: torch.Tensor) -> torch.Tensor:
+        """All-to-all of equal blocks: ``send[q]`` goes to rank ``q`` and
+        the result's row ``r`` came from rank ``r`` (``send``'s leading
+        dimension is the world size)."""
+        if self.size == 1:
+            return send.clone()
+        wire = self._wire_view(send)
+        recv = torch.empty_like(wire)
+        dist.all_to_all_single(recv, wire, group=self.group)
+        _issued("exchange", "all-to-all", wire, self.size, participants=self.participants)
+        return recv.view(send.dtype)
+
+    def gather_stack(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``tensor`` (one shape on every rank) stacked along a
+        new leading dimension, in rank order."""
+        if self.size == 1:
+            return tensor[None].clone()
+        wire = self._wire_view(tensor)
+        out = wire.new_empty((self.size * wire.numel(),))
+        dist.all_gather_into_tensor(out, wire.reshape(-1), group=self.group)
+        shape = (self.size,) + tuple(wire.shape)
+        _issued("gather_stack", "all-gather", wire, self.size, shape,
+                participants=self.participants)
+        return out.view(shape).view(tensor.dtype)
+
+    def sum_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's equal chunk of the elementwise sum of every rank's
+        1-D ``flat`` (its length a multiple of the world size)."""
+        if self.size == 1:
+            return flat.clone()
+        out = flat.new_empty((flat.numel() // self.size,))
+        dist.reduce_scatter_tensor(out, flat.contiguous(), group=self.group)
+        _issued("sum_scatter", "reduce-scatter", flat, self.size, out.shape,
+                participants=self.participants)
+        return out
+
+    def sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of every rank's ``tensor``, out of place, in
+        its type."""
+        out = tensor.clone()
+        if self.size > 1:
+            dist.all_reduce(out, group=self.group)
+            _issued("sum", "all-reduce", out, self.size, participants=self.participants)
+        return out
+
     # -- collectives ----------------------------------------------------------
 
-    def allreduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def allreduce(self, tensor: torch.Tensor, op: str = "sum",
+                  precision: Optional[str] = None) -> torch.Tensor:
         """In-place all-reduce (the counterpart of the JAX package's
-        ``psum`` :336, and of ``pmax``/``pmin``); returns ``tensor``."""
-        if self.size > 1:
-            dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
-            _issued("allreduce", "all-reduce", tensor, self.size)
+        ``psum`` :336, and of ``pmax``/``pmin``); returns ``tensor``. A sum
+        takes the tiered lowering under ``HEAT_TPU_HIERARCHICAL=1`` and a
+        compressed wire with ``precision`` (module docstring)."""
+        if self.size == 1:
+            return tensor
+        if op == "sum":
+            topo = self._hier()
+            wire = self._wire(tensor, precision)
+            if topo is not None or wire != "off":
+                from . import collective_prec, topology as _topo
+
+                if topo is not None:
+                    out = _topo.hier_psum(tensor, self, topo, self._cross_wire(tensor, precision),
+                                          collective_prec.block_size())
+                else:
+                    out = collective_prec.psum(tensor, self, wire)
+                with torch.no_grad():
+                    tensor.copy_(out)
+                return tensor
+        dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
+        _issued("allreduce", "all-reduce", tensor, self.size, participants=self.participants)
         return tensor
 
     def allreduce_flat(self, tensors: Sequence[torch.Tensor], average: bool = False,
-                       async_op: bool = False):
+                       async_op: bool = False, precision: Optional[str] = None):
         """Sum (or, with ``average``, average) a list of tensors of one type
         over the ranks as ONE collective on a flat buffer that holds them
         all (DataParallel's gradient bucket: one all-reduce a step). Returns
         the reduced tensors as views of that buffer; the inputs are not
         changed. With ``async_op=True`` it returns a
-        :class:`PendingAllreduce` at once."""
+        :class:`PendingAllreduce` at once (a compressed or tiered wire runs
+        at once and returns a completed one)."""
         tensors = list(tensors)
         flat = torch.cat([t.detach().reshape(-1) for t in tensors])
         work = None
         if self.size > 1:
-            work = dist.all_reduce(flat, group=self.group, async_op=async_op)
-            _issued("allreduce_flat", "all-reduce", flat, self.size)
-            if not async_op:
-                work = None
+            if self._hier() is not None or self._wire(flat, precision) != "off":
+                self.allreduce(flat, precision=precision)
+            else:
+                work = dist.all_reduce(flat, group=self.group, async_op=async_op)
+                _issued("allreduce_flat", "all-reduce", flat, self.size,
+                        participants=self.participants)
+                if not async_op:
+                    work = None
         divisor = self.size if average and self.size > 1 else None
         pending = PendingAllreduce(flat, work, tensors, divisor)
         return pending if async_op else pending.wait()
@@ -369,7 +499,7 @@ class TorchCommunication(Communication):
         """In-place broadcast of rank ``root``'s ``tensor``; returns it."""
         if self.size > 1:
             dist.broadcast(tensor, self._global_rank(root), group=self.group)
-            _issued("bcast", "broadcast", tensor, self.size)
+            _issued("bcast", "broadcast", tensor, self.size, participants=self.participants)
         return tensor
 
     def node_local(self, n_nodes: int) -> Tuple["TorchCommunication", "TorchCommunication"]:
@@ -390,32 +520,48 @@ class TorchCommunication(Communication):
         nodes = [[glob[n * n_local + i] for n in range(n_nodes)] for i in range(n_local)]
         local_group, _ = dist.new_subgroups_by_enumeration(locals_)
         node_group, _ = dist.new_subgroups_by_enumeration(nodes)
-        return TorchCommunication(node_group), TorchCommunication(local_group)
+        return (TorchCommunication(node_group, self.participants),
+                TorchCommunication(local_group, self.participants))
 
-    def allgather(self, local: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    def allgather(self, local: torch.Tensor, dim: int, n: int,
+                  precision: Optional[str] = None) -> torch.Tensor:
         """Concatenate every rank's chunk of a dimension of global length
         ``n`` along ``dim`` (the counterpart of ``all_gather`` :412). The
         chunks follow the ceil rule; each is padded to the chunk size for
-        the collective and the pad is dropped again."""
+        the collective and the pad is dropped again. Tiered under
+        ``HEAT_TPU_HIERARCHICAL=1``; ``precision`` compresses the wire."""
         if self.size == 1:
             return local
         if local.dtype in _BITS_AS:  # gloo and NCCL carry no uint16/32/64: move the bits
             return self.allgather(local.view(_BITS_AS[local.dtype]), dim, n).view(local.dtype)
         counts, _ = self.counts_displs(n)
         buf = _padded(local, dim, self.chunk_size(n)).contiguous()
-        parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(self.size)]
-        dist.all_gather(parts, buf, group=self.group)
-        _issued("all_gather", "all-gather", buf, self.size, (self.size,) + tuple(buf.shape))
+        topo = self._hier()
+        wire = self._wire(buf, precision)
+        if topo is not None or wire != "off":
+            from . import collective_prec, topology as _topo
+
+            if topo is not None:
+                stacked = _topo.hier_all_gather(buf, self, topo, self._cross_wire(buf, precision),
+                                                collective_prec.block_size(), tiled=False)
+            else:
+                stacked = collective_prec.all_gather(buf, self, wire, tiled=False)
+            parts = list(stacked.unbind(0))
+        else:
+            parts = [torch.empty_like(buf) for _ in range(self.size)]
+            dist.all_gather(parts, buf, group=self.group)
+            _issued("all_gather", "all-gather", buf, self.size, (self.size,) + tuple(buf.shape),
+                    participants=self.participants)
         return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(parts, counts)], dim=dim)
 
     def reduce_scatter(self, tensor: torch.Tensor, dim: int, n: int, op: str = "sum",
                        precision: Optional[str] = None) -> torch.Tensor:
         """This rank's ceil-rule chunk, along ``dim`` of global length ``n``,
         of the elementwise reduction of every rank's whole ``tensor`` (the
-        counterpart of ``reduce_scatter`` :363 and of ``psum_scatter``; the
-        JAX package's flat form, which scatters the flattened payload for
-        ZeRO, comes with ``optim/zero_optimizer``)."""
-        _exact_wire(precision)
+        counterpart of ``reduce_scatter`` :363 and of ``psum_scatter``).
+        A sum is tiered under ``HEAT_TPU_HIERARCHICAL=1`` and compressed
+        with ``precision``; :meth:`reduce_scatter_flat` is the JAX
+        package's flat form."""
         if tensor.shape[dim] != n:
             raise ValueError(
                 f"reduce_scatter: dimension {dim} has {tensor.shape[dim]} entries, not {n}")
@@ -429,10 +575,51 @@ class TorchCommunication(Communication):
         c = self.chunk_size(n)
         counts, _ = self.counts_displs(n)
         buf = _padded(tensor.movedim(dim, 0), 0, c * self.size).contiguous()
-        out = buf.new_empty((c,) + tuple(buf.shape[1:]))
-        dist.reduce_scatter_tensor(out, buf, op=_REDUCE_OPS[op], group=self.group)
-        _issued("reduce_scatter", "reduce-scatter", buf, self.size, out.shape)
+        topo = self._hier() if op == "sum" else None
+        wire = (self._cross_wire(buf, precision) if topo is not None
+                else self._wire(buf, precision)) if op == "sum" else "off"
+        if topo is not None or wire != "off":
+            # the rows padded to size * c: rank r's flat chunk is its c rows,
+            # each rank's segment padded to whole blocks under blockwise (the
+            # blocked chunk of the quantized reduce-scatter)
+            from . import collective_prec
+
+            per = buf.numel() // self.size
+            seg = per
+            if wire == "blockwise":
+                b = max(1, min(collective_prec.block_size(), per))
+                seg = -(-per // b) * b
+            flat = buf.reshape(self.size, per)
+            if seg != per:
+                flat = torch.nn.functional.pad(flat, (0, seg - per))
+            rows = self.reduce_scatter_flat(flat.reshape(-1), precision)
+            out = rows[:per].reshape((c,) + tuple(buf.shape[1:]))
+        else:
+            out = buf.new_empty((c,) + tuple(buf.shape[1:]))
+            dist.reduce_scatter_tensor(out, buf, op=_REDUCE_OPS[op], group=self.group)
+            _issued("reduce_scatter", "reduce-scatter", buf, self.size, out.shape,
+                    participants=self.participants)
         return out.narrow(0, 0, counts[self.rank]).movedim(0, dim)
+
+    def reduce_scatter_flat(self, tensor: torch.Tensor,
+                            precision: Optional[str] = None) -> torch.Tensor:
+        """The JAX package's ``reduce_scatter`` (:363): ``tensor`` flattened
+        and zero-padded to ``size`` equal chunks; returns this rank's 1-D
+        ``(ceil(numel/size),)`` chunk of the sum over the ranks (the ZeRO
+        gradient primitive). Tiered under ``HEAT_TPU_HIERARCHICAL=1`` (the
+        cross tier at ``precision``'s mode), else compressed with
+        ``precision``; ``blockwise`` may return a chunk padded to whole
+        blocks."""
+        from . import collective_prec
+
+        topo = self._hier()
+        if topo is not None:
+            from . import topology as _topo
+
+            return _topo.hier_reduce_scatter(tensor, self, topo,
+                                             self._cross_wire(tensor, precision),
+                                             collective_prec.block_size())
+        return collective_prec.reduce_scatter(tensor, self, self._wire(tensor, precision))
 
     def all_to_all(self, local: torch.Tensor, split_axis: int, concat_axis: int, n_split: int,
                    n_concat: Optional[int] = None, precision: Optional[str] = None) -> torch.Tensor:
@@ -444,8 +631,9 @@ class TorchCommunication(Communication):
         ``split_axis``. Each rank sends rank ``q`` only the block ``q`` will
         own; no rank holds the whole array. Blocks are padded to the chunk
         sizes of both axes for the call. Differentiable: under autograd the
-        gradient takes the inverse exchange back."""
-        _exact_wire(precision)
+        gradient takes the inverse exchange back. Tiered under
+        ``HEAT_TPU_HIERARCHICAL=1``; ``precision`` compresses each
+        destination's block on its own (:func:`.collective_prec.exchange`)."""
         if _records_grad(local) and self.size > 1:
             if n_concat is None:
                 n_concat = sum(self.allgather_object(int(local.shape[concat_axis])))
@@ -470,9 +658,20 @@ class TorchCommunication(Communication):
         shape = list(buf.shape)
         shape[split_axis:split_axis + 1] = [self.size, c_split]
         send = buf.reshape(shape).movedim(split_axis, 0).contiguous()
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=self.group)
-        _issued("all_to_all", "all-to-all", send, self.size)
+        topo = self._hier()
+        wire = self._wire(send, precision)
+        if topo is not None or wire != "off":
+            from . import collective_prec, topology as _topo
+
+            if topo is not None:
+                recv = _topo.hier_exchange(send, self, topo, self._cross_wire(send, precision),
+                                           collective_prec.block_size())
+            else:
+                recv = collective_prec.exchange(send, self, wire)
+        else:
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=self.group)
+            _issued("all_to_all", "all-to-all", send, self.size, participants=self.participants)
         # recv[r] is rank r's chunk of concat_axis; this rank's part of split_axis
         parts = [recv[r].narrow(split_axis, 0, counts_split[self.rank])
                  .narrow(concat_axis, 0, counts_concat[r]) for r in range(self.size)]
@@ -487,12 +686,18 @@ class TorchCommunication(Communication):
         on ``batch_isend_irecv``: with ``async_op=True`` it returns a
         :class:`PendingPermute` at once, so that work can run while the
         tensors travel. Differentiable (synchronously): under autograd the
-        gradient goes back along the inverse permutation."""
-        _exact_wire(precision)
+        gradient goes back along the inverse permutation (exact). ``precision`` compresses the hop
+        (:func:`.collective_prec.ppermute`; synchronous)."""
         if _records_grad(tensor):
             if async_op:
                 raise ValueError("ppermute: async_op=True cannot record a gradient")
-            return _PPermute.apply(tensor, self, [tuple(pair) for pair in perm])
+            return _PPermute.apply(tensor, self, [tuple(pair) for pair in perm], precision)
+        wire = self._wire(tensor, precision)
+        if wire != "off":
+            from . import collective_prec
+
+            out = collective_prec.ppermute(tensor, self, perm, wire)
+            return PendingPermute(out, [], out.dtype, tensor) if async_op else out
         dtype = tensor.dtype
         tensor = tensor.view(_BITS_AS.get(dtype, dtype)).contiguous()
         dst = [d for s, d in perm if s == self.rank]
@@ -512,7 +717,7 @@ class TorchCommunication(Communication):
                 works = dist.batch_isend_irecv(ops)
         if self.size > 1:
             _issued("ppermute", "collective-permute", tensor, self.size,
-                    pairs=[tuple(pair) for pair in perm])
+                    pairs=[tuple(pair) for pair in perm], participants=self.participants)
         pending = PendingPermute(out, works, dtype, tensor)
         return pending if async_op else pending.wait()
 
@@ -534,7 +739,8 @@ class TorchCommunication(Communication):
                                input_split_sizes=list(send_counts), group=self.group)
         row = _nbytes(send) // max(1, send.shape[0])
         _issued("alltoallv", "all-to-all", send, self.size, recv.shape,
-                sent_bytes=(sum(send_counts) - send_counts[self.rank]) * row)
+                sent_bytes=(sum(send_counts) - send_counts[self.rank]) * row,
+                participants=self.participants)
         return recv.view(dtype)
 
     def _global_rank(self, rank: int) -> int:

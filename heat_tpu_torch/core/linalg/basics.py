@@ -32,7 +32,7 @@ product clears torch's reduced-precision reduction flag for itself and
 restores the caller's value, so that it accumulates in f32 as XLA does. No
 operand whose type already is the result type is copied or cast.
 ``matmul`` runs eagerly; the JAX package's deferred form (Fusion 2.0) comes
-with the fusion engine (ROADMAP §1 item 13).
+with the fusion engine (ROADMAP §1 item 13b).
 """
 
 from __future__ import annotations

@@ -10,8 +10,15 @@ n-vector. The vectors are whole on every rank. The JAX package runs each
 solve as one compiled loop; here the loop is on the host and reads one
 scalar an iteration (CG's ``r·r``, Lanczos' ``β``). The breakdown restart
 of Lanczos draws ``normal(fold_in(PRNGKey(0), i), (n,))`` with the port's
-threefry, the JAX package's vector. The ``checkpoint_every``/``resume``
-windows come with the resilience layer (ROADMAP §1 item 13).
+threefry, the JAX package's vector.
+
+``checkpoint_every=k`` runs the iteration in windows of ``k`` steps and
+saves the carry after each to ``checkpoint_path``
+(:func:`heat_tpu_torch.resilience.save_checkpoint`, the JAX package's
+records: CG's ``[x, r, p]`` with ``it`` and ``rsold``, Lanczos'
+``[V, alphas, betas, w]`` with ``i``); ``resume=True`` continues a killed
+solve from the last window, bit for bit the uninterrupted one (the same
+per-iteration arithmetic, and the restart draw depends only on ``i``).
 """
 
 from __future__ import annotations
@@ -28,11 +35,37 @@ from ..factories import _from_global
 __all__ = ["cg", "lanczos"]
 
 
-def _not_ported(checkpoint_every, resume) -> None:
-    if checkpoint_every is not None or resume:
-        raise NotImplementedError(
-            "the checkpoint_every/resume windows come with the resilience layer "
-            "(ROADMAP item 13)")
+def _windows(checkpoint_every, checkpoint_path, resume) -> Optional[int]:
+    """The validated window length (None: one uninterrupted loop)."""
+    if checkpoint_every is None:
+        if resume:
+            raise ValueError("resume=True requires checkpoint_every")
+        return None
+    if checkpoint_every <= 0:
+        raise ValueError(f"checkpoint_every must be positive, got {checkpoint_every}")
+    if not checkpoint_path:
+        raise ValueError("checkpoint_every requires checkpoint_path")
+    return int(checkpoint_every)
+
+
+def _load_carry(path: str, algo: str, n_leaves: int, comm, resume: bool):
+    """``(leaves, extra)`` of a resumable checkpoint of ``algo``, or None."""
+    from ... import resilience
+
+    if not (resume and resilience.checkpoint.exists(path)):
+        return None
+    leaves, extra = resilience.load_checkpoint(path, comm=comm, with_extra=True)
+    if extra.get("algo") != algo or len(leaves) != n_leaves:
+        raise resilience.CheckpointError(
+            f"{path!r} is a {extra.get('algo')!r} checkpoint, not {algo}")
+    return leaves, extra
+
+
+def _save_carry(path: str, tensors, extra: dict, comm) -> None:
+    from ... import resilience
+
+    resilience.save_checkpoint([t.detach().cpu().numpy() for t in tensors], path,
+                               extra=extra, comm=comm)
 
 
 def _is_operator(A) -> bool:
@@ -57,8 +90,9 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None, *
        resume: bool = False) -> DNDarray:
     """Conjugate gradients for a symmetric positive definite ``A x = b``
     (reference solver.py:127): at most n iterations, until ``r·r < 1e-20``.
-    A non-finite iterate raises ``RuntimeError``."""
-    _not_ported(checkpoint_every, resume)
+    A non-finite iterate raises ``RuntimeError``. ``checkpoint_every``,
+    ``checkpoint_path`` and ``resume``: the windows (module docstring)."""
+    every = _windows(checkpoint_every, checkpoint_path, resume)
     if not (_is_operator(A) and isinstance(b, DNDarray) and isinstance(x0, DNDarray)):
         raise TypeError("cg expects DNDarray (or sparse operator) A, and DNDarray b and x0")
     if A.ndim != 2:
@@ -72,20 +106,37 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None, *
                              types.promote_types(x0.dtype, types.float32))
     tdt = dt.torch_type()
     matvec = _matvec(A, tdt)
-    x = x0._global().to(tdt)
-    r = b._global().to(tdt) - matvec(x)
-    p = r
-    rs = torch.dot(r, r)
-    it = 0
-    while it < n and float(rs) >= 1e-20:
-        Ap = matvec(p)
-        alpha = rs / torch.dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rs_new = torch.dot(r, r)
-        p = r + (rs_new / rs) * p
-        rs = rs_new
-        it += 1
+    loaded = None if every is None else _load_carry(checkpoint_path, "cg", 3, x0.comm, resume)
+    if loaded is not None:
+        (x, r, p), extra = loaded
+        dev = x0.larray.device
+        x, r, p = (torch.as_tensor(np.asarray(t)).to(dev, tdt) for t in (x, r, p))
+        rs = torch.tensor(extra["rsold"], dtype=tdt, device=dev)
+        it = int(extra["it"])
+    else:
+        x = x0._global().to(tdt)
+        r = b._global().to(tdt) - matvec(x)
+        p = r
+        rs = torch.dot(r, r)
+        it = 0
+    while True:
+        start = it
+        lim = n if every is None else min(it + every, n)
+        while it < lim and float(rs) >= 1e-20:
+            Ap = matvec(p)
+            alpha = rs / torch.dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            rs_new = torch.dot(r, r)
+            p = r + (rs_new / rs) * p
+            rs = rs_new
+            it += 1
+        if every is None or it == start:
+            break  # done, converged, or a window that made no progress
+        _save_carry(checkpoint_path, (x, r, p), {"algo": "cg", "it": it, "rsold": float(rs)},
+                    x0.comm)
+        if it >= n:
+            break
     if not bool(torch.isfinite(x).all()):
         raise RuntimeError(
             "cg broke down (non-finite iterate) — A must be symmetric positive definite")
@@ -106,8 +157,9 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
     matrix, in ``A``'s inexact type. Without ``v0`` the start is
     ``numpy.random.default_rng(0).standard_normal(n)``; a breakdown
     (``β ≤ 1e-6``, ``1e-13`` in float64) restarts from the JAX package's
-    ``normal(fold_in(PRNGKey(0), i), (n,))``."""
-    _not_ported(checkpoint_every, resume)
+    ``normal(fold_in(PRNGKey(0), i), (n,))``. ``checkpoint_every``,
+    ``checkpoint_path`` and ``resume``: the windows (module docstring)."""
+    every = _windows(checkpoint_every, checkpoint_path, resume)
     if not _is_operator(A):
         raise TypeError(f"A needs to be a ht.DNDarray or sparse operator, but was {type(A)}")
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
@@ -126,15 +178,23 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
     eps = 1e-13 if tdt == torch.float64 else 1e-6
     key = _threefry.prng_key(0)
 
-    v = v / torch.linalg.vector_norm(v)
-    basis = torch.zeros((m, n), dtype=tdt, device=dev)
-    basis[0] = v
-    alphas = torch.zeros(m, dtype=tdt, device=dev)
-    betas = torch.zeros(m, dtype=tdt, device=dev)
-    w = matvec(v)
-    alphas[0] = torch.dot(w, v)
-    w = w - alphas[0] * v
-    for i in range(1, m):
+    loaded = None if every is None else _load_carry(checkpoint_path, "lanczos", 4, A.comm,
+                                                      resume)
+    if loaded is not None:
+        leaves, extra = loaded
+        basis, alphas, betas, w = (torch.as_tensor(np.asarray(t)).to(dev, tdt) for t in leaves)
+        first = int(extra["i"])
+    else:
+        v = v / torch.linalg.vector_norm(v)
+        basis = torch.zeros((m, n), dtype=tdt, device=dev)
+        basis[0] = v
+        alphas = torch.zeros(m, dtype=tdt, device=dev)
+        betas = torch.zeros(m, dtype=tdt, device=dev)
+        w = matvec(v)
+        alphas[0] = torch.dot(w, v)
+        w = w - alphas[0] * v
+        first = 1
+    for i in range(first, m):
         beta = torch.linalg.vector_norm(w)
         if float(beta) > eps:
             v = w / beta
@@ -150,6 +210,9 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
         w = matvec(v)
         alphas[i] = torch.dot(w, v)
         w = w - alphas[i] * v - beta * basis[i - 1]
+        if every is not None and ((i - first + 1) % every == 0 or i == m - 1):
+            _save_carry(checkpoint_path, (basis, alphas, betas, w),
+                        {"algo": "lanczos", "i": i + 1}, A.comm)
     T = torch.diag(alphas) + torch.diag(betas[1:], 1) + torch.diag(betas[1:], -1)
     V = _from_global(basis.t().contiguous(), A.split, A.device, A.comm, dt)
     T = _from_global(T, None, A.device, A.comm, dt)

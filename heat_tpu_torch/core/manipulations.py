@@ -43,7 +43,6 @@ import torch
 
 from . import types
 from ._operations import from_order_key, order_key
-from .communication import _exact_wire
 from .dndarray import DNDarray
 from .indexing import (_BITS_AS, _assemble, _bits, _exchange_rows, _fetch_rows, _flip,
                        _index_select, _unbits, _wrap, getitem)
@@ -134,9 +133,39 @@ def resplit(arr: DNDarray, axis: Optional[int] = None, *, audit: bool = False,
     """Out-of-place redistribution to a new split axis (reference
     manipulations.py:536): one ``all_to_all`` between two split axes. A
     ``resplit`` telemetry span; ``audit=True`` audits its collectives
-    (:meth:`DNDarray.resplit`)."""
-    _exact_wire(precision)
-    return arr.resplit(axis, audit=audit)
+    (:meth:`DNDarray.resplit`).
+
+    ``precision`` (``off | bf16 | int8 | blockwise``, default the
+    ``HEAT_TPU_COLLECTIVE_PREC`` knob) moves a float payload compressed
+    (:func:`.collective_prec.reshard`, the JAX package's scales); ``off``
+    is the exact relayout. A compressed move audits against
+    ``relayout_cost(..., precision=)``."""
+    from . import collective_prec
+    from .. import telemetry
+
+    axis = sanitize_axis(arr.shape, axis)
+    wire = collective_prec.effective(arr.larray.dtype, precision)
+    if wire == "off" or arr.split is None or axis == arr.split or arr.comm.size == 1:
+        return arr.resplit(axis, audit=audit)
+
+    def run() -> DNDarray:
+        return DNDarray(collective_prec.reshard(arr, axis, wire), arr.shape, arr.dtype, axis,
+                        arr.device, arr.comm, True)
+
+    if not (audit or telemetry.hlo.audit_enabled()):
+        return run()
+    phys = list(arr.shape)
+    for ax in (arr.split, axis):
+        if ax is not None:
+            phys[ax] = arr.comm.padded_size(phys[ax])
+    predicted = telemetry.collectives.relayout_cost(
+        phys, arr.dtype.byte_size(), arr.split, axis, arr.comm.size, precision=wire,
+        block=collective_prec.block_size())
+    out, _ = telemetry.hlo.audit_call(
+        "resplit", run, predicted=predicted,
+        fields={"old_split": arr.split, "new_split": axis, "gshape": list(arr.shape),
+                "wire": wire})
+    return out
 
 
 def redistribute(arr: DNDarray, lshape_map=None, target_map=None) -> DNDarray:

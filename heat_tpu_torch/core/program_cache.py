@@ -45,7 +45,7 @@ per-call precision has one: ``tf32=False`` captures the program's
 products with TF32 off (``torch.backends.cuda.matmul.allow_tf32``, the
 caller's flag restored after the capture; a replay does not read it). The serving
 endpoints go through this registry; the port's other modules keep their
-own caches (``regression.Lasso``'s epoch graph) until item 13's fusion
+own caches (``regression.Lasso``'s epoch graph) until item 13b's fusion
 work.
 """
 

@@ -1,6 +1,8 @@
 """Neural-network modules (counterpart of ``heat_tpu/nn``): the transformer
 LM, the W8A8 dense layer and the mixture-of-experts layer as
-``torch.nn.Module``s, the data-parallel wrappers, and ``functional``.
+``torch.nn.Module``s, the data-parallel wrappers, fully sharded data
+parallelism (``FSDP``), pipeline training (``Pipeline``), and
+``functional``.
 
 As the reference Heat's ``heat.nn`` (:19-31), every other name falls through
 to ``torch.nn`` (``heat_tpu_torch.nn.Linear`` is ``torch.nn.Linear``); the JAX
@@ -9,12 +11,15 @@ package falls through to flax.linen.
 
 from . import functional
 from .data_parallel import DataParallel, DataParallelMultiGPU
+from .fsdp import FSDP
 from .moe import MoEMLP
+from .pipeline import Pipeline
 from .quant_dense import QuantDense
 from .transformer import LayerNorm, MultiHeadAttention, TransformerBlock, TransformerLM
 
-__all__ = ["DataParallel", "DataParallelMultiGPU", "LayerNorm", "MoEMLP", "MultiHeadAttention",
-           "QuantDense", "TransformerBlock", "TransformerLM", "functional"]
+__all__ = ["DataParallel", "DataParallelMultiGPU", "FSDP", "LayerNorm", "MoEMLP",
+           "MultiHeadAttention", "Pipeline", "QuantDense", "TransformerBlock", "TransformerLM",
+           "functional"]
 
 
 def __getattr__(name):

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
+from ..core import collective_prec
+from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 
 __all__ = ["DataParallel", "DataParallelMultiGPU"]
@@ -111,10 +112,18 @@ def _loss_and_grads(module: nn.Module, loss_fn: Callable, batch) -> Tuple[torch.
 
 
 def _mean_over(comm: TorchCommunication, grads: list, loss: Optional[torch.Tensor],
-               async_op: bool = False):
+               async_op: bool = False, wire: str = "off"):
     """Average ``grads`` (and ``loss``) over ``comm``'s ranks in one flat
     all-reduce, the loss riding in the gradients' type. Returns
-    ``(grads, loss)``, or with ``async_op`` a callable that waits for them."""
+    ``(grads, loss)``, or with ``async_op`` a callable that waits for them.
+    A compressed ``wire`` averages each float gradient on its own
+    (``collective_prec.pmean``, the JAX package's per-leaf scales) and the
+    loss exactly."""
+    if wire != "off" and comm.size > 1:
+        out = [collective_prec.pmean(g, comm, wire) if collective_prec.compressible(g.dtype)
+               else comm.sum(g) / comm.size for g in grads]
+        mean_loss = None if loss is None else comm.allreduce_flat([loss], average=True)[0]
+        return (lambda: (out, mean_loss)) if async_op else (out, mean_loss)
     dtypes = {g.dtype for g in grads}
     if len(dtypes) > 1:
         raise TypeError(f"gradients of one type are averaged in one buffer, got {dtypes}")
@@ -194,12 +203,14 @@ class DataParallel:
 
         ``loss_fn(module, *batch) -> scalar`` is the MEAN over the batch
         rows it gets; the step gets this rank's rows (:meth:`shard_batch`).
-        ``precision`` other than ``"off"`` (a compressed gradient wire)
-        raises: the compressed wires come with ROADMAP §1 item 12."""
+        ``precision`` (``off | bf16 | int8 | blockwise``, default the
+        ``HEAT_TPU_COLLECTIVE_PREC`` knob) compresses the gradient wire:
+        each float gradient is averaged by ``collective_prec.pmean``, the
+        loss exactly."""
         optimizer = optimizer if optimizer is not None else self.optimizer
         if optimizer is None:
             raise ValueError("no optimizer bound; pass one here or at init")
-        _exact_wire(precision)
+        wire = collective_prec.resolve(precision)
         comm = self.comm
 
         if self.blocking_parameter_updates:
@@ -207,7 +218,7 @@ class DataParallel:
             def step(params, opt_state, *batch):
                 module, opt = _check_module(params), _torch_optimizer(opt_state)
                 loss, grads = _loss_and_grads(module, loss_fn, batch)
-                grads, loss = _mean_over(comm, grads, loss)
+                grads, loss = _mean_over(comm, grads, loss, wire=wire)
                 _apply([p for _, p in _trainable(module)], grads, opt)
                 return params, opt_state, loss
 
@@ -226,7 +237,7 @@ class DataParallel:
                         "3-tuple step")
                 loss, grads = _loss_and_grads(module, loss_fn, batch)
                 # this step's average travels while the previous one is applied
-                finish = _mean_over(comm, grads, loss, async_op=True)
+                finish = _mean_over(comm, grads, loss, async_op=True, wire=wire)
                 _apply([p for _, p in named], [pending_grads[name] for name, _ in named], opt)
                 grads, loss = finish()
                 return params, opt_state, dict(zip(pending_grads, grads)), loss

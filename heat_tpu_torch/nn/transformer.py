@@ -239,3 +239,37 @@ class TransformerLM(nn.Module):
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False, **kwargs) if remat else block(x)
         return F.linear(self.ln_f(x), self.lm_head.to(self.dtype))
+
+    def stages(self) -> list:
+        """The model as stages applied left to right, sharing this model's
+        parameters: the embedding (tokens to activations), each block, and
+        the head (final LN and logits), for :class:`heat_tpu_torch.nn.FSDP`.
+        Their composition is :meth:`forward` without its ``remat``."""
+        if self.comm is not None:
+            raise ValueError("stages() takes a model whose attention is not sequence-parallel")
+        return [_Embed(self), *self.blocks, _Head(self)]
+
+
+class _Embed(nn.Module):
+    """The LM's token and position embedding as a stage."""
+
+    def __init__(self, lm: TransformerLM):
+        super().__init__()
+        self.embed, self.pos, self.dtype, self.max_len = lm.embed, lm.pos, lm.dtype, lm.max_len
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        t = tokens.shape[-1]
+        if t > self.max_len:
+            raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
+        return F.embedding(tokens, self.embed).to(self.dtype) + self.pos[:t].to(self.dtype)[None]
+
+
+class _Head(nn.Module):
+    """The LM's final LayerNorm and logit projection as a stage."""
+
+    def __init__(self, lm: TransformerLM):
+        super().__init__()
+        self.ln_f, self.lm_head, self.dtype = lm.ln_f, lm.lm_head, lm.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(self.ln_f(x), self.lm_head.to(self.dtype))

@@ -1,6 +1,6 @@
 """Distributed optimizers and learning-rate schedules (counterpart of
 ``heat_tpu/optim``): ``DataParallelOptimizer``, ``DASO``,
-``DetectMetricPlateau`` and ``lr_scheduler``.
+``ZeroOptimizer``, ``DetectMetricPlateau`` and ``lr_scheduler``.
 
 As the reference Heat's ``heat.optim`` (:19-36), every other name falls
 through to ``torch.optim`` (``heat_tpu_torch.optim.AdamW`` is
@@ -10,8 +10,10 @@ through to ``torch.optim`` (``heat_tpu_torch.optim.AdamW`` is
 from . import lr_scheduler, utils
 from .dp_optimizer import DASO, DataParallelOptimizer
 from .utils import DetectMetricPlateau
+from .zero_optimizer import ZeroOptimizer
 
-__all__ = ["DASO", "DataParallelOptimizer", "DetectMetricPlateau", "lr_scheduler", "utils"]
+__all__ = ["DASO", "DataParallelOptimizer", "DetectMetricPlateau", "ZeroOptimizer",
+           "lr_scheduler", "utils"]
 
 
 def __getattr__(name):

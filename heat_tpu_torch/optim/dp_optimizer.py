@@ -24,22 +24,32 @@ rank's replica) and ``opt_state`` the torch optimizer; ``loss_fn(module,
 ``scale_by_schedule`` after the optimizer, the same update for optimizers
 whose update is linear in the learning rate: SGD, Adam, AdamW, ...).
 
-Not carried here: the compressed parameter wires (``collective_precision``
-other than ``"off"``; ROADMAP §1 item 12) and the checkpoints
-(``checkpoint_every``, ``save_checkpoint``, ``load_checkpoint``; item 13);
-each raises.
+The node count defaults to the resolved topology (``HEAT_TPU_TOPOLOGY``, else
+:func:`heat_tpu_torch.core.topology.detect`). ``collective_precision``
+(default the ``HEAT_TPU_COLLECTIVE_PREC`` knob) is the cross-node wire of the
+send (:func:`~heat_tpu_torch.core.topology.node_mean_cross_sum`): ``off``
+moves ``downcast_type``, ``bf16`` pins bf16, ``int8``/``blockwise`` run the
+two-phase quantized sum (synchronously, the payload kept for its merge).
+
+``checkpoint_every=k`` saves every ``k`` steps to ``checkpoint_path``;
+:meth:`save_checkpoint` writes every rank's replica and optimizer state as
+the rows of ``(p, ...)`` arrays (the JAX package's stacked layout) and the
+schedule state, :meth:`load_checkpoint` restores them. In-flight
+asynchronous payloads are not checkpointed: a resumed run re-syncs at its
+next global-skip boundary.
 """
 
 from __future__ import annotations
 
-import socket
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
+from ..core import collective_prec
+from ..core import topology as _topology
+from ..core.communication import TorchCommunication, sanitize_comm
 from ..nn.data_parallel import (_apply, _check_module, _loss_and_grads, _mean_over,
                                 _module_device, _shard_batch, _trainable)
 from .utils import DetectMetricPlateau
@@ -82,18 +92,15 @@ class DataParallelOptimizer:
         self.torch_optimizer.zero_grad(set_to_none=True)
 
 
-def _detect_nodes(comm: TorchCommunication) -> int:
-    """The JAX package's node count without the ``HEAT_TPU_TOPOLOGY`` knob
-    (``core/topology.py:156-172`` there, with DASO's fallback): one node a
-    host when the ranks span several hosts, else two nodes on an even
-    world, else a node a rank."""
-    p = comm.size
-    hosts = len(set(comm.allgather_object(socket.gethostname())))
-    if hosts > 1 and p % hosts == 0:
-        return hosts
-    if p > 1 and p % 2 == 0:
-        return 2
-    return p
+class _Sent:
+    """A cross-node payload that has already arrived (the quantized wires
+    run synchronously): :meth:`wait` returns it."""
+
+    def __init__(self, tensors):
+        self._tensors = tensors
+
+    def wait(self):
+        return self._tensors
 
 
 class DASO:
@@ -109,8 +116,9 @@ class DASO:
     comm : TorchCommunication, optional
         The world split into nodes.
     n_nodes : int, optional
-        Number of nodes (the slow level). By default one a host when the
-        ranks span several, else 2 on an even world, else one a rank.
+        Number of nodes (the slow level). By default the resolved
+        topology's (``HEAT_TPU_TOPOLOGY``, else one a host when the ranks
+        span several, else 2 on an even world), else one a rank.
     scheduler, scheduler_base_lr :
         A scale-factor schedule (``step -> scale``), or with
         ``scheduler_base_lr`` an absolute-lr schedule (the
@@ -121,6 +129,11 @@ class DASO:
         Schedule knobs, the reference's defaults (:136-156).
     downcast_type : torch.dtype
         Type of the cross-node parameter sum (bf16).
+    checkpoint_every, checkpoint_path :
+        Save a checkpoint every ``checkpoint_every`` steps (module
+        docstring).
+    collective_precision : str, optional
+        The cross-node wire (module docstring).
     """
 
     def __init__(
@@ -146,11 +159,13 @@ class DASO:
         if not isinstance(local_optimizer, torch.optim.Optimizer):
             raise TypeError(
                 f"local_optimizer must be a torch.optim.Optimizer, got {type(local_optimizer)}")
-        if checkpoint_every is not None or checkpoint_path is not None:
-            raise NotImplementedError(
-                "DASO checkpoint_every/checkpoint_path: the checkpoints come with resilience "
-                "(ROADMAP §1 item 13)")
-        _exact_wire(collective_precision)
+        if checkpoint_every is not None:
+            if checkpoint_every <= 0:
+                raise ValueError(f"checkpoint_every must be positive, got {checkpoint_every}")
+            if not checkpoint_path:
+                raise ValueError("checkpoint_every requires checkpoint_path")
+        if collective_precision is not None:
+            collective_prec.resolve(collective_precision)  # validate early
         if scheduler is None and scheduler_base_lr is not None:
             raise ValueError("scheduler_base_lr given without a scheduler — pass the "
                              "absolute-lr schedule it belongs to")
@@ -170,13 +185,15 @@ class DASO:
         self.comm = sanitize_comm(comm)
         p = self.comm.size
         if n_nodes is None:
-            n_nodes = _detect_nodes(self.comm)
+            topo = _topology.resolve(p, self.comm)
+            n_nodes = topo.node if topo.node > 1 else p
         if n_nodes <= 0 or p % n_nodes != 0:
             raise ValueError(f"device count {p} not divisible by n_nodes {n_nodes}")
         self.n_nodes = n_nodes
         self.n_local = p // n_nodes
         self.node_comm, self.local_comm = self.comm.node_local(n_nodes)
         self.cast_dtype = downcast_type
+        self._collective_precision = collective_precision
         self.scheduler = scheduler
         self.verbose = verbose
         self.total_epochs = total_epochs
@@ -198,6 +215,9 @@ class DASO:
         self._gs8_waits = 3
         self._gs8_waited = 0
         self.amp = False
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_path = checkpoint_path
+        self._steps_done = 0
 
     # -- model binding & parameter layout ------------------------------------
 
@@ -258,11 +278,19 @@ class DASO:
         return loss
 
     def _global_send(self, module: nn.Module):
-        """Launch the cross-node sum of the node means of the parameters in
-        ``downcast_type``; returns the pending all-reduce."""
+        """Launch the cross-node sum of the node means of the parameters
+        (``node_mean_cross_sum``'s arithmetic at the cross-node wire);
+        returns the pending payload."""
         params = [p.detach() for p in module.parameters()]
+        wire = collective_prec.resolve(self._collective_precision)
+        if wire in ("int8", "blockwise"):
+            sent = [_topology.node_mean_cross_sum(
+                p, local_comm=self.local_comm, node_comm=self.node_comm, wire=wire,
+                cast_dtype=self.cast_dtype, block=collective_prec.block_size()) for p in params]
+            return _Sent(sent)
+        cast = torch.bfloat16 if wire == "bf16" else self.cast_dtype
         rep = self.local_comm.allreduce_flat(params, average=True)
-        return self.node_comm.allreduce_flat([r.to(self.cast_dtype) for r in rep], async_op=True)
+        return self.node_comm.allreduce_flat([r.to(cast) for r in rep], async_op=True)
 
     def _merge(self, module: nn.Module, payload, numer: float) -> None:
         """``local · numer/denom + sent/denom`` with ``denom = numer +
@@ -297,6 +325,7 @@ class DASO:
             # warmup/cooldown: plain blocking hierarchical DP
             loss = self._local_step(module, opt_state, batch, local_sync=True, full_sync=True)
             self._advance(batch_idx)
+            self._maybe_checkpoint(params, opt_state)
             return params, opt_state, loss
 
         loss = self._local_step(module, opt_state, batch, local_sync=local_sync_now,
@@ -316,6 +345,7 @@ class DASO:
             self._merge(module, payload, float(waited) * 2.0 if waited > 0 else 1.0)
 
         self._advance(batch_idx)
+        self._maybe_checkpoint(params, opt_state)
         return params, opt_state, loss
 
     def _advance(self, batch_idx: int) -> None:
@@ -350,13 +380,111 @@ class DASO:
         """Clear the replica's gradients (reference :825)."""
         self.local_optimizer.zero_grad(set_to_none=True)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DASO.save_checkpoint: the checkpoints come with resilience (ROADMAP §1 item 13)")
+    # -- checkpoint / restore ------------------------------------------------
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DASO.load_checkpoint: the checkpoints come with resilience (ROADMAP §1 item 13)")
+    def _schedule_state(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "current_batch": self.current_batch,
+            "last_batch": self.last_batch,
+            "global_skip": self.global_skip,
+            "local_skip": self.local_skip,
+            "batches_to_wait": self.batches_to_wait,
+            "gs8_waited": self._gs8_waited,
+            "steps_done": self._steps_done,
+            "updates": self._updates,
+            "stability": self.stability.get_state(),
+        }
+
+    def _restore_schedule(self, sched: dict) -> None:
+        self.epoch = int(sched["epoch"])
+        self.current_batch = int(sched["current_batch"])
+        if sched.get("last_batch") is not None:
+            self.last_batch = int(sched["last_batch"])
+        self.global_skip = int(sched["global_skip"])
+        self.local_skip = int(sched["local_skip"])
+        self.batches_to_wait = int(sched["batches_to_wait"])
+        self._gs8_waited = int(sched["gs8_waited"])
+        self._steps_done = int(sched.get("steps_done", 0))
+        self._updates = int(sched.get("updates", self._steps_done))
+        self.stability.set_state(sched["stability"])
+        # in-flight async payloads are not checkpointed: the next global-skip
+        # boundary re-syncs
+        self._prev_params = []
+
+    def _rows(self, t: torch.Tensor):
+        """``t`` as this rank's row of a ``(p, ...)`` DNDarray split along 0."""
+        from ..core import types
+        from ..core.devices import sanitize_device
+        from ..core.dndarray import DNDarray
+
+        t = t.detach()
+        return DNDarray(t[None].contiguous(), (self.comm.size,) + tuple(t.shape),
+                        types.canonical_heat_type(t.dtype), 0, sanitize_device(t.device),
+                        self.comm, True)
+
+    def save_checkpoint(self, path: str, params, opt_state) -> str:
+        """Checkpoint every rank's replica and optimizer state (the rows of
+        ``(p, ...)`` arrays: the JAX package's stacked layout) and the whole
+        schedule state (skips, waits, the plateau detector) to the directory
+        ``path`` (:func:`heat_tpu_torch.resilience.save_checkpoint`: CRC
+        checked, swapped into place atomically). Every rank calls it."""
+        from .. import resilience
+
+        module = _check_module(getattr(params, "module", params))
+        opt = getattr(opt_state, "torch_optimizer", opt_state)
+        tree = {f"params/{name}": self._rows(p) for name, p in module.named_parameters()}
+        state = opt.state_dict()["state"]
+        for i in sorted(state):
+            for key, value in state[i].items():
+                leaf = self._rows(value) if isinstance(value, torch.Tensor) else value
+                tree[f"opt_state/{i:05d}/{key}"] = leaf
+        return resilience.save_checkpoint(
+            tree, path, comm=self.comm,
+            extra={"algo": "daso", "schedule": self._schedule_state(), "keys": sorted(tree)})
+
+    def load_checkpoint(self, path: str, params, opt_state):
+        """Restore a :meth:`save_checkpoint` directory into this rank's
+        replica ``params`` and optimizer ``opt_state`` (each rank its own
+        row) and resume the schedule where it stopped; a checkpoint of
+        another algorithm is refused. Returns ``(params, opt_state)``."""
+        from .. import resilience
+
+        leaves, extra = resilience.load_checkpoint(path, comm=self.comm, with_extra=True)
+        if extra.get("algo") != "daso":
+            raise resilience.CheckpointError(
+                f"{path!r} is a {extra.get('algo')!r} checkpoint, not daso")
+        tree = dict(zip(extra["keys"], leaves))
+        module = _check_module(getattr(params, "module", params))
+        opt = getattr(opt_state, "torch_optimizer", opt_state)
+
+        def row(leaf, like: torch.Tensor) -> torch.Tensor:
+            if not hasattr(leaf, "larray"):
+                return leaf
+            return leaf.larray[0].to(like.device if like is not None else "cpu")
+
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                p.copy_(row(tree[f"params/{name}"], p))
+        params_of = list(module.parameters())
+        state: Dict[int, Dict[str, Any]] = {}
+        for key, leaf in tree.items():
+            if key.startswith("opt_state/"):
+                _, i, k = key.split("/", 2)
+                p = params_of[int(i)]
+                value = row(leaf, p)
+                if isinstance(value, torch.Tensor) and value.dim() == 0:
+                    value = value.cpu()  # a step count lives on the host, as torch keeps it
+                state.setdefault(int(i), {})[k] = value
+        sd = opt.state_dict()
+        opt.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+        self._restore_schedule(extra["schedule"])
+        return params, opt_state
+
+    def _maybe_checkpoint(self, params, opt_state) -> None:
+        self._steps_done += 1
+        if self.checkpoint_every and self._steps_done % self.checkpoint_every == 0:
+            self.save_checkpoint(self.checkpoint_path, params, opt_state)
 
     def epoch_loss_logic(self, loss: Union[float, torch.Tensor],
                          loss_globally_averaged: bool = False) -> None:

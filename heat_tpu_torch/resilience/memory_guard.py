@@ -22,7 +22,7 @@ pool reserved, measured around the capture; on the CPU, the analytic
 ``cost_bytes`` its caller registered (the serving endpoints' estimate).
 0 means unknown, and the budget then holds live bytes alone. The JAX
 package's first rung of degradation, the fusion window, has no counterpart
-yet (item 13's fusion); the port collects garbage and measures again.
+yet (item 13b's fusion); the port collects garbage and measures again.
 """
 
 from __future__ import annotations

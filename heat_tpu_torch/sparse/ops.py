@@ -18,7 +18,7 @@ row through ``alltoallv`` (in ``ceil(cap / slab)`` stages of the capacity
 axis) and orders each row by packed ``column·R + row`` keys, as the JAX
 package does. Without a ``slab`` it runs one stage: the JAX package plans
 stages from ``HEAT_TPU_HBM_BUDGET``, which comes with the memory guard
-(ROADMAP §1 item 13).
+(ROADMAP §1 item 13b).
 
 ``csr_from_dense`` compacts each rank's rows on its device (``torch.nonzero``
 of the thresholded chunk) and gathers only the element counts;
@@ -26,8 +26,11 @@ of the thresholded chunk) and gathers only the element counts;
 ``manipulations.sort`` of packed ``row·n + col`` keys and sends each element
 to its row's rank, host triplets with a ``lexsort``.
 
-Every wire is exact: ``HEAT_TPU_SPARSE_SPMV_PREC=bf16`` raises (the
-compressed wires are ROADMAP §1 item 12).
+The float sums' wire is ``HEAT_TPU_SPARSE_SPMV_PREC`` (or ``precision=``):
+``off`` exact (the default), or ``bf16``: the gathered operand moves as its
+bf16 bits and the replicated result's all-reduce sums a bf16 payload (the
+JAX package's ``sparse/ops.py:82``). Extremes, patterns and indices move
+exact.
 
 Telemetry, as in the JAX package: every operation adds one to its
 ``sparse.<op>`` counter and emits one ``sparse`` event while telemetry
@@ -55,7 +58,7 @@ from .. import _knobs as knobs
 from .. import telemetry
 from ..core import types
 from ..core._operations import _SIGNED, _sign_bit
-from ..core.communication import TorchCommunication, _exact_wire, sanitize_comm
+from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.devices import sanitize_device
 from ..core.dndarray import DNDarray
 from .container import SparseDNDarray
@@ -160,9 +163,10 @@ def _contract(A: SparseDNDarray, xg: torch.Tensor, dt: torch.dtype, reduce: str,
 
 
 def _finish(A: SparseDNDarray, y: torch.Tensor, dt: torch.dtype, reduce: str,
-            replicated: bool) -> torch.Tensor:
+            replicated: bool, wire: str = "off") -> torch.Tensor:
     """The contraction's result in ``dt``: this rank's rows, or with
-    ``replicated`` all ``m`` rows through one allreduce."""
+    ``replicated`` all ``m`` rows through one allreduce (a sum at
+    ``wire``: ``bf16`` sums a bf16 payload)."""
     comm = A.comm
     if replicated and comm.size > 1:
         m = A.shape[0]
@@ -170,7 +174,7 @@ def _finish(A: SparseDNDarray, y: torch.Tensor, dt: torch.dtype, reduce: str,
                           dtype=y.dtype, device=y.device)
         offset = comm.rank * A.row_chunk
         full[offset:offset + y.shape[0]] = y
-        y = comm.allreduce(full, reduce)
+        y = comm.allreduce(full, reduce, precision=wire if reduce == "sum" else None)
     if dt in _SIGNED and reduce != "sum":
         y = y ^ _sign_bit(dt)
     return _unbits(y, dt)
@@ -200,8 +204,7 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
         raise ValueError(f"{op}: operands live on different communicators")
     dt = x.dtype if pattern else types.promote_types(A.dtype, x.dtype)
     # extremes and structure-only relays always move exact
-    if reduce == "sum" and not pattern:
-        _exact_wire(spmv_wire(dt, precision))
+    wire = spmv_wire(dt, precision) if reduce == "sum" and not pattern else "off"
     tdt = dt.torch_type()
     comm = A.comm
     m, n = A.shape
@@ -209,12 +212,16 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
     cost_fn, cost_args = ((telemetry.collectives.spmv_cost, (m, n)) if op == "spmv"
                           else (telemetry.collectives.spmm_cost, (m, n, k)))
     cost, fields, do_audit = telemetry.op_cost(cost_fn, *cost_args, dt.byte_size(), comm.size,
-                                               x.split, out_split, "off", audit=audit)
+                                               x.split, out_split, wire, audit=audit)
 
     def run():
-        xg = (x._global() if x.split == 0 else x.larray).to(tdt)
+        if x.split == 0 and comm.size > 1:
+            # the gathered operand at the wire: bf16 moves its bits
+            xg = comm.allgather(x.larray.to(tdt), 0, x.shape[0], precision=wire)
+        else:
+            xg = x.larray.to(tdt)
         return _finish(A, _contract(A, xg, tdt, reduce, pattern), tdt, reduce,
-                       out_split is None)
+                       out_split is None, wire)
 
     with telemetry.span(f"sparse.{op}", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
                         **fields) as sp:
@@ -224,7 +231,7 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
         else:
             y = run()
         sp.output(y)
-    _record(op, nnz=A.nnz, rows=m, cols=n, out_split=out_split, wire="off",
+    _record(op, nnz=A.nnz, rows=m, cols=n, out_split=out_split, wire=wire,
             **({"bytes": cost.bytes} if cost is not None else {}))
     gshape = (m,) if op == "spmv" else (m, k)
     return DNDarray(y, gshape, dt, out_split, A.device, comm, True)
@@ -263,10 +270,12 @@ def make_solver_matvec(A: SparseDNDarray, dt):
     """The matvec that ``linalg.cg``/``lanczos`` call on ``A``
     (``SparseDNDarray._matvec_spec``): a replicated ``(n,)`` tensor in
     ``dt`` in, the replicated ``(m,)`` product out; the shard-local product
-    and one allreduce, as :func:`spmv` with ``out_split=None``."""
-    tdt = types.canonical_heat_type(dt).torch_type()
-    _exact_wire(spmv_wire(tdt))
-    return lambda x: _finish(A, _contract(A, x.to(tdt), tdt, "sum", False), tdt, "sum", True)
+    and one allreduce, as :func:`spmv` with ``out_split=None`` (its sum at
+    ``HEAT_TPU_SPARSE_SPMV_PREC``'s wire)."""
+    ht = types.canonical_heat_type(dt)
+    tdt, wire = ht.torch_type(), spmv_wire(ht)
+    return lambda x: _finish(A, _contract(A, x.to(tdt), tdt, "sum", False), tdt, "sum", True,
+                             wire)
 
 
 # -- densify --------------------------------------------------------------------

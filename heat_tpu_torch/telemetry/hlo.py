@@ -10,7 +10,9 @@ op, the bytes in and out on this rank and the group size. So an audit here
 ``fn``, and turns every collective it issued into an
 :class:`EmittedCollective`, with the JAX package's opcode names and its
 wire-byte rules (``_wire_bytes``, :213-226 there; ``g`` participants a
-group, ``n`` in all, per-participant bytes):
+group, ``n`` in all, per-participant bytes; ``n`` is the ``participants``
+a collective reports, the ranks of every group of a tier that issue it
+together, else ``g``):
 
 ====================  ===================================================
 op                    total wire bytes of one call
@@ -18,7 +20,7 @@ op                    total wire bytes of one call
 all-gather            ``out · (g-1)/g · n``
 all-to-all            ``in · (g-1)/g · n``; for the uneven exchanges
                       (``alltoallv``) this rank's bytes sent to other
-                      ranks times ``g``
+                      ranks times ``n``
 reduce-scatter        ``in · (g-1)/g · n``
 all-reduce            ``2 · in · (g-1)/g · n``
 collective-permute    ``in · |pairs that cross ranks|``
@@ -141,15 +143,18 @@ def _emitted(name: str, fields: Dict[str, Any]) -> EmittedCollective:
     op = fields["op"]
     g = int(fields.get("group_size", 1))
     in_b, out_b = int(fields.get("in_bytes", 0)), int(fields.get("out_bytes", 0))
+    # the ranks of every group issuing it together: a tier's collective
+    # runs in each of its groups at once, as one replica-grouped op there
+    n = int(fields.get("participants", g))
     pairs = tuple(tuple(p) for p in fields.get("pairs", ()))
-    if "sent_bytes" in fields:  # an uneven exchange: this rank's share, times the group
-        wire = int(fields["sent_bytes"]) * g
+    if "sent_bytes" in fields:  # an uneven exchange: this rank's share, times the ranks
+        wire = int(fields["sent_bytes"]) * n
     else:
-        wire = _wire_bytes(op, in_b, out_b, g, g, sum(1 for s, d in pairs if s != d))
+        wire = _wire_bytes(op, in_b, out_b, g, n, sum(1 for s, d in pairs if s != d))
     return EmittedCollective(
         op=op, name=name, dtype=fields.get("dtype"),
         shapes=(tuple(fields.get("shape", ())),), in_bytes=in_b, out_bytes=out_b,
-        group_size=g, n_participants=g, groups=pairs, wire_bytes=wire,
+        group_size=g, n_participants=n, groups=pairs, wire_bytes=wire,
     )
 
 

@@ -488,12 +488,17 @@ def test_errors():
         with pytest.raises(NotImplementedError, match="decimals < 0"):
             ht.round(ht.array(np.arange(4)), -1)
     comm = htt.get_comm()
-    for call in (lambda: comm.reduce_scatter(a.larray, 0, 7, precision="bf16"),
-                 lambda: comm.all_to_all(a.larray, 1, 0, 5, precision="int8"),
-                 lambda: comm.ring_permute(a.larray, precision="blockwise"),
-                 lambda: comm.ppermute(a.larray, [(0, 0)], precision="bf16")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    # the compressed wires run now (item 12): on a world of one the
+    # reductions move nothing and a hop delivers the wire's round trip, the
+    # JAX package's local_roundtrip bit for bit
+    from heat_tpu.core import collective_prec as jcp
+
+    assert comm.reduce_scatter(a.larray, 0, 7, precision="bf16") is a.larray
+    assert comm.all_to_all(a.larray, 1, 0, 5, precision="int8") is a.larray
+    for hop, mode in ((lambda m: comm.ring_permute(a.larray, precision=m), "blockwise"),
+                      (lambda m: comm.ppermute(a.larray, [(0, 0)], precision=m), "bf16")):
+        want = np.asarray(jcp.local_roundtrip(jax.numpy.asarray(a.larray.numpy()), mode))
+        np.testing.assert_array_equal(hop(mode).numpy(), want)
     # the JAX package raises the same errors
     ra = ht_tpu.array(_data((7, 5), "float32", 30), split=0)
     with pytest.raises(ValueError, match="last dimension"):

@@ -63,9 +63,12 @@ def test_cg_out_x0_split_and_errors():
                          ht.array(np.zeros(3, np.float32)))
         with pytest.raises(RuntimeError):
             ht.linalg.cg(ht.array(b), ht.array(b), ht.array(b))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        htt.linalg.cg(htt.array(a), htt.array(b), htt.array(x0), checkpoint_every=2,
-                      checkpoint_path="ckpt")
+    for ht in (htt, ht_tpu):  # the windows' argument errors, as in the JAX package
+        with pytest.raises(ValueError, match="requires checkpoint_path"):
+            ht.linalg.cg(ht.array(a), ht.array(b), ht.array(x0), checkpoint_every=2)
+        with pytest.raises(ValueError, match="must be positive"):
+            ht.linalg.cg(ht.array(a), ht.array(b), ht.array(x0), checkpoint_every=0,
+                         checkpoint_path="ckpt")
 
     class Operator:  # any object with the solver hook: cg calls its matvec
         ndim, shape, dtype = 2, a.shape, htt.float32
@@ -115,8 +118,9 @@ def test_lanczos_start_vector_and_outputs():
             htt.linalg.lanczos(htt.array(a), bad)
     with pytest.raises(RuntimeError):
         htt.linalg.lanczos(htt.array(a[:, :5]), 3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        htt.linalg.lanczos(htt.array(a), 3, resume=True)
+    for ht in (htt, ht_tpu):
+        with pytest.raises(ValueError, match="requires checkpoint_every"):
+            ht.linalg.lanczos(ht.array(a), 3, resume=True)
 
 
 @pytest.mark.parametrize("split", [None, 0])
@@ -130,3 +134,64 @@ def test_lanczos_breakdown_restarts_from_the_reference_vector(split):
     assert got_t.numpy()[3, 2] == 0.0 and ref_t.numpy()[3, 2] == 0.0
     np.testing.assert_allclose(got_t.numpy(), ref_t.numpy(), atol=1e-6)
     np.testing.assert_allclose(got_v.numpy(), ref_v.numpy(), atol=1e-6)
+
+
+# -- the checkpoint windows -----------------------------------------------------------
+
+
+def _killed_after(monkeypatch, saves: int):
+    """Make the solver's checkpoint save raise after ``saves`` saves (a
+    kill between two windows)."""
+    from heat_tpu_torch.core.linalg import solver
+
+    real, count = solver._save_carry, [0]
+
+    def save(*args, **kwargs):
+        real(*args, **kwargs)
+        count[0] += 1
+        if count[0] == saves:
+            raise KeyboardInterrupt("killed")
+
+    monkeypatch.setattr(solver, "_save_carry", save)
+    return lambda: monkeypatch.setattr(solver, "_save_carry", real)
+
+
+@pytest.mark.parametrize("algo,every", [("cg", 3), ("cg", 5), ("lanczos", 2), ("lanczos", 4)])
+def test_windows_resume_bit_for_bit(monkeypatch, tmp_path, algo, every):
+    """A solve run in windows, killed after its second checkpoint and
+    resumed, equals the uninterrupted solve bit for bit (the JAX package's
+    contract), and the uninterrupted solve equals the JAX package's within
+    the tolerances above."""
+    a, b = _spd(24, seed=7)
+    path = str(tmp_path / "ck")
+    if algo == "cg":
+        args = (htt.array(a, split=0), htt.array(b), htt.array(np.zeros(24, np.float32)))
+        solve = lambda **kw: (htt.linalg.cg(*args, **kw).numpy(),)  # noqa: E731
+        ref = ht_tpu.linalg.cg(ht_tpu.array(a, split=0), ht_tpu.array(b),
+                               ht_tpu.array(np.zeros(24, np.float32))).numpy()
+    else:
+        solve = lambda **kw: tuple(  # noqa: E731
+            t.numpy() for t in htt.linalg.lanczos(htt.array(a, split=0), 10, **kw))
+        ref = ht_tpu.linalg.lanczos(ht_tpu.array(a, split=0), 10)[1].numpy()
+    whole = solve()
+    windowed = solve(checkpoint_every=every, checkpoint_path=path + "_w")
+    restore = _killed_after(monkeypatch, 2)
+    with pytest.raises(KeyboardInterrupt):
+        solve(checkpoint_every=every, checkpoint_path=path)
+    restore()
+    resumed = solve(checkpoint_every=every, checkpoint_path=path, resume=True)
+    for w, g, r in zip(whole, windowed, resumed):
+        assert np.array_equal(w, g) and np.array_equal(w, r)
+    if algo == "cg":
+        np.testing.assert_allclose(whole[0], ref, atol=1e-6)
+    else:
+        np.testing.assert_allclose(_ritz(whole[1]), _ritz(ref), atol=1e-4 * 60)
+
+
+def test_windows_refuse_another_algorithms_checkpoint(tmp_path):
+    a, b = _spd(8)
+    path = str(tmp_path / "ck")
+    htt.linalg.lanczos(htt.array(a), 4, checkpoint_every=2, checkpoint_path=path)
+    with pytest.raises(htt.resilience.CheckpointError, match="not cg"):
+        htt.linalg.cg(htt.array(a), htt.array(b), htt.array(np.zeros(8, np.float32)),
+                      checkpoint_every=2, checkpoint_path=path, resume=True)

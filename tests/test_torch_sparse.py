@@ -433,13 +433,15 @@ def test_wire_and_audit_raise_naming_their_items(monkeypatch):
     assert htt.sparse.spmv_wire(htt.float32) == ht_tpu.sparse.spmv_wire(np.float32) == "off"
     assert htt.sparse.spmv_wire(htt.int64, "bf16") == ht_tpu.sparse.spmv_wire(np.int64, "bf16")
     assert htt.sparse.spmv_wire(htt.float32, "BF16") == "bf16"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        htt.sparse.spmv(A, x, precision="bf16")
+    # the bf16 wire runs now (item 12); a world of one moves nothing, so it
+    # is the exact product (the world of four holds the wire,
+    # tests/test_torch_collective_prec.py)
+    exact = htt.sparse.spmv(A, x, out_split=None).larray
+    assert torch.equal(htt.sparse.spmv(A, x, precision="bf16").larray,
+                       htt.sparse.spmv(A, x).larray)
     monkeypatch.setenv("HEAT_TPU_SPARSE_SPMV_PREC", "bf16")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        htt.sparse.spmv(A, x, out_split=None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        A._matvec_spec(htt.float32)
+    assert torch.equal(htt.sparse.spmv(A, x, out_split=None).larray, exact)
+    assert torch.equal(A._matvec_spec(htt.float32)(x.larray), exact)
     # exact relays never reach the compressed wire
     labels = htt.array(np.arange(4))
     assert htt.sparse.spmv(A, labels, reduce="min", pattern=True).dtype is htt.int64
