@@ -258,22 +258,24 @@ def ppermute(x: torch.Tensor, comm, perm, mode_: str, block: Optional[int] = Non
 
 
 def all_gather(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None,
-               tiled: bool = True) -> torch.Tensor:
-    """Compressed all-gather of every rank's ``x`` (one shape on every
-    rank): stacked ``(p,) + x.shape``, or concatenated along dimension 0
-    with ``tiled``. Each rank quantizes its block once."""
+               tiled: bool = True, name: str = "all_gather") -> torch.Tensor:
+    """All-gather of every rank's ``x`` (one shape on every rank) at
+    ``mode_``'s wire: stacked ``(p,) + x.shape``, or concatenated along
+    dimension 0 with ``tiled``. Each rank quantizes its block once; every
+    mover reports under ``name``."""
     p = comm.size
+    gather = lambda u: comm.gather_stack(u, name)  # noqa: E731
     if mode_ == "off" or not compressible(x.dtype):
-        g = comm.gather_stack(x)
+        g = gather(x)
     elif mode_ == "bf16":
-        g = comm.gather_stack(x.to(torch.bfloat16)).to(x.dtype)
+        g = gather(x.to(torch.bfloat16)).to(x.dtype)
     elif mode_ == "int8":
         q, s = _quant_tensor(x)
-        qg, sg = comm.gather_stack(q), comm.gather_stack(s)
+        qg, sg = gather(q), gather(s)
         g = _deq(qg, sg.reshape((p,) + (1,) * x.dim())).to(x.dtype)
     else:
         q, s = _quant_flat_blocks(x, block or block_size())
-        qg, sg = comm.gather_stack(q), comm.gather_stack(s)
+        qg, sg = gather(q), gather(s)
         g = _deq(qg, sg[..., None]).reshape(p, -1)[:, :x.numel()]
         g = g.reshape((p,) + tuple(x.shape)).to(x.dtype)
     if tiled and x.dim() >= 1:
@@ -281,7 +283,7 @@ def all_gather(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None,
     return g
 
 
-def _quant_scatter_phase(x: torch.Tensor, comm, mode_: str, block: int):
+def _quant_scatter_phase(x: torch.Tensor, comm, mode_: str, block: int, name: str):
     """The first phase of a quantized sum: this rank's partial quantized
     into ``p`` per-destination chunks, exchanged (each rank collects every
     partial of its chunk), dequantized and summed in f32. Returns ``(red,
@@ -298,25 +300,27 @@ def _quant_scatter_phase(x: torch.Tensor, comm, mode_: str, block: int):
     parts = flat.reshape(nproc, chunk)
     if mode_ == "int8":
         s = _scale_of(parts.abs().max())
-        qt = comm.exchange(_round_q(parts, s))
+        qt = comm.exchange(_round_q(parts, s), name)
         # the scale rides an all-to-all beside its payload (the cost model's
         # form): a copy to every destination
-        sg = comm.exchange(s.reshape(1).expand(nproc).contiguous())
+        sg = comm.exchange(s.reshape(1).expand(nproc).contiguous(), name)
         deq = _deq(qt, sg[:, None])
     else:
         b3 = parts.reshape(nproc, chunk // block, block)
         s = _scale_of(b3.abs().amax(dim=2))
-        qt = comm.exchange(_round_q(b3, s[..., None]))
-        st = comm.exchange(s)
+        qt = comm.exchange(_round_q(b3, s[..., None]), name)
+        st = comm.exchange(s, name)
         deq = _deq(qt, st[..., None]).reshape(nproc, chunk)
     return deq.sum(dim=0), chunk
 
 
-def reduce_scatter(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None):
+def reduce_scatter(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None,
+                   name: str = "reduce_scatter"):
     """Reduce-scatter of ``x`` flattened and zero-padded to ``p`` equal
-    chunks: rank ``i`` gets the 1-D chunk ``i`` of the sum in ``x``'s type.
-    ``bf16`` sums in bf16; ``int8``/``blockwise`` are the first phase
-    alone (blockwise may return a chunk padded to whole blocks)."""
+    chunks at ``mode_``'s wire: rank ``i`` gets the 1-D chunk ``i`` of the
+    sum in ``x``'s type. ``bf16`` sums in bf16; ``int8``/``blockwise`` are
+    the first phase alone (blockwise may return a chunk padded to whole
+    blocks). Every mover reports under ``name``."""
     nproc = comm.size
     n = x.numel()
     chunk = -(-n // nproc)
@@ -326,36 +330,44 @@ def reduce_scatter(x: torch.Tensor, comm, mode_: str, block: Optional[int] = Non
             flat = flat.to(torch.bfloat16)
         if chunk * nproc != n:
             flat = torch.nn.functional.pad(flat, (0, chunk * nproc - n))
-        return comm.sum_scatter(flat).to(x.dtype)
-    red, _ = _quant_scatter_phase(x, comm, mode_, block or block_size())
+        return comm.sum_scatter(flat, name).to(x.dtype)
+    red, _ = _quant_scatter_phase(x, comm, mode_, block or block_size(), name)
     return red.to(x.dtype)
 
 
-def psum(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None) -> torch.Tensor:
-    """Compressed sum over the ranks, out of place: ``bf16`` the
-    all-reduce of a bf16 payload; ``int8``/``blockwise`` the two-phase
-    quantized sum (module docstring)."""
+def psum(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None, name: str = "sum",
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum over the ranks at ``mode_``'s wire, into ``out`` (a new tensor
+    when None; ``x`` itself sums in place): ``off`` the all-reduce,
+    ``bf16`` the all-reduce of a bf16 payload, ``int8``/``blockwise`` the
+    two-phase quantized sum (module docstring). Every mover reports under
+    ``name``."""
     if mode_ == "off" or not compressible(x.dtype):
-        return comm.sum(x)
+        return comm.sum(x, name, out=out)
     if mode_ == "bf16":
-        return comm.sum(x.to(torch.bfloat16)).to(x.dtype)
-    nproc = comm.size
-    block = block or block_size()
-    n = x.numel()
-    red, chunk = _quant_scatter_phase(x, comm, mode_, block)
-    if mode_ == "int8":
-        s2 = _scale_of(red.abs().max())
-        q2g = comm.gather_stack(_round_q(red, s2))
-        s2g = comm.gather_stack(s2)
-        out = _deq(q2g, s2g[:, None])
+        total = comm.sum(x.to(torch.bfloat16), name).to(x.dtype)
     else:
-        block = max(1, min(block, -(-n // nproc)))
-        rb = red.reshape(chunk // block, block)
-        s2 = _scale_of(rb.abs().amax(dim=1))
-        q2g = comm.gather_stack(_round_q(rb, s2[:, None]))
-        s2g = comm.gather_stack(s2)
-        out = _deq(q2g, s2g[..., None]).reshape(nproc, chunk)
-    return out.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+        nproc = comm.size
+        block = block or block_size()
+        n = x.numel()
+        red, chunk = _quant_scatter_phase(x, comm, mode_, block, name)
+        if mode_ == "int8":
+            s2 = _scale_of(red.abs().max())
+            q2g = comm.gather_stack(_round_q(red, s2), name)
+            s2g = comm.gather_stack(s2, name)
+            total = _deq(q2g, s2g[:, None])
+        else:
+            block = max(1, min(block, -(-n // nproc)))
+            rb = red.reshape(chunk // block, block)
+            s2 = _scale_of(rb.abs().amax(dim=1))
+            q2g = comm.gather_stack(_round_q(rb, s2[:, None]), name)
+            s2g = comm.gather_stack(s2, name)
+            total = _deq(q2g, s2g[..., None]).reshape(nproc, chunk)
+        total = total.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+    if out is None:
+        return total
+    with torch.no_grad():
+        return out.copy_(total)
 
 
 def pmean(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None) -> torch.Tensor:
@@ -365,15 +377,17 @@ def pmean(x: torch.Tensor, comm, mode_: str, block: Optional[int] = None) -> tor
     return (psum(x, comm, mode_, block) / comm.size).to(x.dtype)
 
 
-def exchange(slabs: torch.Tensor, comm, mode_: str, block: Optional[int] = None) -> torch.Tensor:
-    """Compressed all-to-all of equal slabs (``slabs[q]`` to rank ``q``;
-    row ``r`` of the result from rank ``r``): each slab quantized on its
-    own (one scale a slab in ``int8``, flat blocks in ``blockwise``), the
-    scales on an all-to-all of their own."""
+def exchange(slabs: torch.Tensor, comm, mode_: str, block: Optional[int] = None,
+             name: str = "exchange") -> torch.Tensor:
+    """All-to-all of equal slabs (``slabs[q]`` to rank ``q``; row ``r`` of
+    the result from rank ``r``) at ``mode_``'s wire: each slab quantized on
+    its own (one scale a slab in ``int8``, flat blocks in ``blockwise``),
+    the scales on an all-to-all of their own. Every mover reports under
+    ``name``."""
     if mode_ == "off" or not compressible(slabs.dtype):
-        return comm.exchange(slabs)
+        return comm.exchange(slabs, name)
     if mode_ == "bf16":
-        return comm.exchange(slabs.to(torch.bfloat16)).to(slabs.dtype)
+        return comm.exchange(slabs.to(torch.bfloat16), name).to(slabs.dtype)
     nproc = slabs.shape[0]
     m = slabs[0].numel()
     flat = slabs.reshape(nproc, m).float()
@@ -386,8 +400,8 @@ def exchange(slabs: torch.Tensor, comm, mode_: str, block: Optional[int] = None)
             flat = torch.nn.functional.pad(flat, (0, nb * seg - m))
     b3 = flat.reshape(nproc, nb, seg)
     s = _scale_of(b3.abs().amax(dim=2))
-    qt = comm.exchange(_round_q(b3, s[..., None]))
-    st = comm.exchange(s)
+    qt = comm.exchange(_round_q(b3, s[..., None]), name)
+    st = comm.exchange(s, name)
     deq = _deq(qt, st[..., None]).reshape(nproc, -1)[:, :m]
     return deq.reshape(slabs.shape).to(slabs.dtype)
 

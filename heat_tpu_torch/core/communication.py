@@ -19,17 +19,22 @@ signed type of the same width.
 ``precision=`` (``off | bf16 | int8 | blockwise``) compresses the wire of
 ``allreduce``/``allreduce_flat``/``allgather``/``reduce_scatter``/
 ``all_to_all``/``ppermute`` (:mod:`.collective_prec`); float payloads only,
-integers always move exact. ``None`` is the exact wire here: the JAX
-package's wrappers read ``HEAT_TPU_COLLECTIVE_PREC`` at every call and its
-exactness-critical sites pin ``"off"``, while the port resolves the knob at
-the surfaces that may be lossy (``resplit``, ``DataParallel``, ``DASO``,
-``ZeroOptimizer``, FSDP) and keeps every other site exact. Under
+integers always move exact. ``None`` is the exact wire here, on the flat
+path and on both tiers: the JAX package's wrappers read
+``HEAT_TPU_COLLECTIVE_PREC`` (and, tiered, ``HEAT_TPU_HIERARCHICAL_PREC``)
+at every call and its exactness-critical sites pin ``"off"``, while the port
+resolves those knobs at the surfaces that may be lossy (``resplit``,
+``DataParallel``, ``DASO``, ``ZeroOptimizer``, FSDP, the pipeline) and
+passes the mode down, so every other site is exact. Under
 ``HEAT_TPU_HIERARCHICAL=1`` on a nontrivial ``node x local`` topology
 (:mod:`.topology`) the sum all-reduce, the all-gather, the reduce-scatter and
 the all-to-all take the tiered lowerings, in-node exact and the cross-node
-tier at :meth:`TorchCommunication._cross_wire`'s mode; the node and cross
-groups are made once for each communicator (:meth:`TorchCommunication.tiers`),
-by every rank in the same order.
+tier at the call's wire; the node and cross groups are made once for each
+communicator (:meth:`TorchCommunication.tiers`), by every rank in the same
+order. Each collective moves its payload through one equal-size mover
+(``sum``, ``gather_stack``, ``sum_scatter``, ``exchange``, ``ppermute``):
+:mod:`.collective_prec` issues it once for the exact wire and once a part
+(payload, scales) for a compressed one, under the collective's name.
 
 Autograd sees through the hops that sequence parallelism differentiates:
 ``ppermute``/``ring_permute`` (its backward sends the gradient along the
@@ -68,8 +73,8 @@ from .. import telemetry
 __all__ = [
     "Communication",
     "CommunicationError",
+    "Pending",
     "PendingAllreduce",
-    "PendingPermute",
     "TorchCommunication",
     "chunk",
     "chunk_size",
@@ -200,10 +205,11 @@ def _padded(local: torch.Tensor, dim: int, length: int) -> torch.Tensor:
     return buf
 
 
-class PendingPermute:
-    """A permute in flight (:meth:`TorchCommunication.ppermute` with
-    ``async_op=True``): :meth:`wait` completes it and returns the received
-    tensor. It holds the sent tensor until then."""
+class Pending:
+    """A collective in flight (``async_op=True``: :meth:`TorchCommunication.ppermute`,
+    :meth:`TorchCommunication.gather_stack`): :meth:`wait` completes it and
+    returns the received tensor in its type. It holds the sent tensor until
+    then."""
 
     def __init__(self, out: torch.Tensor, works: list, dtype: torch.dtype, sent: torch.Tensor):
         self._out, self._works, self._dtype, self._sent = out, works, dtype, sent
@@ -360,18 +366,11 @@ class TorchCommunication(Communication):
             return None
         return _topo.active(self.size, self)
 
-    def _cross_wire(self, tensor: torch.Tensor, precision: Optional[str]) -> str:
-        """The cross-node tier's wire for one payload: ``precision``, else
-        ``HEAT_TPU_HIERARCHICAL_PREC``, else ``HEAT_TPU_COLLECTIVE_PREC``;
-        ``off`` for integer payloads."""
-        from . import topology as _topo
-
-        return _topo.cross_mode(tensor.dtype, precision)
-
     @staticmethod
     def _wire(tensor: torch.Tensor, precision: Optional[str]) -> str:
-        """The flat wire of one payload: ``precision`` (None is exact here,
-        module docstring), ``off`` for integer payloads."""
+        """The wire of one payload, flat or on the cross-node tier:
+        ``precision`` (None is exact, module docstring), ``off`` for integer
+        payloads."""
         from . import collective_prec
 
         return collective_prec.effective(tensor.dtype, "off" if precision is None else precision)
@@ -388,61 +387,86 @@ class TorchCommunication(Communication):
             self._tiers[key] = (in_node, cross)
         return self._tiers[key]
 
-    # -- equal-size primitives (the compressed and tiered wires' movers) -----
+    # -- equal-size primitives (the movers every collective issues) ---------
 
     @staticmethod
     def _wire_view(tensor: torch.Tensor) -> torch.Tensor:
-        """What moves: the signed bits of a wide unsigned type, any other
-        type as it is (a bf16 payload moves as bf16 on NCCL and gloo, which
-        carry no int16)."""
-        return tensor.view(_BITS_AS.get(tensor.dtype, tensor.dtype)).contiguous()
+        """What moves: the signed bits of a wide unsigned type, the bytes of
+        a boolean, any other type as it is (a bf16 payload moves as bf16 on
+        NCCL and gloo, which carry no int16)."""
+        return tensor.view({torch.bool: torch.uint8, **_BITS_AS}.get(tensor.dtype,
+                                                                    tensor.dtype)).contiguous()
 
-    def exchange(self, send: torch.Tensor) -> torch.Tensor:
+    def exchange(self, send: torch.Tensor, name: str = "exchange") -> torch.Tensor:
         """All-to-all of equal blocks: ``send[q]`` goes to rank ``q`` and
         the result's row ``r`` came from rank ``r`` (``send``'s leading
-        dimension is the world size)."""
+        dimension is the world size). ``name`` is the event's."""
         if self.size == 1:
             return send.clone()
         wire = self._wire_view(send)
         recv = torch.empty_like(wire)
         dist.all_to_all_single(recv, wire, group=self.group)
-        _issued("exchange", "all-to-all", wire, self.size, participants=self.participants)
+        _issued(name, "all-to-all", wire, self.size, participants=self.participants)
         return recv.view(send.dtype)
 
-    def gather_stack(self, tensor: torch.Tensor) -> torch.Tensor:
+    def gather_stack(self, tensor: torch.Tensor, name: str = "gather_stack",
+                     async_op: bool = False):
         """Every rank's ``tensor`` (one shape on every rank) stacked along a
-        new leading dimension, in rank order."""
+        new leading dimension, in rank order; with ``async_op=True`` a
+        :class:`Pending` at once, so that work can run while it travels."""
         if self.size == 1:
-            return tensor[None].clone()
+            out = tensor[None].clone()
+            return Pending(out, [], out.dtype, tensor) if async_op else out
         wire = self._wire_view(tensor)
         out = wire.new_empty((self.size * wire.numel(),))
-        dist.all_gather_into_tensor(out, wire.reshape(-1), group=self.group)
+        work = dist.all_gather_into_tensor(out, wire.reshape(-1), group=self.group,
+                                           async_op=async_op)
         shape = (self.size,) + tuple(wire.shape)
-        _issued("gather_stack", "all-gather", wire, self.size, shape,
-                participants=self.participants)
-        return out.view(shape).view(tensor.dtype)
+        _issued(name, "all-gather", wire, self.size, shape, participants=self.participants)
+        pending = Pending(out.view(shape), [work] if async_op else [], tensor.dtype, wire)
+        return pending if async_op else pending.wait()
 
-    def sum_scatter(self, flat: torch.Tensor) -> torch.Tensor:
-        """This rank's equal chunk of the elementwise sum of every rank's
-        1-D ``flat`` (its length a multiple of the world size)."""
+    def sum_scatter(self, flat: torch.Tensor, name: str = "sum_scatter",
+                    op: str = "sum") -> torch.Tensor:
+        """This rank's equal chunk of the elementwise sum (or ``op``) of
+        every rank's 1-D ``flat`` (its length a multiple of the world size)."""
         if self.size == 1:
             return flat.clone()
         out = flat.new_empty((flat.numel() // self.size,))
-        dist.reduce_scatter_tensor(out, flat.contiguous(), group=self.group)
-        _issued("sum_scatter", "reduce-scatter", flat, self.size, out.shape,
+        dist.reduce_scatter_tensor(out, flat.contiguous(), op=_REDUCE_OPS[op], group=self.group)
+        _issued(name, "reduce-scatter", flat, self.size, out.shape,
                 participants=self.participants)
         return out
 
-    def sum(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The elementwise sum of every rank's ``tensor``, out of place, in
-        its type."""
-        out = tensor.clone()
+    def sum(self, tensor: torch.Tensor, name: str = "sum", out: Optional[torch.Tensor] = None,
+            async_op: bool = False):
+        """The elementwise sum of every rank's ``tensor`` in its type, into
+        ``out`` (a new tensor when None; ``tensor`` itself sums in place);
+        with ``async_op=True`` ``(out, work)`` at once."""
+        if out is None:
+            out = tensor.clone()
+        elif out is not tensor:
+            out.copy_(tensor)
+        work = None
         if self.size > 1:
-            dist.all_reduce(out, group=self.group)
-            _issued("sum", "all-reduce", out, self.size, participants=self.participants)
-        return out
+            work = dist.all_reduce(out, group=self.group, async_op=async_op)
+            _issued(name, "all-reduce", out, self.size, participants=self.participants)
+        return (out, work) if async_op else out
 
     # -- collectives ----------------------------------------------------------
+
+    def _sum_into(self, tensor: torch.Tensor, precision: Optional[str], name: str) -> None:
+        """Sum ``tensor`` over the ranks in place: tiered under
+        ``HEAT_TPU_HIERARCHICAL=1``, at ``precision``'s wire."""
+        from . import collective_prec, topology as _topo
+
+        topo, wire = self._hier(), self._wire(tensor, precision)
+        if topo is None:
+            collective_prec.psum(tensor, self, wire, name=name, out=tensor)
+            return
+        out = _topo.hier_psum(tensor, self, topo, wire, collective_prec.block_size())
+        with torch.no_grad():
+            tensor.copy_(out)
 
     def allreduce(self, tensor: torch.Tensor, op: str = "sum",
                   precision: Optional[str] = None) -> torch.Tensor:
@@ -453,19 +477,8 @@ class TorchCommunication(Communication):
         if self.size == 1:
             return tensor
         if op == "sum":
-            topo = self._hier()
-            wire = self._wire(tensor, precision)
-            if topo is not None or wire != "off":
-                from . import collective_prec, topology as _topo
-
-                if topo is not None:
-                    out = _topo.hier_psum(tensor, self, topo, self._cross_wire(tensor, precision),
-                                          collective_prec.block_size())
-                else:
-                    out = collective_prec.psum(tensor, self, wire)
-                with torch.no_grad():
-                    tensor.copy_(out)
-                return tensor
+            self._sum_into(tensor, precision, "allreduce")
+            return tensor
         dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=self.group)
         _issued("allreduce", "all-reduce", tensor, self.size, participants=self.participants)
         return tensor
@@ -483,14 +496,10 @@ class TorchCommunication(Communication):
         flat = torch.cat([t.detach().reshape(-1) for t in tensors])
         work = None
         if self.size > 1:
-            if self._hier() is not None or self._wire(flat, precision) != "off":
-                self.allreduce(flat, precision=precision)
+            if async_op and self._hier() is None and self._wire(flat, precision) == "off":
+                _, work = self.sum(flat, "allreduce_flat", out=flat, async_op=True)
             else:
-                work = dist.all_reduce(flat, group=self.group, async_op=async_op)
-                _issued("allreduce_flat", "all-reduce", flat, self.size,
-                        participants=self.participants)
-                if not async_op:
-                    work = None
+                self._sum_into(flat, precision, "allreduce_flat")
         divisor = self.size if average and self.size > 1 else None
         pending = PendingAllreduce(flat, work, tensors, divisor)
         return pending if async_op else pending.wait()
@@ -534,25 +543,18 @@ class TorchCommunication(Communication):
             return local
         if local.dtype in _BITS_AS:  # gloo and NCCL carry no uint16/32/64: move the bits
             return self.allgather(local.view(_BITS_AS[local.dtype]), dim, n).view(local.dtype)
+        from . import collective_prec, topology as _topo
+
         counts, _ = self.counts_displs(n)
         buf = _padded(local, dim, self.chunk_size(n)).contiguous()
-        topo = self._hier()
-        wire = self._wire(buf, precision)
-        if topo is not None or wire != "off":
-            from . import collective_prec, topology as _topo
-
-            if topo is not None:
-                stacked = _topo.hier_all_gather(buf, self, topo, self._cross_wire(buf, precision),
-                                                collective_prec.block_size(), tiled=False)
-            else:
-                stacked = collective_prec.all_gather(buf, self, wire, tiled=False)
-            parts = list(stacked.unbind(0))
+        topo, wire = self._hier(), self._wire(buf, precision)
+        if topo is not None:
+            stacked = _topo.hier_all_gather(buf, self, topo, wire, collective_prec.block_size(),
+                                            tiled=False)
         else:
-            parts = [torch.empty_like(buf) for _ in range(self.size)]
-            dist.all_gather(parts, buf, group=self.group)
-            _issued("all_gather", "all-gather", buf, self.size, (self.size,) + tuple(buf.shape),
-                    participants=self.participants)
-        return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(parts, counts)], dim=dim)
+            stacked = collective_prec.all_gather(buf, self, wire, tiled=False, name="all_gather")
+        return torch.cat([p.narrow(dim, 0, cnt) for p, cnt in zip(stacked.unbind(0), counts)],
+                         dim=dim)
 
     def reduce_scatter(self, tensor: torch.Tensor, dim: int, n: int, op: str = "sum",
                        precision: Optional[str] = None) -> torch.Tensor:
@@ -575,51 +577,41 @@ class TorchCommunication(Communication):
         c = self.chunk_size(n)
         counts, _ = self.counts_displs(n)
         buf = _padded(tensor.movedim(dim, 0), 0, c * self.size).contiguous()
-        topo = self._hier() if op == "sum" else None
-        wire = (self._cross_wire(buf, precision) if topo is not None
-                else self._wire(buf, precision)) if op == "sum" else "off"
-        if topo is not None or wire != "off":
-            # the rows padded to size * c: rank r's flat chunk is its c rows,
-            # each rank's segment padded to whole blocks under blockwise (the
-            # blocked chunk of the quantized reduce-scatter)
+        # rank r's flat chunk is its c rows
+        per = buf.numel() // self.size
+        if op == "sum":
             from . import collective_prec
 
-            per = buf.numel() // self.size
+            # under blockwise each rank's segment is padded to whole blocks
+            # (the blocked chunk of the quantized reduce-scatter)
             seg = per
-            if wire == "blockwise":
+            if self._wire(buf, precision) == "blockwise":
                 b = max(1, min(collective_prec.block_size(), per))
                 seg = -(-per // b) * b
             flat = buf.reshape(self.size, per)
             if seg != per:
                 flat = torch.nn.functional.pad(flat, (0, seg - per))
-            rows = self.reduce_scatter_flat(flat.reshape(-1), precision)
-            out = rows[:per].reshape((c,) + tuple(buf.shape[1:]))
+            rows = self.reduce_scatter_flat(flat.reshape(-1), precision, name="reduce_scatter")
         else:
-            out = buf.new_empty((c,) + tuple(buf.shape[1:]))
-            dist.reduce_scatter_tensor(out, buf, op=_REDUCE_OPS[op], group=self.group)
-            _issued("reduce_scatter", "reduce-scatter", buf, self.size, out.shape,
-                    participants=self.participants)
+            rows = self.sum_scatter(buf.reshape(-1), "reduce_scatter", op)
+        out = rows[:per].reshape((c,) + tuple(buf.shape[1:]))
         return out.narrow(0, 0, counts[self.rank]).movedim(0, dim)
 
-    def reduce_scatter_flat(self, tensor: torch.Tensor,
-                            precision: Optional[str] = None) -> torch.Tensor:
+    def reduce_scatter_flat(self, tensor: torch.Tensor, precision: Optional[str] = None,
+                            name: str = "reduce_scatter") -> torch.Tensor:
         """The JAX package's ``reduce_scatter`` (:363): ``tensor`` flattened
         and zero-padded to ``size`` equal chunks; returns this rank's 1-D
         ``(ceil(numel/size),)`` chunk of the sum over the ranks (the ZeRO
-        gradient primitive). Tiered under ``HEAT_TPU_HIERARCHICAL=1`` (the
-        cross tier at ``precision``'s mode), else compressed with
-        ``precision``; ``blockwise`` may return a chunk padded to whole
-        blocks."""
-        from . import collective_prec
+        gradient primitive). Tiered under ``HEAT_TPU_HIERARCHICAL=1``, at
+        ``precision``'s wire; ``blockwise`` may return a chunk padded to
+        whole blocks."""
+        from . import collective_prec, topology as _topo
 
-        topo = self._hier()
+        topo, wire = self._hier(), self._wire(tensor, precision)
         if topo is not None:
-            from . import topology as _topo
-
-            return _topo.hier_reduce_scatter(tensor, self, topo,
-                                             self._cross_wire(tensor, precision),
+            return _topo.hier_reduce_scatter(tensor, self, topo, wire,
                                              collective_prec.block_size())
-        return collective_prec.reduce_scatter(tensor, self, self._wire(tensor, precision))
+        return collective_prec.reduce_scatter(tensor, self, wire, name=name)
 
     def all_to_all(self, local: torch.Tensor, split_axis: int, concat_axis: int, n_split: int,
                    n_concat: Optional[int] = None, precision: Optional[str] = None) -> torch.Tensor:
@@ -658,20 +650,13 @@ class TorchCommunication(Communication):
         shape = list(buf.shape)
         shape[split_axis:split_axis + 1] = [self.size, c_split]
         send = buf.reshape(shape).movedim(split_axis, 0).contiguous()
-        topo = self._hier()
-        wire = self._wire(send, precision)
-        if topo is not None or wire != "off":
-            from . import collective_prec, topology as _topo
+        from . import collective_prec, topology as _topo
 
-            if topo is not None:
-                recv = _topo.hier_exchange(send, self, topo, self._cross_wire(send, precision),
-                                           collective_prec.block_size())
-            else:
-                recv = collective_prec.exchange(send, self, wire)
+        topo, wire = self._hier(), self._wire(send, precision)
+        if topo is not None:
+            recv = _topo.hier_exchange(send, self, topo, wire, collective_prec.block_size())
         else:
-            recv = torch.empty_like(send)
-            dist.all_to_all_single(recv, send, group=self.group)
-            _issued("all_to_all", "all-to-all", send, self.size, participants=self.participants)
+            recv = collective_prec.exchange(send, self, wire, name="all_to_all")
         # recv[r] is rank r's chunk of concat_axis; this rank's part of split_axis
         parts = [recv[r].narrow(split_axis, 0, counts_split[self.rank])
                  .narrow(concat_axis, 0, counts_concat[r]) for r in range(self.size)]
@@ -684,7 +669,7 @@ class TorchCommunication(Communication):
         what its source sent, or zeros when no pair names it as a
         destination. Every rank's tensor has the same shape and type. Built
         on ``batch_isend_irecv``: with ``async_op=True`` it returns a
-        :class:`PendingPermute` at once, so that work can run while the
+        :class:`Pending` at once, so that work can run while the
         tensors travel. Differentiable (synchronously): under autograd the
         gradient goes back along the inverse permutation (exact). ``precision`` compresses the hop
         (:func:`.collective_prec.ppermute`; synchronous)."""
@@ -697,7 +682,7 @@ class TorchCommunication(Communication):
             from . import collective_prec
 
             out = collective_prec.ppermute(tensor, self, perm, wire)
-            return PendingPermute(out, [], out.dtype, tensor) if async_op else out
+            return Pending(out, [], out.dtype, tensor) if async_op else out
         dtype = tensor.dtype
         tensor = tensor.view(_BITS_AS.get(dtype, dtype)).contiguous()
         dst = [d for s, d in perm if s == self.rank]
@@ -718,7 +703,7 @@ class TorchCommunication(Communication):
         if self.size > 1:
             _issued("ppermute", "collective-permute", tensor, self.size,
                     pairs=[tuple(pair) for pair in perm], participants=self.participants)
-        pending = PendingPermute(out, works, dtype, tensor)
+        pending = Pending(out, works, dtype, tensor)
         return pending if async_op else pending.wait()
 
     def alltoallv(self, send: torch.Tensor, send_counts: Sequence[int],

@@ -67,8 +67,12 @@ class Pipeline:
         In-stage gather wire (default the ``fsdp_wire`` chain; modes beyond
         bf16 coerce to bf16).
     remat : bool
-        Recompute each layer inside the backward tick's vector-Jacobian
-        product (default True).
+        Also checkpoint each layer inside the backward tick (default False).
+        The tick already recomputes its stage from the stashed input
+        activation, so the stash holds inputs only either way; the layer
+        checkpoint costs a third forward a layer and keeps only one layer's
+        activations of one microbatch, for a stage whose activations would
+        not fit. The JAX package defaults to True (its ``jax.checkpoint``).
 
     The knobs are resolved at construction.
     """
@@ -77,7 +81,7 @@ class Pipeline:
                  loss_fn: Optional[Callable] = None, *, n_stages: Optional[int] = None,
                  n_microbatches: Optional[int] = None, schedule: Optional[str] = None,
                  prefetch: Optional[int] = None, precision: Optional[str] = None,
-                 remat: bool = True):
+                 remat: bool = False):
         if isinstance(layer, nn.Module):
             self._factory, self.template = None, layer
         elif callable(layer):

@@ -48,7 +48,6 @@ from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
 __all__ = [
@@ -443,30 +442,20 @@ class Prefetched:
     again."""
 
     def __init__(self, chunk: torch.Tensor, leaf: FsdpLeaf, comm):
-        from .. import telemetry
-
-        self._out = self._work = None
+        self._out = self._pending = None
         p = comm.size
-        if (p > 1 and leaf.wire == "off" and comm._hier() is None
-                and chunk.dtype != torch.bfloat16):
-            self._out = chunk.new_empty((p * leaf.chunk,))
-            self._work = dist.all_gather_into_tensor(self._out, chunk.detach().contiguous(),
-                                                     group=comm.group, async_op=True)
-            telemetry.trace_event("all_gather", op="all-gather",
-                                  in_bytes=chunk.numel() * chunk.element_size(),
-                                  out_bytes=self._out.numel() * self._out.element_size(),
-                                  group_size=p, participants=comm.participants,
-                                  dtype=str(chunk.dtype).replace("torch.", ""),
-                                  shape=[p, leaf.chunk])
+        if p == 1:
+            self._out = chunk.detach()
+        elif leaf.wire == "off" and comm._hier() is None:
+            # the exact flat gather travels while the stages before it compute
+            self._pending = comm.gather_stack(chunk.detach(), "all_gather", async_op=True)
         else:
-            self._out = comm.allgather(chunk.detach(), 0, p * leaf.chunk,
-                                       precision=leaf.wire) if p > 1 else chunk.detach()
+            self._out = comm.allgather(chunk.detach(), 0, p * leaf.chunk, precision=leaf.wire)
 
     def take(self) -> Optional[torch.Tensor]:
+        if self._pending is not None:
+            self._out, self._pending = self._pending.wait().reshape(-1), None
         out, self._out = self._out, None
-        if self._work is not None:
-            self._work.wait()
-            self._work = None
         return out
 
 

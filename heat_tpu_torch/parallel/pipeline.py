@@ -16,8 +16,11 @@
   ``1f1b``) tick by tick. A forward tick runs the stage without recording a
   graph and stashes only the microbatch's input activation; a backward
   tick gathers the weights again, recomputes the stage's forward from the
-  stashed input (each layer under ``torch.utils.checkpoint`` with
-  ``remat``) and takes its vector-Jacobian product. After every tick but
+  stashed input and takes its vector-Jacobian product: that recompute is
+  the rematerialization, one forward a layer more than the forward tick's
+  (``remat=True`` also checkpoints each layer inside it, as the JAX
+  package's ``jax.checkpoint`` does: a third forward a layer, for a stage
+  whose activations of one microbatch would not fit). After every tick but
   the last the activations hop one stage forward and the cotangents one
   stage back along the full ring of ``fwd_perm``/``bwd_perm``, each a
   matched ``batch_isend_irecv`` on every rank in the same tick order (the
@@ -39,7 +42,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from .. import telemetry
@@ -261,36 +263,27 @@ def shard_state_rows(logical, layout: PipelineLayout, comm) -> torch.Tensor:
 
 class _StageGather:
     """One leaf chunk's all-gather within the stage group (the in-stage
-    FSDP tier): issued at construction (asynchronously when exact), the
-    logical leaf from :meth:`take`."""
+    FSDP tier): issued asynchronously at construction, the logical leaf
+    from :meth:`take`."""
 
     def __init__(self, chunk: torch.Tensor, group_comm, p: int, wire: str, numel: int, shape,
                  dtype: torch.dtype):
         self._numel, self._shape, self._dtype = numel, shape, dtype
-        self._work = None
         loc = group_comm.size
         if loc == 1:
             self._out = chunk
             return
         lossy = wire == "bf16" and chunk.is_floating_point()
         payload = (chunk.to(torch.bfloat16) if lossy else chunk).contiguous()
-        itemsize = payload.element_size()
         telemetry.trace_event("pipeline_gather", wire="bf16" if lossy else "off",
                               collective="all-gather",
-                              bytes=p * (loc - 1) * chunk.numel() * itemsize,
+                              bytes=p * (loc - 1) * chunk.numel() * payload.element_size(),
                               group=f"{p // loc}x{loc}")
-        self._out = payload.new_empty((loc * chunk.numel(),))
-        self._work = dist.all_gather_into_tensor(self._out, payload, group=group_comm.group,
-                                                 async_op=True)
-        telemetry.trace_event("all_gather", op="all-gather", in_bytes=chunk.numel() * itemsize,
-                              out_bytes=self._out.numel() * itemsize, group_size=loc,
-                              participants=p, dtype=str(payload.dtype).replace("torch.", ""),
-                              shape=[loc, chunk.numel()])
+        self._out = group_comm.gather_stack(payload, "all_gather", async_op=True)
 
     def take(self) -> torch.Tensor:
-        if self._work is not None:
-            self._work.wait()
-            self._work = None
+        if not torch.is_tensor(self._out):
+            self._out = self._out.wait()
         return self._out.reshape(-1)[:self._numel].reshape(self._shape).to(self._dtype)
 
 
@@ -299,7 +292,7 @@ def pipeline_step_program(layer_fn: Callable[[Dict[str, torch.Tensor], torch.Ten
                           layout: PipelineLayout, mapping: _schedule.StageMapping,
                           table: _schedule.ScheduleTable, *, comm,
                           loss_fn: Optional[Callable] = None, prefetch: int = 0,
-                          remat: bool = True) -> Callable:
+                          remat: bool = False) -> Callable:
     """The schedule-table step (module docstring).
 
     Training tables (with ``loss_fn(out, y) -> scalar``, the mean over a
@@ -310,7 +303,8 @@ def pipeline_step_program(layer_fn: Callable[[Dict[str, torch.Tensor], torch.Ten
     on every rank; the loss is the sum of the microbatches' ``loss / M``,
     exact on every rank. Forward tables return ``fwd(params, micro_x) ->
     (M, mb, ...)`` on every rank. ``prefetch`` issues a layer's gathers
-    ``prefetch`` layers ahead in a forward tick."""
+    ``prefetch`` layers ahead in a forward tick. ``remat`` checkpoints each
+    layer inside the backward tick's recompute (module docstring)."""
     train = table.train
     if train and loss_fn is None:
         raise ValueError("training tables need loss_fn")

@@ -171,10 +171,10 @@ def data():
             torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32)))
 
 
-def train(ht, layers, schedule, n_stages, steps, ck=None, resume=None):
+def train(ht, layers, schedule, n_stages, steps, ck=None, resume=None, remat=False):
     pipe = ht.nn.Pipeline(Layer(), 4, optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-2),
                           loss_fn=mse, n_stages=n_stages, n_microbatches=4, schedule=schedule,
-                          prefetch=1)
+                          prefetch=1, remat=remat)
     if resume is not None:
         params, state, _ = pipe.resume(resume, layers)
     else:
@@ -253,6 +253,8 @@ def worlds(tmp_path_factory):
     for schedule in ("gpipe", "1f1b"):
         for key, v in _ns["train"](htt, torch_layers, schedule, 1, 3).items():
             one[f"{schedule}_{key}"] = v
+    for key, v in _ns["train"](htt, torch_layers, "gpipe", 1, 3, remat=True).items():
+        one[f"remat_{key}"] = v
     return {"layers": layers, "one": one, "two": spawn(tmp2, 2, _SCRIPT),
             "four": spawn(tmp4, 4, _SCRIPT), "tmp4": tmp4}
 
@@ -298,6 +300,14 @@ def test_world_of_one_matches_sequential_application(worlds):
             h = torch.tanh(h @ torch.from_numpy(one[f"gpipe_{j}_w"]) +
                            torch.from_numpy(one[f"gpipe_{j}_b"]))
     np.testing.assert_allclose(one["gpipe_forward"], h.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_layer_checkpoints_keep_the_bits(worlds):
+    # remat=True checkpoints each layer inside the backward tick's recompute
+    one = worlds["one"]
+    for key in [k for k in one if k.startswith("gpipe_")]:
+        np.testing.assert_array_equal(one["remat_" + key[len("gpipe_"):]], one[key],
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("world", ["two", "four"])

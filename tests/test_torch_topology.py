@@ -18,7 +18,11 @@ lowerings of the communicator against the JAX package's ``hier_*`` in
 * every tiered collective's audited wire bytes equal to the cost model's
   ``hierarchical_*_cost`` (no drift);
 * ``node_mean_cross_sum`` (DASO's send) against the JAX package's, and
-  DASO's node count from the declared topology.
+  DASO's node count from the declared topology;
+* the exact sites (the moments' and the statistics' sums, ``numpy()``'s
+  gather, ``resplit``) under ``HEAT_TPU_HIERARCHICAL_PREC=int8`` or
+  ``HEAT_TPU_COLLECTIVE_PREC=bf16`` bit for bit the same sites without
+  the knob: only the surfaces that resolve a lossy knob read it.
 """
 
 import warnings
@@ -137,7 +141,27 @@ def run(ht, rank, world):
     for wire in ("off", "bf16", "int8"):
         res["daso_send_" + wire] = topology.node_mean_cross_sum(
             x, local_comm=local, node_comm=node, wire=wire).float()
+    data = np.random.default_rng(7).standard_normal((10, 6)).astype(np.float32)
+
+    def exact_sites(moves):
+        a = ht.array(data, split=0)
+        out = {"mean": ht.mean(a, axis=0).numpy(), "var": ht.var(a, axis=0).numpy(),
+               "sum": ht.sum(a, axis=0).numpy(), "gathered": a.numpy()}
+        if moves:  # resplit reads HEAT_TPU_COLLECTIVE_PREC itself, as the JAX package's
+            out["resplit1"] = ht.resplit(a, 1).larray.numpy()
+            out["replicated"] = ht.resplit(a, None).larray.numpy()
+        return out
+
+    for label, env in (("exact", {}), ("hier_int8", {"HEAT_TPU_HIERARCHICAL_PREC": "int8"}),
+                       ("coll_bf16", {"HEAT_TPU_COLLECTIVE_PREC": "bf16"})):
+        os.environ.update(env)
+        for k, v in exact_sites(label != "coll_bf16").items():
+            res["sites_" + label + "_" + k] = v
+        for k in env:
+            del os.environ[k]
     os.environ["HEAT_TPU_HIERARCHICAL"] = "0"
+    for k, v in exact_sites(True).items():
+        res["sites_flat_" + k] = v
     res["flat_ag"] = comm.allgather(x[:250].clone(), 0, 1000)
     res["flat_a2a"] = comm.all_to_all(t, 0, 1, 8, 24)
     res["flat_psumi"] = comm.allreduce(xi.clone())
@@ -230,3 +254,28 @@ def test_world_of_four_daso_send_matches_the_reference(four, wire):
     for rank, r in enumerate(four):
         assert np.abs(r["daso_send_" + wire] - want[rank]).max() <= bound
         assert tuple(r["daso_nodes"]) == (2, 2)
+
+
+@pytest.mark.parametrize("label", ["hier_int8", "coll_bf16"])
+def test_world_of_four_exact_sites_ignore_the_lossy_knobs(four, label):
+    data = np.random.default_rng(7).standard_normal((10, 6)).astype(np.float32)
+    for rank, r in enumerate(four):
+        sites = [k[len("sites_exact_"):] for k in r if k.startswith("sites_exact_")]
+        assert len(sites) == 6
+        for k in sites:
+            if k in ("resplit1", "replicated") and label == "coll_bf16":
+                continue
+            np.testing.assert_array_equal(r[f"sites_{label}_{k}"], r["sites_exact_" + k],
+                                          err_msg=k)
+        # the moves bit for bit the data and the flat world's
+        np.testing.assert_array_equal(r["sites_exact_gathered"], data)
+        np.testing.assert_array_equal(r["sites_exact_replicated"], data)
+        np.testing.assert_array_equal(r["sites_exact_resplit1"], data[:, 2 * rank:2 * rank + 2])
+        np.testing.assert_array_equal(r["sites_exact_resplit1"], r["sites_flat_resplit1"])
+        # the sums within 4 ulp of float64 (the tiers add in another order)
+        d64 = data.astype(np.float64)
+        for k, want in (("mean", d64.mean(0)), ("sum", d64.sum(0)),
+                        ("var", d64.var(0))):
+            ulp4 = 4 * np.finfo(np.float32).eps * float(np.abs(d64).sum(0).max())
+            np.testing.assert_allclose(r["sites_exact_" + k], want, rtol=0, atol=ulp4,
+                                       err_msg=k)
