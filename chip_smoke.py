@@ -228,6 +228,44 @@ def check(name, ok, **fields):
         FAILURES.append(name)
 
 
+def materialize(obj):
+    """Read the tensor of every DNDarray in ``obj`` (nested tuples and lists
+    too) and return ``obj``: a deferred (fused) result then runs inside the
+    timer that wraps the call, as an eager one does."""
+    if hasattr(type(obj), "_fused_node"):
+        obj.larray
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            materialize(v)
+    return obj
+
+
+def profiled_kernels(run, calls, tries=3):
+    """The CUDA events of ``key_averages()`` over one profiler window that
+    runs ``run()`` (``calls`` calls of one function), spin kernel excluded.
+    The profiler can drop a kernel's record, at a window's first launch or
+    inside it; since every call launches the same kernels, a window where a
+    kernel's count is not a multiple of ``calls``, or nothing was
+    recorded, is profiled again, up to ``tries`` windows (the last is
+    returned as it is)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # the window's first launch: a spin kernel
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and "spin" not in ev.key]
+        launched = [ev for ev in evs if not ev.key.startswith(("Memset", "Memcpy"))]
+        if launched and all(ev.count % calls == 0 for ev in launched):
+            break
+    return evs
+
+
 def bound(bytes_moved, ops, rate=F32_FLOPS_PER_S):
     """The least time in ms: bytes over the memory rate or operations over
     the rate of their type, whichever is larger, and which one it is."""
@@ -266,7 +304,6 @@ def linalg_path(ht, dev, gen):
     the kernels' launch counts over the path."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     flags = torch.backends.cuda.matmul
     ht.reset_launch_counts()
@@ -279,7 +316,7 @@ def linalg_path(ht, dev, gen):
         t = time.perf_counter()
         start.record()
         for _ in range(reps):
-            y = step(y)
+            y = materialize(step(y))
         end.record()
         torch.cuda.synchronize()
         return y, (time.perf_counter() - t) * 1e3, start.elapsed_time(end)
@@ -325,12 +362,7 @@ def linalg_path(ht, dev, gen):
                             "torch_default_flag_tflop_s_device": flops / (lib_ms * 1e-3) / 1e12})
             if dtype_name == "float32":
                 # one product under the profiler: one GEMM, no copy or cast
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    ht.matmul(a, y0)
-                    torch.cuda.synchronize()
-                kernels = [ev.key for ev in prof.key_averages()
-                           if ev.device_type == torch.autograd.DeviceType.CUDA]
+                kernels = [ev.key for ev in profiled_kernels(lambda: ht.matmul(a, y0).larray, 1)]
                 # cuBLAS may clear a workspace first (a device memset, no kernel)
                 launched = [k for k in kernels if not k.startswith("Memset")]
                 copies = [k for k in launched if any(w in k.lower() for w in
@@ -591,6 +623,152 @@ def random_phase(ht, dev, time_ms, paths):
             "torch_randn_ms": fields["torch_randn_ms"]}
 
 
+FUSION_DENSE = 4096  # nn.functional.dense at 4096^2: x (4096, 4096) @ w (4096, 4096) + b, relu
+RELAYOUT_SHAPE = (1_000_000, 256)  # the relayout phases' f32 array
+
+
+def fusion_phase(ht, dev, smi, time_ms):
+    """Deferred fusion at bench.py's moments size (8,000,000 x 64 f32 from
+    ht.random, seed 0) and dense at 4096^2, with HEAT_TPU_FUSION=1 and then
+    =0: mean and var of x*2+1 (axis 0), exp(a) - b*2, dense(x, w, bias=b,
+    activation="relu"). Checks the same bits in both settings, one K2
+    launch for each mean and each var of a pending chain, no build after
+    warm-up, fused device time (CUDA events around five calls, in turns:
+    eager, fused, fused, eager) within 1.05x of eager and no more copy
+    kernels fused than eager; prints both times, the kernels' own time
+    under the profiler, the launches and the peak memory.
+    Returns the K2 launches of the fused run."""
+    import torch
+
+    from heat_tpu_torch import _knobs, telemetry
+    from heat_tpu_torch.core import fusion
+
+    rows, cols = GOLDEN_RANDN_SHAPE
+    ht.random.seed(0)
+    x = ht.random.randn(rows, cols, split=0)
+    b = ht.random.randn(rows, cols, split=0)
+    xd = ht.random.randn(FUSION_DENSE, FUSION_DENSE)
+    w = ht.random.randn(FUSION_DENSE, FUSION_DENSE) * (1.0 / FUSION_DENSE ** 0.5)
+    bias = ht.random.randn(FUSION_DENSE)
+    for t in (x, b, xd, w, bias):
+        t.larray
+    cases = {
+        "moments": lambda: (lambda z: (ht.mean(z, axis=0), ht.var(z, axis=0)))(x * 2.0 + 1.0),
+        "chain": lambda: ht.exp(x) - b * 2,
+        "dense": lambda: ht.nn.functional.dense(xd, w, bias=bias, activation="relu"),
+    }
+    report = {"nvidia_smi": smi, "shape": [rows, cols], "dense": [FUSION_DENSE] * 3}
+    bits, times = {}, {}
+
+    def setting(on):
+        return _knobs.overlay({"HEAT_TPU_FUSION": "1" if on else "0"})
+
+    for on in (True, False):
+        tag = "fused" if on else "eager"
+        with setting(on):
+            for fn in cases.values():
+                materialize(fn())  # warm-up: every program of the phase built
+            torch.cuda.synchronize()
+            fusion.reset_stats()
+            ht.reset_launch_counts()
+            with telemetry.CompileWatcher() as cw:
+                out = {name: materialize(fn()) for name, fn in cases.items()}
+                z = x * 2.0 + 1.0  # one more pending chain: var first
+                out["var_first"] = materialize(ht.var(z, axis=0))
+                torch.cuda.synchronize()
+            launches = dict(ht.launch_counts())
+            st = fusion.stats()
+            bits[tag] = {"mean": out["moments"][0].larray, "var": out["moments"][1].larray,
+                         "var_first": out["var_first"].larray, "chain": out["chain"].larray,
+                         "dense": out["dense"].larray}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            for fn in cases.values():
+                materialize(fn())
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            kernels, kernel_ms = [], {}
+            for name, fn in cases.items():
+                evs = profiled_kernels(lambda: [materialize(fn()) for _ in range(3)], 3)
+                kernel_ms[name] = sum(ev.self_device_time_total for ev in evs) / 3e3
+                kernels += [(ev.key, ev.count) for ev in evs]
+            copies = sum(c for k, c in kernels if any(m in k.lower() for m in
+                                                      ("copy", "memcpy")))
+            report[tag] = {"k2_launches": launches["moments"], "builds": cw.backend_compiles,
+                           "fusion_stats": st, "peak_bytes_above_inputs": peak,
+                           "copy_kernels": copies, "kernel_ms": kernel_ms,
+                           "profiled_kernels": sorted({k[:100] for k, _ in kernels})}
+    for turn in ("eager", "fused", "fused", "eager"):
+        with setting(turn == "fused"):
+            for name, fn in cases.items():
+                times.setdefault(turn, {}).setdefault(name, []).append(time_ms(fn, 5))
+    for tag in ("fused", "eager"):
+        # device time by CUDA events around five calls, in turns (a host
+        # sync inside a call, such as maximum's pageable scalar copy, lets
+        # the host's work show as idle time between the events)
+        report[tag]["ms"] = {name: sum(v) / len(v) for name, v in times[tag].items()}
+    fused_ms, eager_ms = (sum(report[t]["ms"].values()) for t in ("fused", "eager"))
+    report["fused_over_eager"] = fused_ms / eager_ms
+    # and the kernels' own time under the profiler, a call
+    report["kernel_fused_over_eager"] = (sum(report["fused"]["kernel_ms"].values())
+                                         / sum(report["eager"]["kernel_ms"].values()))
+    same = {k: bool(torch.equal(bits["fused"][k], bits["eager"][k])) for k in bits["fused"]}
+    report["bits_equal"] = same
+    emit({"phase": "fusion", **report})
+    check("fusion: fused results equal HEAT_TPU_FUSION=0 bit for bit", all(same.values()),
+          bits_equal=same)
+    fz = report["fused"]["fusion_stats"]
+    check("fusion: one K2 launch for each mean and each var of a pending chain, the chains "
+          "grafted into it", report["fused"]["k2_launches"] == 3
+          and report["eager"]["k2_launches"] == 3 and fz["reductions_absorbed"] == 2
+          and fz["epilogues_grafted"] == 1, fused=report["fused"]["k2_launches"],
+          eager=report["eager"]["k2_launches"], stats=fz)
+    check("fusion: no build after warm-up", report["fused"]["builds"] == 0
+          and report["eager"]["builds"] == 0,
+          builds=[report["fused"]["builds"], report["eager"]["builds"]])
+    check("fusion: fused device time within 1.05x of eager (events and kernels), no more "
+          "copy kernels", fused_ms <= 1.05 * eager_ms
+          and report["kernel_fused_over_eager"] <= 1.05
+          and report["fused"]["copy_kernels"] <= report["eager"]["copy_kernels"],
+          fused_ms=fused_ms, eager_ms=eager_ms, kernels=report["kernel_fused_over_eager"],
+          copies=[report["fused"]["copy_kernels"], report["eager"]["copy_kernels"]])
+    del x, b, xd, w, bias, bits
+    torch.cuda.empty_cache()
+    return report["fused"]["k2_launches"]
+
+
+def relayout_phase(ht, dev, smi, time_ms):
+    """One card: resplit of a 1,000,000 x 256 f32 array under each
+    HEAT_TPU_RELAYOUT_PLAN value, the same bits (one rank moves nothing: the
+    planner's fast path), and the plans the planner gives four ranks under a
+    budget that the monolithic relayout does not fit."""
+    import torch
+
+    from heat_tpu_torch import _knobs
+    from heat_tpu_torch.core import relayout_planner
+
+    ht.random.seed(0)
+    x = ht.random.randn(*RELAYOUT_SHAPE, split=0)
+    out, ms = {}, {}
+    for plan in ("auto", "monolithic", "alltoall", "chunked"):
+        with _knobs.overlay({"HEAT_TPU_RELAYOUT_PLAN": plan}):
+            out[plan] = x.resplit(1).larray
+            ms[plan] = time_ms(lambda: x.resplit(1), 3)
+    same = all(torch.equal(out["auto"], t) for t in out.values())
+    need = relayout_planner.monolithic_need(RELAYOUT_SHAPE, 4, 0, 1, 4)
+    plans = {}
+    for budget in (None, 2 * need, need - 1, need // 4):
+        p = relayout_planner.plan(RELAYOUT_SHAPE, 4, 0, 1, 4, budget=budget, live=0)
+        plans[str(budget)] = {k: v for k, v in p.summary().items() if k != "gshape"}
+    emit({"phase": "relayout one card", "shape": list(RELAYOUT_SHAPE), "ms": ms,
+          "bits_equal": same, "four_rank_plans": plans, "monolithic_need_four_ranks": need,
+          "nvidia_smi": smi})
+    check("relayout: every HEAT_TPU_RELAYOUT_PLAN value gives the same bits", same)
+    del x, out
+    torch.cuda.empty_cache()
+
+
 def statistics_path(ht, dev):
     """bench.py's reduction row and the statistics of this slice at its
     moments shape, through the user entry points, each against float64 on
@@ -609,7 +787,7 @@ def statistics_path(ht, dev):
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn()
+        out = materialize(fn())
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
@@ -722,7 +900,7 @@ def manipulations_path(ht, dev, smi):
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn()
+        out = materialize(fn())
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
@@ -1030,7 +1208,7 @@ def spectral_path(ht, dev, smi, time_ms):
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn()
+        out = materialize(fn())
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
@@ -1157,7 +1335,7 @@ def _timed(fn):
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out = fn()
+    out = materialize(fn())
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t) * 1e3
 
@@ -3219,6 +3397,7 @@ def serving_path(ht, dev, smi):
                               "roll_steps": rolled["steps"], "roll_requests": len(seen),
                               "replacements": replacements}
         emit({"phase": "serving replicas", **report["replicas"], "nvidia_smi": smi})
+        report["autoscale"] = autoscale_phase(pool, router, payloads[:8], want_v2, smi)
     finally:
         if router is not None:
             router.close()
@@ -3226,6 +3405,162 @@ def serving_path(ht, dev, smi):
             pool.close()
         server.close()
         shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
+class _DelayProxy:
+    """A front that answers like the replica behind it, each POST
+    ``delay_s`` late: the straggler a hedge routes around."""
+
+    def __init__(self, url: str, delay_s: float):
+        import http.client
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import urlparse
+
+        target = urlparse(url)
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"
+
+            def log_message(self, *args):
+                pass
+
+            def _forward(self, method, body=None):
+                conn = http.client.HTTPConnection(target.hostname, target.port, timeout=60)
+                try:
+                    conn.request(method, self.path, body=body,
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    data = resp.read()
+                finally:
+                    conn.close()
+                self.send_response(resp.status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._forward("GET")
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                time.sleep(delay_s)
+                self._forward("POST", body)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def autoscale_phase(pool, router, payloads, want, smi):
+    """The autoscaler and the router's priority classes and hedges over the
+    serving path's replicas on this card: a burst scales up one replica and
+    idle ticks drain it; a replica killed with SIGKILL is replaced; a bulk
+    flood past a bounded queue sheds no latency-class request; a hedge
+    against a delayed front wins. Every answer equals the server's bit for
+    bit."""
+    import numpy as np
+
+    from heat_tpu_torch.serve import ServerOverloadedError
+    from heat_tpu_torch.serve.net import AutoscaleController, Router
+
+    def same(got, idx):
+        return all(np.asarray(g).tobytes() == want[i % len(want)].tobytes()
+                   for g, i in zip(got, idx))
+
+    live = [h for h in pool.replicas if h.state == "up" and h.alive()]
+    base = len(live)
+    t_phase = time.perf_counter()
+    ctrl = AutoscaleController(pool, router, min_replicas=base, max_replicas=base + 1,
+                               backlog_high=4.0, backlog_ticks=1, idle_low=0.5, idle_ticks=2,
+                               up_cooldown_s=0.0, down_cooldown_s=0.0)
+    n_burst = 2048
+    futs = [router.submit("kmeans", payloads[i % len(want)]) for i in range(n_burst)]
+    t = time.perf_counter()
+    up = ctrl.tick()
+    up_s = time.perf_counter() - t
+    burst = [f.result(180) for f in futs]
+    idle = []
+    for _ in range(4):
+        idle.append(ctrl.tick())
+        if idle[-1]["action"] == "scale_down":
+            break
+    t_drain = time.perf_counter()
+    after_down = [h.index for h in pool.replicas if h.state == "up" and h.alive()]
+    check("autoscale: a burst scales up one replica, idle ticks drain it, every answer bit "
+          "for bit", up["action"] == "scale_up" and idle[-1]["action"] == "scale_down"
+          and len(after_down) == base and same(burst, range(n_burst)),
+          actions=[up["action"]] + [r["action"] for r in idle],
+          per_replica_backlog=up["per_replica_backlog"])
+    victim = next(h for h in pool.replicas if h.state == "up" and h.alive())
+    victim.proc.kill()
+    victim.proc.wait(10)
+    t = time.perf_counter()
+    rep = ctrl.tick()
+    replace_s = time.perf_counter() - t
+    answers = [router.predict("kmeans", payloads[i], timeout=60) for i in range(len(want))]
+    check("autoscale: a killed replica is replaced and the fleet answers bit for bit",
+          [r["old"] for r in rep.get("replaced", [])] == [victim.index]
+          and same(answers, range(len(want))), row=rep)
+
+    # priority classes: a bulk flood past a bounded queue
+    prio = Router(pool, priorities={"latency": 8.0, "bulk": 1.0}, priority_queue_max=8,
+                  workers=2, poll_ms=25.0, request_timeout=60.0)
+    try:
+        bulk = [prio.submit("kmeans", payloads[i % len(want)], priority="bulk")
+                for i in range(400)]
+        # fewer latency requests than the bound: a queue full of latency work
+        # would shed a latency request by the same rule
+        lat = [prio.submit("kmeans", payloads[i % len(want)], priority="latency")
+               for i in range(6)]
+        lat_got = [f.result(120) for f in lat]
+        shed, ok = 0, 0
+        for f in bulk:
+            try:
+                f.result(120)
+                ok += 1
+            except ServerOverloadedError:
+                shed += 1
+        classes = prio.stats()["priority"]["classes"]
+    finally:
+        prio.close()
+    check("autoscale: a bulk flood sheds no latency-class request",
+          classes["latency"]["shed"] == 0 and same(lat_got, range(6)) and shed > 0 and ok > 0,
+          classes=classes, bulk_shed=shed, bulk_ok=ok)
+
+    # hedged retries: the first target delays every answer by 0.5 s
+    real = next(h for h in pool.replicas if h.state == "up" and h.alive())
+    proxy = _DelayProxy(real.url, 0.5)
+    hedge = Router([proxy.url, real.url], hedge=True, hedge_delay_ms=50.0,
+                   hedge_max_fraction=1.0, workers=1, poll_ms=1000.0, request_timeout=60.0)
+    try:
+        t = time.perf_counter()
+        got = hedge.predict("kmeans", payloads[0], timeout=60)
+        hedge_s = time.perf_counter() - t
+        counts = hedge.stats()["router"]
+    finally:
+        hedge.close()
+        proxy.stop()
+    check("autoscale: a hedge against a delayed replica wins, bit for bit",
+          counts["hedges"] == 1 and counts["hedge_wins"] == 1 and hedge_s < 0.45
+          and same([got], [0]), counts={k: counts[k] for k in ("hedges", "hedge_wins")},
+          seconds=hedge_s)
+    report = {"burst_requests": n_burst, "scale_up_s": up_s, "replace_s": replace_s,
+              "drained_after_s": t_drain - t_phase, "phase_s": time.perf_counter() - t_phase,
+              "replica_seconds": ctrl.replica_seconds, "counts": ctrl.counts,
+              "history": [{k: r[k] for k in ("tick", "action", "per_replica_backlog",
+                                             "hot_ticks", "idle_ticks")} for r in ctrl.history],
+              "priority": {"bulk_shed": shed, "bulk_ok": ok, "classes": classes},
+              "hedge_s": hedge_s, "nvidia_smi": smi}
+    emit({"phase": "autoscale", **report})
     return report
 
 
@@ -3590,6 +3925,74 @@ def data_path(ht, dev, cfg):
     return total
 
 
+# resplit of one array under the three plans on the ranks of a world: the
+# same bits, each chunk stage's audited bytes against its plan, the peak
+# temporaries under the budget that forces the chunked plan (rehearse on
+# the CPU: exec this with ht, then relayout_plans(ht, t) on four gloo ranks)
+_RELAYOUT_RANKS = r"""
+def relayout_plans(ht, t):
+    import hashlib
+    import torch
+    from heat_tpu_torch import _knobs
+    from heat_tpu_torch.core import relayout_planner as rp
+    from heat_tpu_torch.resilience import memory_guard
+    from heat_tpu_torch.telemetry import collectives as costs, hlo
+
+    x = ht.array(t, split=0)
+    cuda = x.larray.is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    comm = x.comm
+    res = {"rank": comm.rank, "world": comm.size, "shape": list(t.shape)}
+    digests = {}
+    for plan in ("monolithic", "alltoall", "chunked"):
+        env = {"HEAT_TPU_RELAYOUT_PLAN": plan}
+        if plan == "chunked":
+            # a budget that the monolithic relayout does not fit: live bytes
+            # plus 600 MiB against its analytic need of 768 MiB a rank
+            sync()
+            live = memory_guard.live_bytes()
+            need = rp.monolithic_need(t.shape, 4, 0, 1, comm.size)
+            env = {"HEAT_TPU_RELAYOUT_PLAN": "auto",
+                   "HEAT_TPU_HBM_BUDGET": str(live + min(need - 1, 600 * 2 ** 20))}
+        with _knobs.overlay(env):
+            p = rp.maybe_plan(t.shape, 4, 0, 1, comm) or rp.plan(t.shape, 4, 0, 1, comm)
+            x.resplit(1)  # warm-up
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            y = x.resplit(1)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) if cuda else -1
+            hlo.clear()
+            x.resplit(1, audit=True)
+            sync()
+            recs = hlo.recent()
+            budget = memory_guard.budget_bytes()
+        # the stages of the plan the resplit ran (its own reading of live
+        # bytes): each record's block, its cost, its audited bytes, no drift
+        stages = [[r.fields["lo"], r.fields["hi"],
+                   int(costs.relayout_chunk_cost(t.shape, 4, 0, 1, r.fields["hi"] - r.fields["lo"],
+                                                 comm.size).bytes),
+                   int(r.audit.total_wire()), bool(r.report.ok)]
+                  for r in recs if r.site == "relayout_stage"] if p.kind == "chunked" else []
+        if p.kind == "chunked":  # each stage's temporaries against the model's
+            res["stage_memory"] = rp.plan_memory(p, x.larray, comm)
+        digests[plan] = hashlib.sha256(y.larray.cpu().numpy().tobytes()).hexdigest()
+        res[plan] = {"kind": p.kind, "ms": ms, "peak_bytes_above_live": peak,
+                     "budget": budget, "live_before": base if cuda else None,
+                     "model_temp_bytes": p.temp_bytes, "predicted_wire_bytes": p.predicted_bytes,
+                     "audited_wire_bytes": sum(int(r.audit.total_wire()) for r in recs),
+                     "stages": stages}
+        del y
+    res["digests"] = digests
+    res["bench_field"] = rp.bench_field((4096, 64), comm=comm)
+    return res
+"""
+
+
 _AUDIT_WORKER = r"""
 import json, sys
 import numpy as np
@@ -3601,6 +4004,7 @@ dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank
 import heat_tpu_torch as ht
 from heat_tpu_torch.telemetry import hlo
 ht.use_device("gpu")
+exec(_RELAYOUT_RANKS)
 rng = np.random.default_rng(0)
 x = rng.standard_normal((16384, 128)).astype(np.float32)
 t = rng.standard_normal((1_000_000, 256)).astype(np.float32)
@@ -3616,6 +4020,7 @@ for name, call in (
     torch.cuda.synchronize()
     out[name] = [r.report.summary() for r in hlo.recent()]
 print("AUDIT " + json.dumps({"rank": rank, "reports": out}), flush=True)
+print("RELAYOUT " + json.dumps(relayout_plans(ht, t)), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -3639,10 +4044,11 @@ def collective_audit_phase():
         port = sk.getsockname()[1]
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, "-c", _AUDIT_WORKER, str(r), str(world),
+    code = f"_RELAYOUT_RANKS = {_RELAYOUT_RANKS!r}\nimport time\n" + _AUDIT_WORKER
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world),
                                str(port)], cwd=here, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    reports, ok = [], True
+    reports, relayouts, ok = [], [], True
     for p in procs:
         try:
             log = p.communicate(timeout=600)[0]
@@ -3654,12 +4060,37 @@ def collective_audit_phase():
             reports.append(json.loads(lines[-1][6:]))
         else:
             emit({"phase": "collective audit", "rank_log_tail": log[-2000:]})
+        relayouts += [json.loads(ln[9:]) for ln in log.splitlines() if ln.startswith("RELAYOUT ")]
     for r in reports:
         emit({"phase": "collective audit", "world": world, **r})
     drift = [(r["rank"], site, rep["drifts"]) for r in reports for site, reps in r["reports"].items()
              for rep in reps if not rep["ok"]]
     check("collective audit: four NCCL ranks, no drift", ok and len(reports) == world
           and not drift, drift=drift)
+    check_relayout_ranks(relayouts, world)
+
+
+def check_relayout_ranks(relayouts, world):
+    """The four ranks' relayout results (``_RELAYOUT_RANKS``): the same bits
+    under every plan, ``auto`` chose chunked under its budget, each stage's
+    audited bytes equal to its plan, the peak temporaries under the budget
+    and each stage's within the model's (-1 on the CPU: not measured), and
+    ``bench_field``'s audited bytes equal to its predicted ones."""
+    for r in relayouts:
+        emit({"phase": "relayout four cards", **r})
+    ok = len(relayouts) == world
+    for r in relayouts:
+        c = r.get("chunked", {})
+        ok = ok and len(set(r["digests"].values())) == 1 and c.get("kind") == "chunked" \
+            and c["stages"] and all(s[2] == s[3] and s[4] for s in c["stages"]) \
+            and (c["peak_bytes_above_live"] < 0
+                 or c["live_before"] + c["peak_bytes_above_live"] <= c["budget"]) \
+            and r["stage_memory"]["peak_temp_bytes"] <= r["stage_memory"]["model_temp_bytes"] \
+            and r["bench_field"]["audited_wire_bytes"] == r["bench_field"]["predicted_wire_bytes"]
+    check("relayout: four ranks give the same bits under monolithic, alltoall and chunked; "
+          "the chunked stages' audited bytes equal the plan's, peaks under the budget and "
+          "the model", ok,
+          ranks=len(relayouts))
 
 
 _SCALE_OUT_WORKER = r"""
@@ -4135,13 +4566,13 @@ def main():
 
     def time_ms(fn, reps, warmup=2):
         for _ in range(warmup):
-            fn()
+            materialize(fn())
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn()
+            materialize(fn())
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
@@ -4152,12 +4583,12 @@ def main():
         60-90 microseconds of host time a call, more than some of their
         kernels run, so back-to-back calls from Python would time the host."""
         for _ in range(warmup):
-            fn()
+            materialize(fn())
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(reps):
-                fn()
+                materialize(fn())
         graph.replay()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -5097,6 +5528,12 @@ def main():
           stats_launches["random"] > 0 and stats_launches["moments"] > 0,
           launches=stats_launches)
 
+    # ---------------------------------------------- fusion and the relayouts
+    # mean and var of a pending chain grafted into K2, a chain, dense; fused
+    # against HEAT_TPU_FUSION=0; then resplit under every plan
+    fusion_k2 = fusion_phase(ht, dev, smi, time_ms)
+    relayout_phase(ht, dev, smi, time_ms)
+
     # --------------------------------------------------- manipulations path
     # sort, percentile, unique, topk, getitem/setitem and the layout
     # operations at the moments shape; only the random kernel launches
@@ -5447,6 +5884,7 @@ def main():
             row["scale_out_path_launches"] = scale_launches[name]
         if name == "moments":  # the streaming path: one launch a chunk
             row["streaming_path_launches"] = stream_report["moments"]["moments"]
+            row["fusion_path_launches"] = fusion_k2  # mean/var of pending chains
             row["streaming_chunk"] = {"shape": "(1,048,576, 64) f32",
                                       "ms": stream_report["k2_ms_a_chunk"],
                                       "bound_ms": stream_report["k2_bound_ms_a_chunk"]}

@@ -4,8 +4,9 @@ complex, rounding, relational and logical) operations, indexing, the
 manipulations, printing, the statistics, ``random``, ``linalg``, I/O, the
 estimator bases and the validation helpers."""
 
-from . import (collective_prec, constants, io, linalg, program_cache, random, tiling, topology,
-               version)
+from . import (collective_prec, constants, fusion, io, knobs, linalg, program_cache, random,
+               relayout_planner, tiling, topology, version)
+from .fusion import fuse, fusing
 from ._operations import binary_op, cum_op, local_op, reduce_op
 from .arithmetics import *
 from .communication import (

@@ -1,10 +1,13 @@
 """Generic operation machinery.
 
 Counterpart of ``heat_tpu/core/_operations.py`` (``binary_op`` :50,
-``local_op`` :145, ``reduce_op`` :178), dispatched eagerly with no fusion
-engine. Each rank computes on its own chunk; a reduction across the split
-dimension ends in one ``allreduce``, with the neutral element standing in
-for an empty chunk (reference _operations.py:401-410).
+``local_op`` :145, ``reduce_op`` :178). With fusion on (the default,
+:mod:`.fusion`), ``binary_op`` and ``local_op`` defer into a pending chain
+and ``reduce_op`` absorbs a pending operand's chain; each deferred call is
+the very call the eager path makes. Each rank computes on its own chunk; a
+reduction across the split dimension ends in one ``allreduce``, with the
+neutral element standing in for an empty chunk (reference
+_operations.py:401-410).
 
 Types follow the JAX package, which runs with 64-bit types on; the result
 type is computed first (:func:`result_type`) and every operand is cast to
@@ -49,6 +52,7 @@ the reference's are.
 from __future__ import annotations
 
 import builtins
+import functools
 from typing import Any, Callable, Optional, Tuple, Type, Union
 
 import numpy as np
@@ -240,18 +244,29 @@ def _cast(x, dtype: torch.dtype):
     return x
 
 
+@functools.lru_cache(maxsize=None)
 def tensor_operands(operation: Callable) -> Callable:
     """``operation`` for torch functions that take no python number (such
     as ``hypot``, ``atan2``, ``maximum``): a number operand becomes a 0-d
-    tensor of the other operand's type and device."""
+    tensor of the other operand's type, on the host beside a card's tensor
+    (torch's elementwise kernels read a 0-d host tensor as a scalar, where a
+    copy of a pageable number to the card would wait for the stream). One
+    function per ``operation``, allowlisted for fusion."""
+    def scalar(v, like):
+        return torch.tensor(v, dtype=like.dtype, device="cpu" if like.is_cuda else like.device)
+
     def apply(a, b):
         if not isinstance(a, torch.Tensor):
-            a = torch.tensor(a, dtype=b.dtype, device=b.device)
+            a = scalar(a, b)
         if not isinstance(b, torch.Tensor):
-            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+            b = scalar(b, a)
         return operation(a, b)
 
-    return apply
+    from . import fusion
+
+    name = getattr(operation, "__qualname__", None) or getattr(operation, "__name__", "")
+    return fusion.register_elementwise(
+        apply, f"tensor_operands({getattr(operation, '__module__', '')}.{name})")
 
 
 def into(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
@@ -259,8 +274,12 @@ def into(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
     device, ``res`` copied into it in ``out``'s type."""
     if out is None:
         return res
+    from . import fusion
+
     sanitation.sanitize_out(out, res.shape, res.split, res.device)
-    out.larray.copy_(res.larray.to(out.dtype.torch_type()))
+    value = res.larray.to(out.dtype.torch_type())
+    fusion.before_write(out.larray)
+    out.larray.copy_(value)
     return out
 
 
@@ -313,6 +332,13 @@ def binary_op(
             f"resplit one operand first"
         )
     out_split = s1 if s1 is not None else s2
+    if out is None:
+        from . import fusion
+
+        res = fusion.defer_binary(operation, t1, t2, s1, s2, out_shape, out_split, inexact,
+                                  unsigned, comm, device)
+        if res is not None:
+            return res
 
     def local(a, s):
         if not isinstance(a, DNDarray):
@@ -354,6 +380,12 @@ def local_op(
     float32), as the JAX package's transcendental functions do.
     ``unsigned`` is :func:`_apply`'s."""
     sanitation.sanitize_in(x)
+    if out is None:
+        from . import fusion
+
+        res = fusion.defer_local(operation, x, promote_exact, unsigned)
+        if res is not None:
+            return res
     buf = x.larray
     if promote_exact:
         buf = buf.to(_INEXACT.get(buf.dtype, buf.dtype))
@@ -404,8 +436,38 @@ def reduce_op(
     else:
         out_gshape = tuple(s for d, s in enumerate(x.shape) if d not in red_axes)
 
-    buf = x.larray
-    unsigned = buf.dtype in _UNSIGNED
+    from . import fusion
+
+    local = functools.partial(_reduce_local, reduction=reduction, red_axes=red_axes,
+                              keepdims=keepdims, neutral=neutral)
+    node = fusion.absorbing(x)
+    if node is not None:
+        result = fusion.absorb(node, "fusion_reduce",
+                               ("reduce", reduction, red_axes, bool(keepdims), repr(neutral)),
+                               local, op=reduction, axes=list(red_axes),
+                               crosses_split=crosses_split)
+    else:
+        result = local(x.larray)
+    xdtype = x.dtype.torch_type()
+    unsigned = xdtype in _UNSIGNED
+    if crosses_split:
+        result = x.comm.allreduce(result.contiguous(), _ALLREDUCE[reduction])
+    if reduction in ("max", "min"):
+        result = from_order_key(result, xdtype)
+    if reduction in ("sum", "prod", "nansum", "nanprod") and unsigned:
+        result = result.view(torch.uint64)  # the reference reduces unsigned types as uint64
+    if dtype is not None:
+        result = result.to(types.canonical_heat_type(dtype).torch_type())
+
+    res = DNDarray(result, out_gshape, types.canonical_heat_type(result.dtype), out_split,
+                   x.device, x.comm, True)
+    return into(res, out)
+
+
+def _reduce_local(buf: torch.Tensor, *, reduction: str, red_axes: Tuple[int, ...],
+                  keepdims: bool, neutral) -> torch.Tensor:
+    """The local part of :func:`reduce_op` on this rank's chunk: the
+    reduction before the allreduce, max and min on their order keys."""
     if reduction in ("nansum", "nanprod") and buf.is_floating_point():
         buf = torch.where(torch.isnan(buf), neutral, buf)
     if reduction in ("sum", "prod", "nansum", "nanprod"):
@@ -430,18 +492,7 @@ def reduce_op(
             result = order_key(torch.full(shape, neutral, dtype=buf.dtype, device=buf.device))
         else:
             result = fn(keyed, dim=red_axes, keepdim=keepdims) if red_axes else keyed.clone()
-    if crosses_split:
-        result = x.comm.allreduce(result.contiguous(), _ALLREDUCE[reduction])
-    if reduction in ("max", "min"):
-        result = from_order_key(result, buf.dtype)
-    if reduction in ("sum", "prod", "nansum", "nanprod") and unsigned:
-        result = result.view(torch.uint64)  # the reference reduces unsigned types as uint64
-    if dtype is not None:
-        result = result.to(types.canonical_heat_type(dtype).torch_type())
-
-    res = DNDarray(result, out_gshape, types.canonical_heat_type(result.dtype), out_split,
-                   x.device, x.comm, True)
-    return into(res, out)
+    return result
 
 
 def cum_op(

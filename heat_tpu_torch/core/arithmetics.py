@@ -223,14 +223,14 @@ def prod(a: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
 def nanprod(a: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Product counting NaN as 1; exact types cannot hold NaN and take
     :func:`prod`."""
-    if not a.larray.is_floating_point():
+    if not a.dtype.torch_type().is_floating_point:
         return prod(a, axis, out=out, keepdims=keepdims)
     return reduce_op("nanprod", a, axis, neutral=1, out=out, keepdims=keepdims)
 
 
 def nansum(a: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Sum counting NaN as 0; exact types take :func:`sum`."""
-    if not a.larray.is_floating_point():
+    if not a.dtype.torch_type().is_floating_point:
         return sum(a, axis, out=out, keepdims=keepdims)
     return reduce_op("nansum", a, axis, neutral=0, out=out, keepdims=keepdims)
 

@@ -12,6 +12,11 @@ chunk rule's ``ceil(n/p)*p``) for layout parity; nothing is stored there.
 Indexing (``x[key]``, ``x[key] = v``) goes through ``indexing``; ``lloc``
 indexes this rank's chunk alone, and the halos are this rank's
 neighbours' edge rows.
+
+A DNDarray may hold a pending fused chain (:mod:`.fusion`) instead of its
+tensor: every read of the tensor, ``larray`` and the class's own, flushes
+it first; the shape queries (``shape``, ``lshape``, ``dtype``, ``split``,
+``ndim``, ``size``, ``nbytes``, ``lnbytes``) do not.
 """
 
 from __future__ import annotations
@@ -95,6 +100,7 @@ class DNDarray:
         balanced: Optional[bool] = True,
     ):
         self.__array = array
+        self.__pending = None  # a fusion.FusedNode while the chain is deferred
         self.__gshape = tuple(int(s) for s in gshape)
         self.__dtype = dtype
         self.__split = split
@@ -103,16 +109,37 @@ class DNDarray:
         self.__balanced = True if balanced is None else balanced
         self.__halo_prev = self.__halo_next = None
 
+    @classmethod
+    def _from_fused(cls, node, gshape, dtype, split, device, comm) -> "DNDarray":
+        """A DNDarray whose tensor is ``node``'s pending chain (fusion)."""
+        out = cls(None, gshape, dtype, split, device, comm, True)
+        out.__pending = node
+        return out
+
+    def _fused_node(self):
+        """The pending fused chain, or None."""
+        return self.__pending
+
+    def __flush(self) -> torch.Tensor:
+        node, self.__pending = self.__pending, None
+        self.__array = node.materialize()
+        return self.__array
+
     # ------------------------------------------------------------------ meta
 
     @property
     def larray(self) -> torch.Tensor:
-        """The rank-local torch tensor (reference dndarray.py:106)."""
+        """The rank-local torch tensor (reference dndarray.py:106); a pending
+        fused chain is flushed first."""
+        if self.__pending is not None:
+            return self.__flush()
         return self.__array
 
     @larray.setter
     def larray(self, array: torch.Tensor) -> None:
-        """Replace this rank's chunk (same local shape; internal)."""
+        """Replace this rank's chunk (same local shape; internal). A pending
+        chain is dropped unflushed: nothing reads it any more."""
+        self.__pending = None
         self.__array = array
         self.__halo_prev = self.__halo_next = None
 
@@ -161,15 +188,20 @@ class DNDarray:
     def lnumel(self) -> int:
         return int(np.prod(self.lshape, dtype=np.int64))
 
+    def __itemsize(self) -> int:
+        if self.__pending is not None:
+            return self.__pending.dtype.itemsize
+        return self.__array.element_size()
+
     @property
     def nbytes(self) -> int:
-        return self.size * self.__array.element_size()
+        return self.size * self.__itemsize()
 
     gnbytes = nbytes
 
     @property
     def lnbytes(self) -> int:
-        return self.lnumel * self.__array.element_size()
+        return self.lnumel * self.__itemsize()
 
     @property
     def padded_shape(self) -> Tuple[int, ...]:
@@ -217,7 +249,9 @@ class DNDarray:
     @property
     def lshape(self) -> Tuple[int, ...]:
         """Shape of this rank's chunk (reference dndarray.py:170)."""
-        return tuple(self.__array.shape)
+        if self.__pending is not None:
+            return self.__pending.pshape
+        return tuple(self.larray.shape)
 
     @property
     def lshape_map(self) -> np.ndarray:
@@ -266,8 +300,8 @@ class DNDarray:
         """The whole global array on this rank's device (gathered along the
         split dimension when distributed)."""
         if self.__split is None or self.__comm.size == 1:
-            return self.__array
-        return self.__comm.allgather(self.__array, self.__split, self.__gshape[self.__split])
+            return self.larray
+        return self.__comm.allgather(self.larray, self.__split, self.__gshape[self.__split])
 
     def numpy(self) -> np.ndarray:
         """Gather the global array to host numpy (reference `numpy`)."""
@@ -310,7 +344,7 @@ class DNDarray:
         """A copy on the CPU (reference dndarray.py:730)."""
         from .devices import cpu
 
-        return DNDarray(self.__array.cpu().clone(), self.__gshape, self.__dtype, self.__split,
+        return DNDarray(self.larray.cpu().clone(), self.__gshape, self.__dtype, self.__split,
                         cpu, self.__comm, True)
 
     # -------------------------------------------------------------- methods
@@ -318,7 +352,7 @@ class DNDarray:
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
         """Cast to the given heat type (reference dndarray.py:424)."""
         dtype = types.canonical_heat_type(dtype)
-        casted = self.__array.to(dtype.torch_type(), copy=copy)
+        casted = self.larray.to(dtype.torch_type(), copy=copy)
         if copy:
             return DNDarray(casted, self.__gshape, dtype, self.__split, self.__device, self.__comm, True)
         self.__array = casted
@@ -333,23 +367,35 @@ class DNDarray:
         array (``cdist`` uses this to replicate ``y``). Any split axis from
         a replicated array slices this rank's chunk.
 
+        With the relayout planner armed (``HEAT_TPU_RELAYOUT_PLAN`` other
+        than ``auto``, or ``HEAT_TPU_HBM_BUDGET`` set) a split-to-split
+        relayout follows its plan (:mod:`.relayout_planner`): the one
+        ``all_to_all`` when it fits, else bounded-memory chunk stages; every
+        plan gives the same bits.
+
         While telemetry records it is a ``resplit`` span with the analytic
         collective kind and wire bytes (``telemetry.collectives.
         relayout_cost``); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) also
         records the collectives it issues and compares them with the cost
-        of the chunks as padded for the collective (``telemetry.hlo``)."""
+        of the chunks as padded for the collective (``telemetry.hlo``); a
+        decomposed plan is audited once a stage (``relayout_stage``)
+        instead."""
         from .. import telemetry
 
         axis = sanitize_axis(self.__gshape, axis)
         comm = self.__comm
+        plan = self.__plan(axis)
         cost, fields, do_audit = telemetry.op_cost(
             telemetry.collectives.relayout_cost, self.__gshape, self.__dtype.byte_size(),
             self.__split, axis, comm.size, audit=audit)
         if cost is None:
-            return self.__relayout(axis)
+            return self.__relayout(axis, plan)
         with telemetry.span("resplit", old_split=self.__split, new_split=axis,
-                            gshape=list(self.__gshape), **fields) as sp:
-            if do_audit and comm.size > 1 and axis != self.__split:
+                            gshape=list(self.__gshape),
+                            plan=plan.kind if plan is not None else "monolithic", **fields) as sp:
+            if plan is not None:
+                out = self.__relayout(axis, plan, audit=do_audit)
+            elif do_audit and comm.size > 1 and axis != self.__split:
                 # the collectives move the chunks padded to ceil(n/p) along
                 # both split axes: predict on those shapes, as the JAX
                 # package predicts on its padded physical buffer
@@ -368,9 +414,20 @@ class DNDarray:
             sp.output(out.larray)
         return out
 
-    def __relayout(self, axis: Optional[int]) -> "DNDarray":
+    def __plan(self, axis: Optional[int]):
+        """The relayout planner's decomposed plan for a resplit to ``axis``,
+        or None for the one ``all_to_all`` (the fast path: two knob reads)."""
+        from . import relayout_planner
+
+        if not relayout_planner.active():
+            return None
+        plan = relayout_planner.maybe_plan(self.__gshape, self.__dtype.byte_size(),
+                                           self.__split, axis, self.__comm)
+        return None if plan is None or plan.kind == "monolithic" else plan
+
+    def __relayout(self, axis: Optional[int], plan=None, audit: bool = False) -> "DNDarray":
         if axis == self.__split:
-            return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis,
+            return DNDarray(self.larray.clone(), self.__gshape, self.__dtype, axis,
                             self.__device, self.__comm, True)
         _PERF_STATS["relayouts"] += 1
         if self.__split is None:
@@ -379,13 +436,19 @@ class DNDarray:
             _PERF_STATS["gathers"] += 1
         else:
             _PERF_STATS["all_to_alls"] += 1
+        if plan is not None:
+            from . import relayout_planner
+
+            moved = relayout_planner.run(plan, self.larray, self.__comm, audit=audit)
+            return DNDarray(moved, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+                            True)
         if axis is not None and self.__split is not None and self.__comm.size > 1:
-            moved = self.__comm.all_to_all(self.__array, axis, self.__split, self.__gshape[axis],
+            moved = self.__comm.all_to_all(self.larray, axis, self.__split, self.__gshape[axis],
                                            self.__gshape[self.__split])
             return DNDarray(moved.contiguous(), self.__gshape, self.__dtype, axis,
                             self.__device, self.__comm, True)
         whole = self._global()
-        if whole is self.__array:
+        if whole is self.larray:
             whole = whole.clone()
         if axis is not None:
             _, _, slices = self.__comm.chunk(self.__gshape, axis)
@@ -442,7 +505,7 @@ class DNDarray:
         k = min(self.__gshape)
         off = self.__comm.chunk(self.__gshape, self.__split)[0] if self.__split is not None else 0
         n_local = self.lshape[self.__split] if self.__split is not None else k
-        i = torch.arange(max(0, min(off + n_local, k) - off), device=self.__array.device) + off
+        i = torch.arange(max(0, min(off + n_local, k) - off), device=self.larray.device) + off
         rows, cols = (i - off, i) if self.__split == 0 else ((i, i - off) if self.__split == 1
                                                              else (i, i))
         buf = _writable(self)
@@ -474,7 +537,7 @@ class DNDarray:
         from ..parallel.halo import _halo_parts
 
         self.__halo_prev, self.__halo_next = _halo_parts(
-            self.__array, halo_size, self.__split, self.__comm, wrap=False)
+            self.larray, halo_size, self.__split, self.__comm, wrap=False)
 
     @property
     def halo_prev(self) -> Optional[torch.Tensor]:
@@ -492,12 +555,12 @@ class DNDarray:
         neighbours along the split dimension (zeros at the global edges)."""
         self.__check_halo_size(halo_size)
         if self.__split is None or self.__comm.size == 1:
-            return self.__array
+            return self.larray
         prev, nxt = self.__halo_prev, self.__halo_next
         if prev is None or prev.shape[self.__split] != halo_size:
             self.get_halo(halo_size)
             prev, nxt = self.__halo_prev, self.__halo_next
-        return torch.cat([prev, self.__array, nxt], dim=self.__split)
+        return torch.cat([prev, self.larray, nxt], dim=self.__split)
 
     @property
     def T(self) -> "DNDarray":

@@ -723,10 +723,13 @@ def _exclusive(t: torch.Tensor) -> bool:
 def _writable(x: DNDarray) -> torch.Tensor:
     """``x``'s chunk, made contiguous and its own (copied first when another
     array shares it), ready for writes in place."""
+    from . import fusion
+
     t = x.larray
     if not t.is_contiguous() or not _exclusive(t):
         t = t.contiguous() if not t.is_contiguous() else t.clone()
         x.larray = t
+    fusion.before_write(t)  # a pending chain that holds t computes first
     return t
 
 

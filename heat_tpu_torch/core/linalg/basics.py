@@ -31,8 +31,14 @@ package reads the caller's ``jax.default_matmul_precision``. A bf16 or f16
 product clears torch's reduced-precision reduction flag for itself and
 restores the caller's value, so that it accumulates in f32 as XLA does. No
 operand whose type already is the result type is copied or cast.
-``matmul`` runs eagerly; the JAX package's deferred form (Fusion 2.0) comes
-with the fusion engine (ROADMAP §1 item 13b).
+With fusion on, a product of two 2-D operands that needs no collective
+(one rank, or ``b`` replicated and ``a`` not split along its columns) is
+deferred as a kernel node
+(``fusion.defer_matmul``, the JAX package's Fusion 2.0 form): pending
+operand chains graft in front of it, a bias, an activation or a
+soft-threshold tail graft onto it, and the whole flushes as one program
+that calls ``_product`` as the eager path does (never ``addmm``: a fused
+epilogue would round once where eager rounds twice).
 """
 
 from __future__ import annotations
@@ -256,6 +262,13 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
             res = res.squeeze(-1)
         return DNDarray(res, out_gshape, out_dtype, out_split, a.device, comm, True)
 
+    if a.ndim == 2 and b.ndim == 2 and (comm.size == 1 or (b.split is None and a.split != 1)):
+        # one local product (rows of a carried, or nothing split): deferrable
+        from .. import fusion
+
+        res = fusion.defer_matmul(a, b, tdt, out_dtype, out_gshape, out_split)
+        if res is not None:
+            return res
     if comm.size == 1 or (a.split is None and b.split is None):
         return finish(_product(promoted(a, a.larray), promoted(b, b.larray)))
 

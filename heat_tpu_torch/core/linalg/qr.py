@@ -41,7 +41,8 @@ import torch
 
 from ... import telemetry
 from .. import types
-from ..communication import _padded, ring_overlap, ring_steps
+from ..communication import _padded, ring_steps
+from ..relayout_planner import ring_overlap
 from ..dndarray import DNDarray
 from .basics import _from_global, _replicated, matmul
 

@@ -32,6 +32,12 @@ new input signature, and steady-state dispatch is a dict lookup. Here:
   move its version counter. Programs that share a set also share the lock
   that orders their calls;
 * **on the CPU** a :class:`Program` calls the plain callable;
+* an **inline** program (``inline=True``: the fused chains of
+  :mod:`.fusion`) calls its callable on the card too, on the caller's
+  stream: no graph, no static copies, no private pool, so a call moves the
+  bytes its kernels move and no more, and a call during another program's
+  capture is recorded into that capture. Its arguments may hold python
+  scalars beside the tensors (their types are part of the signature);
 * every build (a capture on the card, a first call of a signature on the
   CPU) is reported to :class:`heat_tpu_torch.telemetry.CompileWatcher`
   as one ``backend_compile_duration`` event, so that a steady state is
@@ -45,8 +51,8 @@ per-call precision has one: ``tf32=False`` captures the program's
 products with TF32 off (``torch.backends.cuda.matmul.allow_tf32``, the
 caller's flag restored after the capture; a replay does not read it). The serving
 endpoints go through this registry; the port's other modules keep their
-own caches (``regression.Lasso``'s epoch graph) until item 13b's fusion
-work.
+own caches (``regression.Lasso``'s epoch graph) until the registry's
+adoption at their sites.
 """
 
 from __future__ import annotations
@@ -93,11 +99,14 @@ def _maxsize() -> int:
     return n if n > 0 else DEFAULT_MAXSIZE
 
 
-def _signature(args: tuple) -> Tuple:
+def _signature(args: tuple, scalars: bool = False) -> Tuple:
     sig = []
     for a in args:
         if not isinstance(a, torch.Tensor):
-            raise TypeError(f"a registry program takes tensors, got {type(a).__name__}")
+            if not scalars:
+                raise TypeError(f"a registry program takes tensors, got {type(a).__name__}")
+            sig.append(type(a).__name__)
+            continue
         sig.append((tuple(a.shape), a.dtype))
     return tuple(sig)
 
@@ -218,8 +227,9 @@ class Program:
 
     def __init__(self, site: str, fn: Callable, *, cost_bytes: int = 0,
                  params_from: Optional[int] = None, shared: Optional[_Shared] = None,
-                 tf32: Optional[bool] = None):
+                 tf32: Optional[bool] = None, inline: bool = False):
         self.site = site
+        self.inline = inline
         self.fn = fn
         self.cost_bytes = int(cost_bytes)
         self.params_from = params_from
@@ -230,19 +240,12 @@ class Program:
         self._seen: set = set()  # signatures called on the CPU
 
     def __call__(self, *args):
+        if self.inline:
+            return self._plain(_signature(args, True), args)
         sig = _signature(args)
         device = next((a.device for a in args if a.is_cuda), None)
         if device is None:
-            if sig in self._seen:
-                return self.fn(*args)
-            t0 = time.perf_counter()
-            out = self.fn(*args)
-            with self.shared.lock:
-                fresh = sig not in self._seen
-                self._seen.add(sig)
-            if fresh:
-                self._built(time.perf_counter() - t0)
-            return out
+            return self._plain(sig, args)
         n = len(args) if self.params_from is None else self.params_from
         inputs, params = args[:n], args[n:]
         key = (device.index, sig)
@@ -260,6 +263,19 @@ class Program:
                 graph.graph.replay()
             return graph.output()
 
+    def _plain(self, sig: Tuple, args: tuple):
+        """The callable itself; the first call of a signature is its build."""
+        if sig in self._seen:
+            return self.fn(*args)
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        with self.shared.lock:
+            fresh = sig not in self._seen
+            self._seen.add(sig)
+        if fresh:
+            self._built(time.perf_counter() - t0)
+        return out
+
     def _built(self, seconds: float) -> None:
         self.builds += 1
         telemetry.record_build(self.site, seconds)
@@ -268,7 +284,7 @@ class Program:
         """The pool bytes of the graph ``args`` replay on the card (0 before
         its capture), its static inputs included and the shared parameters
         not; ``cost_bytes`` on the CPU."""
-        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+        if self.inline or not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
             return self.cost_bytes
         device = next(a.device for a in args if a.is_cuda)
         graph = self._graphs.get((device.index, _signature(args)))
@@ -288,7 +304,8 @@ def program_key(site: str, key: Any, comm: Any = None) -> Tuple:
 
 def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: Any = None,
                    cost_bytes: int = 0, params_from: Optional[int] = None,
-                   params_key: Any = None, tf32: Optional[bool] = None) -> Callable:
+                   params_key: Any = None, tf32: Optional[bool] = None,
+                   inline: bool = False) -> Callable:
     """The memoized program of ``(site, comm, key)``, built on a miss:
     ``build()`` returns the callable over positional tensors and runs only
     then (cheap, no side effects; nothing is captured until the program's
@@ -296,7 +313,8 @@ def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: 
     With ``params_from``, the arguments from that position on are
     parameters whose static buffers on the card are shared by every
     program of ``(site, comm, params_key)``; ``tf32`` sets TF32 for the
-    capture (module docstring). The returned callable is the
+    capture, and ``inline`` calls the callable on the card too (module
+    docstring). The returned callable is the
     :class:`Program` wrapped by ``resilience.wrap_program``; two calls
     with the same key and other shapes share the entry and capture a graph
     each."""
@@ -322,7 +340,7 @@ def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: 
                     shared = _SHARED[skey] = _Shared()
             fn = resilience.wrap_program(site, Program(site, build(), cost_bytes=cost_bytes,
                                                        params_from=params_from, shared=shared,
-                                                       tf32=tf32))
+                                                       tf32=tf32, inline=inline))
             maxsize = _maxsize()
             while len(_PROGRAMS) >= maxsize:
                 _PROGRAMS.popitem(last=False)

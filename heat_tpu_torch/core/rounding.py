@@ -12,6 +12,7 @@ elementwise operation does (``clip(int32, 0.5, 2.5)`` is float64), and
 from __future__ import annotations
 
 import builtins
+import functools
 
 import torch
 
@@ -26,15 +27,23 @@ def _exact(t: torch.Tensor) -> builtins.bool:
     return not (t.is_floating_point() or t.is_complex())
 
 
+@functools.lru_cache(maxsize=None)
 def _whole(fn):
-    """``fn`` on inexact data; exact data is whole already and is copied."""
-    return lambda t: t.clone() if _exact(t) else fn(t)
+    """``fn`` on inexact data; exact data is whole already and is copied.
+    One function per ``fn``, allowlisted for fusion."""
+    from . import fusion
+
+    def whole(t):
+        return t.clone() if _exact(t) else fn(t)
+
+    return fusion.register_elementwise(whole, f"_whole({fn.__module__}.{fn.__name__})")
 
 
 def abs(x, out=None, dtype=None) -> DNDarray:
     """Elementwise absolute value (reference rounding.py `abs`); a bool or
     unsigned array is its own absolute value."""
-    whole = x.larray.dtype == torch.bool or x.larray.dtype in _UNSIGNED
+    dt = x.dtype.torch_type()
+    whole = dt == torch.bool or dt in _UNSIGNED
     res = local_op(torch.clone if whole else torch.abs, x)
     if dtype is not None:
         res = res.astype(types.canonical_heat_type(dtype), copy=False)
@@ -53,11 +62,20 @@ def clip(x: DNDarray, min, max, out=None) -> DNDarray:
     bound may be None."""
     if min is None and max is None:
         raise ValueError("either min or max must be set")
-    bounds = [b for b in (min, max) if b is not None]
-    buf = x.larray
-    res = _apply(torch.clamp, buf.to(result_type(buf, *bounds)), min, max, unsigned="order")
+    if out is None:
+        from . import fusion
+
+        res = fusion.defer_unary("clip", _clip, x, {"lo": min, "hi": max})
+        if res is not None:
+            return res
+    res = _clip(None, x.larray, lo=min, hi=max)
     return into(DNDarray(res, x.shape, types.canonical_heat_type(res.dtype), x.split, x.device,
                          x.comm, True), out)
+
+
+def _clip(_, buf: torch.Tensor, *, lo, hi) -> torch.Tensor:
+    bounds = [b for b in (lo, hi) if b is not None]
+    return _apply(torch.clamp, buf.to(result_type(buf, *bounds)), lo, hi, unsigned="order")
 
 
 def fabs(x, out=None) -> DNDarray:

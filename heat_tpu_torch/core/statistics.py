@@ -6,7 +6,11 @@ Pallas kernel (``statistics.py:616-628`` and ``:912-924`` there): one read
 of X gives mean and M2, and across ranks the closed-form merge takes two
 allreduces; ``chunk_moments`` returns that carry from one launch. Every
 other case takes the plain reduction path. A kernel failure raises; nothing
-falls back.
+falls back. A pending fused chain in front of the kernel is grafted into
+the kernel's program (site ``fusion_moments``, the JAX package's
+``_pallas_moments_fused``): the chain and one K2 launch run as one cached
+program, once for ``mean`` and once for ``var``, and the chain's value is
+kept, so a second call reads it.
 
 Across ranks: ``argmax``/``argmin`` gather each rank's extreme and its
 global index and keep numpy's rule, the lowest global index wins a tie;
@@ -179,18 +183,32 @@ def argmin(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray
 def _column_moments(x: DNDarray):
     """(mean, M2) of a 2-D f32 array over axis 0 from the moments kernel,
     merged across ranks; None when the kernel's gate does not admit ``x``."""
-    from .cuda_moments import column_moments, pallas_moments_applicable, sharded_merge
+    from .cuda_moments import pallas_moments_applicable, sharded_merge
 
     if not (x.ndim == 2 and x.split in (None, 0)):
         return None
     if not pallas_moments_applicable(x.comm.size, x.split, x.ndim, 0, x.shape[1],
                                      x.dtype.torch_type()):
         return None
-    buf = x.larray.contiguous()
-    mu, m2 = column_moments(buf)
+    from . import fusion
+
+    node = fusion.absorbing(x)
+    if node is not None:
+        # the chain and the kernel as one program
+        mu, m2 = fusion.absorb(node, "fusion_moments", ("moments",), _kernel_moments,
+                               want="moments")
+    else:
+        mu, m2 = _kernel_moments(x.larray)
     if x.comm.size > 1 and x.split == 0:
-        mu, m2 = sharded_merge(x.comm, buf.shape[0], mu, m2, x.shape[0])
+        mu, m2 = sharded_merge(x.comm, x.lshape[0], mu, m2, x.shape[0])
     return mu, m2
+
+
+def _kernel_moments(buf: torch.Tensor):
+    """One K2 launch on this rank's contiguous chunk."""
+    from .cuda_moments import column_moments
+
+    return column_moments(buf.contiguous())
 
 
 def chunk_moments(x: DNDarray) -> Tuple[int, torch.Tensor, torch.Tensor]:
@@ -403,7 +421,7 @@ def _with_nan_where_empty(value: DNDarray, count: DNDarray, out) -> DNDarray:
 def nanmax(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Maximum ignoring NaN; NaN where a lane holds only NaN. Exact types
     take :func:`max`."""
-    if not x.larray.is_floating_point():
+    if not x.dtype.torch_type().is_floating_point:
         return max(x, axis, out=out, keepdims=keepdims)
     value, count = _nan_parts(x, axis, keepdims, -float("inf"), "max")
     return _with_nan_where_empty(value, count, out)
@@ -411,7 +429,7 @@ def nanmax(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray
 
 def nanmin(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Minimum ignoring NaN (see :func:`nanmax`)."""
-    if not x.larray.is_floating_point():
+    if not x.dtype.torch_type().is_floating_point:
         return min(x, axis, out=out, keepdims=keepdims)
     value, count = _nan_parts(x, axis, keepdims, float("inf"), "min")
     return _with_nan_where_empty(value, count, out)
@@ -419,7 +437,7 @@ def nanmin(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray
 
 def nanmean(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Mean ignoring NaN: the sum of the other values over their count."""
-    if not x.larray.is_floating_point():
+    if not x.dtype.torch_type().is_floating_point:
         return into(mean(x, axis, keepdims=keepdims), out)
     total, count = _nan_parts(x, axis, keepdims, 0.0, "sum")
     res = DNDarray(total.larray / count.larray.to(total.larray.dtype), total.shape, total.dtype,
@@ -431,7 +449,7 @@ def nanvar(x: DNDarray, axis=None, ddof: int = 0, out=None, keepdims: bool = Fal
     """Variance ignoring NaN, two passes: the NaN-free mean, then the sum of
     squared deviations over ``count - ddof`` (NaN where that is not
     positive)."""
-    if not x.larray.is_floating_point():
+    if not x.dtype.torch_type().is_floating_point:
         return into(var(x, axis, ddof=ddof, keepdims=keepdims), out)
     mu = nanmean(x, axis, keepdims=True)
     d = arithmetics.sub(x, mu)
@@ -444,7 +462,7 @@ def nanvar(x: DNDarray, axis=None, ddof: int = 0, out=None, keepdims: bool = Fal
 
 def nanstd(x: DNDarray, axis=None, ddof: int = 0, out=None, keepdims: bool = False) -> DNDarray:
     """Standard deviation ignoring NaN."""
-    if not x.larray.is_floating_point():
+    if not x.dtype.torch_type().is_floating_point:
         return into(std(x, axis, ddof=ddof, keepdims=keepdims), out)
     return into(exponential.sqrt(nanvar(x, axis, ddof=ddof, keepdims=keepdims)), out)
 
@@ -532,8 +550,7 @@ def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, 
     edges = np.linspace(lo, hi, builtins.int(bins) + 1)
     res = _replicated(_hist_counts(input, edges, None).to(input.dtype.torch_type()), input)
     if out is not None:
-        out.larray.copy_(res.larray.to(out.dtype.torch_type()))
-        return out
+        return into(res, out)
     return res
 
 
@@ -638,7 +655,7 @@ def _percentile_split_axis(x: DNDarray, q_flat: np.ndarray, method: str, ax: int
         res = (rows[:m] + rows[m:]) / 2.0
     else:
         res = rows
-    if x.larray.is_floating_point():
+    if x.dtype.torch_type().is_floating_point:
         lane = torch.isnan(x.larray).any(ax).to(torch.uint8)
         if x.comm.size > 1:
             x.comm.allreduce(lane, "max")

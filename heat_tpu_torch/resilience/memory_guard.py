@@ -20,9 +20,14 @@ memory analysis of the compiled executable, the port reads what the
 program's warm build took: on the card, the bytes its CUDA graph's private
 pool reserved, measured around the capture; on the CPU, the analytic
 ``cost_bytes`` its caller registered (the serving endpoints' estimate).
-0 means unknown, and the budget then holds live bytes alone. The JAX
-package's first rung of degradation, the fusion window, has no counterpart
-yet (item 13b's fusion); the port collects garbage and measures again.
+0 means unknown, and the budget then holds live bytes alone. On a
+predicted overflow the guard degrades before it fails, as the JAX
+package's does: first the fusion window (``fusion.set_pressure_cap(1)``,
+so pending chains flush one op at a time instead of holding their
+temporaries), then a garbage collection, then one more measurement; the
+window stays narrow until a later preflight sees less than half the budget
+in use. The relayout planner (``core.relayout_planner``) budgets a resplit
+with the same arithmetic before it runs.
 """
 
 from __future__ import annotations
@@ -125,31 +130,39 @@ def program_bytes(fn, args: tuple) -> int:
 
 def preflight(site: str, fn, args: tuple) -> None:
     """The budget check before one guarded dispatch: a no-op without a
-    budget; when live bytes plus the program's bytes exceed it, collect
-    garbage and measure again, then raise :class:`HeatTpuMemoryError`."""
+    budget; when live bytes plus the program's bytes exceed it, narrow the
+    fusion window, collect garbage and measure again, then raise
+    :class:`HeatTpuMemoryError`."""
     budget = budget_bytes()
     if budget is None:
         return
     need = program_bytes(fn, args)
     live = live_bytes()
     if live + need <= budget:
+        if live + need < budget // 2:  # comfortable again: release the fusion window
+            from ..core import fusion
+
+            if fusion.pressure_cap() is not None:
+                fusion.set_pressure_cap(None)
         return
     from .. import telemetry
+    from ..core import fusion
 
     if telemetry.enabled():
         reg = telemetry.get_registry()
         reg.add("resilience.memory_pressure", 1)
         reg.emit("resilience", site, event="memory_pressure", live_bytes=live,
                  program_bytes=need, budget=budget)
-    gc.collect()  # drop dead references that pin device memory
-    live = live_bytes()
+    fusion.set_pressure_cap(1)  # 1. narrow future fusion windows
+    gc.collect()  # 2. drop dead references that pin device memory
+    live = live_bytes()  # 3. measure again
     if live + need <= budget:
         return
     if telemetry.enabled():
         telemetry.flush("memory_escalation")
     raise HeatTpuMemoryError(
         f"pre-flight memory budget exceeded at site {site!r}: live {live:,} B + program "
-        f"{need:,} B > HEAT_TPU_HBM_BUDGET {budget:,} B (after gc)",
+        f"{need:,} B > HEAT_TPU_HBM_BUDGET {budget:,} B (after the fusion window and gc)",
         site=site,
         hints=["raise HEAT_TPU_HBM_BUDGET or unset it to disable pre-flight budgeting",
                "shard the operand over more devices (resplit) so the live bytes a card drop",

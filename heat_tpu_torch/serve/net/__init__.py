@@ -13,22 +13,24 @@ Counterpart of ``heat_tpu/serve/net``:
 * :mod:`.pool`: :class:`ReplicaPool`, spawning, draining and killing
   replicas over one checkpoint;
 * :mod:`.router`: :class:`Router`, least-loaded dispatch, sibling retries,
-  health eviction and re-add.
-
-Not ported yet (ROADMAP §1 item 14): ``controller`` (the autoscaler), and
-the router's priority classes and hedged retries that go with it.
+  health eviction and re-add, priority classes (weighted-fair admission)
+  and hedged retries;
+* :mod:`.controller`: :class:`AutoscaleController`, the SLO-driven
+  autoscaler over a pool and its router.
 """
 
 from __future__ import annotations
 
+from .controller import AutoscaleController
 from .events import EVENT_COUNTER
 from .pool import ReplicaHandle, ReplicaPool
 from .router import ReplicaDownError, Router
 from .transport import HttpFront
 from .wire import WireError
-from . import events, pool, replica, router, transport, wire  # noqa: F401
+from . import controller, events, pool, replica, router, transport, wire  # noqa: F401
 
 __all__ = [
+    "AutoscaleController",
     "EVENT_COUNTER",
     "HttpFront",
     "ReplicaDownError",

@@ -26,10 +26,25 @@ Counterpart of ``heat_tpu/serve/net/router.py``: N replica processes
   a draining replica closes each connection after its answer, so a
   rolling update loses no request.
 
-The JAX package's priority classes (weighted-fair admission) and hedged
-retries go with its autoscaling controller (ROADMAP §1 item 14): the
-port's router queues first in, first out, sends each attempt once, and
-raises ``NotImplementedError`` when a priority or a hedge is asked for.
+* **priority classes**: a request carries a class (per endpoint through
+  ``endpoint_priorities``/:meth:`Router.set_priority`, per request through
+  ``submit(priority=...)``); the workers drain the queue by smooth weighted
+  round-robin over the class weights (``HEAT_TPU_SERVE_PRIORITY_WEIGHTS``),
+  so a bulk tenant cannot starve a latency tenant. With
+  ``HEAT_TPU_SERVE_PRIORITY_QUEUE_MAX`` bounding the queue, the newest job
+  of the lowest-weight queued class sheds first (``priority_shed``), and a
+  503-shed request yields its sibling retries while higher-priority work
+  waits. No classes configured: first in, first out.
+* **hedged retries**: with ``HEAT_TPU_HEDGE_ENABLE``, a first attempt that
+  has not answered within the hedge delay (``HEAT_TPU_HEDGE_DELAY_MS``, or
+  the endpoint's observed p95 once ``HEAT_TPU_HEDGE_MIN_SAMPLES``
+  completions exist) is duplicated to an idle sibling; the first HTTP
+  answer wins and the loser is cancelled by closing its connection.
+  ``HEAT_TPU_HEDGE_MAX_FRACTION`` caps hedges against completed requests.
+  Endpoints are pure (restored estimators), so a duplicate run is harmless.
+
+The autoscaler that drives :meth:`Router.add_target`/
+:meth:`Router.remove_target` is :class:`~.controller.AutoscaleController`.
 
 The client surface is the in-process server's: ``submit()`` returns a
 future, ``predict()`` blocks, ``stats()["endpoints"]`` carries the same
@@ -49,6 +64,7 @@ import queue as _queue_mod
 import select
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from queue import Empty
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -66,11 +82,6 @@ from .events import emit as _emit
 __all__ = ["Router", "ReplicaDownError"]
 
 _POLL_TIMEOUT = 2.0  # seconds per /stats / /healthz probe
-_LATER_TODO = ("the router's {} is not ported yet: priority classes and hedged retries "
-               "come with the autoscaling controller (ROADMAP §1 item 14)")
-# the JAX router's keywords of those two features
-_LATER_KWARGS = frozenset({"priorities", "endpoint_priorities", "priority_queue_max", "hedge",
-                           "hedge_delay_ms", "hedge_max_fraction", "hedge_min_samples"})
 
 
 class _NoDelayConnection(http.client.HTTPConnection):
@@ -122,9 +133,11 @@ class _Target:
 
 
 class _Job:
-    __slots__ = ("endpoint", "body", "future", "t0", "t_wall", "ctx")
+    __slots__ = ("endpoint", "body", "future", "t0", "t_wall", "ctx",
+                 "cls", "weight")
 
-    def __init__(self, endpoint: str, body: bytes, ctx=None):
+    def __init__(self, endpoint: str, body: bytes, ctx=None,
+                 cls: str = "default", weight: float = 1.0):
         self.endpoint = endpoint
         self.body = body
         self.future: Future = Future()
@@ -132,6 +145,117 @@ class _Job:
         # wall twin of t0, trace-only (spans anchor on wall clock)
         self.t_wall = time.time() if ctx is not None else 0.0
         self.ctx = ctx  # Optional[tracing.TraceContext]
+        self.cls = cls          # priority class
+        self.weight = weight    # the class's configured weight
+
+
+class _FairQueue:
+    """Weighted-fair multi-class FIFO: jobs queue per
+    priority class; :meth:`get` drains classes by smooth weighted
+    round-robin over the configured weights, so over any window each
+    backlogged class is served in proportion to its weight — a
+    high-rate bulk class cannot starve a latency class, and the bulk
+    class still receives its weight share. With a single class (no
+    priorities configured) this degenerates to exactly the old FIFO.
+    Worker-shutdown sentinels (``None``) ride a control lane served
+    before any job."""
+
+    def __init__(self, weights: Dict[str, float]):
+        self._cv = threading.Condition()
+        self._weights = {k: float(v) for k, v in weights.items()}
+        self._classes: Dict[str, deque] = {}
+        self._credit: Dict[str, float] = {}
+        self._control: deque = deque()
+        self._size = 0
+
+    def weight(self, cls: str) -> float:
+        return self._weights.get(cls, 1.0)
+
+    def put(self, job) -> None:
+        with self._cv:
+            if job is None:
+                self._control.append(None)
+            else:
+                self._classes.setdefault(job.cls, deque()).append(job)
+                self._size += 1
+            self._cv.notify()
+
+    def qsize(self) -> int:
+        return self._size  # racy read, same tolerance as Queue.qsize
+
+    def _pick_locked(self):
+        live = [c for c, q in self._classes.items() if q]
+        if not live:
+            return None
+        if len(live) == 1:
+            chosen = live[0]
+        else:
+            # smooth weighted round-robin: every nonempty class earns
+            # its weight in credit, the richest class is served and
+            # pays the round's total — proportions converge to the
+            # weights with bounded per-class latency
+            total = 0.0
+            chosen = None
+            best = None
+            for c in sorted(live):  # sorted: deterministic tie-break
+                w = self.weight(c)
+                self._credit[c] = self._credit.get(c, 0.0) + w
+                total += w
+                if best is None or self._credit[c] > best:
+                    best = self._credit[c]
+                    chosen = c
+            self._credit[chosen] -= total
+        job = self._classes[chosen].popleft()
+        self._size -= 1
+        return job
+
+    def get(self):
+        with self._cv:
+            while True:
+                if self._control:
+                    return self._control.popleft()
+                job = self._pick_locked()
+                if job is not None:
+                    return job
+                self._cv.wait()
+
+    def get_nowait(self):
+        with self._cv:
+            if self._control:
+                return self._control.popleft()
+            job = self._pick_locked()
+            if job is None:
+                raise Empty
+            return job
+
+    def shed_lowest(self, below_weight: float):
+        """Pop (to shed) the NEWEST job of the lowest-weight nonempty
+        class with weight strictly below ``below_weight`` — the
+        priority-aware shed order. ``None`` when every queued job is at
+        or above that priority."""
+        with self._cv:
+            best_c = None
+            best_w = None
+            for c, q in self._classes.items():
+                if not q:
+                    continue
+                w = self.weight(c)
+                if w >= below_weight:
+                    continue
+                if best_w is None or w < best_w:
+                    best_w, best_c = w, c
+            if best_c is None:
+                return None
+            job = self._classes[best_c].pop()  # newest arrival sheds first
+            self._size -= 1
+            return job
+
+    def max_queued_weight(self) -> Optional[float]:
+        """Highest weight among classes with queued work (the
+        priority-yield probe)."""
+        with self._cv:
+            ws = [self.weight(c) for c, q in self._classes.items() if q]
+        return max(ws) if ws else None
 
 
 class _InFlightDrop(Exception):
@@ -162,14 +286,14 @@ class Router:
         retry_in_flight: bool = False,
         max_inflight: Optional[int] = None,
         slos: Optional[Sequence] = None,
-        **later,
+        priorities: Optional[Dict[str, float]] = None,
+        endpoint_priorities: Optional[Dict[str, str]] = None,
+        priority_queue_max: Optional[int] = None,
+        hedge: Optional[bool] = None,
+        hedge_delay_ms: Optional[float] = None,
+        hedge_max_fraction: Optional[float] = None,
+        hedge_min_samples: Optional[int] = None,
     ):
-        unknown = sorted(set(later) - _LATER_KWARGS)
-        if unknown:
-            raise TypeError(f"Router() got unexpected keyword arguments {unknown}")
-        asked = sorted(k for k, v in later.items() if v is not None and v is not False)
-        if asked:
-            raise NotImplementedError(_LATER_TODO.format(", ".join(asked)))
         if hasattr(targets, "urls"):
             targets = targets.urls()
         self._targets: List[_Target] = [_Target(u) for u in targets]
@@ -200,7 +324,34 @@ class Router:
         )
         self._stats: Dict[str, EndpointStats] = {}
         self._stats_lock = threading.Lock()
-        self._queue: _queue_mod.Queue = _queue_mod.Queue()
+        # priority classes and weighted-fair admission
+        self._weights = (
+            dict(priorities) if priorities is not None
+            else _parse_weights(knobs.get("HEAT_TPU_SERVE_PRIORITY_WEIGHTS"))
+        )
+        self.endpoint_priorities = dict(endpoint_priorities or {})
+        self.priority_queue_max = int(
+            priority_queue_max if priority_queue_max is not None
+            else knobs.get("HEAT_TPU_SERVE_PRIORITY_QUEUE_MAX")
+        )
+        self._queue = _FairQueue(self._weights)
+        self._class_counts: Dict[str, Dict[str, int]] = {}
+        # hedged retries
+        self.hedge = bool(
+            hedge if hedge is not None else knobs.get("HEAT_TPU_HEDGE_ENABLE")
+        )
+        self.hedge_delay_ms = float(
+            hedge_delay_ms if hedge_delay_ms is not None
+            else knobs.get("HEAT_TPU_HEDGE_DELAY_MS")
+        )
+        self.hedge_max_fraction = float(
+            hedge_max_fraction if hedge_max_fraction is not None
+            else knobs.get("HEAT_TPU_HEDGE_MAX_FRACTION")
+        )
+        self.hedge_min_samples = int(
+            hedge_min_samples if hedge_min_samples is not None
+            else knobs.get("HEAT_TPU_HEDGE_MIN_SAMPLES")
+        )
         self._closed = False
         # declared SLOs (telemetry.cluster.SLO), scored by cluster_summary()
         self.slos = list(slos) if slos else []
@@ -208,7 +359,8 @@ class Router:
         self._slo_lock = threading.Lock()
         self.window_start = time.monotonic()
         self._counts = {"requests": 0, "retries": 0, "evictions": 0,
-                        "readds": 0, "failed": 0, "shed": 0}
+                        "readds": 0, "failed": 0, "shed": 0,
+                        "hedges": 0, "hedge_wins": 0, "priority_sheds": 0}
         self._counts_lock = threading.Lock()
         self._local = threading.local()  # per-worker connection cache
         self._poll_conns: Dict[str, http.client.HTTPConnection] = {}
@@ -233,17 +385,19 @@ class Router:
         self, name: str, payload, *, priority: Optional[str] = None,
     ) -> Future:
         """Enqueue one request; the future resolves to the result rows,
-        or to :class:`ServerOverloadedError` (every candidate shed),
+        or to :class:`ServerOverloadedError` (every candidate shed, or
+        the bounded router queue shed it by priority),
         :class:`ReplicaDownError` (no healthy replica / in-flight drop),
-        or the upstream error. A ``priority`` raises
-        ``NotImplementedError`` (module docstring)."""
-        if priority is not None:
-            raise NotImplementedError(_LATER_TODO.format("priority"))
+        or the upstream error. ``priority`` overrides the endpoint's
+        configured class for this one request."""
         if self._closed:
             raise ServerClosedError("router is closed")
         # trace ingress: the sampling verdict is made HERE,
         # once, and rides the wire — replicas adopt, never re-mint
         ctx = tracing.mint("router.submit")
+        cls = (
+            priority or self.endpoint_priorities.get(name) or "default"
+        )
         job = _Job(
             name,
             wire.encode_request(
@@ -251,18 +405,60 @@ class Router:
                 trace=ctx.to_wire() if ctx is not None else None,
             ),
             ctx,
+            cls=cls,
+            weight=self._queue.weight(cls),
         )
         self._ep_stats(name).record_request(
             int(np.asarray(payload).shape[0])
             if np.asarray(payload).ndim else 1
         )
+        self._class_count(cls, "submitted")
+        # bounded weighted-fair admission: past the queue bound, the
+        # NEWEST job of the lowest-weight queued class sheds first; an
+        # incoming job at (or below) the bottom queued priority sheds
+        # itself — shed order is priority-aware, never FIFO-blind
+        if (
+            self.priority_queue_max > 0
+            and self._queue.qsize() >= self.priority_queue_max
+        ):
+            victim = self._queue.shed_lowest(job.weight)
+            if victim is None:
+                self._shed_priority(job)
+                return job.future
+            self._shed_priority(victim)
         self._queue.put(job)
         return job.future
 
     def set_priority(self, endpoint: str, cls: str) -> None:
-        """Priority classes are not ported yet: raises
-        ``NotImplementedError`` (module docstring)."""
-        raise NotImplementedError(_LATER_TODO.format("set_priority"))
+        """Bind ``endpoint`` to priority class ``cls`` (per-request
+        ``submit(priority=...)`` still overrides)."""
+        self.endpoint_priorities[str(endpoint)] = str(cls)
+
+    def _class_count(self, cls: str, key: str, n: int = 1) -> None:
+        with self._counts_lock:
+            row = self._class_counts.setdefault(
+                cls, {"submitted": 0, "routed": 0, "shed": 0}
+            )
+            row[key] += n
+
+    def _shed_priority(self, job: _Job) -> None:
+        """Resolve one job as priority-shed (the bounded-queue path)."""
+        st = self._ep_stats(job.endpoint)
+        st.record_shed()
+        self._count("shed")
+        self._count("priority_sheds")
+        self._class_count(job.cls, "shed")
+        _emit("router", "priority_shed", endpoint=job.endpoint,
+              cls=job.cls)
+        try:
+            job.future.set_exception(ServerOverloadedError(
+                f"router queue is full ({self.priority_queue_max} "
+                f"pending); class {job.cls!r} (weight "
+                f"{job.weight:g}) shed by priority order",
+                reason="priority_shed", endpoint=job.endpoint,
+            ))
+        except Exception:
+            pass
 
     def predict(self, name: str, payload, timeout: Optional[float] = 30.0):
         """Synchronous convenience: ``submit(...).result(timeout)``."""
@@ -309,6 +505,9 @@ class Router:
         the router counters."""
         with self._counts_lock:
             counts = dict(self._counts)
+            class_counts = {
+                c: dict(row) for c, row in self._class_counts.items()
+            }
         with self._stats_lock:  # first-seen endpoints insert concurrently
             stats_items = list(self._stats.items())
         return {
@@ -332,6 +531,13 @@ class Router:
                 for t in list(self._targets)
             },
             "router": counts,
+            "priority": {
+                "weights": dict(self._weights),
+                "queue_max": self.priority_queue_max,
+                "classes": {
+                    c: dict(row) for c, row in class_counts.items()
+                },
+            },
             "closed": self._closed,
         }
 
@@ -547,6 +753,8 @@ class Router:
                 job = self._queue.get_nowait()
             except Empty:
                 break
+            if job is None:
+                continue
             try:
                 job.future.set_exception(
                     ServerClosedError("router closed with request pending")
@@ -626,6 +834,170 @@ class Router:
         with self._state:
             target.inflight -= 1
             self._state.notify()
+
+    def _try_acquire(self, exclude: set) -> Optional[_Target]:
+        """Non-blocking slot claim (the hedge arm): the least-loaded
+        eligible replica, or ``None`` — a hedge must never queue behind
+        the very congestion it is trying to route around."""
+        with self._state:
+            best, _busy = self._pick_locked(exclude)
+            if best is not None:
+                best.inflight += 1
+            return best
+
+    # -- hedged retries ------------------------------------------------------
+
+    def _hedge_delay_s(self, endpoint: str) -> Optional[float]:
+        """Seconds to wait before duplicating a straggler: the explicit
+        knob when set, else the endpoint's observed p95 once enough
+        samples exist (``None`` = don't hedge yet)."""
+        if self.hedge_delay_ms > 0:
+            return self.hedge_delay_ms / 1e3
+        snap = self._ep_stats(endpoint).snapshot().get("latency", {})
+        if snap.get("count", 0) < self.hedge_min_samples:
+            return None
+        return snap.get("p95_s")
+
+    def _hedge_budget_ok(self) -> bool:
+        """Hard cap: hedges stay at/below ``hedge_max_fraction`` of
+        completed requests (budget is earned by traffic — a cold router
+        never hedges its first 1/fraction requests)."""
+        with self._counts_lock:
+            return (
+                self._counts["hedges"] + 1
+                <= self.hedge_max_fraction
+                * max(1.0, float(self._counts["requests"]))
+            )
+
+    def _hedged_post(
+        self, primary: _Target, path: str, job: _Job, delay_s: float,
+        deadline: float,
+    ):
+        """POST to ``primary``; if no response lands within ``delay_s``,
+        duplicate to the least-loaded sibling and take the FIRST HTTP
+        response (any status — a fast 503 still wins and rides the
+        normal retry ladder). The loser is canceled by closing its
+        connection. Each arm runs on its own fresh connection (a shared
+        keep-alive conn cannot be closed from another thread safely).
+
+        Returns ``(status, body, winner_target)``. When every launched
+        arm fails, re-raises the PRIMARY arm's failure under the
+        dispatch taxonomy (ConnectionError-family / _InFlightDrop /
+        _ResponseTimeout) so eviction/retry semantics are unchanged."""
+        results: "_queue_mod.Queue" = _queue_mod.Queue()
+        conns: Dict[str, _NoDelayConnection] = {}
+
+        def _attempt(tag: str, tgt: _Target) -> None:
+            conn = _NoDelayConnection(
+                tgt.host, tgt.port, timeout=self.request_timeout
+            )
+            conns[tag] = conn
+            sent = False
+            try:
+                conn.request(
+                    "POST", path, body=job.body,
+                    headers={"Content-Type": "application/json"},
+                )
+                sent = True
+                resp = conn.getresponse()
+                results.put((tag, tgt, "ok", (resp.status, resp.read())))
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not sent:
+                    kind = "conn"
+                elif isinstance(e, TimeoutError):
+                    kind = "timeout"
+                else:
+                    kind = "drop"
+                results.put((tag, tgt, kind, e))
+            finally:
+                try:
+                    conn.close()
+                except Exception:
+                    pass
+
+        threading.Thread(
+            target=_attempt, args=("primary", primary), daemon=True,
+            name="heat_tpu_torch.serve.net.router-hedge-primary",
+        ).start()
+        launched = {"primary"}
+        hedge_target: Optional[_Target] = None
+        first = None
+        try:
+            wait = max(0.0, min(delay_s, deadline - time.perf_counter()))
+            try:
+                first = results.get(timeout=wait)
+            except Empty:
+                pass
+            if first is None and time.perf_counter() < deadline:
+                # primary is straggling: duplicate to a sibling if one
+                # has a free slot right now
+                hedge_target = self._try_acquire({primary.url})
+                if hedge_target is not None:
+                    launched.add("hedge")
+                    self._count("hedges")
+                    _emit("router", "hedge", endpoint=job.endpoint,
+                          primary=primary.url, sibling=hedge_target.url)
+                    threading.Thread(
+                        target=_attempt, args=("hedge", hedge_target),
+                        daemon=True,
+                        name="heat_tpu_torch.serve.net.router-hedge-secondary",
+                    ).start()
+            failures: Dict[str, tuple] = {}
+            received = 1 if first is not None else 0
+            winner = None
+            while winner is None and (
+                first is not None or received < len(launched)
+            ):
+                if first is not None:
+                    tag, tgt, kind, payload = first
+                    first = None
+                else:
+                    try:
+                        item = results.get(
+                            timeout=max(
+                                0.0, deadline - time.perf_counter()
+                            )
+                        )
+                    except Empty:
+                        break
+                    received += 1
+                    tag, tgt, kind, payload = item
+                if kind == "ok":
+                    winner = (tag, tgt, payload)
+                else:
+                    failures[tag] = (kind, payload)
+            if winner is not None:
+                tag, tgt, (status, data) = winner
+                # first-wins: cancel the loser by closing its socket
+                # (its thread errors out; the result is discarded)
+                for other in launched - {tag} - set(failures):
+                    oc = conns.get(other)
+                    if oc is not None:
+                        try:
+                            oc.close()
+                        except Exception:
+                            pass
+                if tag == "hedge":
+                    self._count("hedge_wins")
+                    _emit("router", "hedge_win", endpoint=job.endpoint,
+                          replica=tgt.url)
+                return status, data, tgt
+            # no arm produced a response: surface the primary's failure
+            # under the normal taxonomy (deadline with a silent primary
+            # is the slow-not-dead case)
+            kind, exc = failures.get("primary", (None, None))
+            if kind == "conn":
+                raise exc
+            if kind == "drop":
+                raise _InFlightDrop(repr(exc)) from exc
+            raise _ResponseTimeout(
+                f"no hedge arm answered within the deadline "
+                f"({self.request_timeout}s)"
+                if exc is None else repr(exc)
+            ) from exc
+        finally:
+            if hedge_target is not None:
+                self._release(hedge_target)
 
     def _evict(self, target: _Target, why: str) -> None:
         with self._state:
@@ -746,8 +1118,21 @@ class Router:
                 break
             tried.add(target.url)
             t_post_wall = time.time() if job.ctx is not None else 0.0
+            via = target
             try:
-                status, data = self._post(target, path, job.body)
+                hedge_delay = None
+                if (
+                    self.hedge
+                    and len(tried) == 1
+                    and self._hedge_budget_ok()
+                ):
+                    hedge_delay = self._hedge_delay_s(job.endpoint)
+                if hedge_delay is not None:
+                    status, data, via = self._hedged_post(
+                        target, path, job, hedge_delay, deadline
+                    )
+                else:
+                    status, data = self._post(target, path, job.body)
             except _ResponseTimeout as e:
                 # the replica is healthy but did not answer in time —
                 # 504-analog: no eviction (one slow request must not
@@ -806,7 +1191,8 @@ class Router:
                 dt = time.perf_counter() - job.t0
                 st.record_done(dt)
                 self._count("requests")
-                _emit("router", "route", replica=target.url,
+                self._class_count(job.cls, "routed")
+                _emit("router", "route", replica=via.url,
                       endpoint=job.endpoint, seconds=dt)
                 if job.ctx is not None:
                     # router.post: the winning HTTP round trip (retries
@@ -814,7 +1200,7 @@ class Router:
                     tracing.hop(
                         "router.post", (job.ctx,), t_post_wall,
                         max(0.0, time.time() - t_post_wall),
-                        endpoint=job.endpoint, replica=target.url,
+                        endpoint=job.endpoint, replica=via.url,
                     )
                 job.future.set_result(result)
                 return
@@ -827,8 +1213,15 @@ class Router:
                     # the replica is leaving: no new request goes to it
                     # while it exits (the health poll re-adds it if its
                     # /healthz answers 200 again)
-                    self._evict(target, reason)
-                _emit("router", "retry", replica=target.url,
+                    self._evict(via, reason)
+                # priority-aware ladder: a shed request whose class sits
+                # below queued higher-priority work yields its sibling
+                # retries (bulk degrades first)
+                top = self._queue.max_queued_weight()
+                if top is not None and top > job.weight:
+                    shed_reasons.append("priority_yield")
+                    break
+                _emit("router", "retry", replica=via.url,
                       endpoint=job.endpoint, reason=reason or "shed")
                 self._count("retries")
                 continue
@@ -847,10 +1240,11 @@ class Router:
                 )
             job.future.set_exception(exc)
             return
-        # retry ladder exhausted
+        # retry ladder exhausted (or yielded by priority)
         if shed_reasons:
             st.record_shed()
             self._count("shed")
+            self._class_count(job.cls, "shed")
             _emit("router", "shed", endpoint=job.endpoint,
                   reasons=shed_reasons[:4])
             job.future.set_exception(ServerOverloadedError(
@@ -962,6 +1356,31 @@ def _dropped(sock) -> bool:
     except (OSError, ValueError):
         return True
     return bool(ready)
+
+
+def _parse_weights(spec: Optional[str]) -> Dict[str, float]:
+    """Parse ``HEAT_TPU_SERVE_PRIORITY_WEIGHTS`` — ``"latency=8,bulk=1"``
+    → ``{"latency": 8.0, "bulk": 1.0}``. Empty/unset = single implicit
+    class (first in, first out)."""
+    out: Dict[str, float] = {}
+    for part in (spec or "").replace(";", ",").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"priority weight {part!r} must be 'class=weight' "
+                "(HEAT_TPU_SERVE_PRIORITY_WEIGHTS)"
+            )
+        k, v = part.split("=", 1)
+        w = float(v)
+        if w <= 0:
+            raise ValueError(
+                f"priority class {k.strip()!r} needs a positive weight, "
+                f"got {w}"
+            )
+        out[k.strip()] = w
+    return out
 
 
 def _safe_decode(data: bytes) -> Tuple[bool, str, str]:

@@ -16,9 +16,10 @@ Wide unsigned values reduce on their signed bits (sums) or order keys
 ``transpose`` sends every element to the rank that owns its destination
 row through ``alltoallv`` (in ``ceil(cap / slab)`` stages of the capacity
 axis) and orders each row by packed ``column·R + row`` keys, as the JAX
-package does. Without a ``slab`` it runs one stage: the JAX package plans
-stages from ``HEAT_TPU_HBM_BUDGET``, which comes with the memory guard
-(ROADMAP §1 item 13b).
+package does. Without a ``slab`` the stages are planned from
+``HEAT_TPU_HBM_BUDGET`` (``relayout_planner.sparse_slab``: one stage
+without a budget, else as many slots a stage as the temporary budget
+holds).
 
 ``csr_from_dense`` compacts each rank's rows on its device (``torch.nonzero``
 of the thresholded chunk) and gathers only the element counts;
@@ -330,7 +331,8 @@ def _exchange(comm: TorchCommunication, dest: torch.Tensor, *payloads: torch.Ten
 def transpose(A: SparseDNDarray, *, audit: bool = False, slab: Optional[int] = None) -> SparseDNDarray:
     """``A.T``: each element goes to the rank that owns its destination row,
     in ``ceil(cap / slab)`` stages of ``slab`` slots (one ``alltoallv`` of
-    packed keys and one of values a stage; without ``slab`` one stage). The
+    packed keys and one of values a stage; without ``slab`` the stages the
+    memory budget allows, one without a budget). The
     result's counts, capacity and order within a row (by column, then
     source row) are the JAX package's, and a staged transpose is bit for
     bit the one-stage one. A ``sparse.transpose`` span; ``audit=True``
@@ -341,9 +343,13 @@ def transpose(A: SparseDNDarray, *, audit: bool = False, slab: Optional[int] = N
     comm = A.comm
     m, n = A.shape
     cap = A.capacity
-    slab = cap if slab is None else max(1, min(int(slab), cap))
-    n_stages = max(1, math.ceil(cap / slab))
     item = A.dtype.byte_size()
+    if slab is None:
+        from ..core import relayout_planner
+
+        slab = relayout_planner.sparse_slab(cap, item, comm.size)
+    slab = max(1, min(int(slab), cap))
+    n_stages = max(1, math.ceil(cap / slab))
     cost, fields, do_audit = telemetry.op_cost(
         telemetry.collectives.sparse_transpose_cost, slab, item, comm.size, n_stages,
         audit=audit)

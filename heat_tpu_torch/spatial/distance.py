@@ -37,7 +37,8 @@ import torch
 
 from .. import telemetry
 from ..core import types
-from ..core.communication import ring_overlap, ring_steps
+from ..core.communication import ring_steps
+from ..core.relayout_planner import ring_overlap
 from ..core.dndarray import DNDarray
 
 __all__ = ["cdist", "manhattan", "rbf"]

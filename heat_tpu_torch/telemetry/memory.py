@@ -32,7 +32,9 @@ __all__ = ["live_bytes", "device_memory_stats", "watermark"]
 def live_bytes() -> dict:
     """``{"total": bytes, "per_device": {device: bytes}, "arrays": count}``
     over the live DNDarrays of this process (module docstring). Views of
-    one storage count once, by ``(device, storage data pointer)``."""
+    one storage count once, by ``(device, storage data pointer)``; an array
+    whose fused chain is still pending counts, with no bytes, and is not
+    computed."""
     from ..core.dndarray import DNDarray
 
     per_device: Dict[str, int] = defaultdict(int)
@@ -42,7 +44,10 @@ def live_bytes() -> dict:
         if not issubclass(type(obj), DNDarray):  # type(): no proxy's __class__ is read
             continue
         count += 1
-        t = obj.larray
+        node = obj._fused_node()
+        if node is not None and node.buffer is None:
+            continue  # a pending chain holds no buffer of its own yet
+        t = obj.larray if node is None else node.buffer
         try:
             storage = t.untyped_storage()
             key = (str(t.device), storage.data_ptr())

@@ -18,10 +18,12 @@ events (``audit=True`` / ``HEAT_TPU_HLO_AUDIT=1``), the summary also gains
 an ``hlo_collectives`` section of the counts and wire bytes of the
 collectives the port really issued, next to the analytic ``phases``.
 
-The live ``fusion`` block has no counterpart: the port has no deferred
-fusion engine yet. The ``autotune`` and ``autoscale`` names of an offline
-replay are the JAX package's (``_AUTOTUNE_COUNTER``, ``_AUTOSCALE_COUNTER``
-below), kept here until those modules are ported.
+A live summary gains the ``fusion`` block (``core.fusion.stats()``: the
+deferred ops, flushes, nodes per flush, fallbacks, absorbed reductions and
+grafted epilogues) once any op ran deferred. The ``autotune`` names of an
+offline replay are the JAX package's (``_AUTOTUNE_COUNTER`` below), kept
+here until that module is ported; the ``autoscale`` names are the
+controller's ``EVENT_COUNTER``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from typing import Iterable, List, Optional
 
 __all__ = ["load_events", "summarize", "summarize_cluster", "bench_fields"]
 
-# event -> counter names of the two subsystems the port has not ported yet
-# (heat_tpu/autotune/__init__.py:93, heat_tpu/serve/net/controller.py:65)
+# event -> counter names of the autotuner, which the port has not ported yet
+# (heat_tpu/autotune/__init__.py:93)
 _AUTOTUNE_COUNTER = {
     "trial": "trials",
     "db_hit": "db_hits",
@@ -44,11 +46,6 @@ _AUTOTUNE_COUNTER = {
     "reject_digest": "rejected_digest",
     "reject_error": "rejected_error",
     "warm_start": "warm_starts",
-}
-_AUTOSCALE_COUNTER = {
-    "scale_up": "scale_ups",
-    "scale_down": "scale_downs",
-    "replace": "replacements",
 }
 
 
@@ -406,6 +403,14 @@ def summarize(
         pc = _pc.stats()
         if pc["hits"] or pc["misses"]:
             out["program_cache"] = pc
+        # the fusion counters (core/fusion.py); absent when no op ran
+        # deferred, so fusion-off summaries keep their shape
+        from ..core import fusion as _fz
+
+        fz = _fz.stats()
+        if (fz["deferred"] or fz["flushes"] or fz["fallbacks"] or fz["reductions_absorbed"]
+                or fz["epilogues_grafted"]):
+            out["fusion"] = fz
     elif pc_retraces or pc_evictions:
         out["program_cache"] = {
             "retraces": pc_retraces,
@@ -503,7 +508,8 @@ def summarize(
         if asc:
             out["autoscale"] = asc
     elif as_events:
-        _as_names = _AUTOSCALE_COUNTER
+        from ..serve.net.controller import EVENT_COUNTER as _as_names
+
         out["autoscale"] = {
             _as_names.get(k, k): v for k, v in as_events.items()
         }

@@ -1978,3 +1978,30 @@ def test_data_partial_memmap_dataset_on_card(dev, tmp_path):
     for (b,), w in zip(got, want):
         assert b.larray.device == dev and np.array_equal(b.numpy(), w)
     assert card.stats["rows"] == 5000 and card.stats["read_seconds"] > 0
+
+
+def test_fusion_flush_inside_a_capture_is_recorded_into_it(dev):
+    """A pending chain read inside another program's CUDA graph capture runs
+    inline into that capture (no capture of its own), and the graph's replay
+    gives the eager bits."""
+    from heat_tpu_torch.core import fusion
+
+    htt.use_device("gpu")
+    try:
+        xn = np.arange(12.0, dtype=np.float32).reshape(3, 4)
+        x = htt.array(xn)
+        with fusion.fusing(False):
+            want = (htt.exp(x) * 2.0 + 1.0).larray.clone()
+        out = {}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            pending = htt.exp(x) * 2.0 + 1.0
+            assert pending._fused_node() is not None
+            out["r"] = pending.larray
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out["r"], want)
+    finally:
+        htt.use_device("cpu")

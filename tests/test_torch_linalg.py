@@ -425,7 +425,10 @@ def test_matmul_leaves_the_callers_flags(dtype, caller, monkeypatch):
             return real(x, y)
 
         monkeypatch.setattr(torch, "matmul", spy)
-        assert (a @ a.T).dtype.__name__ == dtype
+        res = a @ a.T
+        assert res.dtype.__name__ == dtype
+        res.larray  # a deferred product (fusion) runs at the read
+        assert seen
         reduced = {"bfloat16": 1, "float16": 2}.get(dtype)
         for flags in seen:
             assert flags[0] == caller  # f32: the caller's TF32 flag, read and never set
@@ -438,7 +441,7 @@ def test_matmul_leaves_the_callers_flags(dtype, caller, monkeypatch):
 
         monkeypatch.setattr(torch, "matmul", boom)
         with pytest.raises(RuntimeError, match="product failed"):
-            a @ a.T
+            (a @ a.T).larray
         assert _flags() == (caller, caller, caller)
     finally:
         m.allow_tf32, m.allow_bf16_reduced_precision_reduction, \
@@ -457,7 +460,7 @@ def test_matmul_does_not_copy_an_operand_of_the_result_type():
 
     torch.matmul, saved = spy, torch.matmul
     try:
-        a @ b
+        (a @ b).larray  # the product runs at the read when it is deferred (fusion)
     finally:
         torch.matmul = saved
     assert seen == [(a.larray.data_ptr(), b.larray.data_ptr())]

@@ -520,24 +520,32 @@ def test_fleet_views_raise_naming_the_roadmap_item(tmp_path):
                                 {"endpoint_priorities": {"e": "bulk"}},
                                 {"priority_queue_max": 4}])
 def test_priorities_and_hedging_raise_naming_the_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Router(["127.0.0.1:1"], **kw)
+    """The priority and hedge keywords are taken as the JAX router takes
+    them (they raised until the priority classes and hedged retries were
+    ported); an unknown keyword still raises."""
+    router = Router(["127.0.0.1:1"], poll_ms=1000.0, **kw)
+    try:
+        (name, value), = kw.items()
+        assert getattr(router, name if name != "priorities" else "_weights") == value
+    finally:
+        router.close()
     with pytest.raises(TypeError, match="hedges"):
         Router(["127.0.0.1:1"], hedges=True)
 
 
 def test_router_priority_calls_raise_and_close_fails_queued_requests():
+    """``submit(priority=)`` and ``set_priority`` take effect (they raised
+    until ported), and ``close`` fails the queued requests."""
     slow = _FakeReplica(lambda: (time.sleep(0.5), _ok_body())[1])
     router = _router([slow.url], hedge=False)
     try:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            router.submit("e", X, priority="latency")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            router.set_priority("e", "bulk")
-        first = router.submit("e", X)
+        router.set_priority("e", "bulk")
+        assert router.endpoint_priorities == {"e": "bulk"}
+        first = router.submit("e", X, priority="latency")
         _wait_until(lambda: slow.posts == 1, what="the first post")
         queued = router.submit("e", X)  # the one worker is busy
-        assert "priority" not in router.stats()
+        classes = router.stats()["priority"]["classes"]
+        assert classes["latency"]["submitted"] == 1 and classes["bulk"]["submitted"] == 1
     finally:
         router.close()
         slow.stop()
