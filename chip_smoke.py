@@ -147,6 +147,20 @@ Phases, each printing JSON lines:
      tiered all-reduce of 4,194,304 f32 under every wire, each audited
      against the cost model and held against a world of one, else a line
      saying why it did not run;
+ 14. the autotuner and the program registry (after the data path): cdist
+     at bench.py:209's 16,384 x 128 tuned over HEAT_TPU_CDIST_PREC under a
+     1e-3 budget (the K3 variant of each candidate from the profiler, the
+     pick no slower than the default, the record stored, a fresh process
+     with HEAT_TPU_AUTOTUNE=1 adopting it with zero trials and launching
+     the picked variant), the LM at full width under nn.FSDP tuned over
+     HEAT_TPU_FSDP_PREFETCH (every depth's loss and parameters bit for bit,
+     K6/K7a/K7b launches a trial), resplit of 1,000,000 x 256 over
+     HEAT_TPU_RELAYOUT_PLAN (on four cards too, in the collective audit);
+     a fault injected at relayout raising from resplit, one at cg_chunk
+     stopping a checkpointed cg on 4096^2 and the resume bit for bit, the
+     registry's sites with their hits and misses and a second pass that
+     builds nothing, Lasso's epoch through streaming.lasso beside the
+     private graph's figures; every line names the card and its power limit;
  13. data and observability: the array path (3) again under
      telemetry.enable(sink), a span a stage: the Chrome trace exported and
      checked, report.summarize's phases live and replayed from the sink,
@@ -240,14 +254,14 @@ def materialize(obj):
     return obj
 
 
-def profiled_kernels(run, calls, tries=3):
+def profiled_kernels(run, calls, tries=3, want=None):
     """The CUDA events of ``key_averages()`` over one profiler window that
     runs ``run()`` (``calls`` calls of one function), spin kernel excluded.
     The profiler can drop a kernel's record, at a window's first launch or
     inside it; since every call launches the same kernels, a window where a
-    kernel's count is not a multiple of ``calls``, or nothing was
-    recorded, is profiled again, up to ``tries`` windows (the last is
-    returned as it is)."""
+    kernel's count is not a multiple of ``calls``, nothing was recorded, or
+    no kernel's name holds ``want`` (when given), is profiled again, up to
+    ``tries`` windows (the last is returned as it is)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,7 +275,8 @@ def profiled_kernels(run, calls, tries=3):
         evs = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA and "spin" not in ev.key]
         launched = [ev for ev in evs if not ev.key.startswith(("Memset", "Memcpy"))]
-        if launched and all(ev.count % calls == 0 for ev in launched):
+        if launched and all(ev.count % calls == 0 for ev in launched) and (
+                want is None or any(want in ev.key for ev in launched)):
             break
     return evs
 
@@ -975,6 +990,11 @@ WIDE_TYPES = ("uint16", "uint32", "uint64")
 # bench.py's lasso row (:341-356) and spectral row (:439-459), and the
 # solver phase's s.p.d. system
 LASSO = (2_000_000, 64, 200, 0.01)
+# one lasso epoch of the private CUDA graph the epoch was before the registry
+# took it (device ms, kernels; H100 SXM, PR 11), and the penalties of the
+# regularisation path that reuses the registry's program
+LASSO_PRIVATE_GRAPH = {"epoch_ms": 3.21, "kernels": 970}
+LASSO_PATH_LAMS = (0.1, 0.03, 0.001)
 SPECTRAL = (8192, 32, 8, 64, 0.05)
 CG_N = 4096
 
@@ -1075,15 +1095,23 @@ def lasso_path(ht, dev, smi):
     """bench.py's lasso row through the user entry points: x = randn(2,000,000,
     64, split=0), y = x @ randn(64, 1) from ht.random, Lasso(lam=0.01,
     max_iter=200, tol=0): one warm-up fit and three timed, the device time
-    and busy share of one fit under the profiler, the launches of one
-    graph-replayed epoch, the replayed epoch against the eager one on the
-    same state, and coef_/intercept_ against the same descent in float64.
+    and busy share of one fit under the profiler, the launches and the
+    device time of one epoch through its registry program (site
+    streaming.lasso, the graph the fit captured: a hit) against the eager
+    epoch on the same state and beside the private graph's figures before
+    the registry took the epoch (LASSO_PRIVATE_GRAPH), a regularisation path
+    of three more penalties that shares the one program and parameter set
+    in constant memory, and coef_/intercept_ against the same descent in
+    float64.
     No kernel of csrc/ lies on this path but the random draw of its inputs.
     Returns the launch counts over the path."""
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from heat_tpu_torch.regression.lasso import _design, _Sweep
+    from heat_tpu_torch.core import program_cache
+    from heat_tpu_torch.regression.lasso import _curvature, _design, _epoch, _epoch_program
 
     rows, cols, sweeps, lam = LASSO
     ht.reset_launch_counts()
@@ -1107,29 +1135,27 @@ def lasso_path(ht, dev, smi):
     device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
                     if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
-    # one epoch replayed from its graph against the same epoch run eagerly
+    # one epoch through its registry program (site streaming.lasso: a CUDA
+    # graph captured at the fit's first epoch) against the same epoch eagerly
     xt, yb, _ = _design(x, y, torch.float32)
+    z = _curvature(xt, rows, None)
     start = est.theta.larray.clone()
-    eager = _Sweep(xt, yb, start.clone(), rows, lam, None)
-    eager()
-    graphed = _Sweep(xt, yb, start.clone(), rows, lam, None)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        graphed.theta.copy_(start)
-        graphed()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        graphed()
-    graphed.theta.copy_(start)
-    graph.replay()
+    lam_t = torch.tensor(lam, device=dev)
+    n_t = torch.tensor(float(rows), device=dev)
+    eager, _ = _epoch(start.clone(), lam_t, n_t, xt, yb, z, comm=None)
+    before = program_cache.site_stats("streaming.lasso")
+    prog = _epoch_program(xt, None)
+    graphed, _ = prog(start.clone(), lam_t, n_t, xt, yb, z)
     torch.cuda.synchronize()
-    replay_err = float((graphed.theta - eager.theta).abs().max())
-    check("lasso graph-replayed epoch equals the eager epoch", replay_err == 0.0,
+    after = program_cache.site_stats("streaming.lasso")
+    check("lasso's epoch is the registry program the fit captured (a hit, no build)",
+          after["hits"] == before["hits"] + 1 and after["misses"] == before["misses"],
+          before=before, after=after)
+    replay_err = float((graphed - eager).abs().max())
+    check("lasso registry epoch equals the eager epoch", replay_err == 0.0,
           max_abs_diff=replay_err)
     with profile(activities=[ProfilerActivity.CUDA]) as prof_epoch:
-        graph.replay()
+        prog(start, lam_t, n_t, xt, yb, z)
         torch.cuda.synchronize()
     kernels_per_epoch = sum(ev.count for ev in prof_epoch.key_averages()
                             if ev.device_type == torch.autograd.DeviceType.CUDA)
@@ -1137,11 +1163,31 @@ def lasso_path(ht, dev, smi):
         enable_timing=True)
     epoch_start.record()
     for _ in range(10):
-        graph.replay()
+        prog(start, lam_t, n_t, xt, yb, z)
     epoch_end.record()
     epoch_end.synchronize()
     epoch_ms = epoch_start.elapsed_time(epoch_end) / 10
-    del graph, eager, graphed
+    del eager, graphed, prog, xt, yb, z
+
+    # a regularisation path: more penalties on the same design hit the one
+    # program, whose one parameter set holds the one static copy of x
+    gc.collect()
+    torch.cuda.synchronize()
+    path_allocated = [torch.cuda.memory_allocated(dev)]
+    before = program_cache.site_stats("streaming.lasso")
+    for path_lam in LASSO_PATH_LAMS:
+        ht.regression.Lasso(lam=path_lam, max_iter=2, tol=0.0).fit(x, y)
+        gc.collect()
+        torch.cuda.synchronize()
+        path_allocated.append(torch.cuda.memory_allocated(dev))
+    after = program_cache.site_stats("streaming.lasso")
+    param_sets = [k for k in program_cache._SHARED.keys() if k[0] == "streaming.lasso"]
+    check("lasso: a path over three penalties hits the one program and parameter set in "
+          "constant memory",
+          after["misses"] == before["misses"]
+          and after["hits"] == before["hits"] + len(LASSO_PATH_LAMS)
+          and len(param_sets) == 1 and len(set(path_allocated)) == 1,
+          allocated=path_allocated, param_sets=len(param_sets), before=before, after=after)
 
     theta64 = _lasso_f64(x.larray, y.larray[:, 0], lam, sweeps)
     got = est.theta.larray.double()
@@ -1160,13 +1206,17 @@ def lasso_path(ht, dev, smi):
     emit({"phase": "lasso path", "card": smi, "shape": [rows, cols], "sweeps": sweeps,
           "lam": lam, "warmup_fit_ms": warm_ms, "fit_wall_ms": walls,
           "profiled_fit_wall_ms": prof_wall, "profiled_fit_device_ms": device_ms,
-          "device_busy_share": device_ms / prof_wall, "graphed_epoch_ms": epoch_ms,
-          "launches_per_epoch": kernels_per_epoch, "graph_vs_eager_max_abs_diff": replay_err,
+          "device_busy_share": device_ms / prof_wall, "registry_epoch_ms": epoch_ms,
+          "registry_launches_per_epoch": kernels_per_epoch,
+          "registry_vs_eager_max_abs_diff": replay_err,
+          "private_graph_epoch_ms": LASSO_PRIVATE_GRAPH["epoch_ms"],
+          "private_graph_launches_per_epoch": LASSO_PRIVATE_GRAPH["kernels"],
+          "path_lams": list(LASSO_PATH_LAMS), "path_allocated_bytes": path_allocated,
           "coef_max_abs_err_vs_float64": err, "tolerance": tol,
           "bytes_bound_gb": must / 1e9, "bytes_bound_ms": bound_ms,
           "bytes_as_written_gb": code / 1e9, "bytes_as_written_ms": code / HBM_BYTES_PER_S * 1e3,
           "launches": launches})
-    del x, y, xt, yb, est
+    del x, y, est
     return launches
 
 
@@ -2543,6 +2593,418 @@ def cg_resume_phase(ht, dev, window=CG_WINDOW):
     emit({"phase": "cg resume", "n": CG_N, "window": window, "bit_identical": same,
           "resumed_solve_wall_ms": resume_ms})
     check("cg: killed after two windows and resumed, bit for bit the uninterrupted solve", same)
+
+
+# the autotune and registry phase: bench.py:209's cdist (rows, features), the
+# error budget of its tune, the trials a candidate, the resplit's shape, and
+# the cg system's order and window
+TUNE_CDIST = (16384, 128)
+TUNE_CDIST_BUDGET = 1e-3
+# a process set to the exact variant (cdist_kernel's f32 FMAs, ~2.5 ms at
+# this shape on an H100 SXM) tuned under a budget that admits the faster
+# variants (their errors against it 0.003-0.046 here): a value other than
+# the process's setting wins by a margin wider than the walls' spread
+TUNE_CDIST_FROM = "highest"
+TUNE_CDIST_LOOSE = 0.1
+TUNE_TRIALS = 3
+TUNE_RESPLIT = (1_000_000, 256)
+REGISTRY_CG = (4096, 16)
+# the K3 variant each HEAT_TPU_CDIST_PREC value launches (kernel, variant)
+CDIST_VARIANTS = {"bf16x3": ("cdist_tc", "3xtf32_wgmma"), "high": ("cdist_tc", "3xtf32_wgmma"),
+                  "default": ("cdist_tc", "tf32_wgmma"), "highest": ("cdist_kernel", "f32_fma")}
+
+# a fresh process pointed at the tuning database: it adopts the pick with no
+# trial, and its cdist launches the picked variant (the variant of a call
+# before the tune is what the process runs untuned: the warm start at a
+# registry miss adopts no lossy record without an ambient budget)
+_WARM_START_CHILD = r"""
+import json, sys
+import torch
+import heat_tpu_torch as ht
+from heat_tpu_torch import _knobs, autotune, telemetry
+from heat_tpu_torch.spatial.cuda_cdist import last_variant
+from torch.profiler import ProfilerActivity, profile
+rows, cols, budget, trials = (int(sys.argv[1]), int(sys.argv[2]), float(sys.argv[3]),
+                              int(sys.argv[4]))
+telemetry.enable()
+ht.random.seed(0)
+x = ht.random.rand(rows, cols, dtype=ht.float32, split=0)
+ht.spatial.cdist(x, x, quadratic_expansion=True).larray
+before = last_variant()
+res = autotune.tune("cdist", lambda: ht.spatial.cdist(x, x, quadratic_expansion=True).larray,
+                    signature=("cdist", (rows, cols), "float32"), search=["HEAT_TPU_CDIST_PREC"],
+                    error_budget=budget, trials_per_config=trials)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    ht.spatial.cdist(x, x, quadratic_expansion=True).larray
+    torch.cuda.synchronize()
+names = sorted({ev.key for ev in prof.key_averages() if "cdist" in ev.key})
+print("WARM " + json.dumps({
+    "from_db": res.from_db, "trials_run": res.trials_run, "config": res.config,
+    "adopted": autotune.adopted(), "knob": _knobs.raw("HEAT_TPU_CDIST_PREC"),
+    "trials_counter": int(telemetry.get_registry().counters.get("autotune.trials", 0)),
+    "variant": last_variant(), "before_variant": before, "kernels": names}), flush=True)
+"""
+
+
+def _warm_start_child(tune_db, rows, cols, budget, **knob_env):
+    """Run _WARM_START_CHILD in a fresh process with HEAT_TPU_AUTOTUNE=1, the
+    tuning database ``tune_db`` and the knobs ``knob_env``: what it reports,
+    or its output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, HEAT_TPU_AUTOTUNE="1", HEAT_TPU_TUNE_DB=tune_db,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""), **knob_env)
+    env.pop("HEAT_TPU_AUTOTUNE_BUDGET", None)
+    child = subprocess.run(
+        [sys.executable, "-c", _WARM_START_CHILD, str(rows), str(cols), str(budget),
+         str(TUNE_TRIALS)], cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in child.stdout.splitlines() if ln.startswith("WARM ")]
+    if child.returncode != 0 or not lines:
+        return {"returncode": child.returncode, "stdout": child.stdout[-2000:],
+                "stderr": child.stderr[-2000:]}
+    return json.loads(lines[-1][5:])
+
+
+def _warm_adopted(warm, config, site):
+    """Whether the warm-started process took ``config`` from the database
+    with no trial, installed it in the knob overlay, and launched its
+    cdist variant."""
+    value = config["HEAT_TPU_CDIST_PREC"]
+    kernel, variant = CDIST_VARIANTS[value]
+    return (warm.get("from_db") is True and warm.get("trials_run") == 0
+            and warm.get("trials_counter") == 0 and warm.get("config") == config
+            and warm.get("knob") == value and warm.get("adopted", {}).get(site) == config
+            and warm.get("variant") == variant
+            and any(kernel in k for k in warm.get("kernels", [])))
+
+
+def autotune_registry_phase(ht, dev, smi, cfg):
+    """The autotuner and the program registry on the card (the card's name and
+    power limit on every line):
+
+    (a) bench.py:209's cdist (16,384 x 128 f32) tuned over
+        HEAT_TPU_CDIST_PREC under an error budget of 1e-3, 3 trials a
+        candidate: each candidate's trials launched the K3 variant it names
+        (the wrapper's record during the trials, and the profiler on one call
+        a candidate: cdist_tc for bf16x3 and high, its single TF32 pass for
+        default, cdist_kernel for highest), the pick no slower than the
+        default, a lossy pick within the budget, the record stored; then a
+        fresh process with HEAT_TPU_AUTOTUNE=1 and the same HEAT_TPU_TUNE_DB
+        adopts the pick with no trial (into the knob overlay) and its cdist
+        launches the picked variant; the same from a process set to
+        highest (cdist_kernel) under a budget of 0.1, which admits the
+        faster variants: a value other than the process's setting wins, and
+        a fresh process with that setting launches the picked variant, not
+        the cdist_kernel it runs untuned;
+    (b) bench.py's lm_step LM at full width under nn.FSDP
+        (HEAT_TPU_FSDP=1), one AdamW step from the same start a call, tuned
+        over HEAT_TPU_FSDP_PREFETCH with fsdp_cost_fn: the knob is neutral,
+        so every candidate's loss and parameters digest the same; K6, K7a
+        and K7b launches in each trial;
+    (c) resplit of 1,000,000 x 256 f32 tuned over HEAT_TPU_RELAYOUT_PLAN with
+        relayout_cost_fn on this card (the four-card tune runs in
+        collective_audit_phase);
+    (d) the registry: an injected fault at relayout raises from resplit; one
+        at the second cg_chunk window stops a checkpointed cg on 4096^2, and
+        the resumed solve equals the uninterrupted one bit for bit; every
+        site the run reached with its hits and misses, and a second pass over
+        a set of sites builds nothing (Lasso's epoch through streaming.lasso
+        is measured in lasso_path)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from heat_tpu_torch import _knobs, autotune, resilience, telemetry
+    from heat_tpu_torch.autotune import cost, db, space, trials
+    from heat_tpu_torch.core import program_cache
+    from heat_tpu_torch.spatial.cuda_cdist import last_variant
+
+    def check(name, ok, **fields):  # every line of the phase names the card
+        globals()["check"](name, ok, card=smi, **fields)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    tune_db = os.path.join(tmp, "db")
+    autotune.reset()
+    try:
+        # (a) cdist over HEAT_TPU_CDIST_PREC
+        rows, cols = TUNE_CDIST
+        ht.random.seed(0)
+        x = ht.random.rand(rows, cols, dtype=ht.float32, split=0)
+        seen = {}
+
+        def cdist_work():
+            out = ht.spatial.cdist(x, x, quadratic_expansion=True).larray
+            seen.setdefault(_knobs.default_raw("HEAT_TPU_CDIST_PREC"), set()).add(last_variant())
+            return out
+
+        ht.reset_launch_counts()
+        was_on = telemetry.enabled()
+        reg = telemetry.enable()  # the tuner's events: each trial's seconds, each rejection
+        first_event = len(reg.events)
+        try:
+            res = autotune.tune("cdist", cdist_work, signature=("cdist", TUNE_CDIST, "float32"),
+                                search=["HEAT_TPU_CDIST_PREC"], error_budget=TUNE_CDIST_BUDGET,
+                                trials_per_config=TUNE_TRIALS, db_dir=tune_db, adopt=False)
+            events = [ev for ev in list(reg.events)[first_event:] if ev.get("kind") == "autotune"]
+        finally:
+            if not was_on:
+                telemetry.disable()
+        launches = {"cdist": ht.launch_counts()["cdist"]}
+        lattice = space.candidates(["HEAT_TPU_CDIST_PREC"], error_budget=TUNE_CDIST_BUDGET)
+        candidates = {}
+        for i, cfg_ in enumerate(lattice):
+            samples = [ev["seconds"] for ev in events
+                       if ev.get("event") == "trial" and ev.get("config_index") == i]
+            rejected = [ev for ev in events if ev.get("config_index") == i
+                        and str(ev.get("event", "")).startswith("reject")]
+            candidates[cfg_["HEAT_TPU_CDIST_PREC"]] = {
+                "median_s": trials.robust_median(samples) if samples else None,
+                "rejected": rejected[0]["event"] if rejected else None,
+                "max_rel_err": rejected[0].get("max_rel_err") if rejected else None}
+        rec = res.record
+        profiled = {}
+        for value in CDIST_VARIANTS:
+            with _knobs.overlay({"HEAT_TPU_CDIST_PREC": value}):
+                evs = profiled_kernels(cdist_work, 1, tries=5, want="cdist")
+            profiled[value] = {"kernels": sorted({ev.key for ev in evs if "cdist" in ev.key}),
+                               "variant": last_variant()}
+        launched_as_named = all(
+            seen.get(v, {want_variant}) == {want_variant}
+            and any(want_kernel in k for k in profiled[v]["kernels"])
+            and not any(("cdist_kernel" if want_kernel == "cdist_tc" else "cdist_tc") in k
+                        for k in profiled[v]["kernels"])
+            and profiled[v]["variant"] == want_variant
+            for v, (want_kernel, want_variant) in CDIST_VARIANTS.items())
+        stored = db.TuneDB(tune_db).lookup(res.key)
+        emit({"phase": "autotune cdist", "card": smi, "shape": list(TUNE_CDIST),
+              "budget": TUNE_CDIST_BUDGET, "pick": res.config, "validation": rec["validation"],
+              "max_rel_err": rec["max_rel_err"], "baseline_median_s": rec["baseline_wall"],
+              "pick_median_s": rec["tuned_wall"], "trials": res.trials_run,
+              "configs_measured": rec["configs_measured"], "candidates": candidates,
+              "trial_variants": {k: sorted(v) for k, v in seen.items()},
+              "profiled": profiled})
+        check("autotune cdist: every candidate launched the K3 variant it names",
+              launched_as_named, trial_variants={k: sorted(v) for k, v in seen.items()},
+              profiled=profiled)
+        check("autotune cdist: the pick's median no worse than the default's",
+              rec["tuned_wall"] <= rec["baseline_wall"])
+        check("autotune cdist: a lossy pick within the budget",
+              rec["validation"] == "digest" or rec["max_rel_err"] <= TUNE_CDIST_BUDGET,
+              max_rel_err=rec["max_rel_err"])
+        check("autotune cdist: the record is stored", stored is not None
+              and stored["config"] == res.config)
+        warm = _warm_start_child(tune_db, rows, cols, TUNE_CDIST_BUDGET)
+        emit({"phase": "autotune warm start", "card": smi, "budget": TUNE_CDIST_BUDGET, **warm})
+        check("autotune warm start: a fresh process adopts the pick with zero trials and its "
+              "cdist launches the picked variant",
+              _warm_adopted(warm, res.config, "cdist"), warm=warm)
+
+        # the same tune from a process set to the exact variant, under a
+        # budget that admits the faster ones: a value other than the
+        # process's setting wins, and a fresh process with that setting runs
+        # the picked variant, not the one it runs untuned
+        loose_db = os.path.join(tmp, "db_loose")
+        with _knobs.overlay({"HEAT_TPU_CDIST_PREC": TUNE_CDIST_FROM}):
+            lres = autotune.tune("cdist", cdist_work,
+                                 signature=("cdist", TUNE_CDIST, "float32"),
+                                 search=["HEAT_TPU_CDIST_PREC"], error_budget=TUNE_CDIST_LOOSE,
+                                 trials_per_config=TUNE_TRIALS, db_dir=loose_db, adopt=False)
+        lwarm = _warm_start_child(loose_db, rows, cols, TUNE_CDIST_LOOSE,
+                                  HEAT_TPU_CDIST_PREC=TUNE_CDIST_FROM)
+        lpick = lres.config["HEAT_TPU_CDIST_PREC"]
+        emit({"phase": "autotune cdist, loose budget", "card": smi, "budget": TUNE_CDIST_LOOSE,
+              "from": TUNE_CDIST_FROM, "pick": lres.config,
+              "default_config": lres.record["default_config"],
+              "validation": lres.record["validation"],
+              "max_rel_err": lres.record["max_rel_err"],
+              "baseline_median_s": lres.record["baseline_wall"],
+              "pick_median_s": lres.record["tuned_wall"], "trials": lres.trials_run,
+              "configs_measured": lres.record["configs_measured"], "warm": lwarm})
+        check("autotune cdist, loose budget: a value other than the process's setting wins "
+              "within the budget, no slower than the setting",
+              lres.record["default_config"] == {"HEAT_TPU_CDIST_PREC": TUNE_CDIST_FROM}
+              and lpick != TUNE_CDIST_FROM and lres.record["max_rel_err"] <= TUNE_CDIST_LOOSE
+              and lres.record["tuned_wall"] <= lres.record["baseline_wall"],
+              pick=lres.config, max_rel_err=lres.record["max_rel_err"])
+        check("autotune warm start, loose budget: the fresh process adopts the pick with zero "
+              "trials and launches its variant, not the one it runs untuned",
+              _warm_adopted(lwarm, lres.config, "cdist")
+              and lwarm.get("before_variant") == CDIST_VARIANTS[TUNE_CDIST_FROM][1]
+              and lwarm.get("before_variant") != lwarm.get("variant"), warm=lwarm)
+        del x
+
+        # (b) the LM under FSDP over HEAT_TPU_FSDP_PREFETCH
+        vocab = cfg["vocab_size"]
+        model = ht.nn.TransformerLM(**dict(cfg, attn_impl="flash", dtype=torch.bfloat16,
+                                           flash_bwd_impl="two_pass"), remat=False,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+        stages = model.stages()
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(0, vocab, (8, 1024))).to(dev)
+
+        def ce(logits, t):
+            return F.cross_entropy(logits[:, :-1].float().reshape(-1, vocab),
+                                   t[:, 1:].reshape(-1))
+
+        def adamw(params):
+            return torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+
+        names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        fsdp_launches = {}
+        saved = os.environ.get("HEAT_TPU_FSDP")
+        os.environ["HEAT_TPU_FSDP"] = "1"
+        try:
+            init = ht.nn.FSDP(stages, optimizer=adamw).init()
+
+            def fsdp_work():
+                # one step from the same start a call; prefetch read at construction
+                fsdp = ht.nn.FSDP(stages, optimizer=adamw)
+                params = fsdp.shard_params(init)
+                state = fsdp.init_opt_state(params)
+                (xb,) = fsdp.shard_batch(tokens)
+                ht.reset_launch_counts()
+                params, state, loss = fsdp.make_train_step(ce)(params, state, xb, xb)
+                torch.cuda.synchronize()
+                counts = ht.launch_counts()
+                fsdp_launches.setdefault(str(fsdp.prefetch), []).append(
+                    {k: counts[k] for k in names})
+                return loss, [dict(p) for p in params]
+
+            numels = [p.numel() for stage in stages for p in stage.parameters()]
+            fres = autotune.tune("fsdp_train_step", fsdp_work,
+                                 signature=("fsdp", cfg["d_model"], cfg["num_layers"], (8, 1024)),
+                                 search=["HEAT_TPU_FSDP_PREFETCH"],
+                                 cost_fn=cost.fsdp_cost_fn(numels, 4, 1),
+                                 trials_per_config=TUNE_TRIALS, db_dir=tune_db, adopt=False)
+            digests = {}
+            for value in ("0", "1", "2"):
+                with _knobs.overlay({"HEAT_TPU_FSDP_PREFETCH": value}):
+                    digests[value] = trials.digest(fsdp_work())
+        finally:
+            if saved is None:
+                os.environ.pop("HEAT_TPU_FSDP", None)
+            else:
+                os.environ["HEAT_TPU_FSDP"] = saved
+        emit({"phase": "autotune fsdp prefetch", "card": smi, "pick": fres.config,
+              "validation": fres.record["validation"], "trials": fres.trials_run,
+              "baseline_median_s": fres.record["baseline_wall"],
+              "pick_median_s": fres.record["tuned_wall"],
+              "launches_per_trial": fsdp_launches, "digests": digests})
+        check("autotune fsdp: every prefetch depth's loss and parameters digest the same",
+              len(set(digests.values())) == 1 and fres.record["configs_measured"] >= 2,
+              digests=digests, configs_measured=fres.record["configs_measured"])
+        check("autotune fsdp: every trial launched K6, K7a and K7b",
+              all(row[k] > 0 for rows_ in fsdp_launches.values() for row in rows_
+                  for k in names), launches=fsdp_launches)
+        for k in names:
+            launches[k] = sum(row[k] for rows_ in fsdp_launches.values() for row in rows_)
+        del model, stages, init
+
+        # (c) resplit over HEAT_TPU_RELAYOUT_PLAN on one card
+        r_rows, r_cols = TUNE_RESPLIT
+        xr = ht.array(torch.randn(TUNE_RESPLIT, generator=torch.Generator(device=dev)
+                                  .manual_seed(7), device=dev), split=0)
+        rres = autotune.tune("resplit", lambda: ht.resplit(xr, 1).larray,
+                             signature=("resplit", TUNE_RESPLIT, 0, 1),
+                             search=["HEAT_TPU_RELAYOUT_PLAN"],
+                             cost_fn=cost.relayout_cost_fn(TUNE_RESPLIT, 4, 0, 1, 1),
+                             trials_per_config=TUNE_TRIALS, db_dir=tune_db, adopt=False)
+        emit({"phase": "autotune resplit one card", "card": smi, "shape": list(TUNE_RESPLIT),
+              "pick": rres.config, "validation": rres.record["validation"],
+              "configs_measured": rres.record["configs_measured"],
+              "baseline_median_s": rres.record["baseline_wall"],
+              "pick_median_s": rres.record["tuned_wall"]})
+        check("autotune resplit: every plan gives the same bits, the pick no slower",
+              rres.record["validation"] == "digest"
+              and rres.record["configs_measured"] == 4
+              and rres.record["tuned_wall"] <= rres.record["baseline_wall"],
+              record=rres.record)
+        del xr
+    finally:
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the registry on the card
+    a = ht.array(torch.randn((4096, 256), device=dev), split=0)
+    a.resplit(1)
+    resilience.refresh()
+    rule = resilience.inject(site="relayout", kind="resource", calls=(1,))
+    try:
+        a.resplit(1)
+        raised = False
+    except resilience.HeatTpuRuntimeError as e:
+        raised = e.site == "relayout"
+    finally:
+        resilience.clear_faults()
+        resilience.refresh()
+    check("registry: a fault injected at relayout raises from resplit",
+          raised and rule.fired == 1, fired=rule.fired)
+    n, window = REGISTRY_CG
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m = torch.randn((n, n), generator=gen, device=dev)
+    A = ht.array(m @ m.T / n + torch.eye(n, device=dev), split=0)
+    B = ht.array(torch.randn((n,), generator=gen, device=dev))
+    x0 = ht.zeros(n)
+    whole = ht.linalg.cg(A, B, x0).larray
+    ck = tempfile.mkdtemp(prefix="chip_smoke_cg_fault_")
+    path = os.path.join(ck, "cg")
+    try:
+        resilience.inject(site="cg_chunk", kind="resource", calls=(2,))
+        try:
+            ht.linalg.cg(A, B, x0, checkpoint_every=window, checkpoint_path=path)
+            stopped = False
+        except resilience.HeatTpuRuntimeError as e:
+            stopped = e.site == "cg_chunk"
+        finally:
+            resilience.clear_faults()
+            resilience.refresh()
+        _, extra = resilience.load_checkpoint(path, with_extra=True)
+        resumed = ht.linalg.cg(A, B, x0, checkpoint_every=window, checkpoint_path=path,
+                               resume=True).larray
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    same = bool(torch.equal(whole, resumed))
+    check("registry: a fault at the second cg_chunk window stops cg after its first "
+          "checkpoint, and the resumed solve equals the uninterrupted one bit for bit",
+          stopped and extra.get("it") == window and same, it=extra.get("it"), same=same)
+    del A, B, x0, whole, resumed, m
+
+    # a second pass over sites the main paths reach: hits only, no build
+    xs = ht.array(torch.randn((100_000, 64), device=dev), split=0)
+    ys = ht.array(torch.randn((100_000,), device=dev), split=0)
+
+    def again():
+        xs.resplit(1)
+        ht.core.statistics.chunk_moments(xs)
+        ht.regression.Lasso(lam=0.01, max_iter=2, tol=0.0).fit(xs, ys)
+        ht.linalg.cg(A2, B2, ht.zeros(64))
+        xs[torch.arange(0, 100_000, 7, device=dev)]
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mm = torch.randn((64, 64), generator=gen, device=dev)
+    A2 = ht.array(mm @ mm.T + 64 * torch.eye(64, device=dev), split=0)
+    B2 = ht.array(torch.randn((64,), generator=gen, device=dev))
+    again()
+    before = program_cache.stats()
+    with telemetry.CompileWatcher() as cw:
+        again()
+        torch.cuda.synchronize()
+    after = program_cache.stats()
+    reached = {k: v for k, v in after["sites"].items() if v["hits"] + v["misses"] > 0}
+    emit({"phase": "registry sites", "card": smi, "sites": reached,
+          "second_pass_builds": cw.backend_compiles,
+          "second_pass_misses": after["misses"] - before["misses"],
+          "second_pass_hits": after["hits"] - before["hits"]})
+    check("registry: the sites the main paths reach moved, and a second pass builds nothing",
+          len(reached) >= 20 and all(s in reached for s in (
+              "relayout", "cg", "cg_chunk", "streaming.lasso", "streaming.moments",
+              "streaming.minibatch_kmeans", "dp_train_step", "fsdp_train_step",
+              "zero_train_step", "pipeline.step", "sharded_take"))
+          and cw.backend_compiles == 0 and after["misses"] == before["misses"]
+          and after["hits"] > before["hits"], reached=sorted(reached),
+          builds=cw.backend_compiles)
+    del xs, ys, A2, B2
+    return launches
 
 
 # the streaming path: bench.py:246's moments array as four .npy shards,
@@ -3990,6 +4452,32 @@ def relayout_plans(ht, t):
     res["digests"] = digests
     res["bench_field"] = rp.bench_field((4096, 64), comm=comm)
     return res
+
+
+def relayout_tune(ht, t, trials=3):
+    # the autotuner over HEAT_TPU_RELAYOUT_PLAN with relayout_cost_fn: every
+    # rank measures the same pruned lattice in the same order (each trial a
+    # collective), the ranks agree on one pick and each adopts it (no
+    # database: nothing stored)
+    from heat_tpu_torch import _knobs, autotune
+    from heat_tpu_torch.autotune import cost
+
+    x = ht.array(t, split=0)
+    comm = x.comm
+    fn = cost.relayout_cost_fn(t.shape, 4, 0, 1, comm.size)
+    res = autotune.tune("resplit", lambda: ht.resplit(x, 1).larray,
+                        signature=("resplit", tuple(t.shape), 0, 1),
+                        search=["HEAT_TPU_RELAYOUT_PLAN"], cost_fn=fn, trials_per_config=trials,
+                        persist=False)
+    adopted = _knobs.raw("HEAT_TPU_RELAYOUT_PLAN")
+    autotune.reset()
+    rec = res.record
+    return {"rank": comm.rank, "pick": res.config, "adopted": adopted,
+            "validation": rec["validation"],
+            "configs_measured": rec["configs_measured"], "baseline_median_s": rec["baseline_wall"],
+            "pick_median_s": rec["tuned_wall"],
+            "predicted_wire_bytes": {p: fn({"HEAT_TPU_RELAYOUT_PLAN": p})
+                                     for p in ("auto", "monolithic", "chunked", "alltoall")}}
 """
 
 
@@ -4021,6 +4509,7 @@ for name, call in (
     out[name] = [r.report.summary() for r in hlo.recent()]
 print("AUDIT " + json.dumps({"rank": rank, "reports": out}), flush=True)
 print("RELAYOUT " + json.dumps(relayout_plans(ht, t)), flush=True)
+print("TUNE " + json.dumps(relayout_tune(ht, t)), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -4048,7 +4537,7 @@ def collective_audit_phase():
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world),
                                str(port)], cwd=here, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    reports, relayouts, ok = [], [], True
+    reports, relayouts, tunes, ok = [], [], [], True
     for p in procs:
         try:
             log = p.communicate(timeout=600)[0]
@@ -4061,6 +4550,7 @@ def collective_audit_phase():
         else:
             emit({"phase": "collective audit", "rank_log_tail": log[-2000:]})
         relayouts += [json.loads(ln[9:]) for ln in log.splitlines() if ln.startswith("RELAYOUT ")]
+        tunes += [json.loads(ln[5:]) for ln in log.splitlines() if ln.startswith("TUNE ")]
     for r in reports:
         emit({"phase": "collective audit", "world": world, **r})
     drift = [(r["rank"], site, rep["drifts"]) for r in reports for site, reps in r["reports"].items()
@@ -4068,6 +4558,26 @@ def collective_audit_phase():
     check("collective audit: four NCCL ranks, no drift", ok and len(reports) == world
           and not drift, drift=drift)
     check_relayout_ranks(relayouts, world)
+    check_relayout_tune(tunes, world)
+
+
+def check_relayout_tune(tunes, world):
+    """The four ranks' tunes over HEAT_TPU_RELAYOUT_PLAN (``relayout_tune``):
+    every plan measured and validated bit for bit, the plans priced apart by
+    the cost model, and one pick, adopted by every rank, with the same
+    agreed medians (the slowest rank's), no slower than the default."""
+    for r in tunes:
+        emit({"phase": "autotune resplit four cards", **r})
+    ok = len(tunes) == world and all(
+        r["validation"] == "digest" and r["configs_measured"] == 4
+        and r["pick_median_s"] <= r["baseline_median_s"]
+        and r["adopted"] == r["pick"]["HEAT_TPU_RELAYOUT_PLAN"]
+        and len(set(r["predicted_wire_bytes"].values())) > 1 for r in tunes)
+    one = len({json.dumps([r["pick"], r["baseline_median_s"], r["pick_median_s"]])
+               for r in tunes}) == 1
+    check("autotune resplit: four ranks measured every plan, same bits, and adopted one pick "
+          "no slower than the default", ok and one, ranks=len(tunes),
+          picks=[r["adopted"] for r in tunes])
 
 
 def check_relayout_ranks(relayouts, world):
@@ -5819,6 +6329,7 @@ def main():
     serving = serving_path(ht, dev, smi)
     # ------------------------------------------------- data and observability
     data_launches = data_path(ht, dev, cfg)
+    tune_launches = autotune_registry_phase(ht, dev, smi, cfg)
     collective_audit_phase()
     scale_out_four_phase()
     parallel_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -5896,6 +6407,8 @@ def main():
             row["observability_path_launches"] = obs_launches[name]
         if name in data_launches:
             row["data_path_launches"] = data_launches[name]
+        if name in tune_launches:  # the tuner's trials: cdist in (a), the LM under FSDP in (b)
+            row["autotune_phase_launches"] = tune_launches[name]
         if name in ("lloyd", "random"):  # bench.py's kmeans_1b row
             row["kmeans_1b_launches"] = kmeans_1b["launches"][name]
         if name == "lloyd":

@@ -89,7 +89,13 @@ package has a Pallas kernel:
     TFRecord tooling), ``datasets`` (iris, diabetes), and ``telemetry``'s
     cost model, collective audit, memory watermarks, Chrome-trace export,
     summaries and the fleet view (``python -m
-    heat_tpu_torch.telemetry.audit``).
+    heat_tpu_torch.telemetry.audit``);
+  - the runtime's control loop: every program site of the JAX package
+    dispatches through ``core.program_cache`` under its name (fault
+    injection, counters and build events at each), ``autotune`` (the
+    measured-feedback knob tuner and its tuning database, warm-started at a
+    registry miss under ``HEAT_TPU_AUTOTUNE``), and ``analysis`` (heatlint,
+    ``python -m heat_tpu_torch.analysis``; imported on demand).
 """
 
 from . import telemetry
@@ -114,6 +120,10 @@ from . import streaming
 from . import serve
 from . import utils
 from . import datasets
+# the knob autotuner mounts last: it sits on the knob registry, telemetry,
+# the cost model and the program registry, which consult it only behind
+# the HEAT_TPU_AUTOTUNE flag
+from . import autotune
 from ._build import launch_counts, reset_launch_counts
 from .core.version import version as __version__
 

@@ -464,6 +464,32 @@ _register(
 )
 
 
+_register(
+    "HEAT_TPU_AUTOTUNE", "bool", False,
+    "Arm the measured-feedback knob autotuner (heat_tpu_torch/autotune): "
+    "program-registry misses and Server construction consult the tuning "
+    "database (warm start) and `autotune.tune()` runs measured trials. Off, "
+    "dispatch is bit for bit the untuned path: one flag check on a registry "
+    "miss, no database reads.",
+)
+_register(
+    "HEAT_TPU_TUNE_DB", "str", None,
+    "Directory of the persistent tuning database (atomic-swap JSON records "
+    "keyed by program signature, world and backend). A second process "
+    "pointed at a populated database starts tuned with zero measured trials.",
+)
+_register(
+    "HEAT_TPU_AUTOTUNE_TRIALS", "int", 5,
+    "Measured trials per surviving candidate config (median of k with MAD "
+    "outlier rejection).",
+)
+_register(
+    "HEAT_TPU_AUTOTUNE_BUDGET", "float", None,
+    "Ambient max amax-normalized relative error the tuner may trade for "
+    "speed when the caller states none. Unset = exact only: lossy knob "
+    "values are never searched.",
+)
+
 # -- the overlay ---------------------------------------------------------------
 # Tuned values are installed here, in front of the environment, so every
 # consumer of the registry sees them through the reads it already makes. The

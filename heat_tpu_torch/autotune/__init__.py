@@ -1,0 +1,512 @@
+"""heat_tpu_torch.autotune: the measured-feedback knob autotuner with a
+persistent tuning database (counterpart of ``heat_tpu/autotune``).
+
+The knob registry (:mod:`heat_tpu_torch._knobs`) declares every
+``HEAT_TPU_*`` knob once, with the autotuner's search space beside the
+perf-relevant ones, and telemetry measures what each knob trades. This
+package closes the loop:
+
+1. **Search space from the registry.** Knobs declare ``tunable=``
+   metadata (candidate values and the constraint class
+   ``exact|lossy|neutral``); the lattice is built from those declarations
+   (:mod:`.space`), never hardcoded here.
+2. **Analytic pruning first.** The collective cost model and the relayout
+   planner's temporary model rank the lattice offline (:mod:`.cost`);
+   only the cheapest feasible candidates graduate to measured trials.
+3. **Measured trials second.** Median-of-k timings with MAD outlier
+   rejection, each sample ended by ``torch.cuda.synchronize()`` on the
+   card, and per-candidate digest or error validation (:mod:`.trials`).
+   The default config is always candidate 0 and is measured under the
+   identical protocol, so the winner is *never worse than default* by
+   construction.
+4. **Error budget as the constraint handler.** A lossy knob value
+   (collective precision, cdist's ``bf16x3``/``high``/``default``) is only
+   searched under a caller-stated budget, a lossy winner must measure
+   within it against the exact reference (the default config with every
+   lossy knob at its exact value, run once), and exact-semantics call
+   sites keep their per-call ``precision="off"`` pins, which beat any tuned
+   overlay (``collective_prec.resolve``).
+5. **Winners persist** in an on-disk database (:mod:`.db`,
+   ``HEAT_TPU_TUNE_DB=<dir>``, atomic-swap JSON records keyed by signature,
+   world and backend). A second process consults it at a program-registry
+   miss and at ``serve.Server`` construction, behind one
+   ``HEAT_TPU_AUTOTUNE`` flag check, and starts *tuned* with zero measured
+   trials.
+
+Adoption model: a winning config is installed into the knob **overlay**
+(:func:`heat_tpu_torch._knobs.set_override`), the layer every registered
+knob read consults before the environment. The process-global overlay is
+the union of adopted configs (the newest tune wins a conflicting knob);
+for exact per-signature scoping, run the workload under
+``knobs.overlay(result.config)`` instead of adopting.
+
+``HEAT_TPU_AUTOTUNE`` is off by default: dispatch stays bit for bit the
+untuned path (one flag check on a registry *miss*, nothing on a hit; no
+database reads).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+from .. import _knobs as knobs
+from .. import telemetry
+from . import cost, db, space, trials
+
+__all__ = [
+    "TuneResult",
+    "tune",
+    "enabled",
+    "enable",
+    "disable",
+    "warm_start",
+    "on_program_miss",
+    "adopted",
+    "reset",
+    "bench_field",
+    "cost",
+    "db",
+    "space",
+    "trials",
+]
+
+_UNSET = object()
+
+_LOCK = threading.RLock()
+_ADOPTED: Dict[str, Dict[str, str]] = {}  # site -> adopted config
+_WARM = {"done": False, "records": 0}
+# serializes measured-trial sections: two concurrent tune() calls would
+# overlay each other's candidate configs mid-measurement
+_TUNE_LOCK = threading.Lock()
+
+# event name -> live counter suffix. Every counter increments exactly
+# once alongside its event, so report.summarize()'s offline event replay
+# gives the SAME autotune block as the live counters.
+EVENT_COUNTER = {
+    "trial": "trials",
+    "db_hit": "db_hits",
+    "db_miss": "db_misses",
+    "store": "stores",
+    "adopt": "adopted",
+    "pick": "picks",
+    "reject_budget": "rejected_budget",
+    "reject_digest": "rejected_digest",
+    "reject_error": "rejected_error",
+    "warm_start": "warm_starts",
+}
+
+
+def _emit(site: str, event: str, **fields: Any) -> None:
+    if not telemetry.enabled():
+        return
+    reg = telemetry.get_registry()
+    reg.add(f"autotune.{EVENT_COUNTER[event]}", 1)
+    reg.emit("autotune", site, event=event, **fields)
+
+
+# -- arming -------------------------------------------------------------------
+
+
+def enabled() -> bool:
+    """Whether the autotuner is armed (``HEAT_TPU_AUTOTUNE``,
+    overlay-aware — :func:`enable` arms via the overlay)."""
+    return bool(knobs.get("HEAT_TPU_AUTOTUNE"))
+
+
+def enable(db_dir: Optional[str] = None) -> None:
+    """Arm the autotuner in-process (equivalent to
+    ``HEAT_TPU_AUTOTUNE=1``); ``db_dir`` additionally points the tuning
+    DB (``HEAT_TPU_TUNE_DB``)."""
+    knobs.set_override("HEAT_TPU_AUTOTUNE", "1")
+    if db_dir is not None:
+        knobs.set_override("HEAT_TPU_TUNE_DB", str(db_dir))
+
+
+def disable() -> None:
+    """Disarm (overlay ``HEAT_TPU_AUTOTUNE=0``; adopted configs stay
+    installed — call :func:`reset` to drop them too)."""
+    knobs.set_override("HEAT_TPU_AUTOTUNE", "0")
+
+
+# -- adoption / warm start ----------------------------------------------------
+
+
+def _adopt(site: str, config: Dict[str, str], emit: bool = True) -> None:
+    with _LOCK:
+        for n, v in config.items():
+            knobs.set_override(n, v)
+        _ADOPTED[site] = dict(config)
+    if emit:
+        _emit(site, "adopt", config=dict(config))
+
+
+def adopted() -> Dict[str, Dict[str, str]]:
+    """Per-site configs currently adopted into the knob overlay."""
+    with _LOCK:
+        return {s: dict(c) for s, c in _ADOPTED.items()}
+
+
+def warm_start(force: bool = False) -> int:
+    """Load every valid record for this mesh from the tuning DB and
+    adopt its config (oldest first, so the newest tune wins overlapping
+    knobs). Memoized — the dispatch-time consults cost one dict check
+    after the first call. Returns the number of records adopted.
+
+    Never raises: an unopenable ``HEAT_TPU_TUNE_DB`` (unwritable path,
+    a plain file where the directory should be) degrades to *untuned* —
+    the same contract as a corrupt record — and stays memoized, so a
+    broken path is probed once, not on every program miss."""
+    with _LOCK:
+        if _WARM["done"] and not force:
+            return _WARM["records"]
+        _WARM["done"] = True
+        n = skipped = 0
+        try:
+            d = db.open_db()
+            if d is not None:
+                ambient = knobs.get("HEAT_TPU_AUTOTUNE_BUDGET")
+                for rec in d.records():
+                    if not _budget_covers(rec, ambient):
+                        # the dispatch-time form of the DB-hit budget
+                        # gate: a persisted LOSSY winner is only
+                        # auto-adopted when the ambient
+                        # HEAT_TPU_AUTOTUNE_BUDGET covers its measured
+                        # error — a process that stated no budget never
+                        # inherits quantized collectives from the DB
+                        skipped += 1
+                        continue
+                    _adopt(str(rec.get("site")), rec["config"], emit=False)
+                    n += 1
+        except OSError:
+            d = None
+        _WARM["records"] = n
+    if d is not None:
+        _emit("db", "warm_start", records=n, db=d.path, skipped=skipped)
+    return n
+
+
+def on_program_miss(site: str) -> None:
+    """Program-registry miss hook (``core/program_cache.py``): a miss is
+    the cold path, so consulting the database here (memoized warm start)
+    costs nothing in steady state. Called only when ``HEAT_TPU_AUTOTUNE``
+    is on: the off path never reaches this module."""
+    warm_start()
+
+
+def reset() -> None:
+    """Drop adopted overlays and the warm-start memo (tests)."""
+    with _LOCK:
+        names: set = set()
+        for cfg in _ADOPTED.values():
+            names.update(cfg)
+        knobs.clear_overrides(names)
+        _ADOPTED.clear()
+        _WARM["done"] = False
+        _WARM["records"] = 0
+
+
+# -- the tuner ----------------------------------------------------------------
+
+
+@dataclass
+class TuneResult:
+    """One tune's outcome: the winning config (``{knob: raw value}``),
+    the full DB record, and how it was reached (``from_db`` = zero-trial
+    warm start)."""
+
+    site: str
+    key: str
+    config: Dict[str, str] = field(default_factory=dict)
+    record: Dict[str, Any] = field(default_factory=dict)
+    trials_run: int = 0
+    from_db: bool = False
+
+
+def _budget_covers(rec: Dict[str, Any], budget: Any) -> bool:
+    """Whether a persisted record's winner satisfies the CALLER's error
+    budget: digest-validated (exact/neutral) picks always do; a lossy
+    pick (``validation == "allclose"``) only when the caller states a
+    budget covering the record's measured error. A DB hit must never
+    adopt a lossy config past the stated contract — a record tuned
+    under a looser budget re-tunes under the tighter one instead."""
+    if rec.get("validation") != "allclose":
+        return True
+    if budget is None:
+        return False
+    try:
+        return float(rec.get("max_rel_err", float("inf"))) <= float(budget)
+    except (TypeError, ValueError):
+        return False
+
+
+def tune(
+    site: str,
+    workload: Callable[[], Any],
+    *,
+    signature: Any,
+    search: List[str],
+    error_budget: Any = _UNSET,
+    trials_per_config: Optional[int] = None,
+    warmup: int = 1,
+    cost_fn: Optional[Callable[[Dict[str, str]], float]] = None,
+    prune_to: int = 8,
+    db_dir: Optional[str] = None,
+    adopt: bool = True,
+    persist: bool = True,
+) -> TuneResult:
+    """Tune ``workload`` over the ``search`` knobs for one program
+    signature (module docstring has the protocol).
+
+    ``workload()`` must be re-runnable and return the result the
+    validators judge (tensors or DNDarrays, alone or in tuples, lists and
+    dicts; it is read and waited for before the clock stops). ``signature`` keys the DB record —
+    ``program_key``-compatible static config (shapes, dtypes, splits).
+    ``error_budget`` defaults to ``HEAT_TPU_AUTOTUNE_BUDGET`` (unset =
+    exact-only; lossy knob values are then never searched).
+    ``cost_fn`` (e.g. :func:`cost.relayout_cost_fn`) prunes the lattice
+    analytically to ``prune_to`` configs before anything is measured.
+
+    On a DB hit for this signature+mesh+backend the record's config is
+    returned (and adopted) with **zero measured trials** — unless the
+    record's winner is a lossy pick whose measured error exceeds THIS
+    caller's budget (or the caller stated none), in which case the hit
+    is discarded and the site re-tunes under the stated budget.
+
+    Trials install each candidate into the process-global knob overlay
+    for the duration of its measurement, so OTHER threads dispatching
+    concurrently see trial values (including lossy ones) and pollute
+    the trial's timing: run tune() quiesced. Concurrent ``tune()`` calls are serialized on a module
+    lock so two tunes can never interleave their candidate overlays.
+
+    In a world of several ranks ``tune()`` is collective: every rank calls
+    it with the same arguments. The ranks take a database hit only when
+    each finds the same config; otherwise each candidate's median and
+    error are the largest over the ranks, a candidate that any rank
+    rejected is dropped, and every rank adopts and stores the one pick.
+    """
+    with _TUNE_LOCK:
+        return _tune_locked(
+            site, workload, signature=signature, search=search,
+            error_budget=error_budget, trials_per_config=trials_per_config,
+            warmup=warmup, cost_fn=cost_fn, prune_to=prune_to,
+            db_dir=db_dir, adopt=adopt, persist=persist,
+        )
+
+
+def _world():
+    """The world's communicator when it has several ranks, else None."""
+    from ..core.communication import get_comm
+
+    comm = get_comm()
+    return comm if comm.size > 1 else None
+
+
+def _agree(world, rows: list) -> list:
+    """The candidates that every rank accepted, each with the largest
+    median and error over the ranks: each rank measured and validated its
+    own shard, and from these rows every rank picks the same config, so
+    a tuned relayout or wire is one plan across the world."""
+    every = world.allgather_object({idx: (wall, err) for wall, idx, _, err, _ in rows})
+    return [(max(r[idx][0] for r in every), idx, cfg, max(r[idx][1] for r in every), validation)
+            for _, idx, cfg, _, validation in rows if all(idx in r for r in every)]
+
+
+def _tune_locked(
+    site: str,
+    workload: Callable[[], Any],
+    *,
+    signature: Any,
+    search: List[str],
+    error_budget: Any = _UNSET,
+    trials_per_config: Optional[int] = None,
+    warmup: int = 1,
+    cost_fn: Optional[Callable[[Dict[str, str]], float]] = None,
+    prune_to: int = 8,
+    db_dir: Optional[str] = None,
+    adopt: bool = True,
+    persist: bool = True,
+) -> TuneResult:
+    budget = (
+        knobs.get("HEAT_TPU_AUTOTUNE_BUDGET")
+        if error_budget is _UNSET else error_budget
+    )
+    # coerce up front: a numpy scalar budget must neither skew the
+    # comparisons nor reach json.dump in the persisted record
+    budget = None if budget is None else float(budget)
+    k = int(
+        trials_per_config
+        if trials_per_config is not None
+        else (knobs.get("HEAT_TPU_AUTOTUNE_TRIALS") or 5)
+    )
+    mesh = db.mesh_fingerprint()
+    key = db.tune_key(site, signature, mesh)
+    world = _world()
+    d = db.open_db(db_dir)
+    rec = d.lookup(key, mesh) if d is not None else None
+    hit = rec is not None and _budget_covers(rec, budget)
+    agreed = hit
+    if world is not None:
+        # every rank takes the same hit or none does: a rank that measured
+        # alone would issue its trials' collectives to no peer
+        seen = world.allgather_object(rec["config"] if hit else None)
+        agreed = all(c is not None and c == seen[0] for c in seen)
+    if agreed:
+        _emit(site, "db_hit", key=key)
+        if adopt:
+            _adopt(site, rec["config"])
+        return TuneResult(
+            site=site, key=key, config=dict(rec["config"]),
+            record=rec, trials_run=0, from_db=True,
+        )
+    if d is not None:
+        if hit:
+            # another rank found no record, or another config
+            _emit(site, "db_miss", key=key, reason="ranks")
+        elif rec is not None:
+            # a valid record whose lossy winner exceeds this caller's
+            # budget: discard the hit and re-tune under the stated
+            # budget (last-write-wins the persisted record)
+            _emit(site, "db_miss", key=key, reason="budget")
+        else:
+            _emit(site, "db_miss", key=key)
+
+    lattice = space.candidates(search, error_budget=budget)
+    configs = cost.prune(lattice, cost_fn, keep=prune_to)
+    base = configs[0]
+    trials_run = 0
+
+    def _measure(cfg: Dict[str, str], idx: int):
+        nonlocal trials_run
+
+        def on_sample(i: int, dt: float) -> None:
+            _emit(site, "trial", config_index=idx, sample=i, seconds=dt)
+
+        with knobs.overlay(cfg):
+            with telemetry.span(
+                "autotune.measure", site=site, config_index=idx
+            ):
+                samples, out = trials.measure(
+                    workload, k=k, warmup=warmup, on_sample=on_sample
+                )
+        trials_run += len(samples)
+        return trials.robust_median(samples), out
+
+    # default config: the wall every challenger must beat or tie, and
+    # the bit-identity anchor for exact/neutral shifts
+    base_wall, base_out = _measure(base, 0)
+    base_digest = trials.digest(base_out)
+
+    # exact reference for lossy shifts: the default config with every
+    # searched lossy knob at its exact-semantics value (one unmeasured
+    # run; coincides with the default run when nothing lossy is searched)
+    ref_out = base_out
+    anchor = space.exact_variant(base)
+    if anchor != base and any(
+        space.is_lossy_shift(cfg, base) for cfg in configs[1:]
+    ):
+        with knobs.overlay(anchor):
+            ref_out = trials._settle(workload())
+
+    rows = [(base_wall, 0, base, 0.0, "digest")]
+    for idx, cfg in enumerate(configs[1:], start=1):
+        try:
+            wall, out = _measure(cfg, idx)
+        except Exception as e:  # noqa: BLE001 — a broken candidate is
+            # disqualified, never fatal (guarded-trial contract)
+            _emit(site, "reject_error", config_index=idx, error=repr(e))
+            continue
+        if space.is_lossy_shift(cfg, base):
+            err = trials.max_rel_err(out, ref_out)
+            if budget is None or not (err <= float(budget)):
+                _emit(
+                    site, "reject_budget", config_index=idx,
+                    max_rel_err=err, budget=budget,
+                )
+                continue
+            rows.append((wall, idx, cfg, err, "allclose"))
+        else:
+            if trials.digest(out) != base_digest:
+                _emit(site, "reject_digest", config_index=idx)
+                continue
+            rows.append((wall, idx, cfg, 0.0, "digest"))
+    if world is not None:
+        rows = _agree(world, rows)
+        base_wall = rows[0][0]  # the default's row leads, accepted everywhere
+
+    # min wall; ties break toward the default (lattice index 0) — the
+    # winner can never be worse than the measured default
+    wall, idx, config, err, validation = min(rows, key=lambda r: (r[0], r[1]))
+    _emit(
+        site, "pick", config=dict(config), wall=wall,
+        baseline_wall=base_wall, config_index=idx,
+        configs_measured=len(rows), trials=trials_run,
+    )
+    record = {
+        "schema": db.SCHEMA,
+        "key": key,
+        "site": site,
+        "signature": repr(signature),
+        "mesh": mesh,
+        "config": dict(config),
+        "default_config": dict(base),
+        "baseline_wall": base_wall,
+        "tuned_wall": wall,
+        "speedup": (base_wall / wall) if wall > 0 else 1.0,
+        "trials": trials_run,
+        "configs_measured": len(rows),
+        "lattice": len(lattice),
+        "error_budget": budget,
+        "max_rel_err": err,
+        "validation": validation,
+        "created": time.time(),
+    }
+    if adopt:
+        # adopt BEFORE persisting: a store failure must never lose the
+        # measured winner
+        _adopt(site, config)
+    if d is not None and persist:
+        try:
+            d.store(record)
+            _emit(site, "store", key=key)
+        except (OSError, TypeError, ValueError):
+            # an unwritable/unopenable DB path, a full disk, or an
+            # unserializable record loses persistence, never the
+            # measured winner: it is already adopted and is returned
+            pass
+    return TuneResult(
+        site=site, key=key, config=dict(config), record=record,
+        trials_run=trials_run, from_db=False,
+    )
+
+
+# -- summary row ---------------------------------------------------------------
+
+
+def bench_field() -> dict:
+    """The ``autotune`` detail row for a benchmark summary: armed bit,
+    database location and valid-record count, live counters (trials run,
+    database hits, ...), and the chosen config per adopted site. Cheap: no
+    tuning runs here."""
+    out: dict = {"enabled": enabled()}
+    try:
+        d = db.open_db()
+        out["db"] = d.path if d is not None else None
+        if d is not None:
+            out["db_records"] = d.count()
+    except Exception as e:  # noqa: BLE001 — probe must never kill bench
+        out["db_error"] = repr(e)
+    snap = adopted()
+    if snap:
+        out["adopted"] = snap
+    if telemetry.enabled():
+        counters = {
+            name[len("autotune."):]: int(v)
+            for name, v in telemetry.get_registry().counters.items()
+            if name.startswith("autotune.")
+        }
+        if counters:
+            out["counters"] = counters
+    return out

@@ -44,6 +44,23 @@ __all__ = ["DNDarray", "perf_stats", "reset_perf_stats"]
 _PERF_STATS = {"relayouts": 0, "local_slices": 0, "gathers": 0, "all_to_alls": 0}
 
 
+def _relayout_program(x: "DNDarray", axis: Optional[int]) -> torch.Tensor:
+    """This rank's chunk of ``x`` distributed along ``axis`` (the registry
+    program of site ``relayout``): one ``all_to_all`` between two split
+    axes, else the whole array gathered and, for a split target, this
+    rank's chunk of it."""
+    comm, split, gshape = x.comm, x.split, x.shape
+    if axis is not None and split is not None and comm.size > 1:
+        return comm.all_to_all(x.larray, axis, split, gshape[axis], gshape[split]).contiguous()
+    whole = x._global()
+    if whole is x.larray:
+        whole = whole.clone()
+    if axis is not None:
+        _, _, slices = comm.chunk(gshape, axis)
+        whole = whole[slices]
+    return whole.contiguous()
+
+
 def perf_stats() -> dict:
     """A snapshot of the relayout counters (module comment)."""
     return dict(_PERF_STATS)
@@ -442,19 +459,13 @@ class DNDarray:
             moved = relayout_planner.run(plan, self.larray, self.__comm, audit=audit)
             return DNDarray(moved, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
                             True)
-        if axis is not None and self.__split is not None and self.__comm.size > 1:
-            moved = self.__comm.all_to_all(self.larray, axis, self.__split, self.__gshape[axis],
-                                           self.__gshape[self.__split])
-            return DNDarray(moved.contiguous(), self.__gshape, self.__dtype, axis,
-                            self.__device, self.__comm, True)
-        whole = self._global()
-        if whole is self.larray:
-            whole = whole.clone()
-        if axis is not None:
-            _, _, slices = self.__comm.chunk(self.__gshape, axis)
-            whole = whole[slices]
-        return DNDarray(whole.contiguous(), self.__gshape, self.__dtype, axis,
-                        self.__device, self.__comm, True)
+        from . import program_cache
+
+        moved = program_cache.cached_program(
+            "relayout", (self.__gshape, self.__dtype, self.__split, axis),
+            lambda: _relayout_program, comm=self.__comm, inline=True)(self, axis)
+        return DNDarray(moved, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+                        True)
 
     def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
         """Redistribute in place along ``axis`` (reference dndarray.py:764)."""

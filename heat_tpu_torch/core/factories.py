@@ -115,28 +115,37 @@ def array(
         lens = comm.allgather_object(int(data.shape[is_split]))
         n = int(sum(lens))
         gshape = tuple(data.shape[:is_split]) + (n,) + tuple(data.shape[is_split + 1:])
-        if list(lens) != list(comm.counts_displs(n)[0]):
-            # not the ceil-rule layout: gather, then keep the ceil chunk
-            whole = torch.cat(_gather_ragged(data, is_split, lens, comm), dim=is_split)
-            return _from_global(whole, is_split, device, comm, dtype)
+        if comm.size > 1:  # one rank's block is the whole array, as one process's in JAX
+            from . import program_cache
+
+            chunk = program_cache.cached_program(
+                "is_split_gather", (is_split, data.ndim), lambda: _rechunk, comm=comm,
+                inline=True)(data, is_split, tuple(lens), gshape, comm)
+        else:
+            chunk = data.contiguous()
         ht_dtype = dtype if dtype is not None else types.canonical_heat_type(data.dtype)
-        return DNDarray(data.contiguous(), gshape, ht_dtype, is_split, device, comm, True)
+        return DNDarray(chunk, gshape, ht_dtype, is_split, device, comm, True)
 
     return _from_global(data, split, device, comm, dtype)
 
 
-def _gather_ragged(local: torch.Tensor, dim: int, lens, comm: TorchCommunication):
-    """Every rank's block of arbitrary length along ``dim``, in rank order."""
-    import torch.distributed as dist
-
-    c = max(lens)
+def _rechunk(local: torch.Tensor, dim: int, lens: tuple, gshape: tuple,
+             comm: TorchCommunication) -> torch.Tensor:
+    """This rank's ceil-rule chunk of an array whose rank ``r`` holds a
+    block of ``lens[r]`` rows along ``dim`` (the registry program of site
+    ``is_split_gather``): the block itself when the blocks already follow
+    the rule, else every block (padded to the longest) gathered by the
+    communicator's audited all-gather and this rank's chunk cut out."""
+    if list(lens) == list(comm.counts_displs(gshape[dim])[0]):
+        return local.contiguous()
     shape = list(local.shape)
-    shape[dim] = c
+    shape[dim] = max(lens)
     buf = local.new_zeros(shape)
     buf.narrow(dim, 0, local.shape[dim]).copy_(local)
-    parts = [torch.empty_like(buf) for _ in range(comm.size)]
-    dist.all_gather(parts, buf, group=comm.group)
-    return [p.narrow(dim, 0, ln) for p, ln in zip(parts, lens)]
+    stacked = comm.gather_stack(buf.contiguous(), name="all_gather")
+    whole = torch.cat([stacked[r].narrow(dim, 0, ln) for r, ln in enumerate(lens)], dim=dim)
+    _, _, slices = comm.chunk(gshape, dim)
+    return whole[slices].contiguous()
 
 
 def asarray(obj, dtype=None, copy=None, is_split=None, split=None, device=None, comm=None) -> DNDarray:

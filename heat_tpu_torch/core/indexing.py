@@ -414,16 +414,28 @@ def _advanced_take(x: DNDarray, axis: int, idx: torch.Tensor) -> DNDarray:
     n = x.shape[axis]
     idx = _check_bounds(idx, n, axis)
     gshape = x.shape[:axis] + (idx.shape[0],) + x.shape[axis + 1:]
-    if axis == x.split and x.comm.size > 1:
-        comm = x.comm
+    from . import program_cache
 
+    data = program_cache.cached_program(
+        "sharded_take", (axis, x.split, x.ndim), lambda: _take_program, comm=x.comm,
+        inline=True)(x.larray, idx, axis, x.split, n, gshape, x.comm)
+    return DNDarray(data, gshape, x.dtype, x.split, x.device, x.comm, True)
+
+
+def _take_program(local: torch.Tensor, idx: torch.Tensor, axis: int, split: Optional[int],
+                  n: int, gshape: tuple, comm: TorchCommunication) -> torch.Tensor:
+    """This rank's chunk of ``x[..., idx, ...]`` along ``axis`` (the
+    registry program of site ``sharded_take``): along a distributed split
+    axis each rank fetches its result rows from their owners in one
+    exchange, else a local select."""
+    if axis == split and comm.size > 1:
         def wanted(q):
             return idx[comm.chunk(gshape, axis, rank=q)[2][axis]]
 
-        data = _fetch_rows(x.larray.movedim(axis, 0), n, comm, wanted).movedim(0, axis)
+        data = _fetch_rows(local.movedim(axis, 0), n, comm, wanted).movedim(0, axis)
     else:
-        data = _index_select(x.larray, axis, idx)
-    return DNDarray(data.contiguous(), gshape, x.dtype, x.split, x.device, x.comm, True)
+        data = _index_select(local, axis, idx)
+    return data.contiguous()
 
 
 def _take_rows(x: DNDarray, idx: torch.Tensor) -> DNDarray:

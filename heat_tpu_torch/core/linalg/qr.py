@@ -40,7 +40,7 @@ import collections
 import torch
 
 from ... import telemetry
-from .. import types
+from .. import program_cache, types
 from ..communication import _padded, ring_steps
 from ..relayout_planner import ring_overlap
 from ..dndarray import DNDarray
@@ -73,8 +73,6 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
     comm = a.comm
     m, n = a.shape
     q_loc = a.larray.to(dt.torch_type())  # (m, this rank's columns)
-    counts, displs = comm.counts_displs(n)
-    start, count = displs[comm.rank], counts[comm.rank]
     eye = torch.eye(n, dtype=q_loc.dtype, device=q_loc.device)
     eps = torch.finfo(q_loc.dtype).eps
     r_factors = []
@@ -86,12 +84,15 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
             audit=audit)
         with telemetry.span("cholqr_gram_ring", gshape=[m, n], overlap=gram_hops < comm.size,
                             **fields) as sp:
+            gram = program_cache.cached_program(
+                "cholqr_gram_ring", ((m, n), str(q_loc.dtype), gram_hops < comm.size),
+                lambda: _gram_ring, comm=comm, inline=True)
             if do_audit:
                 g, _ = telemetry.hlo.audit_call(
-                    "cholqr_gram_ring", lambda: _gram_ring(q_loc, comm, n), predicted=cost,
+                    "cholqr_gram_ring", lambda: gram(q_loc, comm, n), predicted=cost,
                     fields={"gshape": [m, n], "mesh": comm.size})
             else:
-                g = _gram_ring(q_loc, comm, n)
+                g = gram(q_loc, comm, n)
             sp.output(g)
         ell, info = torch.linalg.cholesky_ex(g)
         # breakdown on this pass: a failed factorization, NaNs or a collapsed
@@ -105,8 +106,8 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
                 shifted = True
                 passes_left += 1
         rinv = torch.linalg.solve_triangular(ell, eye, upper=False).t()  # R = Lᵀ
-        partial = q_loc @ rinv[start:start + count]  # (m, n)
-        q_loc = comm.reduce_scatter(partial, 1, n)
+        q_loc = program_cache.cached_program("cholqr_panel_solve", (), lambda: _panel_solve,
+                                             comm=comm, inline=True)(q_loc, rinv, comm, n)
         r_factors.append(ell.t())
         passes_left -= 1
     r_log = r_factors[0]
@@ -116,6 +117,16 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
     if not calc_q:
         return QR(None, r_ht)
     return QR(DNDarray(q_loc.contiguous(), (m, n), dt, 1, a.device, comm, True), r_ht)
+
+
+def _panel_solve(q_loc: torch.Tensor, rinv: torch.Tensor, comm, n: int) -> torch.Tensor:
+    """``Q = A R⁻¹`` of a column-split ``A`` (this rank's columns
+    ``q_loc``): each rank's partial product over its rows of ``R⁻¹``, then
+    one reduce-scatter along the columns (site ``cholqr_panel_solve``)."""
+    counts, displs = comm.counts_displs(n)
+    start, count = displs[comm.rank], counts[comm.rank]
+    partial = q_loc @ rinv[start:start + count]  # (m, n)
+    return comm.reduce_scatter(partial, 1, n)
 
 
 def _gather_leading_columns(loc: torch.Tensor, comm, n: int, m: int) -> torch.Tensor:
@@ -135,7 +146,9 @@ def _wide_split1(a: DNDarray, dt, calc_q: bool) -> QR:
     split 1."""
     m, n = a.shape
     buf = a.larray.to(dt.torch_type())
-    q_log, _ = torch.linalg.qr(_gather_leading_columns(buf, a.comm, n, m))
+    lead = program_cache.cached_program("qr_wide_lead", (m,), lambda: _gather_leading_columns,
+                                        comm=a.comm, inline=True)(buf, a.comm, n, m)
+    q_log, _ = torch.linalg.qr(lead)
     r_ht = DNDarray(q_log.t() @ buf, (m, n), dt, 1, a.device, a.comm, True)
     if not calc_q:
         return QR(None, r_ht)
@@ -162,13 +175,15 @@ def _tsqr(a: DNDarray, dt, tiles_per_proc: int, calc_q: bool, audit: bool = Fals
     m, n = a.shape
     cost, fields, do_audit = telemetry.op_cost(
         telemetry.collectives.tsqr_cost, m, n, dt.byte_size(), comm.size, audit=audit)
+    body = program_cache.cached_program("tsqr", ((m, n), dt, tiles_per_proc, calc_q),
+                                        lambda: _tsqr_body, comm=comm, inline=True)
     with telemetry.span("tsqr", gshape=[m, n], mesh=comm.size, **fields) as sp:
         if do_audit:
             out, _ = telemetry.hlo.audit_call(
-                "tsqr", lambda: _tsqr_body(a, dt, tiles_per_proc, calc_q), predicted=cost,
+                "tsqr", lambda: body(a, dt, tiles_per_proc, calc_q), predicted=cost,
                 fields={"gshape": [m, n], "mesh": comm.size})
         else:
-            out = _tsqr_body(a, dt, tiles_per_proc, calc_q)
+            out = body(a, dt, tiles_per_proc, calc_q)
         sp.output(out.R.larray)
     return out
 

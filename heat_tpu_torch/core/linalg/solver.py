@@ -28,7 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _threefry, cuda_random, types
+from .. import _threefry, cuda_random, program_cache, types
 from ..dndarray import DNDarray
 from ..factories import _from_global
 
@@ -85,6 +85,89 @@ def _matvec(A, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda x: a @ x
 
 
+def _kind_key(A, n: int, dtype: torch.dtype) -> tuple:
+    """The static configuration of a solver program: the operator's kind
+    and layout, its order and the iteration type."""
+    return (type(A).__name__, getattr(A, "split", None), n, str(dtype))
+
+
+def _cg_init(matvec, b: torch.Tensor, x0: torch.Tensor):
+    """The CG carry ``(x, r, p, r·r)`` at ``x0`` (site ``cg_init``)."""
+    x = x0
+    r = b - matvec(x)
+    return x, r, r, torch.dot(r, r)
+
+
+def _cg_window(matvec, x, r, p, rs, it: int, lim: int):
+    """CG iterations from ``it`` until ``lim`` or ``r·r < 1e-20`` (site
+    ``cg_chunk``, one checkpoint window): the carry and the iteration."""
+    # heatlint: disable=HL004 -- the port's loop reads r.r once an iteration
+    # on the host (module docstring); the program runs inline, never captured
+    while it < lim and float(rs) >= 1e-20:
+        Ap = matvec(p)
+        alpha = rs / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+        it += 1
+    return x, r, p, rs, it
+
+
+def _cg_solve(matvec, b: torch.Tensor, x0: torch.Tensor, n: int) -> torch.Tensor:
+    """The uninterrupted solve (site ``cg``): at most ``n`` iterations."""
+    x, r, p, rs = _cg_init(matvec, b, x0)
+    return _cg_window(matvec, x, r, p, rs, 0, n)[0]
+
+
+def _lanczos_init(matvec, v: torch.Tensor, m: int):
+    """The Lanczos carry after the first vector (site ``lanczos_init``):
+    ``(basis (m, n), alphas, betas, w)``."""
+    n = v.shape[0]
+    v = v / torch.linalg.vector_norm(v)
+    basis = torch.zeros((m, n), dtype=v.dtype, device=v.device)
+    basis[0] = v
+    alphas = torch.zeros(m, dtype=v.dtype, device=v.device)
+    betas = torch.zeros(m, dtype=v.dtype, device=v.device)
+    w = matvec(v)
+    alphas[0] = torch.dot(w, v)
+    w = w - alphas[0] * v
+    return basis, alphas, betas, w
+
+
+def _lanczos_window(matvec, basis, alphas, betas, w, lo: int, hi: int, eps: float):
+    """Lanczos steps ``lo..hi-1`` into ``basis``, ``alphas`` and ``betas``
+    (site ``lanczos_chunk``, one checkpoint window); returns the next
+    ``w``. A retry recomputes the same rows from the same ``w``."""
+    n, dtype, dev = basis.shape[1], basis.dtype, basis.device
+    key = _threefry.prng_key(0)
+    for i in range(lo, hi):
+        beta = torch.linalg.vector_norm(w)
+        if float(beta) > eps:
+            v = w / beta
+        else:
+            v = _threefry.normal(_threefry.fold_in(key, i), _threefry.Slice.whole((n,)), dtype,
+                                 cuda_random.draw, dev)
+            beta = torch.zeros((), dtype=dtype, device=dev)
+        prev = basis[:i]
+        v = v - prev.t() @ (prev @ v)
+        v = v / torch.linalg.vector_norm(v)
+        basis[i] = v
+        betas[i] = beta
+        w = matvec(v)
+        alphas[i] = torch.dot(w, v)
+        w = w - alphas[i] * v - beta * basis[i - 1]
+    return w
+
+
+def _lanczos_solve(matvec, v: torch.Tensor, m: int, eps: float):
+    """The uninterrupted tridiagonalisation (site ``lanczos``)."""
+    basis, alphas, betas, w = _lanczos_init(matvec, v, m)
+    _lanczos_window(matvec, basis, alphas, betas, w, 1, m, eps)
+    return basis, alphas, betas
+
+
 def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None, *,
        checkpoint_every: Optional[int] = None, checkpoint_path: Optional[str] = None,
        resume: bool = False) -> DNDarray:
@@ -106,37 +189,33 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None, *
                              types.promote_types(x0.dtype, types.float32))
     tdt = dt.torch_type()
     matvec = _matvec(A, tdt)
-    loaded = None if every is None else _load_carry(checkpoint_path, "cg", 3, x0.comm, resume)
-    if loaded is not None:
-        (x, r, p), extra = loaded
-        dev = x0.larray.device
-        x, r, p = (torch.as_tensor(np.asarray(t)).to(dev, tdt) for t in (x, r, p))
-        rs = torch.tensor(extra["rsold"], dtype=tdt, device=dev)
-        it = int(extra["it"])
+    key = _kind_key(A, n, tdt)
+    comm = x0.comm
+    if every is None:
+        x = program_cache.cached_program("cg", key, lambda: _cg_solve, comm=comm, inline=True)(
+            matvec, b._global().to(tdt), x0._global().to(tdt), n)
     else:
-        x = x0._global().to(tdt)
-        r = b._global().to(tdt) - matvec(x)
-        p = r
-        rs = torch.dot(r, r)
-        it = 0
-    while True:
-        start = it
-        lim = n if every is None else min(it + every, n)
-        while it < lim and float(rs) >= 1e-20:
-            Ap = matvec(p)
-            alpha = rs / torch.dot(p, Ap)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rs_new = torch.dot(r, r)
-            p = r + (rs_new / rs) * p
-            rs = rs_new
-            it += 1
-        if every is None or it == start:
-            break  # done, converged, or a window that made no progress
-        _save_carry(checkpoint_path, (x, r, p), {"algo": "cg", "it": it, "rsold": float(rs)},
-                    x0.comm)
-        if it >= n:
-            break
+        loaded = _load_carry(checkpoint_path, "cg", 3, comm, resume)
+        if loaded is not None:
+            (x, r, p), extra = loaded
+            dev = x0.larray.device
+            x, r, p = (torch.as_tensor(np.asarray(t)).to(dev, tdt) for t in (x, r, p))
+            rs = torch.tensor(extra["rsold"], dtype=tdt, device=dev)
+            it = int(extra["it"])
+        else:
+            x, r, p, rs = program_cache.cached_program(
+                "cg_init", key, lambda: _cg_init, comm=comm, inline=True)(
+                matvec, b._global().to(tdt), x0._global().to(tdt))
+            it = 0
+        window = program_cache.cached_program("cg_chunk", key, lambda: _cg_window, comm=comm,
+                                              inline=True)
+        while it < n:
+            start = it
+            x, r, p, rs, it = window(matvec, x, r, p, rs, it, min(it + every, n))
+            if it == start:
+                break  # converged: a window that made no progress
+            _save_carry(checkpoint_path, (x, r, p),
+                        {"algo": "cg", "it": it, "rsold": float(rs)}, comm)
     if not bool(torch.isfinite(x).all()):
         raise RuntimeError(
             "cg broke down (non-finite iterate) — A must be symmetric positive definite")
@@ -176,43 +255,30 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
     else:
         v = v0._global().to(tdt)
     eps = 1e-13 if tdt == torch.float64 else 1e-6
-    key = _threefry.prng_key(0)
-
-    loaded = None if every is None else _load_carry(checkpoint_path, "lanczos", 4, A.comm,
-                                                      resume)
-    if loaded is not None:
-        leaves, extra = loaded
-        basis, alphas, betas, w = (torch.as_tensor(np.asarray(t)).to(dev, tdt) for t in leaves)
-        first = int(extra["i"])
+    key = _kind_key(A, n, tdt) + (m,)
+    comm = A.comm
+    if every is None:
+        basis, alphas, betas = program_cache.cached_program(
+            "lanczos", key, lambda: _lanczos_solve, comm=comm, inline=True)(matvec, v, m, eps)
     else:
-        v = v / torch.linalg.vector_norm(v)
-        basis = torch.zeros((m, n), dtype=tdt, device=dev)
-        basis[0] = v
-        alphas = torch.zeros(m, dtype=tdt, device=dev)
-        betas = torch.zeros(m, dtype=tdt, device=dev)
-        w = matvec(v)
-        alphas[0] = torch.dot(w, v)
-        w = w - alphas[0] * v
-        first = 1
-    for i in range(first, m):
-        beta = torch.linalg.vector_norm(w)
-        if float(beta) > eps:
-            v = w / beta
+        loaded = _load_carry(checkpoint_path, "lanczos", 4, comm, resume)
+        if loaded is not None:
+            leaves, extra = loaded
+            basis, alphas, betas, w = (torch.as_tensor(np.asarray(t)).to(dev, tdt)
+                                       for t in leaves)
+            first = int(extra["i"])
         else:
-            v = _threefry.normal(_threefry.fold_in(key, i), _threefry.Slice.whole((n,)), tdt,
-                                 cuda_random.draw, dev)
-            beta = torch.zeros((), dtype=tdt, device=dev)
-        prev = basis[:i]
-        v = v - prev.t() @ (prev @ v)
-        v = v / torch.linalg.vector_norm(v)
-        basis[i] = v
-        betas[i] = beta
-        w = matvec(v)
-        alphas[i] = torch.dot(w, v)
-        w = w - alphas[i] * v - beta * basis[i - 1]
-        if every is not None and ((i - first + 1) % every == 0 or i == m - 1):
-            _save_carry(checkpoint_path, (basis, alphas, betas, w),
-                        {"algo": "lanczos", "i": i + 1}, A.comm)
+            basis, alphas, betas, w = program_cache.cached_program(
+                "lanczos_init", key, lambda: _lanczos_init, comm=comm, inline=True)(
+                matvec, v, m)
+            first = 1
+        window = program_cache.cached_program("lanczos_chunk", key, lambda: _lanczos_window,
+                                              comm=comm, inline=True)
+        for lo in range(first, m, every):
+            hi = min(lo + every, m)
+            w = window(matvec, basis, alphas, betas, w, lo, hi, eps)
+            _save_carry(checkpoint_path, (basis, alphas, betas, w), {"algo": "lanczos", "i": hi},
+                        comm)
     T = torch.diag(alphas) + torch.diag(betas[1:], 1) + torch.diag(betas[1:], -1)
     V = _from_global(basis.t().contiguous(), A.split, A.device, A.comm, dt)
     T = _from_global(T, None, A.device, A.comm, dt)

@@ -41,7 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import types
+from . import program_cache, types
 from ._operations import from_order_key, order_key
 from .dndarray import DNDarray
 from .indexing import (_BITS_AS, _assemble, _bits, _exchange_rows, _fetch_rows, _flip,
@@ -117,6 +117,15 @@ def _move_along(pieces, ranges, n: int, dim: int, comm, like: torch.Tensor) -> t
     return _assemble(moved, ranges, n, comm, like.movedim(dim, 0)).movedim(0, dim)
 
 
+def _permute_split_axis(pieces, ranges, n: int, dim: int, comm, like: torch.Tensor):
+    """A permutation along the split dimension ``dim`` (flip, roll): the
+    ranges each rank's pieces land at are the data of one registry program
+    (site ``permute_split_axis``), as the index map is the JAX package's."""
+    return program_cache.cached_program(
+        "permute_split_axis", (dim, n, like.ndim), lambda: _move_along, comm=comm,
+        inline=True)(pieces, ranges, n, dim, comm, like)
+
+
 # ------------------------------------------------------------- the layout
 
 
@@ -149,8 +158,10 @@ def resplit(arr: DNDarray, axis: Optional[int] = None, *, audit: bool = False,
         return arr.resplit(axis, audit=audit)
 
     def run() -> DNDarray:
-        return DNDarray(collective_prec.reshard(arr, axis, wire), arr.shape, arr.dtype, axis,
-                        arr.device, arr.comm, True)
+        moved = program_cache.cached_program(
+            "relayout", (arr.shape, arr.dtype, arr.split, axis, wire),
+            lambda: collective_prec.reshard, comm=arr.comm, inline=True)(arr, axis, wire)
+        return DNDarray(moved, arr.shape, arr.dtype, axis, arr.device, arr.comm, True)
 
     if not (audit or telemetry.hlo.audit_enabled()):
         return run()
@@ -234,7 +245,10 @@ def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
             ranges[q].append((off + lo, hi - lo))
         pieces.append(chunk_of(a))
         off += n
-    res = _move_along(pieces, ranges, gshape[axis], axis, comm, pieces[0])
+    key = (axis, out_split, tuple(a.shape for a in arrays), tuple(gshape), str(tdt))
+    res = program_cache.cached_program("concat_split", key, lambda: _move_along, comm=comm,
+                                       inline=True)(pieces, ranges, gshape[axis], axis, comm,
+                                                    pieces[0])
     return _new(res.contiguous(), gshape, out_dtype, out_split, arrays[0])
 
 
@@ -440,6 +454,16 @@ def reshape(a: DNDarray, *shape, new_split: Optional[int] = None) -> DNDarray:
                 prod(shape[:new_split]) == prod(a.shape[:s]):
             res = a.larray.reshape(shape[:new_split] + a.lshape[s:])
             return _new(res, shape, a.dtype, new_split, a)
+    return program_cache.cached_program(
+        "reshape_split", (tuple(a.shape), tuple(shape), new_split), lambda: _reshape_crossing,
+        comm=comm, inline=True)(a, shape, new_split)
+
+
+def _reshape_crossing(a: DNDarray, shape: tuple, new_split: Optional[int]) -> DNDarray:
+    """A reshape of a distributed ``a`` that crosses its split dimension
+    (the registry program of site ``reshape_split``): contiguous ranges of
+    the flat array move from the split=0 chunks to the result's."""
+    comm, s = a.comm, a.split
     src = a if s == 0 else a.resplit(0)
     inner_in = builtins.int(np.prod(a.shape[1:], dtype=np.int64))
     ranges = []
@@ -503,7 +527,7 @@ def flip(a: DNDarray, axis=None) -> DNDarray:
         for q in range(comm.size):
             lo, hi = _chunk_range(n, comm, q)
             ranges.append([(n - hi, hi - lo)])
-        res = _move_along([res], ranges, n, s, comm, res)
+        res = _permute_split_axis([res], ranges, n, s, comm, res)
     return _new(res.contiguous(), a.shape, a.dtype, s, a)
 
 
@@ -551,7 +575,7 @@ def roll(x: DNDarray, shift, axis=None) -> DNDarray:
         ranges.append(parts)
         if q == comm.rank:
             pieces = [res.narrow(s, 0, first - lo), res.narrow(s, first - lo, hi - first)]
-    res = _move_along(pieces, ranges, n, s, comm, res)
+    res = _permute_split_axis(pieces, ranges, n, s, comm, res)
     return _new(res.contiguous(), x.shape, x.dtype, s, x)
 
 
@@ -861,7 +885,10 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     indices int64 and global; both split as ``a``."""
     axis = sanitize_axis(a.shape, axis)
     if a.split == axis and a.comm.size > 1:
-        vals, idx = _sort_split_axis(a, axis, descending)
+        key = (axis, a.comm.chunk_size(a.shape[axis]), a.ndim)
+        vals, idx = program_cache.cached_program(
+            "oddeven_sort", key, lambda: _sort_split_axis, comm=a.comm, inline=True)(
+            a, axis, descending)
     else:
         vals, idx = _sort_local(a.larray, axis, descending)
     values = _new(vals, a.shape, a.dtype, a.split, a)

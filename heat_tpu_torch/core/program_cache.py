@@ -32,12 +32,21 @@ new input signature, and steady-state dispatch is a dict lookup. Here:
   move its version counter. Programs that share a set also share the lock
   that orders their calls;
 * **on the CPU** a :class:`Program` calls the plain callable;
-* an **inline** program (``inline=True``: the fused chains of
-  :mod:`.fusion`) calls its callable on the card too, on the caller's
-  stream: no graph, no static copies, no private pool, so a call moves the
-  bytes its kernels move and no more, and a call during another program's
-  capture is recorded into that capture. Its arguments may hold python
-  scalars beside the tensors (their types are part of the signature);
+* an **inline** program (``inline=True``) calls its callable on the card
+  too, on the caller's stream: no graph, no static copies, no private
+  pool, so a call moves the bytes its kernels move and no more, and a call
+  during another program's capture is recorded into that capture. Its
+  arguments may hold any python object beside the tensors (scalars,
+  modules, optimizers, DNDarrays, callables): a tensor's shape and dtype
+  and any other argument's type form the signature, so the static
+  configuration belongs in ``key`` and the callable must read everything
+  else from its arguments (a closure over call-specific state would be
+  replayed for the next call of the same key);
+* a **donated** program (``donated=True``) changes state in place (an
+  optimizer step, a merge into parameters, an accumulator): under the
+  retry guard a transient fault raised while it runs escalates at once
+  instead of running it a second time (a fault injected before it runs
+  still retries), the counterpart of the JAX package's donated buffers;
 * every build (a capture on the card, a first call of a signature on the
   CPU) is reported to :class:`heat_tpu_torch.telemetry.CompileWatcher`
   as one ``backend_compile_duration`` event, so that a steady state is
@@ -49,10 +58,17 @@ XLA's knobs of ``jax.jit`` (``out_shardings``, ``static_argnums``,
 ``donate``) have no counterpart: a graph copies its inputs. XLA's
 per-call precision has one: ``tf32=False`` captures the program's
 products with TF32 off (``torch.backends.cuda.matmul.allow_tf32``, the
-caller's flag restored after the capture; a replay does not read it). The serving
-endpoints go through this registry; the port's other modules keep their
-own caches (``regression.Lasso``'s epoch graph) until the registry's
-adoption at their sites.
+caller's flag restored after the capture; a replay does not read it).
+
+Every program site of the JAX package dispatches here under its name:
+the serving endpoints and the fused chains, and inline, the relayouts,
+the solvers' windows, the is_split gather, the streaming fits, the ring
+products, the QR paths, the distributed manipulations, the sharded take,
+the sparse ops and the training steps. ``regression.Lasso``'s epoch
+(site ``streaming.lasso``) is the one other graph program. With
+``HEAT_TPU_AUTOTUNE`` on, a registry miss first consults the tuning
+database (:func:`heat_tpu_torch.autotune.on_program_miss`), outside the
+registry's lock; off, a miss pays one knob read and nothing else.
 """
 
 from __future__ import annotations
@@ -113,17 +129,19 @@ def _signature(args: tuple, scalars: bool = False) -> Tuple:
 
 def _copy_into(static: list, last: list, args) -> None:
     """Copy ``args`` into their static buffers, skipping a tensor on the
-    card that is the very one copied last time, unchanged."""
+    card that is the very one copied last time, unchanged. ``last`` holds
+    weak references: a program keeps its static copies, never its
+    callers' tensors."""
     for i, a in enumerate(args):
         prev = last[i]
-        if prev is not None and prev[0] is a and prev[1] == a._version:
+        if prev is not None and prev[0]() is a and prev[1] == a._version:
             continue
         dst = static[i]
         if a.shape != dst.shape or a.dtype != dst.dtype:  # copy_ would broadcast or cast
             raise ValueError(f"program cache: a {tuple(a.shape)} {a.dtype} tensor does not fit "
                              f"its static buffer {tuple(dst.shape)} {dst.dtype}")
         dst.copy_(a)
-        last[i] = (a, a._version) if a.is_cuda else None
+        last[i] = (weakref.ref(a), a._version) if a.is_cuda else None
 
 
 class _Shared:
@@ -305,7 +323,7 @@ def program_key(site: str, key: Any, comm: Any = None) -> Tuple:
 def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: Any = None,
                    cost_bytes: int = 0, params_from: Optional[int] = None,
                    params_key: Any = None, tf32: Optional[bool] = None,
-                   inline: bool = False) -> Callable:
+                   inline: bool = False, donated: bool = False) -> Callable:
     """The memoized program of ``(site, comm, key)``, built on a miss:
     ``build()`` returns the callable over positional tensors and runs only
     then (cheap, no side effects; nothing is captured until the program's
@@ -313,12 +331,19 @@ def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: 
     With ``params_from``, the arguments from that position on are
     parameters whose static buffers on the card are shared by every
     program of ``(site, comm, params_key)``; ``tf32`` sets TF32 for the
-    capture, and ``inline`` calls the callable on the card too (module
+    capture, ``inline`` calls the callable on the card too and
+    ``donated`` marks a program that changes state in place (module
     docstring). The returned callable is the
     :class:`Program` wrapped by ``resilience.wrap_program``; two calls
     with the same key and other shapes share the entry and capture a graph
     each."""
     full_key = program_key(site, key, comm=comm)
+    if full_key not in _PROGRAMS and knobs.get("HEAT_TPU_AUTOTUNE"):
+        # a miss is the cold path: the memoized warm start from the tuning
+        # database runs here, outside the lock (its first call reads disk)
+        from .. import autotune
+
+        autotune.on_program_miss(site)
     evicted = 0
     miss = False
     with _LOCK:
@@ -340,7 +365,8 @@ def cached_program(site: str, key: Any, build: Callable[[], Callable], *, comm: 
                     shared = _SHARED[skey] = _Shared()
             fn = resilience.wrap_program(site, Program(site, build(), cost_bytes=cost_bytes,
                                                        params_from=params_from, shared=shared,
-                                                       tf32=tf32, inline=inline))
+                                                       tf32=tf32, inline=inline),
+                                         donated=donated)
             maxsize = _maxsize()
             while len(_PROGRAMS) >= maxsize:
                 _PROGRAMS.popitem(last=False)

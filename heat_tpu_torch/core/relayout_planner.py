@@ -357,10 +357,15 @@ def run(plan_: RelayoutPlan, local: torch.Tensor, comm, *, audit: bool = False) 
     returns this rank's destination chunk. ``audit=True`` records every
     stage's collectives against its analytic cost (``relayout_stage``
     records in ``telemetry.hlo.recent()``)."""
+    from . import program_cache
+
     src, dst = plan_.src_split, plan_.dst_split
+    dtype = str(local.dtype)
     if plan_.kind == "alltoall":
         def a2a():
-            return comm.all_to_all(local, dst, src, plan_.gshape[dst], plan_.gshape[src])
+            return program_cache.cached_program(
+                "relayout_a2a", (plan_.gshape, dtype, src, dst), lambda: _a2a_program,
+                comm=comm, inline=True)(local, comm, plan_.gshape, src, dst)
 
         if audit:
             out, _ = telemetry.hlo.audit_call("relayout_stage", a2a,
@@ -375,16 +380,34 @@ def run(plan_: RelayoutPlan, local: torch.Tensor, comm, *, audit: bool = False) 
     shape[src] = plan_.gshape[src]
     _, _, slices = comm.chunk(plan_.gshape, dst)
     shape[dst] = slices[dst].stop - slices[dst].start
-    acc = local.new_zeros(shape)
+    acc = program_cache.cached_program(
+        "relayout_init", (tuple(shape), dtype, dst), lambda: _zeros,
+        comm=comm, inline=True)(local, shape)
     for stage in plan_.stages:
+        # a stage writes its block of the accumulator whole: a retry
+        # rewrites the same block
+        chunk = program_cache.cached_program(
+            "relayout_chunk", (plan_.gshape, dtype, src, dst, stage.lo, stage.hi),
+            lambda: _chunk_stage, comm=comm, inline=True)
         if audit:
             telemetry.hlo.audit_call(
-                "relayout_stage", lambda stage=stage: _chunk_stage(local, plan_, stage, comm, acc),
+                "relayout_stage", lambda stage=stage, chunk=chunk: chunk(local, plan_, stage, comm,
+                                                                       acc),
                 predicted=stage.cost,
                 fields={"plan": "chunked", "lo": stage.lo, "hi": stage.hi})
         else:
-            _chunk_stage(local, plan_, stage, comm, acc)
+            chunk(local, plan_, stage, comm, acc)
     return acc
+
+
+def _zeros(like: torch.Tensor, shape) -> torch.Tensor:
+    """The zero accumulator of a chunked plan (site ``relayout_init``)."""
+    return like.new_zeros(shape)
+
+
+def _a2a_program(local: torch.Tensor, comm, gshape, src: int, dst: int) -> torch.Tensor:
+    """The one ``all_to_all`` of an ``alltoall`` plan (site ``relayout_a2a``)."""
+    return comm.all_to_all(local, dst, src, gshape[dst], gshape[src])
 
 
 def sparse_slab(cap: int, itemsize: int, nproc: int) -> int:

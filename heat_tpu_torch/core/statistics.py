@@ -216,8 +216,6 @@ def chunk_moments(x: DNDarray) -> Tuple[int, torch.Tensor, torch.Tensor]:
     2-D array, the same on every rank: one moments-kernel launch (and the
     two-allreduce merge across ranks) inside the kernel's gate, the plain
     two-pass version outside it (exact types in float64)."""
-    from .cuda_moments import column_moments_plain, sharded_merge
-
     if not isinstance(x, DNDarray):
         raise TypeError(f"chunk_moments needs a DNDarray, got {type(x)}")
     if x.ndim != 2:
@@ -225,9 +223,23 @@ def chunk_moments(x: DNDarray) -> Tuple[int, torch.Tensor, torch.Tensor]:
     n = x.shape[0]
     if n == 0:
         raise ValueError("chunk_moments: empty chunk (0 rows)")
+    from . import program_cache
+
+    mu, m2 = program_cache.cached_program(
+        "streaming.moments", (x.shape, x.dtype, x.split), lambda: _chunk_moments_program,
+        comm=x.comm, inline=True)(x)
+    return n, mu, m2
+
+
+def _chunk_moments_program(x: DNDarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, M2)`` of :func:`chunk_moments` (the registry program of site
+    ``streaming.moments``)."""
+    from .cuda_moments import column_moments_plain, sharded_merge
+
+    n = x.shape[0]
     moments = _column_moments(x)
     if moments is not None:
-        return n, moments[0], moments[1]
+        return moments
     buf = x.larray
     if not (buf.is_floating_point() or buf.is_complex()):
         buf = buf.to(torch.float64)  # the JAX package's sums of exact types divide to float64
@@ -237,7 +249,7 @@ def chunk_moments(x: DNDarray) -> Tuple[int, torch.Tensor, torch.Tensor]:
     elif x.comm.size > 1 and x.split == 1:
         mu = x.comm.allgather(mu, 0, x.shape[1])
         m2 = x.comm.allgather(m2, 0, x.shape[1])
-    return n, mu, m2
+    return mu, m2
 
 
 def max(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:

@@ -32,12 +32,33 @@ import torch
 
 from .. import _knobs as knobs
 from .. import telemetry
-from ..core import types
+from ..core import program_cache, types
 from ..core.dndarray import DNDarray
 
 __all__ = ["Laplacian"]
 
 _BLOCK_BUDGET = 1 << 28  # bytes of one (rows, n) similarity block
+
+
+def _laplacian_values(A, dvec: torch.Tensor, definition: str) -> torch.Tensor:
+    """The Laplacian's values on the adjacency ``A``'s slots, in ``dvec``'s
+    type (the registry program of site ``sparse.laplacian``)."""
+    tdt = dvec.dtype
+    c = A.lnnz
+    rows = A._slot_rows() + A.comm.rank * A.row_chunk
+    ix = A.indices[:c].to(torch.int64)
+    vals = A.values[:c].to(tdt)
+    on_diag = ix == rows
+    if definition == "norm_sym":
+        dinv = torch.where(dvec > 0, 1.0 / torch.sqrt(dvec), torch.zeros((), dtype=tdt,
+                                                                            device=dvec.device))
+        out = torch.where(on_diag, torch.ones((), dtype=tdt, device=vals.device),
+                          -vals * dinv[rows] * dinv[ix])
+    else:
+        out = torch.where(on_diag, dvec[rows], -vals)
+    new_vals = torch.zeros(A.capacity, dtype=tdt, device=vals.device)
+    new_vals[:c] = out
+    return new_vals
 
 
 class Laplacian:
@@ -160,21 +181,9 @@ class Laplacian:
         from ..sparse.container import SparseDNDarray
 
         tdt = dt.torch_type()
-        c = A.lnnz
-        rows = A._slot_rows() + A.comm.rank * A.row_chunk
-        ix = A.indices[:c].to(torch.int64)
-        vals = A.values[:c].to(tdt)
-        dvec = d.larray.to(tdt)
-        on_diag = ix == rows
-        if self.definition == "norm_sym":
-            dinv = torch.where(dvec > 0, 1.0 / torch.sqrt(dvec), torch.zeros((), dtype=tdt,
-                                                                                device=dvec.device))
-            out = torch.where(on_diag, torch.ones((), dtype=tdt, device=vals.device),
-                              -vals * dinv[rows] * dinv[ix])
-        else:
-            out = torch.where(on_diag, dvec[rows], -vals)
-        new_vals = torch.zeros(A.capacity, dtype=tdt, device=vals.device)
-        new_vals[:c] = out
+        new_vals = program_cache.cached_program(
+            "sparse.laplacian", (self.definition, str(tdt)), lambda: _laplacian_values,
+            comm=A.comm, inline=True)(A, d.larray.to(tdt), self.definition)
         return SparseDNDarray.from_shard_arrays(A.indptr, A.indices, new_vals, A.shape, A.counts,
                                                 device=A.device, comm=A.comm, dtype=dt)
 

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import collective_prec
+from ..core import collective_prec, program_cache
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 
@@ -149,6 +149,35 @@ def _apply(params: List[torch.Tensor], grads: Sequence[torch.Tensor],
         p.grad = None
 
 
+def _forward(module: nn.Module, *batch):
+    """The replica's forward (the registry program of site ``dp_forward``)."""
+    return module(*batch)
+
+
+def _blocking_step(params, opt_state, loss_fn: Callable, comm: TorchCommunication, wire: str,
+                   *batch):
+    """One blocking step: this rank's loss and gradients, their mean over
+    the ranks, the update (site ``dp_train_step``)."""
+    module, opt = _check_module(params), _torch_optimizer(opt_state)
+    loss, grads = _loss_and_grads(module, loss_fn, batch)
+    grads, loss = _mean_over(comm, grads, loss, wire=wire)
+    _apply([p for _, p in _trainable(module)], grads, opt)
+    return params, opt_state, loss
+
+
+def _double_buffered_step(params, opt_state, pending_grads: Dict[str, torch.Tensor],
+                          loss_fn: Callable, comm: TorchCommunication, wire: str, *batch):
+    """One double-buffered step: this step's mean travels while the
+    previous step's is applied (site ``dp_train_step``)."""
+    module, opt = _check_module(params), _torch_optimizer(opt_state)
+    named = _trainable(module)
+    loss, grads = _loss_and_grads(module, loss_fn, batch)
+    finish = _mean_over(comm, grads, loss, async_op=True, wire=wire)
+    _apply([p for _, p in named], [pending_grads[name] for name, _ in named], opt)
+    grads, loss = finish()
+    return params, opt_state, dict(zip(pending_grads, grads)), loss
+
+
 class DataParallel:
     """Synchronous data parallelism over the ranks of ``comm``.
 
@@ -194,8 +223,10 @@ class DataParallel:
         return _shard_batch(self.comm, arrays, _module_device(self.module))
 
     def __call__(self, *inputs):
-        """The forward of this rank's rows of ``inputs``."""
-        return self.module(*self.shard_batch(*inputs))
+        """The forward of this rank's rows of ``inputs`` (site ``dp_forward``)."""
+        return program_cache.cached_program(
+            "dp_forward", (type(self.module).__name__, len(inputs)), lambda: _forward,
+            comm=self.comm, inline=True)(self.module, *self.shard_batch(*inputs))
 
     def make_train_step(self, loss_fn: Callable, optimizer=None,
                         precision: Optional[str] = None) -> Callable:
@@ -213,20 +244,22 @@ class DataParallel:
         wire = collective_prec.resolve(precision)
         comm = self.comm
 
-        if self.blocking_parameter_updates:
+        blocking = self.blocking_parameter_updates
+        # the step changes the parameters and the optimizer in place
+        prog = program_cache.cached_program(
+            "dp_train_step", ("blocking" if blocking else "double_buffered", wire),
+            lambda: _blocking_step if blocking else _double_buffered_step, comm=comm,
+            inline=True, donated=True)
+
+        if blocking:
 
             def step(params, opt_state, *batch):
-                module, opt = _check_module(params), _torch_optimizer(opt_state)
-                loss, grads = _loss_and_grads(module, loss_fn, batch)
-                grads, loss = _mean_over(comm, grads, loss, wire=wire)
-                _apply([p for _, p in _trainable(module)], grads, opt)
-                return params, opt_state, loss
+                return prog(params, opt_state, loss_fn, comm, wire, *batch)
 
         else:
 
             def step(params, opt_state, pending_grads, *batch):
-                module, opt = _check_module(params), _torch_optimizer(opt_state)
-                named = _trainable(module)
+                named = _trainable(_check_module(params))
                 if not isinstance(pending_grads, dict) or list(pending_grads) != [
                         name for name, _ in named]:
                     raise TypeError(
@@ -235,12 +268,7 @@ class DataParallel:
                         "next_pending, loss); seed pending_grads with DataParallel.init_pending("
                         "params), or construct with blocking_parameter_updates=True for the "
                         "3-tuple step")
-                loss, grads = _loss_and_grads(module, loss_fn, batch)
-                # this step's average travels while the previous one is applied
-                finish = _mean_over(comm, grads, loss, async_op=True, wire=wire)
-                _apply([p for _, p in named], [pending_grads[name] for name, _ in named], opt)
-                grads, loss = finish()
-                return params, opt_state, dict(zip(pending_grads, grads)), loss
+                return prog(params, opt_state, pending_grads, loss_fn, comm, wire, *batch)
 
         self._train_step = step
         return step

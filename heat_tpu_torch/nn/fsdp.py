@@ -47,11 +47,17 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from .. import _knobs as knobs
-from ..core import collective_prec
+from ..core import collective_prec, program_cache
 from ..parallel import fsdp as _fsdp
 from .data_parallel import DataParallel, _mean_over
 
 __all__ = ["FSDP"]
+
+
+def _opt_init(factory: Callable, leaves: list) -> torch.optim.Optimizer:
+    """The optimizer over the persistent layout's leaves (site
+    ``fsdp_opt_init``)."""
+    return factory(leaves)
 
 
 class FSDP(DataParallel):
@@ -141,7 +147,13 @@ class FSDP(DataParallel):
         optimizer = optimizer if optimizer is not None else self.optimizer
         if optimizer is None:
             raise ValueError("no optimizer bound; pass one at construction")
-        return optimizer_factory(optimizer)(list(_fsdp._leaves(params)))
+        leaves = list(_fsdp._leaves(params))
+        if not self.enabled:  # the replicated optimizer, as the JAX package's knob off
+            return optimizer_factory(optimizer)(leaves)
+        return program_cache.cached_program(
+            "fsdp_opt_init", (getattr(optimizer, "__name__", type(optimizer).__name__),
+                              self._ensure_plan(params).signature()),
+            lambda: _opt_init, comm=self.comm, inline=True)(optimizer_factory(optimizer), leaves)
 
     # -- forward -----------------------------------------------------------------------
 
@@ -203,7 +215,11 @@ class FSDP(DataParallel):
         """The forward of this rank's rows of ``inputs[0]``."""
         plan = self._ensure_plan(params) if self.enabled else None
         x = self.shard_batch(*inputs)[0]
-        return self._forward_local(params, x, plan, self.prefetch, remat=False)
+        # knob off: the replicated forward, under DataParallel's site as in JAX
+        site, sig = ("fsdp_forward", plan.signature()) if self.enabled else ("dp_forward", None)
+        return program_cache.cached_program(
+            site, (sig, self.prefetch), lambda: FSDP._forward_local, comm=self.comm,
+            inline=True)(self, params, x, plan, self.prefetch, False)
 
     # -- training ------------------------------------------------------------------------
 
@@ -220,37 +236,49 @@ class FSDP(DataParallel):
         each replicated one averaged exactly, and the optimizer stepped on
         the chunks. Knob off: the replicated step, its gradients averaged by
         one flat all-reduce at ``precision`` (DataParallel's)."""
-        comm, p = self.comm, self.comm.size
+        comm = self.comm
         if self.enabled and self._plan is None:
             raise ValueError("no plan pinned: call shard_params(params) before make_train_step")
         plan, depth = self._plan, self.prefetch
         wire = collective_prec.resolve(precision) if not self.enabled else "off"
+        # in place (donated); knob off: the replicated step, under DataParallel's
+        # site as in the JAX package
+        site, sig = ("fsdp_train_step", plan.signature()) if self.enabled else ("dp_train_step",
+                                                                                None)
+        prog = program_cache.cached_program(
+            site, (sig, depth, wire, collective_prec.block_size()),
+            lambda: FSDP._run_train_step, comm=comm, inline=True, donated=True)
 
         def step(params, opt_state, *batch):
-            x, rest = batch[0], tuple(batch[1:])
-            leaves = _fsdp._leaves(params)
-            out = self._forward_local(params, x, plan, depth, remat=True)
-            loss = loss_fn(out, *rest)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
-            loss = loss.detach()
-            if not self.enabled:
-                grads, loss = _mean_over(comm, grads, loss, wire=wire)
-            else:
-                if p > 1:
-                    loss = comm.allreduce_flat([loss.reshape(1)], average=True)[0].reshape(())
-                    grads = [g / p if lp.sharded else
-                             comm.allreduce(g.clone(), precision="off") / p
-                             for g, lp in zip(grads, plan.leaves)]
-            for t, g in zip(leaves, grads):
-                t.grad = g.to(t.dtype)
-            opt_state.step()
-            for t in leaves:
-                t.grad = None
-            return params, opt_state, loss
+            return prog(self, loss_fn, plan, depth, wire, params, opt_state, *batch)
 
         self._train_step = step
         return step
+
+    def _run_train_step(self, loss_fn: Callable, plan, depth: int, wire: str, params,
+                        opt_state, *batch):
+        comm, p = self.comm, self.comm.size
+        x, rest = batch[0], tuple(batch[1:])
+        leaves = _fsdp._leaves(params)
+        out = self._forward_local(params, x, plan, depth, remat=True)
+        loss = loss_fn(out, *rest)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+        loss = loss.detach()
+        if not self.enabled:
+            grads, loss = _mean_over(comm, grads, loss, wire=wire)
+        else:
+            if p > 1:
+                loss = comm.allreduce_flat([loss.reshape(1)], average=True)[0].reshape(())
+                grads = [g / p if lp.sharded else
+                         comm.allreduce(g.clone(), precision="off") / p
+                         for g, lp in zip(grads, plan.leaves)]
+        for t, g in zip(leaves, grads):
+            t.grad = g.to(t.dtype)
+        opt_state.step()
+        for t in leaves:
+            t.grad = None
+        return params, opt_state, loss
 
     # -- checkpoint / restore --------------------------------------------------------------
 

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import collective_prec
+from ..core import collective_prec, program_cache
 from ..core import topology as _topology
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..nn.data_parallel import (_apply, _check_module, _loss_and_grads, _mean_over,
@@ -81,15 +81,29 @@ class DataParallelOptimizer:
         without, the parameters' own ``.grad`` are (reference
         ``DataParallelOptimizer.step()``)."""
         if grads is None:
-            self.torch_optimizer.step()
-            return params, opt_state
-        named = _trainable(_check_module(params))
-        _apply([p for _, p in named], [grads[name] for name, _ in named], self.torch_optimizer)
+            plist = glist = None
+        else:
+            named = _trainable(_check_module(params))
+            plist, glist = [p for _, p in named], [grads[name] for name, _ in named]
+        # the update changes the parameters and the optimizer's state in place
+        program_cache.cached_program(
+            "dp_optimizer_step", (type(self.torch_optimizer).__name__, grads is None),
+            lambda: _optimizer_step, inline=True, donated=True)(
+            self.torch_optimizer, plist, glist)
         return params, opt_state
 
     def zero_grad(self) -> None:
         """Clear the parameters' gradients (reference :871)."""
         self.torch_optimizer.zero_grad(set_to_none=True)
+
+
+def _optimizer_step(opt: torch.optim.Optimizer, params, grads) -> None:
+    """One update of ``opt``: with ``grads`` as the parameters' gradients,
+    else with the gradients they hold (site ``dp_optimizer_step``)."""
+    if grads is None:
+        opt.step()
+    else:
+        _apply(params, grads, opt)
 
 
 class _Sent:
@@ -258,6 +272,28 @@ class DASO:
 
     def _local_step(self, module: nn.Module, opt_state, batch, local_sync: bool,
                     full_sync: bool) -> torch.Tensor:
+        """This replica's step (site ``daso_step``; it changes the
+        parameters, the optimizer and the schedule in place)."""
+        return program_cache.cached_program(
+            "daso_step", (local_sync, full_sync), lambda: DASO._run_local_step, comm=self.comm,
+            inline=True, donated=True)(self, module, opt_state, batch, local_sync, full_sync)
+
+    def _global_send(self, module: nn.Module):
+        """The cross-node send (site ``daso_send``)."""
+        wire = collective_prec.resolve(self._collective_precision)
+        return program_cache.cached_program(
+            "daso_send", (str(self.cast_dtype), wire), lambda: DASO._run_global_send,
+            comm=self.comm, inline=True)(self, module, wire)
+
+    def _merge(self, module: nn.Module, payload, numer: float) -> None:
+        """The merge of a payload into the parameters (site ``daso_merge``;
+        in place)."""
+        program_cache.cached_program(
+            "daso_merge", (self.n_nodes,), lambda: DASO._run_merge, comm=self.comm,
+            inline=True, donated=True)(self, module, payload, numer)
+
+    def _run_local_step(self, module: nn.Module, opt_state, batch, local_sync: bool,
+                        full_sync: bool) -> torch.Tensor:
         if self.loss_fn is None:
             raise ValueError("call set_loss(loss_fn) before step()")
         opt = getattr(opt_state, "torch_optimizer", opt_state)
@@ -277,12 +313,11 @@ class DASO:
         _apply([p for _, p in _trainable(module)], grads, opt)
         return loss
 
-    def _global_send(self, module: nn.Module):
+    def _run_global_send(self, module: nn.Module, wire: str):
         """Launch the cross-node sum of the node means of the parameters
         (``node_mean_cross_sum``'s arithmetic at the cross-node wire);
         returns the pending payload."""
         params = [p.detach() for p in module.parameters()]
-        wire = collective_prec.resolve(self._collective_precision)
         if wire in ("int8", "blockwise"):
             sent = [_topology.node_mean_cross_sum(
                 p, local_comm=self.local_comm, node_comm=self.node_comm, wire=wire,
@@ -292,7 +327,7 @@ class DASO:
         rep = self.local_comm.allreduce_flat(params, average=True)
         return self.node_comm.allreduce_flat([r.to(cast) for r in rep], async_op=True)
 
-    def _merge(self, module: nn.Module, payload, numer: float) -> None:
+    def _run_merge(self, module: nn.Module, payload, numer: float) -> None:
         """``local · numer/denom + sent/denom`` with ``denom = numer +
         n_nodes``, in f32 as the JAX package's merge."""
         numer = np.float32(numer)

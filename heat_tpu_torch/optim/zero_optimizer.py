@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import collective_prec, topology
+from ..core import collective_prec, program_cache, topology
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..nn.data_parallel import _check_module, _loss_and_grads, _shard_batch, _trainable
 from ..parallel import fsdp
@@ -159,7 +159,12 @@ class ZeroOptimizer(DataParallelOptimizer):
     def init(self, params) -> "ZeroOptimizer":
         """The sharded state of module ``params``: this rank's flat chunk of
         every trainable parameter and the chunks' optimizer. Returns this
-        object (the ``opt_state`` of the steps)."""
+        object (the ``opt_state`` of the steps; site ``zero_opt_init``)."""
+        return program_cache.cached_program(
+            "zero_opt_init", (type(self.optimizer).__name__, self._wire, self._block),
+            lambda: ZeroOptimizer._run_init, comm=self.comm, inline=True)(self, params)
+
+    def _run_init(self, params) -> "ZeroOptimizer":
         comm = self.comm
         named = _trainable(_check_module(params))
         shards = []
@@ -197,7 +202,13 @@ class ZeroOptimizer(DataParallelOptimizer):
         """The :class:`DataParallelOptimizer` form: ``grads`` (name ->
         averaged gradient, the same on every rank) are sliced to this
         rank's chunks, the chunks stepped and the parameters gathered.
-        Returns ``(params, opt_state)``."""
+        Returns ``(params, opt_state)`` (site ``zero_step``; in place)."""
+        return program_cache.cached_program(
+            "zero_step", (type(self.optimizer).__name__, self._wire, self._block),
+            lambda: ZeroOptimizer._run_step, comm=self.comm, inline=True, donated=True)(
+            self, params, opt_state, grads)
+
+    def _run_step(self, params, opt_state, grads: Dict[str, torch.Tensor]):
         module = _check_module(params)
         comm = self.comm
         my = [fsdp._row(grads[name], comm.rank, comm.size, self._chunk(p.numel()))
@@ -213,26 +224,31 @@ class ZeroOptimizer(DataParallelOptimizer):
         reduce-scattered at this object's wire (tiered under
         ``HEAT_TPU_HIERARCHICAL=1``) and divided by the world size, the
         chunks stepped and the parameters gathered. The loss is averaged
-        exactly."""
-        comm = self.comm
-        p = comm.size
-        wire = self._wire
+        exactly (site ``zero_train_step``; in place)."""
+        prog = program_cache.cached_program(
+            "zero_train_step", (type(self.optimizer).__name__, self._wire, self._block),
+            lambda: ZeroOptimizer._run_train_step, comm=self.comm, inline=True, donated=True)
 
         def step(params, opt_state, *batch):
-            module = _check_module(params)
-            loss, grads = _loss_and_grads(module, loss_fn, batch)
-            if p > 1:
-                loss = comm.allreduce_flat([loss.reshape(1)], average=True)[0].reshape(())
-            my = []
-            for g in grads:
-                c = self._chunk(g.numel())
-                flat = fsdp._flat_padded(g, p, c)
-                red = comm.reduce_scatter_flat(flat, precision=wire) if p > 1 else flat
-                my.append(red[:c] / p if p > 1 else red[:c])
-            self._update(module, my)
-            return params, opt_state, loss
+            return prog(self, loss_fn, params, opt_state, *batch)
 
         return step
+
+    def _run_train_step(self, loss_fn: Callable, params, opt_state, *batch):
+        comm = self.comm
+        p = comm.size
+        module = _check_module(params)
+        loss, grads = _loss_and_grads(module, loss_fn, batch)
+        if p > 1:
+            loss = comm.allreduce_flat([loss.reshape(1)], average=True)[0].reshape(())
+        my = []
+        for g in grads:
+            c = self._chunk(g.numel())
+            flat = fsdp._flat_padded(g, p, c)
+            red = comm.reduce_scatter_flat(flat, precision=self._wire) if p > 1 else flat
+            my.append(red[:c] / p if p > 1 else red[:c])
+        self._update(module, my)
+        return params, opt_state, loss
 
     def shard_batch(self, *arrays):
         """This rank's rows of each batch array (as

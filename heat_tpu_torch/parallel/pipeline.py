@@ -45,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import telemetry
+from ..core import program_cache
 from ..telemetry import collectives as _coll
 from . import schedule as _schedule
 
@@ -74,8 +75,16 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor], stacke
     shape; ``stacked_params`` is a dict of ``(p, ...)`` leaves (every rank
     uses its row); ``x`` the whole batch, the same on every rank, its rows
     divisible into ``n_microbatches``. Returns the whole output on every
-    rank (no gradient)."""
-    p, m = comm.size, int(n_microbatches)
+    rank (no gradient; site ``pipeline.apply``)."""
+    return program_cache.cached_program(
+        "pipeline.apply", (stage_fn, int(n_microbatches)), lambda: _apply_program, comm=comm,
+        inline=True)(stage_fn, stacked_params, x, comm, int(n_microbatches))
+
+
+def _apply_program(stage_fn: Callable, stacked_params, x: torch.Tensor, comm,
+                   m: int) -> torch.Tensor:
+    """The GPipe forward of :func:`pipeline_apply`."""
+    p = comm.size
     b = x.shape[0]
     if b % m:
         raise ValueError(f"batch {b} not divisible into {m} microbatches")
@@ -304,7 +313,25 @@ def pipeline_step_program(layer_fn: Callable[[Dict[str, torch.Tensor], torch.Ten
     exact on every rank. Forward tables return ``fwd(params, micro_x) ->
     (M, mb, ...)`` on every rank. ``prefetch`` issues a layer's gathers
     ``prefetch`` layers ahead in a forward tick. ``remat`` checkpoints each
-    layer inside the backward tick's recompute (module docstring)."""
+    layer inside the backward tick's recompute (module docstring).
+
+    The step is the registry program of site ``pipeline.step``, keyed on
+    everything it is built from: a second call with the same functions,
+    layout, mapping and table returns the same program (a training step
+    changes the parameters and the optimizer in place)."""
+    key = (layer_fn, loss_fn, layout.signature(), mapping.describe(), table.name, table.train,
+           table.n_stages, table.n_microbatches, int(prefetch), bool(remat))
+    return program_cache.cached_program(
+        "pipeline.step", key,
+        lambda: _build_step_program(layer_fn, layout, mapping, table, comm=comm,
+                                    loss_fn=loss_fn, prefetch=prefetch, remat=remat),
+        comm=comm, inline=True, donated=table.train)
+
+
+def _build_step_program(layer_fn, layout: PipelineLayout, mapping: _schedule.StageMapping,
+                        table: _schedule.ScheduleTable, *, comm, loss_fn, prefetch: int,
+                        remat: bool) -> Callable:
+    """The step or forward callable of :func:`pipeline_step_program`."""
     train = table.train
     if train and loss_fn is None:
         raise ValueError("training tables need loss_fn")

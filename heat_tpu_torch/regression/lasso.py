@@ -13,20 +13,24 @@ its rows once on entry, and ``y`` is cut to the same chunks). ``z`` is one
 allreduce of the ``m + 1`` column sums and ``rho`` a local dot plus one
 scalar allreduce. No value crosses to the host inside an epoch: θ, rho and
 ŷ stay on the device, and the intercept branch is the static coordinate
-index. On one card an epoch is captured once as a CUDA graph and replayed
-(the counterpart of the JAX package's single compiled ``while_loop``); the
-convergence is read once an epoch. A world of several ranks runs the epoch
-eagerly, since its graph would hold one collective a coordinate, and so
-does the CPU.
+index. The epoch is the registry program of site ``streaming.lasso``
+(the JAX package's site, keyed as there on the shapes alone: the penalty
+and the row count are 0-d tensor arguments): on one card a CUDA graph
+captured once a shape and replayed (the counterpart of the JAX package's
+single compiled ``while_loop``), with ``x`` and ``y`` as its parameters;
+the convergence is read once an epoch. A world of several ranks runs the epoch inline,
+since its graph would hold one collective a coordinate, and the CPU runs
+the plain call.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from ..core import types
+from ..core import program_cache, types
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray
 
@@ -54,67 +58,68 @@ def _design(x: DNDarray, y: DNDarray, dtype: torch.dtype):
     return xt, yb, comm
 
 
-class _Sweep:
-    """One coordinate-descent epoch in place on static buffers (θ, ŷ and
-    the previous θ), so that it can be replayed from a CUDA graph."""
-
-    def __init__(self, xt: torch.Tensor, y: torch.Tensor, theta: torch.Tensor, n: int,
-                 lam: float, comm):
-        self.xt, self.y, self.n, self.lam, self.comm = xt, y, n, lam, comm
-        z = (xt * xt).sum(dim=1)
+def _epoch(theta: torch.Tensor, lam: torch.Tensor, n: torch.Tensor, xt: torch.Tensor,
+           y: torch.Tensor, z: torch.Tensor, *, comm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One coordinate-descent epoch from ``theta`` (the registry program of
+    site ``streaming.lasso``): ``(θ', max|θ' − θ|)``. ``lam`` and ``n`` (the
+    global row count) are 0-d tensors of ``xt``'s type, arguments as in the
+    JAX package, so one program serves every penalty. It reads no knob, and
+    no value crosses to the host."""
+    th = theta.clone()
+    y_est = torch.mv(xt.t(), th)
+    for j in range(xt.shape[0]):
+        xj, tj = xt[j], th[j]
+        s = torch.dot(xj, (y - y_est) + tj * xj).reshape(1)
         if comm is not None:
-            z = comm.allreduce(z)
-        self.z = torch.clamp(z / n, min=1e-30)
-        self.theta = theta
-        self.prev = theta.clone()
-        self.y_est = torch.empty_like(y)
-        self.diff = torch.empty((), dtype=theta.dtype, device=theta.device)
+            s = comm.allreduce(s)
+        rho = s / n
+        if j > 0:  # the intercept (j = 0) is not thresholded
+            rho = torch.sign(rho) * torch.clamp(rho.abs() - lam, min=0.0)
+        new = rho / z[j]
+        y_est.addcmul_(xj, new - tj)
+        th[j:j + 1].copy_(new)
+    return th, torch.amax((th - theta).abs())
 
-    def __call__(self) -> None:
-        xt, theta, y_est = self.xt, self.theta, self.y_est
-        self.prev.copy_(theta)
-        torch.mv(xt.t(), theta, out=y_est)
-        for j in range(xt.shape[0]):
-            xj, tj = xt[j], theta[j]
-            s = torch.dot(xj, (self.y - y_est) + tj * xj).reshape(1)
-            if self.comm is not None:
-                s = self.comm.allreduce(s)
-            rho = s / self.n
-            if j > 0:  # the intercept (j = 0) is not thresholded
-                rho = torch.sign(rho) * torch.clamp(rho.abs() - self.lam, min=0.0)
-            new = rho / self.z[j]
-            y_est.addcmul_(xj, new - tj)
-            theta[j:j + 1].copy_(new)
-        torch.amax((theta - self.prev).abs(), out=self.diff)
+
+def _curvature(xt: torch.Tensor, n: int, comm) -> torch.Tensor:
+    """The epoch-invariant curvature ``z = max(mean(x_j²), 1e-30)``."""
+    z = (xt * xt).sum(dim=1)
+    if comm is not None:
+        z = comm.allreduce(z)
+    return torch.clamp(z / n, min=1e-30)
+
+
+def _epoch_program(xt: torch.Tensor, comm):
+    """The registry program of one epoch, ``(θ, lam, n, xt, y, z) -> (θ',
+    max|Δθ|)`` (site ``streaming.lasso``; it changes no input in place),
+    keyed on the design's shape and type only, as the JAX package keys its
+    site: every penalty and row count of one shape share the program and
+    its one parameter set."""
+    key = (tuple(xt.shape), str(xt.dtype))
+    return program_cache.cached_program(
+        "streaming.lasso", key, lambda: functools.partial(_epoch, comm=comm),
+        comm=comm, params_from=3, params_key=key, inline=comm is not None)
 
 
 def _cd_fit(xt: torch.Tensor, y: torch.Tensor, theta0: torch.Tensor, n: int, lam: float,
             tol: float, max_iter: int, comm):
     """Coordinate-descent epochs from ``theta0`` until ``max|Δθ| ≤ tol`` or
-    ``max_iter`` epochs: ``(θ, epochs)``. On one card the first epoch runs
-    eagerly on a side stream (it also warms up the libraries) and the rest
-    replay its CUDA graph."""
-    sweep = _Sweep(xt, y, theta0.clone(), n, lam, comm)
-    graphed = xt.is_cuda and comm is None
-    it, diff = 0, float("inf")
-    replay = None
+    ``max_iter`` epochs: ``(θ, epochs)``. The epoch is the registry program
+    ``streaming.lasso``: on one card a CUDA graph captured at the first
+    epoch of a shape (``x`` and ``y`` are its parameters, copied into the
+    graph's buffers once a fit, not every epoch), inline with several ranks
+    (its allreduces run on the caller's stream), the plain call on the
+    CPU."""
+    z = _curvature(xt, n, comm)
+    epoch = _epoch_program(xt, comm)
+    lam_t = torch.tensor(lam, dtype=xt.dtype, device=xt.device)
+    n_t = torch.tensor(float(n), dtype=xt.dtype, device=xt.device)
+    theta, it, diff = theta0, 0, float("inf")
     while it < max_iter and diff > tol:
-        if replay is not None:
-            replay.replay()
-        elif graphed:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                sweep()
-            torch.cuda.current_stream().wait_stream(side)
-            replay = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(replay):
-                sweep()
-        else:
-            sweep()
+        theta, d = epoch(theta, lam_t, n_t, xt, y, z)
         it += 1
-        diff = float(sweep.diff)
-    return sweep.theta, it
+        diff = float(d)
+    return theta, it
 
 
 class Lasso(BaseEstimator, RegressionMixin):

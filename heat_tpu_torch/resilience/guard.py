@@ -18,6 +18,11 @@ package is armed, every execution of a program of the registry
 * escalates an exhausted transient to :class:`HeatTpuRuntimeError`, with
   the site, every attempt and remedies, after flushing telemetry.
 
+A donated program (``donated=True``: one that changes state in place, an
+optimizer step or a merge into parameters) is retried only when the fault
+came before it ran (the injector's faults): a transient fault raised while
+it runs escalates at once, so no update is ever applied twice.
+
 A sticky CUDA error (an illegal memory access, a device-side assert, an
 unspecified launch failure, a misaligned address, an illegal instruction)
 leaves the CUDA context unusable: every later call fails the same way. It
@@ -118,8 +123,8 @@ def _hints_for(site: str, last: BaseException, donated: bool) -> List[str]:
     if "resource" in msg or "memory" in msg:
         hints.append("reduce operand size or set HEAT_TPU_HBM_BUDGET to pre-flight allocations")
     if donated:
-        hints.append(f"site {site!r} donates its input buffer; a mid-execution fault cannot "
-                     "be replayed: re-create the source array and re-dispatch")
+        hints.append(f"site {site!r} changes state in place; a fault while it ran cannot be "
+                     "replayed: restore the state (a checkpoint) and re-dispatch")
     hints.append("raise HEAT_TPU_RETRIES / HEAT_TPU_RETRY_CAP for flakier substrates")
     return hints
 
@@ -144,12 +149,20 @@ def guarded_call(site: str, fn: Callable, args: tuple = (),
     attempt = 0
     injector_on = faults.active()
     while True:
+        ran = False
         try:
             directive = faults.check(site) if injector_on else None
+            ran = True
             out = fn(*args, **kwargs)
         except Exception as e:  # noqa: BLE001 - classification decides
             cls = classify(e)
             attempts.append({"attempt": attempt, "error": repr(e), "classification": cls})
+            if cls == "transient" and donated and ran:
+                _give_up(site, attempts, e)
+                raise HeatTpuRuntimeError(
+                    f"transient fault at site {site!r} while its in-place update ran; not "
+                    f"retried, so the update is not applied twice: {e!r}",
+                    site=site, attempts=attempts, hints=_hints_for(site, e, donated)) from e
             if cls != "transient":
                 if attempt == 0:
                     raise  # the existing error contracts hold

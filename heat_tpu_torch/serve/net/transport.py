@@ -314,6 +314,7 @@ class HttpFront:
             "http_by_code": {str(k): v for k, v in by_code.items()},
             "steady_backend_compiles": self.steady_backend_compiles(),
             "warmup": self.warmup_report,
+            "autotune_trials": _autotune_trials(),
             "kernel_builds": self.kernel_builds,
         }
         return stats
@@ -341,3 +342,15 @@ class HttpFront:
         with reg._lock:
             events = [dict(ev) for ev in reg.events]
         return {"pid": self.pid, "wall": time.time(), "events": events}
+
+
+def _autotune_trials() -> Optional[int]:
+    """Measured autotune trials this process ran: 0 when every site
+    warm-started from the shared tuning database. The tuner counts trials
+    through the telemetry registry, so this reads ``None`` (unknown) while
+    telemetry is off."""
+    if not telemetry.enabled():
+        return None
+    # one dict lookup, not an items() scan: /stats runs on handler threads
+    # while batcher threads change the counters
+    return int(telemetry.get_registry().counters.get("autotune.trials", 0))

@@ -149,6 +149,13 @@ class Server:
         max_wait_ms: Optional[float] = None,
         queue_max: Optional[int] = None,
     ):
+        if knobs.get("HEAT_TPU_AUTOTUNE"):
+            # tuned serve knobs land in the overlay before the reads below,
+            # so a fresh process builds its server tuned; explicit
+            # arguments still win over any tuned value
+            from .. import autotune
+
+            autotune.warm_start()
         if max_batch is None:
             max_batch = max(1, int(knobs.get("HEAT_TPU_SERVE_MAX_BATCH")))
         self.max_batch = int(max_batch)

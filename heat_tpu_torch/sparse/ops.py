@@ -57,7 +57,7 @@ import torch
 
 from .. import _knobs as knobs
 from .. import telemetry
-from ..core import types
+from ..core import program_cache, types
 from ..core._operations import _SIGNED, _sign_bit
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.devices import sanitize_device
@@ -215,14 +215,13 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
     cost, fields, do_audit = telemetry.op_cost(cost_fn, *cost_args, dt.byte_size(), comm.size,
                                                x.split, out_split, wire, audit=audit)
 
+    prog = program_cache.cached_program(
+        f"sparse.{op}", (x.split, out_split, wire, reduce, pattern, str(tdt)),
+        lambda: _sparse_dense_program, comm=comm, inline=True)
+    gather_n = x.shape[0] if x.split == 0 and comm.size > 1 else None
+
     def run():
-        if x.split == 0 and comm.size > 1:
-            # the gathered operand at the wire: bf16 moves its bits
-            xg = comm.allgather(x.larray.to(tdt), 0, x.shape[0], precision=wire)
-        else:
-            xg = x.larray.to(tdt)
-        return _finish(A, _contract(A, xg, tdt, reduce, pattern), tdt, reduce,
-                       out_split is None, wire)
+        return prog(A, x.larray, tdt, reduce, pattern, out_split is None, wire, gather_n)
 
     with telemetry.span(f"sparse.{op}", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
                         **fields) as sp:
@@ -236,6 +235,20 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
             **({"bytes": cost.bytes} if cost is not None else {}))
     gshape = (m,) if op == "spmv" else (m, k)
     return DNDarray(y, gshape, dt, out_split, A.device, comm, True)
+
+
+def _sparse_dense_program(A: SparseDNDarray, xl: torch.Tensor, tdt: torch.dtype, reduce: str,
+                          pattern: bool, replicate: bool, wire: str,
+                          gather_n: Optional[int]) -> torch.Tensor:
+    """This rank's rows of ``A @ x`` (the registry program of sites
+    ``sparse.spmv`` and ``sparse.spmm``): the operand gathered whole when it
+    is row-split (at the wire: bf16 moves its bits), the shard-local
+    contraction, and the combine."""
+    if gather_n is not None:
+        xg = A.comm.allgather(xl.to(tdt), 0, gather_n, precision=wire)
+    else:
+        xg = xl.to(tdt)
+    return _finish(A, _contract(A, xg, tdt, reduce, pattern), tdt, reduce, replicate, wire)
 
 
 def _same_comm(a: TorchCommunication, b: TorchCommunication) -> bool:
@@ -289,12 +302,20 @@ def to_dense(A: SparseDNDarray) -> DNDarray:
     if not isinstance(A, SparseDNDarray):
         raise TypeError(f"expected a SparseDNDarray, got {type(A)}")
     m, n = A.shape
+    dense = program_cache.cached_program("sparse.to_dense", (n, A.dtype), lambda: _to_dense,
+                                         comm=A.comm, inline=True)(A)
+    _record("to_dense", nnz=A.nnz, rows=m, cols=n)
+    return DNDarray(dense, (m, n), A.dtype, 0, A.device, A.comm, True)
+
+
+def _to_dense(A: SparseDNDarray) -> torch.Tensor:
+    """This rank's dense rows (the registry program of site
+    ``sparse.to_dense``)."""
     c = A.lnnz
     vals = _bits(A.values[:c])
-    dense = vals.new_zeros((A.lrows, n))
+    dense = vals.new_zeros((A.lrows, A.shape[1]))
     dense.index_put_((A._slot_rows(), A.indices[:c].to(torch.int64)), vals, accumulate=True)
-    _record("to_dense", nnz=A.nnz, rows=m, cols=n)
-    return DNDarray(_unbits(dense, A.values.dtype), (m, n), A.dtype, 0, A.device, A.comm, True)
+    return _unbits(dense, A.values.dtype)
 
 
 def _padded(vals: torch.Tensor, cap: int) -> torch.Tensor:
@@ -323,6 +344,9 @@ def _exchange(comm: TorchCommunication, dest: torch.Tensor, *payloads: torch.Ten
     order = torch.argsort(dest, stable=True)
     send = torch.bincount(dest, minlength=comm.size)
     recv = comm.alltoallv(send, [1] * comm.size, [1] * comm.size)
+    # heatlint: disable=HL004 -- alltoallv takes its counts on the host: a
+    # variable-length exchange has no fixed-shape form in torch.distributed
+    # (the program runs inline, never captured)
     send_counts, recv_counts = send.tolist(), recv.tolist()
     return tuple(_unbits(comm.alltoallv(_bits(p)[order], send_counts, recv_counts), p.dtype)
                  for p in payloads)
@@ -380,11 +404,24 @@ def _transpose(A: SparseDNDarray, slab: int) -> SparseDNDarray:
     keys = cols * R + (A._slot_rows() + comm.rank * A.row_chunk)
     vals = A.values[:c]
     got_k, got_v = [], []
+    stage = program_cache.cached_program("sparse.transpose_a2a", (R, r_new, A.dtype),
+                                         lambda: _exchange, comm=comm, inline=True)
     for k0 in range(0, cap, slab):  # the same stages on every rank: cap is uniform
         lo, hi = min(k0, c), min(k0 + slab, c)
-        k, v = _exchange(comm, cols[lo:hi] // r_new, keys[lo:hi], vals[lo:hi])
+        k, v = stage(comm, cols[lo:hi] // r_new, keys[lo:hi], vals[lo:hi])
         got_k.append(k)
         got_v.append(v)
+    return program_cache.cached_program(
+        "sparse.transpose_build", (R, r_new, len(got_k), A.dtype), lambda: _transpose_build,
+        comm=comm, inline=True)(A, got_k, got_v, R, r_new)
+
+
+def _transpose_build(A: SparseDNDarray, got_k, got_v, R: int, r_new: int) -> SparseDNDarray:
+    """The transpose's shard from the keys and values the stages brought
+    (the registry program of site ``sparse.transpose_build``): sorted by
+    (row, column), counted, packed."""
+    comm = A.comm
+    m, n = A.shape
     ks = torch.cat(got_k)
     ks, order = torch.sort(ks, stable=True)
     vs = _unbits(_bits(torch.cat(got_v))[order], A.values.dtype)

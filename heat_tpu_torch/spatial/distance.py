@@ -36,7 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import telemetry
-from ..core import types
+from ..core import program_cache, types
 from ..core.communication import ring_steps
 from ..core.relayout_planner import ring_overlap
 from ..core.dndarray import DNDarray
@@ -119,7 +119,11 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
             hops, audit=audit)
         with telemetry.span("ring_cdist", gshape=[m, n], mesh=p, overlap=hops < p,
                             **fields) as sp:
-            run = lambda: _ring_dist(xb, y.larray.to(tdt), n, x.comm, tile)  # noqa: E731
+            kind = "quadratic" if quadratic else ("manhattan" if manhattan else "euclid")
+            ring = program_cache.cached_program(
+                "ring_cdist", (kind, x.shape[1], str(tdt), hops < p), lambda: _ring_dist,
+                comm=x.comm, inline=True)
+            run = lambda: ring(xb, y.larray.to(tdt), n, x.comm, tile)  # noqa: E731
             if do_audit:
                 out, _ = telemetry.hlo.audit_call("ring_cdist", run, predicted=cost,
                                                   fields={"mesh": p})

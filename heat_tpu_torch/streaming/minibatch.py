@@ -34,7 +34,7 @@ import torch
 from ..cluster._kcluster import _KCluster, _d2
 from ..cluster.cuda_lloyd import lloyd_update, lloyd_update_plain, pallas_lloyd_applicable
 from ..cluster.kmeans import _lloyd_window
-from ..core import types
+from ..core import program_cache, types
 from ..core.dndarray import DNDarray
 from . import events
 
@@ -54,6 +54,30 @@ def _onehot_sums(xb: torch.Tensor, labels: torch.Tensor, k: int):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return counts, sums
+
+
+def _fold_chunk(xb: torch.Tensor, c0: torch.Tensor, cnt0: torch.Tensor, shift: float,
+                inner_iter: int, tol: float, decay: float, comm, update):
+    """One chunk folded into the carry (the registry program of site
+    ``streaming.minibatch_kmeans``): ``(centers, counts, shift, inertia)``."""
+    k = c0.shape[0]
+    # (1) the carried Lloyd window on this chunk, over this rank's rows
+    c_ref, _, shift = _lloyd_window(xb, c0, shift, inner_iter, tol, comm, update, xb.shape[0])
+    # (2) the hard assignment against the refined centers
+    d2 = _d2(xb, c_ref)
+    labels = torch.argmin(d2, dim=1)
+    c_b, s_b = _onehot_sums(xb, labels, k)
+    inertia = d2.min(dim=1).values.sum() if d2.shape[0] else xb.new_zeros(())
+    if comm is not None:
+        comm.allreduce(c_b)
+        comm.allreduce(s_b)
+        inertia = comm.allreduce(inertia.reshape(1)).reshape(())
+    # (3) the decayed-count blend into the running centers
+    decay = torch.tensor(decay, dtype=xb.dtype, device=xb.device)
+    cnt = decay * cnt0 + c_b
+    blended = ((decay * cnt0)[:, None] * c0 + s_b) / torch.clamp(cnt, min=1e-12)[:, None]
+    c_new = torch.where(c_b[:, None] > 0, blended, c0)
+    return c_new, cnt, shift, inertia
 
 
 class MiniBatchKMeans(_KCluster):
@@ -125,23 +149,10 @@ class MiniBatchKMeans(_KCluster):
         if update is None:
             gated = pallas_lloyd_applicable(x.comm.size, x.split, x.shape[1], k, xb.dtype)
             update = lloyd_update if gated else lloyd_update_plain
-        # (1) the carried Lloyd window on this chunk, over this rank's rows
-        c_ref, _, shift = _lloyd_window(xb, c0, self._shift, self.inner_iter, self.tol, comm,
-                                        update, xb.shape[0])
-        # (2) the hard assignment against the refined centers
-        d2 = _d2(xb, c_ref)
-        labels = torch.argmin(d2, dim=1)
-        c_b, s_b = _onehot_sums(xb, labels, k)
-        inertia = d2.min(dim=1).values.sum() if d2.shape[0] else xb.new_zeros(())
-        if comm is not None:
-            comm.allreduce(c_b)
-            comm.allreduce(s_b)
-            inertia = comm.allreduce(inertia.reshape(1)).reshape(())
-        # (3) the decayed-count blend into the running centers
-        decay = torch.tensor(self.decay, dtype=xb.dtype, device=xb.device)
-        cnt = decay * cnt0 + c_b
-        blended = ((decay * cnt0)[:, None] * c0 + s_b) / torch.clamp(cnt, min=1e-12)[:, None]
-        c_new = torch.where(c_b[:, None] > 0, blended, c0)
+        c_new, cnt, shift, inertia = program_cache.cached_program(
+            "streaming.minibatch_kmeans", (k, self.inner_iter, tuple(xb.shape), str(xb.dtype)),
+            lambda: _fold_chunk, comm=x.comm, inline=True)(
+            xb, c0, cnt0, self._shift, self.inner_iter, self.tol, self.decay, comm, update)
         self._centers_np = c_new.cpu().numpy()
         self._counts_np = cnt.cpu().numpy()
         self._shift = float(shift)

@@ -20,10 +20,10 @@ collectives the port really issued, next to the analytic ``phases``.
 
 A live summary gains the ``fusion`` block (``core.fusion.stats()``: the
 deferred ops, flushes, nodes per flush, fallbacks, absorbed reductions and
-grafted epilogues) once any op ran deferred. The ``autotune`` names of an
-offline replay are the JAX package's (``_AUTOTUNE_COUNTER`` below), kept
-here until that module is ported; the ``autoscale`` names are the
-controller's ``EVENT_COUNTER``.
+grafted epilogues) once any op ran deferred. The ``autotune`` block holds
+the tuner's counters (:data:`heat_tpu_torch.autotune.EVENT_COUNTER`
+names them, live and in an offline replay alike); the ``autoscale`` names
+are the controller's ``EVENT_COUNTER``.
 """
 
 from __future__ import annotations
@@ -32,22 +32,6 @@ import json
 from typing import Iterable, List, Optional
 
 __all__ = ["load_events", "summarize", "summarize_cluster", "bench_fields"]
-
-# event -> counter names of the autotuner, which the port has not ported yet
-# (heat_tpu/autotune/__init__.py:93)
-_AUTOTUNE_COUNTER = {
-    "trial": "trials",
-    "db_hit": "db_hits",
-    "db_miss": "db_misses",
-    "store": "stores",
-    "adopt": "adopted",
-    "pick": "picks",
-    "reject_budget": "rejected_budget",
-    "reject_digest": "rejected_digest",
-    "reject_error": "rejected_error",
-    "warm_start": "warm_starts",
-}
-
 
 def load_events(path: str) -> List[dict]:
     """Read a JSONL event sink back into a list of event dicts (skips
@@ -447,7 +431,7 @@ def summarize(
         if transients:
             res["transient_faults"] = transients
         out["resilience"] = res
-    # autotune counters (autotune, not ported): live summaries
+    # autotune counters (heat_tpu_torch.autotune): live summaries
     # read the registry's aggregate counters (trials/db_hits/stores/
     # adopted/...); offline summaries reconstruct the SAME block from the
     # recorded instant events — every counter increments exactly once
@@ -466,7 +450,8 @@ def summarize(
         if at:
             out["autotune"] = at
     elif at_events:
-        _at_names = _AUTOTUNE_COUNTER
+        from ..autotune import EVENT_COUNTER as _at_names
+
         out["autotune"] = {
             _at_names.get(k, k): v for k, v in at_events.items()
         }

@@ -1109,10 +1109,12 @@ def test_wide_unsigned_operations_on_card(dev, dtype):
 
 
 def test_lasso_graph_replayed_epoch_equals_the_eager_epoch(dev):
-    """One coordinate-descent epoch captured as a CUDA graph and replayed
-    gives the eager epoch's coefficients bit for bit, and three epochs on
-    the card equal the same epochs on the CPU within 1e-5."""
-    from heat_tpu_torch.regression.lasso import _Sweep
+    """One coordinate-descent epoch through its registry program (site
+    ``streaming.lasso``, a CUDA graph captured at the first call) gives the
+    eager epoch's coefficients bit for bit, and three epochs on the card
+    equal the same epochs on the CPU within 1e-5."""
+    from heat_tpu_torch.core import program_cache
+    from heat_tpu_torch.regression.lasso import _curvature, _epoch, _epoch_program
 
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn((100_003, 17), generator=g, device=dev)
@@ -1120,21 +1122,16 @@ def test_lasso_graph_replayed_epoch_equals_the_eager_epoch(dev):
         (x.shape[0],), generator=g, device=dev)
     xt = torch.cat([torch.ones((x.shape[0], 1), device=dev), x], 1).t().contiguous()
     start = torch.randn((18,), generator=g, device=dev) * 0.1
-    eager = _Sweep(xt, y, start.clone(), x.shape[0], 0.01, None)
-    eager()
-    graphed = _Sweep(xt, y, start.clone(), x.shape[0], 0.01, None)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        graphed()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        graphed()
-    graphed.theta.copy_(start)
-    graph.replay()
+    z = _curvature(xt, x.shape[0], None)
+    lam, n = torch.tensor(0.01, device=dev), torch.tensor(float(x.shape[0]), device=dev)
+    eager, _ = _epoch(start.clone(), lam, n, xt, y, z, comm=None)
+    program_cache.reset()
+    prog = _epoch_program(xt, None)
+    first, _ = prog(start.clone(), lam, n, xt, y, z)  # the capture
+    again, _ = prog(start.clone(), lam, n, xt, y, z)  # a replay
     torch.cuda.synchronize()
-    assert torch.equal(graphed.theta, eager.theta)
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+    assert program_cache.site_stats("streaming.lasso") == {"hits": 0, "misses": 1}
     htt.use_device(None)
     card = htt.regression.Lasso(lam=0.01, max_iter=3, tol=0.0).fit(
         htt.array(x, split=0), htt.array(y, split=0))
@@ -1142,6 +1139,41 @@ def test_lasso_graph_replayed_epoch_equals_the_eager_epoch(dev):
         htt.array(x.cpu(), split=0, device="cpu"), htt.array(y.cpu(), split=0, device="cpu"))
     assert card.n_iter == cpu.n_iter == 3
     np.testing.assert_allclose(card.theta.numpy(), cpu.theta.numpy(), atol=1e-5)
+
+
+def test_a_lasso_path_over_penalties_holds_one_static_copy(dev):
+    """Fits at three penalties on one card share one ``streaming.lasso``
+    program and one parameter set: the memory allocated after the second
+    and the third fit equals that after the first, which is the baseline
+    plus the parameters' one static copy, the graph's pool and the cuBLAS
+    workspace of the capture's stream (32 MiB on Hopper), and not a second
+    design matrix (the caller's is not held)."""
+    import gc
+
+    from heat_tpu_torch.core import program_cache
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = htt.array(torch.randn((2_000_000, 31), generator=g, device=dev), split=0)
+    y = htt.array(torch.randn((2_000_000,), generator=g, device=dev), split=0)
+    program_cache.reset()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    after = []
+    for lam in (0.1, 0.01, 0.001):
+        htt.regression.Lasso(lam=lam, max_iter=3, tol=0.0).fit(x, y)
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(dev))
+    assert program_cache.site_stats("streaming.lasso") == {"hits": 2, "misses": 1}
+    sets = [v for k, v in program_cache._SHARED.items() if k[0] == "streaming.lasso"]
+    assert len(sets) == 1
+    rows, cols = x.shape
+    assert sets[0].nbytes() == 4 * ((cols + 1) * rows + rows + cols + 1)
+    assert after[1] == after[0] and after[2] == after[0]
+    # the static copy, the graph's pool and the workspace (256 MB of design
+    # matrix against 32 MiB of workspace), not a second design matrix
+    assert after[0] - base < sets[0].nbytes() + 4 * (cols + 1) * rows
 
 
 _SLICE_DATA = """
@@ -1157,7 +1189,7 @@ def make_slice_data():
     return x, y, pts
 
 def run(ht, device):
-    from heat_tpu_torch.regression.lasso import _design, _Sweep
+    from heat_tpu_torch.regression.lasso import _curvature, _design, _epoch
     x_t, y_t, pts_t = (t.to(device) for t in make_slice_data())
     res = {}
     x, y = ht.array(x_t, split=0), ht.array(y_t, split=0)
@@ -1174,26 +1206,28 @@ def run(ht, device):
     # graph (the fit itself runs several ranks eagerly)
     if x_t.is_cuda and x.comm.size > 1:
         xt, yb, comm = _design(x, y, torch.float32)
-        sweep = _Sweep(xt, yb, torch.zeros(65, device=device), x.shape[0], 0.01, comm)
+        z = _curvature(xt, x.shape[0], comm)
+        zero = torch.zeros(65, device=device)
+        lam, n = torch.tensor(0.01, device=device), torch.tensor(float(x.shape[0]), device=device)
+
+        def sweep():
+            return _epoch(zero, lam, n, xt, yb, z, comm=comm)[0]
+
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             sweep()
         torch.cuda.current_stream().wait_stream(side)
-        eager = sweep.theta.clone()
-        sweep.theta.zero_()
-        sweep()
-        again = sweep.theta.clone()
+        eager = sweep()
+        again = sweep()
         try:
             graph = torch.cuda.CUDAGraph()
-            sweep.theta.zero_()
             with torch.cuda.graph(graph):
-                sweep()
-            sweep.theta.zero_()
+                out = sweep()
             graph.replay()
             torch.cuda.synchronize()
             res["capture"] = np.array("captured, replay equals eager: "
-                                      f"{bool(torch.equal(sweep.theta, again))}")
+                                      f"{bool(torch.equal(out, again))}")
         except RuntimeError as e:
             res["capture"] = np.array(f"capture failed: {str(e)[:300]}")
         res["eager_repeat_equal"] = np.array(bool(torch.equal(eager, again)))
@@ -2005,3 +2039,77 @@ def test_fusion_flush_inside_a_capture_is_recorded_into_it(dev):
         assert torch.equal(out["r"], want)
     finally:
         htt.use_device("cpu")
+
+
+# -- the autotuner on the card ------------------------------------------------------------------
+
+_CDIST_VARIANTS = {"bf16x3": "3xtf32_wgmma", "high": "3xtf32_wgmma", "default": "tf32_wgmma",
+                   "highest": "f32_fma"}
+
+
+def _cdist_tune(tmp_path, rows=4096):
+    from heat_tpu_torch import _knobs, autotune
+
+    htt.random.seed(0)
+    x = htt.random.rand(rows, 128, dtype=htt.float32, split=0)
+    seen = {}
+
+    def work():
+        out = htt.spatial.cdist(x, x, quadratic_expansion=True).larray
+        seen.setdefault(_knobs.default_raw("HEAT_TPU_CDIST_PREC"), set()).add(
+            cuda_cdist.last_variant())
+        return out
+
+    res = autotune.tune("cdist", work, signature=("cdist", (rows, 128), "float32"),
+                        search=["HEAT_TPU_CDIST_PREC"], error_budget=1e-3, trials_per_config=3,
+                        db_dir=str(tmp_path / "db"), adopt=False)
+    return res, seen
+
+
+def test_autotune_cdist_trials_launch_the_named_variants(dev, tmp_path):
+    """Each HEAT_TPU_CDIST_PREC candidate's trials launch the K3 variant it
+    names; the pick is no slower than the default, a lossy pick is within
+    the 1e-3 budget, and the record is stored."""
+    from heat_tpu_torch import autotune
+    from heat_tpu_torch.autotune import db
+
+    autotune.reset()
+    res, seen = _cdist_tune(tmp_path)
+    assert {k: v for k, v in seen.items()} == {k: {v} for k, v in _CDIST_VARIANTS.items()}
+    rec = res.record
+    assert rec["tuned_wall"] <= rec["baseline_wall"]
+    assert rec["validation"] == "digest" or rec["max_rel_err"] <= 1e-3
+    assert db.TuneDB(str(tmp_path / "db")).lookup(res.key)["config"] == res.config
+
+
+def test_autotune_cdist_warm_start_in_a_fresh_process(dev, tmp_path):
+    """A fresh process with HEAT_TPU_AUTOTUNE=1 and the same HEAT_TPU_TUNE_DB
+    adopts the pick with zero trials into the knob overlay, and its cdist
+    launches the picked variant."""
+    from heat_tpu_torch import autotune
+
+    autotune.reset()
+    res, _ = _cdist_tune(tmp_path)
+    repo = Path(__file__).resolve().parent.parent
+    script = (
+        "import heat_tpu_torch as ht\n"
+        "from heat_tpu_torch import _knobs, autotune, telemetry\n"
+        "from heat_tpu_torch.spatial.cuda_cdist import last_variant\n"
+        "telemetry.enable()\n"
+        "ht.random.seed(0)\n"
+        "x = ht.random.rand(4096, 128, dtype=ht.float32, split=0)\n"
+        "r = autotune.tune('cdist', lambda: ht.spatial.cdist(x, x, quadratic_expansion=True)"
+        ".larray, signature=('cdist', (4096, 128), 'float32'), search=['HEAT_TPU_CDIST_PREC'],"
+        " error_budget=1e-3, trials_per_config=3)\n"
+        "ht.spatial.cdist(x, x, quadratic_expansion=True).larray\n"
+        "print('WARM', r.from_db, r.trials_run, "
+        "int(telemetry.get_registry().counters.get('autotune.trials', 0)), r.config, "
+        "last_variant(), _knobs.raw('HEAT_TPU_CDIST_PREC'), autotune.adopted())\n")
+    env = dict(os.environ, HEAT_TPU_AUTOTUNE="1", HEAT_TPU_TUNE_DB=str(tmp_path / "db"))
+    out = subprocess.run([sys.executable, "-c", script], cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("WARM")][-1]
+    pick = res.config["HEAT_TPU_CDIST_PREC"]
+    assert line == (f"WARM True 0 0 {res.config} {_CDIST_VARIANTS[pick]} {pick} "
+                    f"{ {'cdist': res.config} }")

@@ -49,13 +49,9 @@ LACKED_BY_DESIGN = {
     "MeshCommunication": "the JAX device-mesh communicator; the port's is TorchCommunication "
                          "over torch.distributed, one process a rank",
 }
-LACKED_FOR_NOW = {  # queued in ROADMAP §1
-    "autotune": "autotune/ (item 13b, the runtime substrate's rest)",
-    "fuse": "core/fusion.py (item 13b)",
-    "fusing": "core/fusion.py (item 13b)",
-    "fusion": "core/fusion.py (item 13b)",
-    # at the reference's root only once some test has imported it
-    "analysis": "analysis/ (item 15, static analysis)",
+LACKED_FOR_NOW = {
+    # at either root only once something has imported it: heatlint is a tool
+    "analysis": "heat_tpu_torch.analysis, imported on demand as heat_tpu.analysis",
 }
 
 
