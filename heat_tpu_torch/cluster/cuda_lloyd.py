@@ -27,7 +27,11 @@ allreduce of the sums and counts when the rows are split over ranks, and
 the host reads the squared center shift every iteration to test it
 against ``tol``, as the reference Heat does. :func:`lloyd_window` is the
 same loop with the shift carried in and out, which the checkpointed
-``KMeans`` fit and ``streaming.MiniBatchKMeans`` run.
+``KMeans`` fit and ``streaming.MiniBatchKMeans`` run. Each iteration is a
+``lloyd.pass`` span (:func:`telemetry.span`) holding a ``lloyd.update``
+span (the pass: its checks, allocations and launch) and a ``lloyd.read``
+span (the host waiting for the shift, a ``telemetry.host_read`` at site
+``lloyd.shift``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, telemetry
 
 __all__ = ["lloyd_fit", "lloyd_update", "lloyd_update_plain", "lloyd_window",
            "pallas_lloyd_applicable"]
@@ -137,15 +141,19 @@ def lloyd_window(x: torch.Tensor, centers0: torch.Tensor, shift0: float, max_ite
     it = 0
     shift = float(shift0)
     while it < max_iter and shift > tol32:
-        sums, counts = update(x, c) if lim is None else update(x, c, lim)
-        if comm is not None and comm.size > 1:
-            comm.allreduce(sums)
-            comm.allreduce(counts)
-        cnt = counts[:, None]
-        new_c = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), c)
-        shift = float(((new_c - c) ** 2).sum())
-        c = new_c
-        it += 1
+        with telemetry.span("lloyd.pass"):
+            with telemetry.span("lloyd.update"):
+                sums, counts = update(x, c) if lim is None else update(x, c, lim)
+            if comm is not None and comm.size > 1:
+                comm.allreduce(sums)
+                comm.allreduce(counts)
+            cnt = counts[:, None]
+            new_c = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), c)
+            moved = ((new_c - c) ** 2).sum()
+            with telemetry.span("lloyd.read"):
+                shift = telemetry.host_read(moved, "lloyd.shift")
+            c = new_c
+            it += 1
     return c, it, shift
 
 

@@ -14,6 +14,11 @@ centers, the iteration count and the shift carry through
 ``resilience.save_checkpoint`` after each; ``resume=True`` continues from
 the checkpoint. The windows apply the same updates in the same order as
 one uninterrupted fit, so both give the same centers bit for bit.
+
+A fit is a ``kmeans.fit`` span (:func:`telemetry.span`) holding
+``kmeans.init`` (the initial centers), the Lloyd loop's ``lloyd.*`` spans
+and ``kmeans.label`` (the final ``_d2`` pass, the labels, the inertia and
+its read, a ``telemetry.host_read`` at site ``kmeans.inertia``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import factories, types
 from ..core.dndarray import DNDarray
 from ._kcluster import _KCluster, _d2
@@ -107,29 +113,35 @@ class KMeans(_KCluster):
             raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
         if x.ndim != 2:
             raise ValueError("input needs to be 2D")
-        dt = types.promote_types(x.dtype, types.float32)
-        xb = x.larray.to(dt.torch_type())
-        centers = self._initialize_cluster_centers(x).to(xb.dtype)
-        # only a row-split array sums its ranks' passes; replicated data is whole on every rank
-        comm = x.comm if x.split == 0 else None
+        with telemetry.span("kmeans.fit"):
+            dt = types.promote_types(x.dtype, types.float32)
+            xb = x.larray.to(dt.torch_type())
+            with telemetry.span("kmeans.init"):
+                centers = self._initialize_cluster_centers(x).to(xb.dtype)
+            # only a row-split array sums its ranks' passes; replicated data is whole on every rank
+            comm = x.comm if x.split == 0 else None
 
-        gated = pallas_lloyd_applicable(x.comm.size, x.split, x.shape[1], self.n_clusters, xb.dtype)
-        update = lloyd_update if gated else lloyd_update_plain
-        if self.checkpoint_every is None:
-            centers, n_iter = lloyd_fit(xb, centers, self.max_iter, self.tol, comm, update)
-        else:
-            centers, n_iter = self._fit_checkpointed(xb, centers, comm, update, x.comm)
+            gated = pallas_lloyd_applicable(x.comm.size, x.split, x.shape[1], self.n_clusters,
+                                            xb.dtype)
+            update = lloyd_update if gated else lloyd_update_plain
+            if self.checkpoint_every is None:
+                centers, n_iter = lloyd_fit(xb, centers, self.max_iter, self.tol, comm, update)
+            else:
+                centers, n_iter = self._fit_checkpointed(xb, centers, comm, update, x.comm)
 
-        d2 = _d2(xb, centers)
-        labels = torch.argmin(d2, dim=1).to(torch.int64)
-        inertia = d2.min(dim=1).values.sum() if d2.shape[0] else xb.new_zeros(())
-        if comm is not None and comm.size > 1:
-            inertia = comm.allreduce(inertia.reshape(1)).reshape(())
+            with telemetry.span("kmeans.label"):
+                d2 = _d2(xb, centers)
+                labels = torch.argmin(d2, dim=1).to(torch.int64)
+                inertia = d2.min(dim=1).values.sum() if d2.shape[0] else xb.new_zeros(())
+                if comm is not None and comm.size > 1:
+                    inertia = comm.allreduce(inertia.reshape(1)).reshape(())
+                self._inertia = telemetry.host_read(inertia, "kmeans.inertia")
 
-        self._cluster_centers = DNDarray(centers, tuple(centers.shape), dt, None, x.device, x.comm, True)
-        self._labels = DNDarray(labels, (x.shape[0],), types.int64, x.split, x.device, x.comm, True)
-        self._inertia = float(inertia)
-        self._n_iter = int(n_iter)
+            self._cluster_centers = DNDarray(centers, tuple(centers.shape), dt, None, x.device,
+                                             x.comm, True)
+            self._labels = DNDarray(labels, (x.shape[0],), types.int64, x.split, x.device,
+                                    x.comm, True)
+            self._n_iter = int(n_iter)
         return self
 
     def _fit_checkpointed(self, xb: torch.Tensor, centers: torch.Tensor, comm, update, world):

@@ -390,9 +390,10 @@ class DNDarray:
         ``all_to_all`` when it fits, else bounded-memory chunk stages; every
         plan gives the same bits.
 
-        While telemetry records it is a ``resplit`` span with the analytic
-        collective kind and wire bytes (``telemetry.collectives.
-        relayout_cost``); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) also
+        It is a ``resplit`` span whenever a span is wanted
+        (``telemetry.spanning()``), with the analytic collective kind and
+        wire bytes (``telemetry.collectives.relayout_cost``) while telemetry
+        records; ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) also
         records the collectives it issues and compares them with the cost
         of the chunks as padded for the collective (``telemetry.hlo``); a
         decomposed plan is audited once a stage (``relayout_stage``)
@@ -405,11 +406,11 @@ class DNDarray:
         cost, fields, do_audit = telemetry.op_cost(
             telemetry.collectives.relayout_cost, self.__gshape, self.__dtype.byte_size(),
             self.__split, axis, comm.size, audit=audit)
-        if cost is None:
+        if cost is None and not telemetry.spanning():
             return self.__relayout(axis, plan)
         with telemetry.span("resplit", old_split=self.__split, new_split=axis,
                             gshape=list(self.__gshape),
-                            plan=plan.kind if plan is not None else "monolithic", **fields) as sp:
+                            plan=plan.kind if plan is not None else "monolithic", **fields):
             if plan is not None:
                 out = self.__relayout(axis, plan, audit=do_audit)
             elif do_audit and comm.size > 1 and axis != self.__split:
@@ -428,7 +429,6 @@ class DNDarray:
                             "gshape": list(self.__gshape)})
             else:
                 out = self.__relayout(axis)
-            sp.output(out.larray)
         return out
 
     def __plan(self, axis: Optional[int]):

@@ -83,7 +83,7 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
             telemetry.collectives.gram_ring_cost, m, n, dt.byte_size(), comm.size, gram_hops,
             audit=audit)
         with telemetry.span("cholqr_gram_ring", gshape=[m, n], overlap=gram_hops < comm.size,
-                            **fields) as sp:
+                            **fields):
             gram = program_cache.cached_program(
                 "cholqr_gram_ring", ((m, n), str(q_loc.dtype), gram_hops < comm.size),
                 lambda: _gram_ring, comm=comm, inline=True)
@@ -93,7 +93,6 @@ def _cholqr_split1(a: DNDarray, dt, calc_q: bool, audit: bool = False) -> QR:
                     fields={"gshape": [m, n], "mesh": comm.size})
             else:
                 g = gram(q_loc, comm, n)
-            sp.output(g)
         ell, info = torch.linalg.cholesky_ex(g)
         # breakdown on this pass: a failed factorization, NaNs or a collapsed
         # diagonal mean G is (numerically) singular
@@ -177,14 +176,13 @@ def _tsqr(a: DNDarray, dt, tiles_per_proc: int, calc_q: bool, audit: bool = Fals
         telemetry.collectives.tsqr_cost, m, n, dt.byte_size(), comm.size, audit=audit)
     body = program_cache.cached_program("tsqr", ((m, n), dt, tiles_per_proc, calc_q),
                                         lambda: _tsqr_body, comm=comm, inline=True)
-    with telemetry.span("tsqr", gshape=[m, n], mesh=comm.size, **fields) as sp:
+    with telemetry.span("tsqr", gshape=[m, n], mesh=comm.size, **fields):
         if do_audit:
             out, _ = telemetry.hlo.audit_call(
                 "tsqr", lambda: body(a, dt, tiles_per_proc, calc_q), predicted=cost,
                 fields={"gshape": [m, n], "mesh": comm.size})
         else:
             out = body(a, dt, tiles_per_proc, calc_q)
-        sp.output(out.R.larray)
     return out
 
 

@@ -224,13 +224,12 @@ def _dispatch_sparse_dense(op: str, A: SparseDNDarray, x: DNDarray, out_split: O
         return prog(A, x.larray, tdt, reduce, pattern, out_split is None, wire, gather_n)
 
     with telemetry.span(f"sparse.{op}", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
-                        **fields) as sp:
+                        **fields):
         if do_audit:
             y, _ = telemetry.hlo.audit_call(f"sparse.{op}", run, predicted=cost,
                                             fields={"mesh": comm.size, "nnz": A.nnz})
         else:
             y = run()
-        sp.output(y)
     _record(op, nnz=A.nnz, rows=m, cols=n, out_split=out_split, wire=wire,
             **({"bytes": cost.bytes} if cost is not None else {}))
     gshape = (m,) if op == "spmv" else (m, k)
@@ -378,7 +377,7 @@ def transpose(A: SparseDNDarray, *, audit: bool = False, slab: Optional[int] = N
         telemetry.collectives.sparse_transpose_cost, slab, item, comm.size, n_stages,
         audit=audit)
     with telemetry.span("sparse.transpose", gshape=[m, n], nnz=A.nnz, mesh=comm.size,
-                        stages=n_stages, slab=slab, **fields) as sp:
+                        stages=n_stages, slab=slab, **fields):
         if do_audit:
             # the whole plan's bytes: one stage's cost times the stages
             plan = telemetry.collectives.CollectiveCost(cost.kind, cost.bytes * cost.steps)
@@ -387,7 +386,6 @@ def transpose(A: SparseDNDarray, *, audit: bool = False, slab: Optional[int] = N
                 fields={"mesh": comm.size, "stages": n_stages})
         else:
             out = _transpose(A, slab)
-        sp.output(out.values)
     _record("transpose", nnz=A.nnz, rows=m, cols=n, stages=n_stages, slab=slab,
             **({"bytes": cost.bytes * cost.steps} if cost is not None else {}))
     return out

@@ -173,10 +173,11 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
     reads), the exact plain version on the CPU. ``_old_kernel=True`` runs
     the f32 FMA kernel whatever the strategy, for comparisons.
 
-    While telemetry records, a call on the card is a ``pallas_cdist`` span
-    (the JAX package's name) whose ``bytes`` is the kernel's one obligatory
-    write of the output; a call being captured into a CUDA graph is not
-    instrumented, as the JAX package skips calls inside a trace."""
+    Where a span is wanted (``telemetry.spanning()``), a call on the card is
+    a ``pallas_cdist`` span (the JAX package's name) whose ``bytes`` is the
+    kernel's one obligatory write of the output; a call being captured into
+    a CUDA graph is not instrumented, as the JAX package skips calls inside
+    a trace."""
     _check_epilogue(epilogue)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"euclid needs (m, k) and (n, k) tensors, got {tuple(x.shape)}, {tuple(y.shape)}")
@@ -186,11 +187,11 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
         return euclid_plain(x, y, gamma, epilogue)
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError("cdist kernel needs float32 tensors")
-    if telemetry.enabled() and not torch.cuda.is_current_stream_capturing():
+    if telemetry.spanning() and not torch.cuda.is_current_stream_capturing():
         m, n = x.shape[0], y.shape[0]
         with telemetry.span("pallas_cdist", bytes=m * n * 4, gshape=[m, n], epilogue=epilogue,
-                            hbm_write=True) as sp:
-            return sp.output(_euclid_card(x, y, gamma, epilogue, precision, _old_kernel))
+                            hbm_write=True):
+            return _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
     return _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
 
 

@@ -22,7 +22,10 @@ the JAX package's block function in plain torch (the GEMM form or the
 broadcast form), as the JAX package's ring runs no Pallas kernel. Off that
 gate ``ring=True`` takes the ordinary path.
 
-The ring is a ``ring_cdist`` telemetry span with the analytic wire bytes
+Every call (``cdist``, ``rbf``, ``manhattan``) is a ``cdist`` telemetry span
+from its entry to its result, with the gather of y (a ``resplit`` span) and
+the kernel (``pallas_cdist``) inside it. The ring is a ``ring_cdist`` span
+inside it too, with the analytic wire bytes
 (``telemetry.collectives.ring_cdist_cost`` with the hops it makes, ``p - 1``
 or ``p``); ``audit=True`` (or ``HEAT_TPU_HLO_AUDIT=1``) records its hops and
 compares them with that cost (``telemetry.hlo``). The other paths issue at
@@ -85,68 +88,68 @@ def _dist(x: DNDarray, y: Optional[DNDarray], quadratic: bool,
           ring: bool = False, audit: bool = False) -> DNDarray:
     from .cuda_cdist import euclid, euclid_plain, pallas_cdist_applicable
 
-    if not isinstance(x, DNDarray):
-        raise TypeError(f"x must be a DNDarray, but was {type(x)}")
-    if x.ndim != 2:
-        raise NotImplementedError(f"x has {x.ndim} dimensions, expecting 2")
-    if y is None:
-        y = x
-    if not isinstance(y, DNDarray):
-        raise TypeError(f"y must be a DNDarray, but was {type(y)}")
-    if y.ndim != 2:
-        raise NotImplementedError(f"y has {y.ndim} dimensions, expecting 2")
-    if x.shape[1] != y.shape[1]:
-        raise ValueError(
-            f"inputs must have the same number of features, got {x.shape[1]} and {y.shape[1]}"
-        )
-    if x.split is not None and x.split != 0:
-        raise NotImplementedError("cdist requires x.split in (None, 0)")
+    with telemetry.span("cdist"):
+        if not isinstance(x, DNDarray):
+            raise TypeError(f"x must be a DNDarray, but was {type(x)}")
+        if x.ndim != 2:
+            raise NotImplementedError(f"x has {x.ndim} dimensions, expecting 2")
+        if y is None:
+            y = x
+        if not isinstance(y, DNDarray):
+            raise TypeError(f"y must be a DNDarray, but was {type(y)}")
+        if y.ndim != 2:
+            raise NotImplementedError(f"y has {y.ndim} dimensions, expecting 2")
+        if x.shape[1] != y.shape[1]:
+            raise ValueError(
+                f"inputs must have the same number of features, got {x.shape[1]} and {y.shape[1]}"
+            )
+        if x.split is not None and x.split != 0:
+            raise NotImplementedError("cdist requires x.split in (None, 0)")
 
-    promoted = types.promote_types(types.promote_types(x.dtype, y.dtype), types.float32)
-    tdt = promoted.torch_type()
-    out_split = 0 if x.split == 0 else None
-    m, n = x.shape[0], y.shape[0]
-    xb = x.larray.to(tdt)
-    if ring and x.split == 0 and y.split == 0 and x.comm.size > 1:
-        if quadratic:
-            tile = lambda a, b: euclid_plain(a, b, epilogue="dist", precision="HIGHEST")  # noqa: E731
-        else:
-            tile = lambda a, b: _blocked(a, b, manhattan)  # noqa: E731
-        p = x.comm.size
-        hops = p - 1 if ring_overlap() else p
-        cost, fields, do_audit = telemetry.op_cost(
-            telemetry.collectives.ring_cdist_cost, n, x.shape[1], promoted.byte_size(), p,
-            hops, audit=audit)
-        with telemetry.span("ring_cdist", gshape=[m, n], mesh=p, overlap=hops < p,
-                            **fields) as sp:
-            kind = "quadratic" if quadratic else ("manhattan" if manhattan else "euclid")
-            ring = program_cache.cached_program(
-                "ring_cdist", (kind, x.shape[1], str(tdt), hops < p), lambda: _ring_dist,
-                comm=x.comm, inline=True)
-            run = lambda: ring(xb, y.larray.to(tdt), n, x.comm, tile)  # noqa: E731
-            if do_audit:
-                out, _ = telemetry.hlo.audit_call("ring_cdist", run, predicted=cost,
-                                                  fields={"mesh": p})
+        promoted = types.promote_types(types.promote_types(x.dtype, y.dtype), types.float32)
+        tdt = promoted.torch_type()
+        out_split = 0 if x.split == 0 else None
+        m, n = x.shape[0], y.shape[0]
+        xb = x.larray.to(tdt)
+        if ring and x.split == 0 and y.split == 0 and x.comm.size > 1:
+            if quadratic:
+                tile = lambda a, b: euclid_plain(a, b, epilogue="dist", precision="HIGHEST")  # noqa: E731
             else:
-                out = run()
-            sp.output(out)
-        if rbf_gamma is not None:
-            out = torch.exp(-rbf_gamma * out * out)
-        return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
-    yb = (y.resplit(None).larray if y.split is not None else y.larray).to(tdt)
+                tile = lambda a, b: _blocked(a, b, manhattan)  # noqa: E731
+            p = x.comm.size
+            hops = p - 1 if ring_overlap() else p
+            cost, fields, do_audit = telemetry.op_cost(
+                telemetry.collectives.ring_cdist_cost, n, x.shape[1], promoted.byte_size(), p,
+                hops, audit=audit)
+            with telemetry.span("ring_cdist", gshape=[m, n], mesh=p, overlap=hops < p,
+                                **fields):
+                kind = "quadratic" if quadratic else ("manhattan" if manhattan else "euclid")
+                ring = program_cache.cached_program(
+                    "ring_cdist", (kind, x.shape[1], str(tdt), hops < p), lambda: _ring_dist,
+                    comm=x.comm, inline=True)
+                run = lambda: ring(xb, y.larray.to(tdt), n, x.comm, tile)  # noqa: E731
+                if do_audit:
+                    out, _ = telemetry.hlo.audit_call("ring_cdist", run, predicted=cost,
+                                                      fields={"mesh": p})
+                else:
+                    out = run()
+            if rbf_gamma is not None:
+                out = torch.exp(-rbf_gamma * out * out)
+            return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
+        yb = (y.resplit(None).larray if y.split is not None else y.larray).to(tdt)
 
-    if quadratic:
-        # the kernel where the JAX package takes its Pallas kernel (one rank
-        # or x split along its rows, inside the gate), else its plain version
-        layout_ok = x.comm.size == 1 or x.split == 0
-        fn = euclid if layout_ok and pallas_cdist_applicable(x.shape[1], tdt) else euclid_plain
-        epi = "rbf" if rbf_gamma is not None else "dist"
-        out = fn(xb, yb, 0.0 if rbf_gamma is None else float(rbf_gamma), epilogue=epi)
-    else:
-        out = _blocked(xb, yb, manhattan)
-        if rbf_gamma is not None:
-            out = torch.exp(-rbf_gamma * out * out)
-    return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
+        if quadratic:
+            # the kernel where the JAX package takes its Pallas kernel (one rank
+            # or x split along its rows, inside the gate), else its plain version
+            layout_ok = x.comm.size == 1 or x.split == 0
+            fn = euclid if layout_ok and pallas_cdist_applicable(x.shape[1], tdt) else euclid_plain
+            epi = "rbf" if rbf_gamma is not None else "dist"
+            out = fn(xb, yb, 0.0 if rbf_gamma is None else float(rbf_gamma), epilogue=epi)
+        else:
+            out = _blocked(xb, yb, manhattan)
+            if rbf_gamma is not None:
+                out = torch.exp(-rbf_gamma * out * out)
+        return DNDarray(out, (m, n), promoted, out_split, x.device, x.comm, True)
 
 
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False,

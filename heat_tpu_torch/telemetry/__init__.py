@@ -3,14 +3,34 @@
 Counterpart of ``heat_tpu/telemetry/__init__.py`` (:89-447 there): a
 process-global :class:`Telemetry` registry with an optional JSON-lines
 sink, turned on by :func:`enable` or ``HEAT_TPU_TELEMETRY=1`` (the sink by
-``HEAT_TPU_TELEMETRY_SINK``), and :func:`span` for timed regions. A span
-waits for the card before it stops its clock when it was given a CUDA
-tensor through :meth:`Span.output`, as the JAX package's span blocks on
-its outputs, so it times device work and not the enqueue.
+``HEAT_TPU_TELEMETRY_SINK``), and :func:`span` for timed regions.
 
-Disabled (the default), every hook is one module-flag check: ``span()``
-returns a shared no-op object and :func:`op_cost` computes no cost, so
-the call sites build no fields.
+**Spans never wait for the card.** A span's ``seconds`` is its host
+duration. While telemetry records, a span on a process with CUDA
+initialised (outside a graph capture) also records a start and an end
+``torch.cuda.Event`` on the current stream, from a small pool; the pair is
+resolved into the event's ``device_s`` (the card's time from the span's
+start to its end on that stream) only when the registry is read
+(:func:`flush`, :meth:`Telemetry.snapshot`, :func:`export_trace`,
+``report.summarize``, :func:`disable`), which waits for the card to pass
+their end events; a span's event goes to the sink then, and its events
+back to the pool. The JAX package's span blocks on its outputs instead;
+:meth:`Span.output` stays, and blocks on nothing.
+
+**Spans share the device trace's clock.** While a ``torch.profiler``
+records, every span is also a profiler range named ``htt.<span name>``
+(``torch._C._profiler._RecordFunctionFast`` where torch has it), whether or
+not telemetry records: the ranges sit in the profiler's Chrome trace beside
+the kernels they launch, on the same clock.
+
+Off (telemetry disabled and no profiler, the default), ``span()`` is one
+module-flag check and one attribute read and returns a shared no-op
+object, and :func:`op_cost` computes no cost, so the call sites build no
+fields. :func:`spanning` is the same check, for sites that build fields.
+
+**Host reads.** :func:`host_read` returns a device value as a Python
+scalar and counts one blocking read under its site, always
+(:func:`host_read_counts`), as the collectives are counted.
 
 The submodules are the JAX package's (:87-447 there):
 
@@ -52,12 +72,16 @@ There is no JAX monitoring listener to install.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import threading
 import time
 from collections import defaultdict
 from typing import IO, Any, Dict, Iterable, List, Optional, Union
+
+import torch
+from torch.autograd import profiler as _profiler
 
 from .. import _knobs as knobs
 from . import collectives
@@ -77,13 +101,17 @@ __all__ = [
     "flush",
     "get_registry",
     "hlo",
+    "host_read",
+    "host_read_counts",
     "measure_compile",
     "memory",
     "op_cost",
     "record_build",
     "report",
     "reset_collective_counts",
+    "reset_host_read_counts",
     "span",
+    "spanning",
     "summarize_cluster",
     "trace",
     "trace_event",
@@ -94,6 +122,27 @@ _ENABLED = False
 _REGISTRY: Optional["Telemetry"] = None
 _REGISTRY_LOCK = threading.Lock()
 _STATE = threading.local()  # span nesting, per thread
+# a span's profiler range: the fast form where torch has it
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) or _profiler.record_function
+_POOL: Dict[int, List[Any]] = defaultdict(list)  # free CUDA events, by device index
+
+
+def _cuda_event(device: int):
+    try:
+        return _POOL[device].pop()
+    except IndexError:
+        return torch.cuda.Event(enable_timing=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _stream(stream_id: int, device: int, device_type: int):
+    return torch.cuda.Stream(stream_id=stream_id, device_index=device, device_type=device_type)
+
+
+def _current_stream():
+    """``torch.cuda.current_stream()`` at a sixth of its cost: the stream
+    objects are kept by id."""
+    return _stream(*torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice()))
 
 
 def _stack() -> list:
@@ -106,13 +155,16 @@ def _stack() -> list:
 class Telemetry:
     """Counters, high-water marks and an event list, with an optional JSONL
     sink. Events are dicts with at least ``ts`` (unix seconds), ``kind``
-    and ``name``; the list and the sink receive the same records."""
+    and ``name``; the list and the sink receive the same records, a span's
+    with its ``device_s`` once that is resolved (:meth:`resolve`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.counters: Dict[str, float] = defaultdict(float)
         self.watermarks: Dict[str, float] = {}
         self.events: List[dict] = []
+        # spans whose device time is still on the card: (event, device, start, end)
+        self._pending: List[tuple] = []
         self._sink: Optional[IO[str]] = None
         self._sink_path: Optional[str] = None
         self._owns_sink = False
@@ -149,13 +201,45 @@ class Telemetry:
         ev.update(fields)
         with self._lock:
             self.events.append(ev)
-            if self._sink is not None:
-                try:
-                    self._sink.write(json.dumps(ev, default=str) + "\n")
-                    self._sink.flush()
-                except (OSError, ValueError):
-                    self.close_sink()
+            self._write(ev)
         return ev
+
+    def emit_timed(self, device: int, start, end, kind: str, name: str, **fields: Any) -> dict:
+        """:meth:`emit` for a span whose device time lies between the CUDA
+        events ``start`` and ``end`` on card ``device``: it joins the list
+        now and the sink when :meth:`resolve` gives it ``device_s``."""
+        ev = {"ts": time.time(), "kind": kind, "name": name}
+        ev.update(fields)
+        with self._lock:
+            self.events.append(ev)
+            self._pending.append((ev, device, start, end))
+        return ev
+
+    def _write(self, ev: dict) -> None:
+        # under self._lock
+        if self._sink is not None:
+            try:
+                self._sink.write(json.dumps(ev, default=str) + "\n")
+                self._sink.flush()
+            except (OSError, ValueError):
+                self.close_sink()
+
+    def resolve(self) -> None:
+        """Give the pending spans their ``device_s`` (seconds from the
+        start event to the end event, once the card has passed the end),
+        count it under ``span.<name>.device_s``, write them to the sink and
+        return their events to the pool."""
+        with self._lock:
+            take, self._pending = self._pending, []
+        for ev, device, start, end in take:
+            end.synchronize()
+            ev["device_s"] = start.elapsed_time(end) / 1000.0
+            _POOL[device] += [start, end]
+        if take:
+            with self._lock:
+                for ev, *_ in take:
+                    self.counters[f"span.{ev['name']}.device_s"] += ev["device_s"]
+                    self._write(ev)
 
     def add(self, counter: str, delta: float = 1.0) -> None:
         with self._lock:
@@ -168,6 +252,7 @@ class Telemetry:
                 self.watermarks[key] = value
 
     def snapshot(self) -> dict:
+        self.resolve()
         with self._lock:
             return {"counters": dict(self.counters), "watermarks": dict(self.watermarks),
                     "n_events": len(self.events), "sink": self._sink_path}
@@ -180,10 +265,12 @@ class Telemetry:
             if kinds is not None:
                 drop = set(kinds)
                 self.events[:] = [e for e in self.events if e.get("kind") not in drop]
+                self._pending[:] = [p for p in self._pending if p[0].get("kind") not in drop]
                 return
             self.counters.clear()
             self.watermarks.clear()
             self.events.clear()
+            self._pending.clear()
 
 
 def get_registry() -> Telemetry:
@@ -221,11 +308,14 @@ def enable(sink: Union[str, IO[str], None] = None) -> Telemetry:
 
 
 def disable() -> None:
-    """Turn recording off and close an owned sink; counters and events stay
-    (``get_registry().clear()`` drops them)."""
+    """Turn recording off, resolve the pending spans and close an owned
+    sink; counters and events stay (``get_registry().clear()`` drops
+    them)."""
     global _ENABLED
     _ENABLED = False
-    get_registry().close_sink()
+    reg = get_registry()
+    reg.resolve()
+    reg.close_sink()
 
 
 _atexit_installed = False
@@ -260,7 +350,7 @@ def _atexit_flush() -> None:  # pragma: no cover - runs at interpreter exit
 
 
 class _NoopSpan:
-    """The shared span of a disabled registry."""
+    """The shared span while neither telemetry nor a profiler records."""
 
     __slots__ = ()
 
@@ -280,35 +370,35 @@ class _NoopSpan:
 _NOOP_SPAN = _NoopSpan()
 
 
-def _wait_for(values) -> None:
-    """Wait for the cards that hold any CUDA tensor of ``values`` (not while
-    a CUDA graph is being captured, where waiting is illegal: a span there
-    times the capture, as a JAX span inside a trace times the trace)."""
-    import torch
+class _Range(_NoopSpan):
+    """A span while only a profiler records: the range ``htt.<name>``."""
 
-    devices = set()
-    for v in values:
-        tensors = v if isinstance(v, (list, tuple)) else [v]
-        for t in tensors:
-            t = getattr(t, "larray", t)
-            if isinstance(t, torch.Tensor) and t.is_cuda:
-                devices.add(t.device)
-    if devices and torch.cuda.is_current_stream_capturing():
-        return
-    for d in devices:
-        torch.cuda.synchronize(d)
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _RANGE("htt." + name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
 
 
 class Span:
-    """A timed region. Tensors registered with :meth:`output` are waited
-    for before the clock stops, so ``seconds`` covers their device work."""
+    """A timed region (module docstring): a ``htt.<name>`` range while a
+    profiler records; while telemetry records, a ``span`` event with the
+    host ``seconds`` and, on the card, ``device_s``."""
 
-    __slots__ = ("name", "fields", "_outputs", "_t0", "_wall0")
+    __slots__ = ("name", "fields", "_range", "_cuda", "_t0", "_wall0")
 
     def __init__(self, name: str, fields: Dict[str, Any]):
         self.name = name
         self.fields = fields
-        self._outputs: List[Any] = []
+        self._range = None
+        self._cuda = None  # (stream, start event)
         self._t0 = 0.0
         self._wall0 = 0.0
 
@@ -317,18 +407,30 @@ class Span:
         return self
 
     def output(self, value):
-        self._outputs.append(value)
+        """``value`` as it is: a span waits for nothing."""
         return value
 
     def __enter__(self) -> "Span":
+        if _profiler._is_profiler_enabled:
+            self._range = _RANGE("htt." + self.name)
+            self._range.__enter__()
         _stack().append(self)
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
+            stream = _current_stream()
+            start = _cuda_event(stream.device_index)
+            start.record(stream)
+            self._cuda = (stream, start)
         self._wall0 = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if exc_type is None and self._outputs:
-            _wait_for(self._outputs)
+        self._finish(exc_type, exc)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+    def _finish(self, exc_type, exc) -> None:
         dt = time.perf_counter() - self._t0
         stack = _stack()
         if stack and stack[-1] is self:
@@ -336,24 +438,41 @@ class Span:
         parent = stack[-1].name if stack else None
         reg = get_registry()
         if exc_type is not None:
+            if self._cuda is not None:
+                _POOL[self._cuda[0].device_index].append(self._cuda[1])
             reg.emit("span_error", self.name, seconds=dt, start_ts=self._wall0,
                      error=repr(exc), **self.fields)
-            return False
+            return
         reg.add(f"span.{self.name}.count", 1)
         reg.add(f"span.{self.name}.seconds", dt)
         b = self.fields.get("bytes")
         if b:
             reg.add(f"span.{self.name}.bytes", b)
-        reg.emit("span", self.name, seconds=dt, depth=len(stack), parent=parent,
-                 start_ts=self._wall0, **self.fields)
-        return False
+        fields = dict(seconds=dt, depth=len(stack), parent=parent, start_ts=self._wall0,
+                      **self.fields)
+        if self._cuda is None:
+            reg.emit("span", self.name, **fields)
+            return
+        stream, start = self._cuda
+        end = _cuda_event(stream.device_index)
+        end.record(stream)
+        reg.emit_timed(stream.device_index, start, end, "span", self.name, **fields)
+
+
+def spanning() -> bool:
+    """Whether :func:`span` gives a span: telemetry records, or a
+    ``torch.profiler`` does."""
+    return _ENABLED or _profiler._is_profiler_enabled
 
 
 def span(name: str, **fields: Any):
-    """A telemetry span (context manager); the shared no-op when disabled."""
-    if not _ENABLED:
-        return _NOOP_SPAN
-    return Span(name, fields)
+    """A span (context manager; module docstring): the shared no-op while
+    neither telemetry nor a profiler records."""
+    if _ENABLED:
+        return Span(name, fields)
+    if _profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NOOP_SPAN
 
 
 def op_cost(cost_fn, *cost_args, audit: bool = False, use_global: bool = True):
@@ -405,6 +524,31 @@ def collective_counts() -> Dict[str, int]:
 def reset_collective_counts() -> None:
     with _ISSUED_LOCK:
         _ISSUED.clear()
+
+
+# blocking reads of device values by the program, by site, whether or not telemetry records
+_READS: Dict[str, int] = defaultdict(int)
+_READS_LOCK = threading.Lock()
+
+
+def host_read(value, site: str):
+    """``value.item()``, which waits for the card to compute ``value``,
+    counted as one read under ``site`` (:func:`host_read_counts`)."""
+    with _READS_LOCK:
+        _READS[site] += 1
+    return value.item()
+
+
+def host_read_counts() -> Dict[str, int]:
+    """The blocking reads of device values this process made through
+    :func:`host_read` since the last reset, by site."""
+    with _READS_LOCK:
+        return dict(_READS)
+
+
+def reset_host_read_counts() -> None:
+    with _READS_LOCK:
+        _READS.clear()
 
 
 # -- builds of the program registry ------------------------------------------

@@ -66,6 +66,7 @@ def summarize(
         from . import get_registry
 
         reg = get_registry()
+        reg.resolve()
         events = list(reg.events)
         if watermarks is None:
             watermarks = dict(reg.watermarks)

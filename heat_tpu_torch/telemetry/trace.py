@@ -11,7 +11,9 @@ JSON file loadable in ``chrome://tracing`` or https://ui.perfetto.dev:
 
 * ``span`` / ``span_error`` events → complete (``"X"``) slices on the
   *spans* track, with their user fields (``bytes``, ``collective``,
-  ``gshape``, anything via ``add_fields``) as ``args``;
+  ``gshape``, anything via ``add_fields``) and, on the card, their
+  ``device_s`` (the live registry's pending spans resolved first) as
+  ``args``;
 * ``compile`` events → ``"X"`` slices on the *compile* track (the
   AOT/backend-compile durations, visually separated from execution);
 * ``memory`` events → a ``live_bytes`` counter (``"C"``) track;
@@ -121,7 +123,9 @@ def to_trace_events(
     if events is None:
         from . import get_registry
 
-        events = list(get_registry().events)
+        reg = get_registry()
+        reg.resolve()
+        events = list(reg.events)
     else:
         events = list(events)
     if pid is None:
