@@ -14,7 +14,8 @@ Phases, each printing JSON lines:
      kernel's, the plain version's and (where one PyTorch call computes the
      same function) the library call's times, and the bound; the flash
      kernels' times are device times (the calls replayed from a CUDA graph);
-     the Hopper (wgmma) variants of K3, K4, K5, K6, K7a, K7b and K8 are also
+     the Hopper (wgmma) variants of K3, K4, K5, K6, K7a, K7b and K8, and
+     K3's streamed f32 FMA kernel, are also
      held against the kernels they replace (mma.sync or f32 FMAs) and timed
      in turns with them (old, new, new, old), with their registers, spills
      and shared memory
@@ -2600,7 +2601,7 @@ def cg_resume_phase(ht, dev, window=CG_WINDOW):
 # the cg system's order and window
 TUNE_CDIST = (16384, 128)
 TUNE_CDIST_BUDGET = 1e-3
-# a process set to the exact variant (cdist_kernel's f32 FMAs, ~2.5 ms at
+# a process set to the exact variant (cdist_fma_stream's f32 FMAs, ~2.1 ms at
 # this shape on an H100 SXM) tuned under a budget that admits the faster
 # variants (their errors against it 0.003-0.046 here): a value other than
 # the process's setting wins by a margin wider than the walls' spread
@@ -2611,7 +2612,8 @@ TUNE_RESPLIT = (1_000_000, 256)
 REGISTRY_CG = (4096, 16)
 # the K3 variant each HEAT_TPU_CDIST_PREC value launches (kernel, variant)
 CDIST_VARIANTS = {"bf16x3": ("cdist_tc", "3xtf32_wgmma"), "high": ("cdist_tc", "3xtf32_wgmma"),
-                  "default": ("cdist_tc", "tf32_wgmma"), "highest": ("cdist_kernel", "f32_fma")}
+                  "default": ("cdist_tc", "tf32_wgmma"),
+                  "highest": ("cdist_fma_stream", "f32_fma_stream")}
 
 # a fresh process pointed at the tuning database: it adopts the pick with no
 # trial, and its cdist launches the picked variant (the variant of a call
@@ -2686,15 +2688,15 @@ def autotune_registry_phase(ht, dev, smi, cfg):
         candidate: each candidate's trials launched the K3 variant it names
         (the wrapper's record during the trials, and the profiler on one call
         a candidate: cdist_tc for bf16x3 and high, its single TF32 pass for
-        default, cdist_kernel for highest), the pick no slower than the
+        default, cdist_fma_stream for highest), the pick no slower than the
         default, a lossy pick within the budget, the record stored; then a
         fresh process with HEAT_TPU_AUTOTUNE=1 and the same HEAT_TPU_TUNE_DB
         adopts the pick with no trial (into the knob overlay) and its cdist
         launches the picked variant; the same from a process set to
-        highest (cdist_kernel) under a budget of 0.1, which admits the
+        highest (cdist_fma_stream) under a budget of 0.1, which admits the
         faster variants: a value other than the process's setting wins, and
         a fresh process with that setting launches the picked variant, not
-        the cdist_kernel it runs untuned;
+        the cdist_fma_stream it runs untuned;
     (b) bench.py's lm_step LM at full width under nn.FSDP
         (HEAT_TPU_FSDP=1), one AdamW step from the same start a call, tuned
         over HEAT_TPU_FSDP_PREFETCH with fsdp_cost_fn: the knob is neutral,
@@ -2772,8 +2774,9 @@ def autotune_registry_phase(ht, dev, smi, cfg):
         launched_as_named = all(
             seen.get(v, {want_variant}) == {want_variant}
             and any(want_kernel in k for k in profiled[v]["kernels"])
-            and not any(("cdist_kernel" if want_kernel == "cdist_tc" else "cdist_tc") in k
-                        for k in profiled[v]["kernels"])
+            and not any(other in k for k in profiled[v]["kernels"]
+                        for other in ("cdist_tc", "cdist_fma_stream", "cdist_kernel")
+                        if other != want_kernel)
             and profiled[v]["variant"] == want_variant
             for v, (want_kernel, want_variant) in CDIST_VARIANTS.items())
         stored = db.TuneDB(tune_db).lookup(res.key)
@@ -5034,7 +5037,8 @@ def main():
     hopper = {}
     for name, marks in (("flash_fwd", ("flash_",)), ("flash_bwd", ("flash_",)),
                         ("int8_gemm", ("int8_gemm_wgmma", "transpose_s8")),
-                        ("lloyd", ("lloyd_tc",)), ("cdist", ("cdist_tc", "cdist_prepare"))):
+                        ("lloyd", ("lloyd_tc",)),
+                        ("cdist", ("cdist_tc", "cdist_prepare", "cdist_fma_stream"))):
         log = paths[name].with_suffix(".so.log")
         lines = log.read_text().splitlines() if log.exists() else []
         for i, ln in enumerate(lines):
@@ -5170,50 +5174,71 @@ def main():
         return ((out_k * out_k - out_p * out_p).abs() / (rel * scale + 1e-6)).max().item()
 
     def cdist_case(label, m, n, k, epilogue, expect, precision="bf16x3", same=False,
-                   timed=False, turns=False):
-        x = torch.rand((m, k), generator=gen, device=dev)
-        y = x if same else torch.rand((n, k), generator=gen, device=dev)
+                   timed=False, turns=False, chunk=None):
+        """chunk: the benchmark's block, x the first m of y's n standard
+        Gaussian rows; the plain version is held against the kernel `chunk`
+        rows at a time (whole, its temporaries pass the card's memory), the
+        kernel also bit for bit against cdist_kernel, and neither the plain
+        version nor the library call is timed."""
+        if chunk:
+            y = torch.randn((n, k), generator=gen, device=dev)
+            x = y[:m]
+        else:
+            x = torch.rand((m, k), generator=gen, device=dev)
+            y = x if same else torch.rand((n, k), generator=gen, device=dev)
         gamma = 0.5 / k if epilogue == "rbf" else 0.0
         out_k = euclid(x, y, gamma, epilogue, precision)
         variant = last_variant()
         repeat = bool(torch.equal(out_k, euclid(x, y, gamma, epilogue, precision)))
-        out_p = euclid_plain(x, y, gamma, epilogue, precision)
-        torch.cuda.synchronize()
         x2 = (x * x).sum(1)
-        scale = x2[:, None] + (y * y).sum(1)[None, :]
-        worst = d2_worst(out_k, out_p, scale, gamma, epilogue, 2e-5)
+        y2 = (y * y).sum(1)
+        worst, max_abs = 0.0, 0.0
+        for r0 in range(0, m, chunk or m):
+            r1 = min(m, r0 + (chunk or m))
+            out_p = euclid_plain(x[r0:r1], y, gamma, epilogue, precision)
+            scale = x2[r0:r1, None] + y2[None, :]
+            worst = max(worst, d2_worst(out_k[r0:r1], out_p, scale, gamma, epilogue, 2e-5))
+            max_abs = max(max_abs, (out_k[r0:r1] - out_p).abs().max().item())
+            del out_p, scale
         fields = {"shape": [m, n, k], "epilogue": epilogue, "precision": precision,
                   "variant": variant, "expected_variant": expect,
-                  "max_abs_err": (out_k - out_p).abs().max().item(),
+                  "max_abs_err": max_abs,
                   "worst_err_over_tol": worst, "repeat_bitwise": repeat,
                   "tolerance": "|d2_k - d2_p| <= 2e-5 (|x|^2 + |y|^2) + 1e-6, "
                                "against the plain version of the same tier"}
         ok = worst <= 1.0 and repeat and variant == expect
-        del out_p
+        if chunk:
+            fields["plain_rows_a_chunk"] = chunk
+            fields["bitwise_vs_cdist_kernel"] = bool(
+                torch.equal(out_k, euclid(x, y, gamma, epilogue, _old_kernel=True)))
+            ok = ok and fields["bitwise_vs_cdist_kernel"]
         if precision == "DEFAULT":
             out_e = euclid_plain(x, y, gamma, epilogue, "HIGHEST")
+            scale = x2[:, None] + y2[None, :]
             fields["worst_err_over_tol_vs_exact_f32"] = d2_worst(out_k, out_e, scale, gamma,
                                                                  epilogue, 2e-3)
             fields["tolerance_vs_exact_f32"] = "|d2_k - d2_f32| <= 2e-3 (|x|^2 + |y|^2) + 1e-6"
             ok = ok and fields["worst_err_over_tol_vs_exact_f32"] <= 1.0
-            del out_e
+            del out_e, scale
         if same and epilogue == "dist":  # the tier's own scale: 2e-3 for one TF32 pass
             rel = 2e-3 if precision == "DEFAULT" else 2e-5
             diag = (out_k.diagonal() / torch.sqrt(rel * 2 * x2 + 1e-6)).max().item()
             fields["diagonal_over_bound"] = diag
             fields["diagonal_bound"] = f"out[i, i] <= sqrt({rel} * 2 |x_i|^2 + 1e-6)"
             ok = ok and diag <= 1.0
-        del scale, out_k
+        del out_k
         reps = 10 if timed else 5
         run = lambda: euclid(x, y, gamma, epilogue, precision)  # noqa: E731
-        if turns:  # the f32 FMA kernel at the same shape, in turns with the new one
+        if turns:  # cdist_kernel, the older f32 FMA kernel, in turns with this one
             fields["old_ms"], fields["kernel_ms"] = time_turns(
                 lambda: euclid(x, y, gamma, epilogue, _old_kernel=True), run, reps)
         else:
             fields["old_ms"], fields["kernel_ms"] = None, device_ms(run, reps)
-        fields["plain_ms"] = time_ms(lambda: euclid_plain(x, y, gamma, epilogue, precision), 5)
+        fields["plain_ms"] = (None if chunk else
+                              time_ms(lambda: euclid_plain(x, y, gamma, epilogue, precision), 5))
         # torch.cdist with TF32 off (set above for the whole run)
-        fields["library_ms"] = time_ms(lambda: torch.cdist(x, y), 5) if epilogue == "dist" else None
+        fields["library_ms"] = (time_ms(lambda: torch.cdist(x, y), 5)
+                                if epilogue == "dist" and not chunk else None)
         nbytes = (m * k + n * k + m * n) * 4
         fields["bound_ms_f32_fma"], fields["bound_by_f32_fma"] = bound(nbytes, 2 * m * n * k)
         products = {"3xtf32_wgmma": 3, "tf32_wgmma": 1}.get(variant)
@@ -5229,15 +5254,19 @@ def main():
                turns=True)
     cdist_case("main, HEAT_TPU_CDIST_PREC=default", 16384, 16384, 128, "dist", "tf32_wgmma",
                precision="DEFAULT", same=True)
-    cdist_case("main, HEAT_TPU_CDIST_PREC=highest", 16384, 16384, 128, "dist", "f32_fma",
-               precision="HIGHEST", same=True)
+    cdist_case("main, HEAT_TPU_CDIST_PREC=highest", 16384, 16384, 128, "dist", "f32_fma_stream",
+               precision="HIGHEST", same=True, turns=True)
     cdist_case("ragged (n % 4 != 0: guarded stores)", 16000, 15999, 124, "dist", "3xtf32_wgmma")
     cdist_case("ragged rbf", 16000, 15999, 124, "rbf", "3xtf32_wgmma")
     cdist_case("k = 512", 2049, 4100, 512, "dist", "3xtf32_wgmma")
     cdist_case("k = 4", 4097, 1000, 4, "rbf", "3xtf32_wgmma")
-    cdist_case("ragged k = 127 (the f32 FMA kernel by its gate)", 16000, 15999, 127, "dist",
-               "f32_fma")
-    cdist_case("ragged k = 127 rbf", 16000, 15999, 127, "rbf", "f32_fma")
+    cdist_case("ragged k = 127 (the streamed f32 FMA kernel by its gate, four panels)", 16000,
+               15999, 127, "dist", "f32_fma_stream")
+    cdist_case("ragged k = 127 rbf", 16000, 15999, 127, "rbf", "f32_fma_stream")
+    cdist_case("SUSY's block, 40,000 x 160,000 x 18 (the streamed f32 FMA kernel by its gate)",
+               40000, 160000, 18, "dist", "f32_fma_stream", turns=True, chunk=4000)
+    cdist_case("ragged k = 17 rbf (streamed, guarded stores)", 16000, 15999, 17, "rbf",
+               "f32_fma_stream")
 
     # ---------------------------------------------------------------- K4
     def blobs(n, d, k, spread=8.0):

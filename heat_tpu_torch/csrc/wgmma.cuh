@@ -131,6 +131,24 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// An L2 cache policy for output that is written once and not read again:
+// the lines a store under it writes are the first the L2 evicts.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// tma_store_2d under an L2 cache policy (l2_evict_first)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], "
+      "%4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -460,14 +478,16 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const TensorView& view, int
 // A tensor map over a (rows x cols) row-major matrix of `type` (elements of
 // `elem_bytes`; rows `row_bytes` apart, a multiple of 16, and a 16-byte
 // aligned base), whose box is `box_cols` x `box_rows` (box_cols *
-// elem_bytes = 128) written in the 128-byte swizzle; the box reads zeros
-// past either edge. Not cached: its kernels run long against the few
-// microseconds an encoding takes. The device context is bound only when
-// an encoding fails without it, so that the call also runs inside a
-// stream capture.
+// elem_bytes = 128) written in the 128-byte swizzle, or, with
+// CU_TENSOR_MAP_SWIZZLE_NONE, box_cols * elem_bytes a multiple of 16 (at
+// most 256 columns) laid out row after row; the box reads zeros past either
+// edge. Not cached: its kernels run long against the few microseconds an
+// encoding takes. The device context is bound only when an encoding fails
+// without it, so that the call also runs inside a stream capture.
 inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                                       long long cols, long long rows, long long row_bytes,
-                                      int box_cols, int box_rows) {
+                                      int box_cols, int box_rows,
+                                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -476,8 +496,8 @@ inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const void* ptr, CUtenso
   const cuuint32_t elem[2] = {1, 1};
   auto encode_once = [&] {
     return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   };
   CUresult rc = encode_once();
   if (rc != CUDA_SUCCESS) {  // a thread without a current context: bind one, once more

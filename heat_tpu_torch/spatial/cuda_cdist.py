@@ -16,16 +16,32 @@ value                     TPU meaning                 H100 kernel
 ``bf16x3`` (default),     three bf16 passes, or the   3xTF32 ``wgmma``
 ``high``                  HIGH tier                   (``cdist_tc``)
 ``default``               one bf16 pass               one TF32 ``wgmma`` pass
-``highest``               exact f32                   ``cdist_kernel``, f32
-                                                      FMAs
+``highest``               exact f32                   f32 FMAs
+                                                      (``cdist_fma_stream``)
 ========================  ==========================  ======================
 
 The tensor-core kernel takes f32, k <= 512, k % 4 == 0 and 16-byte aligned
-data (the bulk copies' rows); any other shape runs ``cdist_kernel``, chosen
-by shape before the launch, never after a failure. :func:`last_variant`
-says which one the last call ran. At the main path's 16,384 x 16,384 x 128
-the 3xTF32 kernel is bound by its tensor-core operations; the source says
-how its design meets that.
+data (the bulk copies' rows). Any other shape runs the exact f32 FMA
+kernel, as ``highest`` does: ``cdist_fma_stream``, which stores one tile
+while it computes the next. The choice is by shape before the launch,
+never after a failure. The variants, as :func:`last_variant` names the
+one the last call ran (and a ``pallas_cdist`` span its ``variant``):
+
+====================  ====================  ==========================================
+variant               kernel                shapes
+====================  ====================  ==========================================
+``3xtf32_wgmma``      ``cdist_tc``          the tensor-core gate, ``bf16x3``/``high``
+``tf32_wgmma``        ``cdist_tc``          the tensor-core gate, ``default``
+``f32_fma_stream``    ``cdist_fma_stream``  off the gate, or ``highest``
+``f32_fma``           ``cdist_kernel``      ``_old_kernel=True``; m or n past
+                                            2^31 - 129 rows
+====================  ====================  ==========================================
+
+``cdist_kernel`` is the older f32 FMA tile kernel; ``cdist_fma_stream``
+gives its bits at every k. At the main path's 16,384 x 16,384 x 128 the
+3xTF32 kernel is bound by its tensor-core operations; at SUSY's k = 18 the
+streamed kernel by its write. The source says how each design meets its
+bound.
 
 On a CPU tensor :func:`euclid` computes :func:`euclid_plain` in exact f32
 whatever the strategy, as the JAX package off the TPU never reaches its
@@ -60,10 +76,14 @@ _PREC_ENV = "HEAT_TPU_CDIST_PREC"
 _PREC_VALUES = ("bf16x3", "default", "high", "highest")
 # cdist_precision()'s answers -> the product each kernel or plain form computes
 _TIERS = {"bf16x3": "3xtf32", "HIGH": "3xtf32", "DEFAULT": "tf32", "HIGHEST": "f32"}
-_VARIANTS = {"3xtf32": "3xtf32_wgmma", "tf32": "tf32_wgmma", "f32": "f32_fma"}
+_VARIANTS = {"3xtf32": "3xtf32_wgmma", "tf32": "tf32_wgmma", "f32": "f32_fma_stream"}
 
 _SIGNATURES = {
     "heat_cdist_f32": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ],
+    "heat_cdist_f32_stream": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ],
@@ -150,18 +170,23 @@ def euclid_plain(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0,
 
 
 def _variant(x: torch.Tensor, y: torch.Tensor, tier: str) -> str:
-    """The kernel that runs for these (contiguous f32 CUDA) operands, by
-    shape alone: the tensor-core kernel inside its gate, else the FMA one."""
+    """The kernel that runs for these (contiguous f32) operands, by shape
+    alone: the tensor-core kernel inside its gate, else the FMA one (the
+    tile kernel where m or n passes the streamed kernel's int32 rows)."""
     m, k = x.shape
     n = y.shape[0]
-    tc = (tier != "f32" and 4 <= k <= _MAX_K and k % 4 == 0 and m <= _MAX_ROWS
-          and n <= _MAX_ROWS and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    return _VARIANTS[tier] if tc else _VARIANTS["f32"]
+    if m > _MAX_ROWS or n > _MAX_ROWS:
+        return "f32_fma"
+    if (tier != "f32" and 4 <= k <= _MAX_K and k % 4 == 0
+            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0):
+        return _VARIANTS[tier]
+    return _VARIANTS["f32"]
 
 
 def last_variant() -> Optional[str]:
     """The kernel the last :func:`euclid` call on a card ran:
-    ``"3xtf32_wgmma"``, ``"tf32_wgmma"`` or ``"f32_fma"``."""
+    ``"3xtf32_wgmma"``, ``"tf32_wgmma"``, ``"f32_fma_stream"`` or
+    ``"f32_fma"``."""
     return _LAST["variant"]
 
 
@@ -171,11 +196,13 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
     between the rows of (m, k) ``x`` and (n, k) ``y``. A kernel on the card
     (``precision``: a value of :func:`cdist_precision`, which ``None``
     reads), the exact plain version on the CPU. ``_old_kernel=True`` runs
-    the f32 FMA kernel whatever the strategy, for comparisons.
+    the older f32 FMA tile kernel (``cdist_kernel``) whatever the strategy
+    and the shape, for comparisons.
 
     Where a span is wanted (``telemetry.spanning()``), a call on the card is
     a ``pallas_cdist`` span (the JAX package's name) whose ``bytes`` is the
-    kernel's one obligatory write of the output; a call being captured into
+    kernel's one obligatory write of the output and whose ``variant`` is
+    :func:`last_variant`'s name of the kernel it ran; a call being captured into
     a CUDA graph is not instrumented, as the JAX package skips calls inside
     a trace."""
     _check_epilogue(epilogue)
@@ -190,8 +217,10 @@ def euclid(x: torch.Tensor, y: torch.Tensor, gamma: float = 0.0, epilogue: str =
     if telemetry.spanning() and not torch.cuda.is_current_stream_capturing():
         m, n = x.shape[0], y.shape[0]
         with telemetry.span("pallas_cdist", bytes=m * n * 4, gshape=[m, n], epilogue=epilogue,
-                            hbm_write=True):
-            return _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
+                            hbm_write=True) as sp:
+            out = _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
+            sp.add_fields(variant=_LAST["variant"])
+            return out
     return _euclid_card(x, y, gamma, epilogue, precision, _old_kernel)
 
 
@@ -207,7 +236,7 @@ def _euclid_card(x: torch.Tensor, y: torch.Tensor, gamma: float, epilogue: str,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    variant = _variant(x, y, tier)
+    variant = "f32_fma" if _old_kernel else _variant(x, y, tier)
     lib = _build.library("cdist", _SIGNATURES)
     rbf = 1 if epilogue == "rbf" else 0
     with torch.cuda.device(x.device):  # launch on the tensor's card
@@ -215,6 +244,9 @@ def _euclid_card(x: torch.Tensor, y: torch.Tensor, gamma: float, epilogue: str,
         if variant == "f32_fma":
             rc = lib.heat_cdist_f32(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, rbf,
                                     float(gamma), stream)
+        elif variant == "f32_fma_stream":
+            rc = lib.heat_cdist_f32_stream(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
+                                           rbf, float(gamma), stream)
         else:
             split = variant == "3xtf32_wgmma"
             kp = -(-k // _PANEL) * _PANEL

@@ -222,3 +222,49 @@ def test_unknown_precision_argument_raises():
     x = torch.ones((3, 4))
     with pytest.raises(ValueError, match="precision"):
         cuda_cdist.euclid_plain(x, x, precision="fastest")
+
+
+# which kernel each shape takes on a card: (k, aligned) -> variant, per tier
+_ROUTES = {
+    "3xtf32": {(0, True): "f32_fma_stream", (18, True): "f32_fma_stream",
+               (18, False): "f32_fma_stream", (32, True): "3xtf32_wgmma",
+               (32, False): "f32_fma_stream", (33, True): "f32_fma_stream",
+               (33, False): "f32_fma_stream", (128, True): "3xtf32_wgmma",
+               (128, False): "f32_fma_stream"},
+    "tf32": {(0, True): "f32_fma_stream", (18, True): "f32_fma_stream",
+             (18, False): "f32_fma_stream", (32, True): "tf32_wgmma",
+             (32, False): "f32_fma_stream", (33, True): "f32_fma_stream",
+             (33, False): "f32_fma_stream", (128, True): "tf32_wgmma",
+             (128, False): "f32_fma_stream"},
+    "f32": {key: "f32_fma_stream" for key in [(0, True), (18, True), (18, False), (32, True),
+                                              (32, False), (33, True), (33, False),
+                                              (128, True), (128, False)]},
+}
+
+
+@pytest.mark.parametrize("k,aligned", sorted(_ROUTES["f32"]))
+@pytest.mark.parametrize("tier", ["3xtf32", "tf32", "f32"])
+def test_variant_routes_each_shape(k, tier, aligned):
+    """The kernel chosen by shape alone: the tensor cores inside their gate
+    (k % 4 == 0, 16-byte aligned data, not the exact tier), else the
+    streamed exact f32 FMAs at every k (an empty tensor's data_ptr() is 0:
+    k = 0 has no misaligned form)."""
+    m, n = 300, 257
+    x = torch.zeros((m * k + 1,))[(0 if aligned else 1):][:m * k].view(m, k)
+    y = torch.zeros((n, k))
+    assert (x.data_ptr() % 16 == 0) == aligned and y.data_ptr() % 16 == 0
+    assert cuda_cdist._variant(x, y, tier) == _ROUTES[tier][(k, aligned)]
+
+
+@pytest.mark.parametrize("tier", ["3xtf32", "tf32", "f32"])
+@pytest.mark.parametrize("big", ["x", "y"])
+def test_variant_past_int32_rows_takes_the_tile_kernel(tier, big):
+    """m or n past 2^31 - 129 rows, which the streamed kernel's and the
+    tensor-core kernel's int32 tile coordinates do not reach: the tile
+    kernel, whatever the tier (a broadcast view: no memory)."""
+    rows = cuda_cdist._MAX_ROWS + 1
+    a = torch.zeros((1, 32)).expand(rows, 32)
+    b = torch.zeros((257, 32))
+    x, y = (a, b) if big == "x" else (b, a)
+    assert x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    assert cuda_cdist._variant(x, y, tier) == "f32_fma"

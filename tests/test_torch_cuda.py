@@ -11,7 +11,8 @@ spread, M2 1e-4 relative; cdist squared distances within 2e-5 of
 |x|^2 + |y|^2 (the error scale of an f32 GEMM-form expansion), rbf the
 same times gamma, each kernel against the plain version of its
 HEAT_TPU_CDIST_PREC tier (one TF32 pass also against exact f32 at 2e-3 of
-|x|^2 + |y|^2), two runs bit-identical; Lloyd counts exact on separated blobs, sums within 1e-4
+|x|^2 + |y|^2), two runs bit-identical, the streamed exact kernel bit-identical to
+cdist_kernel; Lloyd counts exact on separated blobs, sums within 1e-4
 of the sum of |x|, and two runs bit-identical (both kernels). Flash attention: in f32, O
 within 2e-5 max|v| (both sum exact-f32 products in other orders); in bf16,
 O within 2^-7 max|v| (each output is rounded to bf16, one ulp of
@@ -84,15 +85,15 @@ def _cdist_worst(out_k, out_p, x, y, gamma, epilogue, rel=2e-5):
                                    (4, 4, 4), (16000, 15999, 128)])
 @pytest.mark.parametrize("epilogue", ["dist", "rbf"])
 def test_cdist_kernel_matches_plain(dev, m, n, k, epilogue):
-    """The kernel the gate picks (3xTF32 for k % 4 == 0, else f32 FMAs)
-    against the plain version of the default strategy; two runs
+    """The kernel the gate picks (3xTF32 for k % 4 == 0, else the streamed
+    f32 FMAs) against the plain version of the default strategy; two runs
     bit-identical."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((m, k), generator=g, device=dev)
     y = torch.rand((n, k), generator=g, device=dev)
     gamma = 0.5 / k
     out_k = cuda_cdist.euclid(x, y, gamma, epilogue)
-    assert cuda_cdist.last_variant() == ("3xtf32_wgmma" if k % 4 == 0 else "f32_fma")
+    assert cuda_cdist.last_variant() == ("3xtf32_wgmma" if k % 4 == 0 else "f32_fma_stream")
     out_p = cuda_cdist.euclid_plain(x, y, gamma, epilogue, "bf16x3")
     assert _cdist_worst(out_k, out_p, x, y, gamma, epilogue) <= 1.0
     assert torch.equal(out_k, cuda_cdist.euclid(x, y, gamma, epilogue))
@@ -101,7 +102,7 @@ def test_cdist_kernel_matches_plain(dev, m, n, k, epilogue):
 @pytest.mark.parametrize("value,variant,plain", [
     (None, "3xtf32_wgmma", "bf16x3"), ("bf16x3", "3xtf32_wgmma", "bf16x3"),
     ("high", "3xtf32_wgmma", "HIGH"), ("default", "tf32_wgmma", "DEFAULT"),
-    ("highest", "f32_fma", "HIGHEST"), ("fastest", "3xtf32_wgmma", "bf16x3")])
+    ("highest", "f32_fma_stream", "HIGHEST"), ("fastest", "3xtf32_wgmma", "bf16x3")])
 def test_cdist_strategy_selects_the_kernel(dev, monkeypatch, value, variant, plain):
     """HEAT_TPU_CDIST_PREC, read at call time: each value's kernel against
     the plain version of its tier; one TF32 pass also against exact f32 at
@@ -143,15 +144,71 @@ def test_cdist_self_distance_diagonal(dev, precision):
 
 def test_cdist_unaligned_data_takes_the_fma_kernel(dev):
     """x's data one float past a 16-byte boundary: no bulk copy can read it,
-    so the f32 FMA kernel runs by the gate."""
+    so the exact f32 FMA kernel runs by the gate, with cdist_kernel's bits."""
     g = torch.Generator(device=dev).manual_seed(7)
     m, n, k = 777, 555, 128
     x = torch.rand((m * k + 1,), generator=g, device=dev)[1:].view(m, k)
     y = torch.rand((n, k), generator=g, device=dev)
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     out_k = cuda_cdist.euclid(x, y)
-    assert cuda_cdist.last_variant() == "f32_fma"
+    assert cuda_cdist.last_variant() == "f32_fma_stream"
     assert _cdist_worst(out_k, cuda_cdist.euclid_plain(x, y), x, y, 0.0, "dist") <= 1.0
+    assert torch.equal(out_k, cuda_cdist.euclid(x, y, _old_kernel=True))
+
+
+def _cdist_span_variants(fn):
+    """fn's result and the ``variant`` of each ``pallas_cdist`` span its
+    calls record, telemetry on for the call (and as it was after it)."""
+    reg = htt.telemetry.get_registry()
+    was = htt.telemetry.enabled()
+    start = len(reg.events)
+    htt.telemetry.enable()
+    try:
+        out = fn()
+    finally:
+        if not was:
+            htt.telemetry.disable()
+    return out, [e.get("variant") for e in reg.events[start:]
+                 if e["kind"] == "span" and e["name"] == "pallas_cdist"]
+
+
+@pytest.mark.parametrize("k", [1, 3, 17, 18, 31, 32, 33, 64, 127, 128, 512])
+@pytest.mark.parametrize("case", ["bulk", "guarded", "same", "misaligned", "wide", "special"])
+@pytest.mark.parametrize("epilogue", ["dist", "rbf"])
+def test_cdist_stream_kernel_matches_the_tile_kernel_bitwise(dev, k, case, epilogue):
+    """The streamed exact kernel against cdist_kernel through the library
+    (``_old_kernel=True``), bit for bit, at k <= 32 (a tile's features
+    staged whole) and past it (panels of 32): m and n no multiples of 128
+    and more tiles than the persistent grid's blocks; n % 4 == 0 (the bulk
+    stores), n % 4 == 2 (the guarded stores), x is y, x a view one float
+    past a 16-byte boundary, more column tiles than the grid's blocks
+    (a block's consecutive tiles share a row tile and keep its staged rows),
+    and rows off the epilogue's fast path: a norm between 2^125 and the
+    largest float, one that overflows, a NaN and an inf feature, a y row
+    equal to an x row (d2 = 0). Two calls bit-identical; the call's
+    ``pallas_cdist`` span names the streamed variant."""
+    g = torch.Generator(device=dev).manual_seed(100 * k + len(case))
+    m, n = {"guarded": (3001, 4102), "wide": (259, 40_004)}.get(case, (3001, 4100))
+    if case == "misaligned":
+        x = torch.randn((m * k + 1,), generator=g, device=dev)[1:].view(m, k)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    else:
+        x = torch.randn((m, k), generator=g, device=dev)
+    y = x if case == "same" else torch.randn((n, k), generator=g, device=dev)
+    if case == "special":
+        x[5] *= 2.0 ** 70
+        x[6] = 2.0 ** 62 / k ** 0.5
+        x[7, 0] = float("nan")
+        x[8, k - 1] = float("inf")
+        y[3] = x[3]
+    gamma = 0.5 / k
+    out, variants = _cdist_span_variants(
+        lambda: cuda_cdist.euclid(x, y, gamma, epilogue, precision="HIGHEST"))
+    assert cuda_cdist.last_variant() == "f32_fma_stream" and variants == ["f32_fma_stream"]
+    old = cuda_cdist.euclid(x, y, gamma, epilogue, _old_kernel=True)
+    assert cuda_cdist.last_variant() == "f32_fma"
+    assert out.shape == (m, y.shape[0]) and torch.equal(out, old)
+    assert torch.equal(out, cuda_cdist.euclid(x, y, gamma, epilogue, precision="HIGHEST"))
 
 
 @pytest.mark.parametrize("n,d,k", [(100_003, 33, 1000), (20_011, 512, 1024), (65, 1, 1)])
@@ -215,15 +272,21 @@ def test_kmeans_on_card_leaves_the_tf32_flag_as_it_was(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("k", [3, 4])
-def test_cdist_kernel_past_65535_row_tiles(dev, k):
-    """More 128-row tiles of x than a grid's y dimension takes, in both
-    kernels (k = 3: f32 FMAs; k = 4: 3xTF32, n % 4 != 0)."""
+@pytest.mark.parametrize("k,old", [(3, False), (4, False), (33, False), (3, True)],
+                         ids=["3", "4", "33", "3-old"])
+def test_cdist_kernel_past_65535_row_tiles(dev, k, old):
+    """More 128-row tiles of x than a grid's y dimension takes, in every
+    kernel (k = 3: streamed f32 FMAs; k = 4: 3xTF32, n % 4 != 0; k = 33:
+    streamed, two feature panels; old: cdist_kernel, with the streamed
+    kernel's bits)."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((65535 * 128 + 5, k), generator=g, device=dev)
     y = torch.rand((2, k), generator=g, device=dev)
-    out_k = cuda_cdist.euclid(x, y)
-    assert cuda_cdist.last_variant() == ("f32_fma" if k == 3 else "3xtf32_wgmma")
+    out_k = cuda_cdist.euclid(x, y, _old_kernel=old)
+    assert cuda_cdist.last_variant() == (
+        "f32_fma" if old else "3xtf32_wgmma" if k == 4 else "f32_fma_stream")
+    if old:
+        assert torch.equal(out_k, cuda_cdist.euclid(x, y))
     out_p = cuda_cdist.euclid_plain(x, y, precision="bf16x3")
     scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
     assert bool(((out_k ** 2 - out_p ** 2).abs() <= 2e-5 * scale + 1e-6).all())
@@ -2044,7 +2107,7 @@ def test_fusion_flush_inside_a_capture_is_recorded_into_it(dev):
 # -- the autotuner on the card ------------------------------------------------------------------
 
 _CDIST_VARIANTS = {"bf16x3": "3xtf32_wgmma", "high": "3xtf32_wgmma", "default": "tf32_wgmma",
-                   "highest": "f32_fma"}
+                   "highest": "f32_fma_stream"}
 
 
 def _cdist_tune(tmp_path, rows=4096):
